@@ -19,8 +19,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from sct_gan_tpu.config import ModelConfig
-
+from .config import ModelConfig
 from .models.sct_transformer import SmartContractTransformer
 
 
@@ -75,3 +74,14 @@ def convert_flax_params(tree: Mapping,
             f"{k} flax {tuple(sd[k].shape)} port {tuple(want[k].shape)}"
             for k in bad))
     return sd
+
+
+def convert_flax_opt_state(opt_state: Mapping, config: ModelConfig
+                           ) -> Dict[str, Any]:
+    """The JAX ``FusedOptimizer`` state (``count``, ``mu``, ``nu``) → the
+    port's ``FusedOptimizer`` state: the moments are parameter-shaped trees,
+    mapped leaf by leaf with the rules of ``convert_flax_params``."""
+    return {"count": torch.tensor(np.asarray(opt_state["count"]),
+                                  dtype=torch.int32),
+            "mu": convert_flax_params(opt_state["mu"], config),
+            "nu": convert_flax_params(opt_state["nu"], config)}

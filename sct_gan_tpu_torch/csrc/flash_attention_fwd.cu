@@ -1,10 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in and out, f32 statistics.
 //
 // Replaces the TPU kernel sct_gan_tpu/ops/flash_attention.py::_fa_fwd_kernel
-// (via _flash_forward / flash_attention), forward only, without dropout and
-// without the per-row LSE (both are training-only).
+// (via _flash_forward / flash_attention), with its two training options:
 //
-//   O = softmax(Q K^T * scale + key-mask bias [+ causal]) V   per (b, h)
+//   O = dropout(softmax(Q K^T * scale + key-mask bias [+ causal])) V  per (b, h)
+//   lse = log-sum-exp of each score row (f32), kept for the backward
+//
+// Dropout acts on P after the row statistics (the sum l is taken before it)
+// and scales the kept weights by 1/(1-rate). Its keep mask is the JAX
+// package's hash stream (hash_dropout.cuh), keyed by the flat index
+// ((b*H + h)*Sq + i)*Sk + j over the true Sq and Sk, exactly the mask that
+// sct_gan_tpu/ops/attention.py::mha_reference draws; the TPU kernel's own
+// PRNG stream is TPU hardware and is not reproduced.
 //
 // What bounds it on an H100: at S = 1024, dh = 96 it does 4*S*S*dh flops per
 // (b, h) against 4*S*dh*2 bytes of Q/K/V/O, so it is compute-bound, and the
@@ -25,11 +32,15 @@
 // are later work.
 //
 // Semantics (the JAX kernel's): a masked key gets -inf; a fully-masked row
-// gives zeros; causal means key j is visible to query i iff j <= i
+// gives zeros and lse = -1e30 (the JAX kernel's m + log(1) with its finite
+// -1e30 mask); causal means key j is visible to query i iff j <= i
 // (top-left aligned when Sq != Sk).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hash_dropout.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -39,40 +50,7 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int PAD = 8;        // bf16 row padding: spreads fragment reads over banks
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows [r0, r0 + 64) x D of a strided (rows, D) matrix into shared
-// memory with row stride LD, zero-filling rows >= n_rows. 16-byte chunks.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int n_rows, int row_stride) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < 64 * CH; c += NTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
-}
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -80,10 +58,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                 int H, int Sq, int Sk,
+                 float* __restrict__ lse, int H, int Sq, int Sk,
                  int q_sb, int q_sh, int q_ss, int k_sb, int k_sh, int k_ss,
                  int v_sb, int v_sh, int v_ss, int o_sb, int o_sh, int o_ss,
-                 int mask_sb, int causal, float scale_log2) {
+                 int mask_sb, int causal, float scale_log2, int dropout,
+                 uint32_t seed, uint32_t threshold, float inv_keep) {
   constexpr int LD = D + PAD;      // Q and K row stride in shared memory
   constexpr int LDV = BK + PAD;    // V^T row stride in shared memory
   constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
@@ -103,7 +82,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
   __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh;
 
-  load_tile<D, LD>(sQ, qb, q0, Sq, q_ss);
+  load_tile<D, LD, NTHREADS>(sQ, qb, q0, Sq, q_ss);
   __syncthreads();
   uint32_t qf[KSTEPS][4];                    // this warp's 16 Q rows, A layout
   const int wr = warp * 16;
@@ -122,6 +101,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float m_run[2] = {-INFINITY, -INFINITY};   // rows g and g + 8, log2 domain
   float l_run[2] = {0.f, 0.f};
   const int row0 = q0 + wr + g, row1 = row0 + 8;
+  // flat dropout index of (b, h, row, 0) over the true Sq, Sk
+  const uint32_t drop0 = ((uint32_t)blockIdx.y * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
+  const uint32_t drop1 = drop0 + 8u * (uint32_t)Sk;
 
   int n_tiles = (Sk + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
@@ -129,7 +111,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     __syncthreads();                         // previous tile fully consumed
-    load_tile<D, LD>(sK, kb, k0, Sk, k_ss);
+    load_tile<D, LD, NTHREADS>(sK, kb, k0, Sk, k_ss);
     constexpr int CH = D / 8;
     for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {   // V, transposed
       const int r = c / CH, col = (c % CH) * 8;
@@ -194,6 +176,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
       l_run[i] = l_run[i] * alpha[i] + rs[i];
     }
+    if (dropout) {                           // after l: dropout acts on P only
+#pragma unroll
+      for (int nt = 0; nt < NT_K; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t key = (uint32_t)(k0 + nt * 8 + 2 * t + (e & 1));
+          const bool keep = hash_keep((e < 2 ? drop0 : drop1) + key, seed, threshold);
+          s[nt][e] = keep ? s[nt][e] * inv_keep : 0.f;
+        }
+      }
+    }
 #pragma unroll
     for (int dt = 0; dt < NT_D; ++dt) {
       acc[dt][0] *= alpha[0]; acc[dt][1] *= alpha[0];
@@ -215,6 +208,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;   // masked row -> 0
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
+  if (lse != nullptr && t == 0) {            // one lane per row writes it
+    float* lb = lse + (size_t)blockIdx.y * Sq;
+    if (row0 < Sq)
+      lb[row0] = l_run[0] > 0.f ? (m_run[0] + log2f(l_run[0])) * LN2 : -1e30f;
+    if (row1 < Sq)
+      lb[row1] = l_run[1] > 0.f ? (m_run[1] + log2f(l_run[1])) * LN2 : -1e30f;
+  }
 #pragma unroll
   for (int dt = 0; dt < NT_D; ++dt) {
     const int col = dt * 8 + 2 * t;
@@ -229,31 +229,37 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 void launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-            int B, int H, int Sq, int Sk, int q_sb, int q_sh, int q_ss,
+            void* lse, int B, int H, int Sq, int Sk, int q_sb, int q_sh, int q_ss,
             int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
             int o_sb, int o_sh, int o_ss, int mask_sb, int causal, float scale,
+            int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
             cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<D><<<grid, NTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh,
-      k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, scale * LOG2E);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Sq, Sk, q_sb,
+      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb,
+      causal, scale * LOG2E, dropout, seed, threshold, inv_keep);
 }
 
 }  // namespace
 
 // q, k, v, o: bf16 (B, H, S, D) with element strides (sb, sh, ss) and the
 // last dimension contiguous; mask: (B, Sk) uint8 (nonzero = attend) with row
-// stride mask_sb, or null. Returns cudaGetLastError() after the launch.
+// stride mask_sb, or null; lse: contiguous f32 (B, H, Sq), or null for none.
+// dropout != 0 turns on attention-weight dropout with the hash keep mask
+// (seed, threshold) and the scale inv_keep = 1/(1-rate). Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    int B, int H, int Sq, int Sk, int D, int q_sb, int q_sh, int q_ss,
+    void* lse, int B, int H, int Sq, int Sk, int D, int q_sb, int q_sh, int q_ss,
     int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
-    int o_sh, int o_ss, int mask_sb, int causal, float scale, void* stream) {
+    int o_sh, int o_ss, int mask_sb, int causal, float scale, int dropout,
+    uint32_t seed, uint32_t threshold, float inv_keep, void* stream) {
   if (D != 96) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
-  launch<96>(q, k, v, mask, o, B, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-             v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, scale,
-             static_cast<cudaStream_t>(stream));
+  launch<96>(q, k, v, mask, o, lse, B, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh,
+             k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, scale,
+             dropout, seed, threshold, inv_keep, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,14 +20,13 @@ from typing import Any, Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from sct_gan_tpu.config import ModelConfig, VULNERABILITY_TYPES
-from sct_gan_tpu.data.ast_parser import (parse_solidity_to_ast,
-                                         prepare_code2vec_input)
-from sct_gan_tpu.data.dataset import build_token_to_line
-from sct_gan_tpu.data.tokenizer import get_tokenizer
-
+from ..config import VULNERABILITY_TYPES, ModelConfig
 from ..convert import convert_flax_params, flax_tree_from_npz
+from ..data.ast_parser import parse_solidity_to_ast, prepare_code2vec_input
+from ..data.dataset import build_token_to_line
+from ..data.tokenizer import get_tokenizer
 from ..models.sct_transformer import SmartContractTransformer
+from ..utils import resolve_device
 from .generate import make_generate_fn, syntax_boost_ids
 
 
@@ -37,12 +36,13 @@ class SmartContractAnalyzer:
     ``params``: a state dict of the port (e.g. from ``convert_flax_params``),
     or the path of an ``.npz`` holding a flattened flax tree (``/``-joined
     keys); None initialises the weights from ``seed``. ``device``: where the
-    model runs (CUDA when available by default); a CUDA device runs the
-    hand-written kernels, the CPU their plain versions.
+    model runs, the card (``"cuda"``) by default; without one the
+    constructor raises unless ``device="cpu"`` is passed. A CUDA device runs
+    the hand-written kernels, the CPU their plain versions.
     """
 
     def __init__(self, tokenizer_name: str = "microsoft/codebert-base",
-                 device: Optional[Union[str, torch.device]] = None,
+                 device: Union[str, torch.device] = "cuda",
                  use_gan: bool = True,
                  model_config: Optional[ModelConfig] = None,
                  params: Optional[Union[str, Mapping[str, Any]]] = None,
@@ -55,8 +55,7 @@ class SmartContractAnalyzer:
         self.tokenizer = tokenizer or get_tokenizer(tokenizer_name)
         self.vulnerability_types = list(VULNERABILITY_TYPES)
         self.batch_size = batch_size
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
 
         cfg = model_config or ModelConfig(
             dropout=0.1, vocab_size=int(self.tokenizer.vocab_size),

@@ -11,13 +11,21 @@ kernel on CUDA, plain version on the CPU); the KV-cached single-token path
 (``init_cache`` / ``precompute_cross_kv`` / ``step``) goes through
 ``ops.decode_attention``. The caches are updated in place.
 
-Dropout belongs to the training slice: in training mode a site with rate > 0
-raises instead of skipping it.
+Dropout (``Dropout`` sites and the attention-weight dropout of every
+``MultiheadAttention``) is active in training mode. Each site draws its
+32-bit seed on the host from its ``SeedSource``, the model's one, which
+holds the generator handed to the model's forward, as the JAX package
+draws ``jax.random.randint(rng, (), 0, 2**31 - 1)`` per site; a step
+therefore makes no device sync for seeds. The mask itself is the hash
+stream of ``ops/dropout.py``. Flax's per-site key derivation is not
+reproduced, so the masks of a training forward differ from the JAX
+package's.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +33,7 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from ..ops.decode_attention import decode_attention
+from ..ops.dropout import SEED_HIGH, dropout
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 
@@ -59,23 +68,45 @@ def sinusoidal_position_encoding(max_len: int, d_model: int) -> torch.Tensor:
 line_position_encoding = sinusoidal_position_encoding
 
 
-def _refuse_training_dropout(training: bool, rate: float) -> None:
-    if training and rate > 0.0:
-        raise NotImplementedError(
-            "training-mode dropout is not ported yet; call .eval()")
+class SeedSource:
+    """Where the dropout sites of one model draw their seeds: the
+    generator handed to the model's forward, for as long as it runs."""
+
+    def __init__(self):
+        self.generator: Optional[torch.Generator] = None
+
+    @contextlib.contextmanager
+    def using(self, generator: Optional[torch.Generator]) -> Iterator[None]:
+        previous, self.generator = self.generator, generator
+        try:
+            yield
+        finally:
+            self.generator = previous
+
+    def draw(self) -> int:
+        """One site's dropout seed in [0, 2**31 - 1), drawn on the host."""
+        if self.generator is None:
+            raise RuntimeError(
+                "training-mode dropout needs a generator: pass generator="
+                "torch.Generator().manual_seed(...) to the model's forward, "
+                "or call .eval()")
+        return int(torch.randint(0, SEED_HIGH, (), generator=self.generator))
 
 
 class Dropout(nn.Module):
-    """Dropout site. Inference is the identity; training-mode dropout (the
-    hash dropout of the JAX package) is not ported yet and raises."""
+    """Dropout site (flax ``FastDropout``): the identity in eval mode or at
+    rate 0; in training mode the hash dropout of ``ops/dropout.py`` with a
+    seed from ``seeds`` (the model replaces it with its own source)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
+        self.seeds = SeedSource()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _refuse_training_dropout(self.training, self.rate)
-        return x
+        if not self.training or self.rate <= 0.0:
+            return x
+        return dropout(x, self.rate, self.seeds.draw())
 
 
 class Dense(nn.Module):
@@ -149,6 +180,7 @@ class MultiheadAttention(nn.Module):
         self.head_dim = d_model // num_heads
         self.sm_scale = 1.0 / self.head_dim ** 0.5
         self.dropout = float(dropout)           # attention-weight dropout
+        self.seeds = SeedSource()               # the model's, once built
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(d_model, d_model, dtype, kernel_init))
         self._qkv = None                        # fused (3d, d) weight, bias
@@ -164,12 +196,13 @@ class MultiheadAttention(nn.Module):
     def forward(self, query, key, value, *,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 causal: bool = False, return_weights: bool = False):
-        _refuse_training_dropout(self.training, self.dropout)
+        rate = self.dropout if self.training else 0.0
         out = dot_product_attention(
             self._split(self.q_proj(query)), self._split(self.k_proj(key)),
             self._split(self.v_proj(value)), key_padding_mask=key_padding_mask,
-            causal=causal, return_weights=return_weights,
-            sm_scale=self.sm_scale)
+            causal=causal, dropout_rate=rate,
+            seed=self.seeds.draw() if rate > 0.0 else 0,
+            return_weights=return_weights, sm_scale=self.sm_scale)
         if return_weights:
             out, weights = out
             return self._merge_out(out), weights

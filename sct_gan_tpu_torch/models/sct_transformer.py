@@ -2,10 +2,10 @@
 
 One for one with ``sct_gan_tpu/models/sct_transformer.py`` (same submodule
 names, same numerics; see that file for the architecture and the
-reference behaviours it keeps). This slice carries the serving path:
-``encode``, ``contract_head``, ``line_head``, ``discriminator_forward``, the
-teacher-forced decoder and the KV-cached ``decode_step``. ``encode_concat``
-(beam search) waits for a later slice.
+reference behaviours it keeps): ``encode``, ``contract_head``,
+``line_head``, ``discriminator_forward``, the teacher-forced decoder, the
+KV-cached ``decode_step``, and the full training/eval ``forward``.
+``encode_concat`` (beam search) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -15,8 +15,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from sct_gan_tpu.config import ModelConfig
-
+from ..config import ModelConfig
 from ..ops.segment_mean import line_segment_mean
 from .layers import (
     MLP,
@@ -27,6 +26,7 @@ from .layers import (
     MultiheadAttention,
     ResidualLineFeatureExtractor,
     TransformerDecoderStack,
+    SeedSource,
     TransformerEncoderStack,
     line_position_encoding,
     normal_init,
@@ -56,8 +56,9 @@ class SmartContractTransformer(nn.Module):
     normal(0.02) / normal(0.1), the line head's final bias -0.2, zeros), as
     the JAX initialisers do — equal in distribution, not bit for bit.
     ``seed=None`` leaves them uninitialised (for loading a state dict).
-    Like every torch module it starts in training mode; call ``.eval()``
-    to serve (training-mode dropout raises).
+    Like every torch module it starts in training mode, where every dropout
+    site is active and draws its seed from the ``generator`` handed to
+    ``forward``; call ``.eval()`` to serve.
     """
 
     def __init__(self, config: ModelConfig, seed: Optional[int] = 0):
@@ -125,6 +126,13 @@ class SmartContractTransformer(nn.Module):
             self.disc_synthetic_head = MLP(d, [d // 2, 1], dt,
                                            dropout=cfg.dropout)
 
+        # every dropout site draws its seed from the generator handed to
+        # forward, through this one source
+        self.seeds = SeedSource()
+        for m in self.modules():
+            if isinstance(m, (Dropout, MultiheadAttention)):
+                m.seeds = self.seeds
+
         self.register_buffer(
             "_pe", sinusoidal_position_encoding(cfg.max_length, d),
             persistent=False)
@@ -143,7 +151,8 @@ class SmartContractTransformer(nn.Module):
     def cast_dense_weights_(self) -> "SmartContractTransformer":
         """Hold every Dense weight in the compute dtype. flax casts the f32
         parameter at each use, so this is the same arithmetic without the
-        per-call cast. LayerNorm and embedding tables stay f32."""
+        per-call cast. LayerNorm and embedding tables stay f32. For serving
+        only: training keeps the f32 parameters."""
         for m in self.modules():
             if isinstance(m, Dense):
                 m.to(self.dtype)
@@ -300,9 +309,25 @@ class SmartContractTransformer(nn.Module):
 
     # -- full forward ------------------------------------------------------------
     def forward(self, input_ids, attention_mask=None, ast_input_ids=None,
-                ast_attention_mask=None, target_ids=None,
-                token_to_line=None) -> Dict[str, Any]:
-        """The reference's output dict, with shifted LM logits/targets."""
+                ast_attention_mask=None, target_ids=None, token_to_line=None,
+                return_lm_hidden: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        """The reference's output dict, with shifted LM logits/targets.
+
+        ``return_lm_hidden=True`` (the train step's fused LM-CE path)
+        returns the shifted hidden states before the LM head under
+        "lm_hidden" instead of "logits". In training mode every dropout
+        site draws its seed from ``generator`` (a CPU ``torch.Generator``).
+        """
+        with self.seeds.using(generator):
+            return self._forward(input_ids, attention_mask, ast_input_ids,
+                                 ast_attention_mask, target_ids,
+                                 token_to_line, return_lm_hidden)
+
+    def _forward(self, input_ids, attention_mask, ast_input_ids,
+                 ast_attention_mask, target_ids, token_to_line,
+                 return_lm_hidden):
         b, s = input_ids.shape
         src_mask = (attention_mask.bool() if attention_mask is not None
                     else torch.ones(b, s, dtype=torch.bool,
@@ -320,8 +345,13 @@ class SmartContractTransformer(nn.Module):
             "memory": memory,
         }
         if target_ids is not None:
-            logits = self.decode_teacher_forced(target_ids, memory, src_mask)
-            out["logits"] = logits[:, :-1, :]
+            if return_lm_hidden:
+                hidden = self.decode_hidden(target_ids, memory, src_mask)
+                out["lm_hidden"] = hidden[:, :-1, :]
+            else:
+                logits = self.decode_teacher_forced(target_ids, memory,
+                                                    src_mask)
+                out["logits"] = logits[:, :-1, :]
             out["target_ids"] = target_ids[:, 1:]
         out["discriminator_logits"] = self.discriminator_forward(memory)
         return out

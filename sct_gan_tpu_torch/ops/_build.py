@@ -1,7 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library with
-a plain C interface, loaded with ``ctypes``. The library is built at first
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together (so a build takes as long as its slowest source, not the
+sum, as kernels are added), and the objects are linked into ONE shared
+library with a
+plain C interface, loaded with ``ctypes``. The library is built at first
 use, in ``_kernels_build/`` beside the package (listed in ``.gitignore``),
 under a name keyed by a hash of the sources and the flags, so an edited
 source rebuilds and an unchanged one loads at once.
@@ -23,18 +26,27 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_kernels_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
+_DROP = [_I, _U, _U, _F]                 # dropout seed threshold inv_keep
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
-    "flash_attention_fwd_bf16": [_P, _P, _P, _P, _P,             # q k v mask o
-                                 _I, _I, _I, _I, _I,             # B H Sq Sk D
-                                 _I, _I, _I, _I, _I, _I,         # q, k strides
-                                 _I, _I, _I, _I, _I, _I,         # v, o strides
-                                 _I, _I, _F, _P],    # mask_sb causal scale stream
+    "flash_attention_fwd_bf16": [_P, _P, _P, _P, _P, _P,     # q k v mask o lse
+                                 _I, _I, _I, _I, _I,         # B H Sq Sk D
+                                 *[_I] * 12,                 # q k v o strides
+                                 _I, _I, _F,                 # mask_sb causal scale
+                                 *_DROP, _P],                # ... stream
+    "flash_attention_bwd_bf16": [*[_P] * 10,     # q k v dout mask lse D dq dk dv
+                                 _I, _I, _I, _I, _I,         # B H Sq Sk D
+                                 *[_I] * 21,                 # 7 tensors' strides
+                                 _I, _I, _F,                 # mask_sb causal scale
+                                 *_DROP, _P],                # ... stream
+    "hash_dropout": [_P, _P, _U, _I,                         # x y n is_bf16
+                     _U, _U, _F, _P],            # seed threshold scale stream
     "decode_attention_bf16": [_P, _P, _P, _P, _P,                # q k v mask o
                               _I, _I, _I, _I,                    # B H S D
                               _I, _I, _I, _I, _I, _I,            # q, k strides
@@ -73,25 +85,41 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels if no library for these sources exists."""
+    """Compile the kernels if no library for these sources exists: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     global build_seconds, ptxas_log
     lib_path = library_path()
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        procs = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} (exit "
+                              f"{proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp,
+                               *(obj for _, obj, _ in procs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):"
+                               f"\n{link.stderr}")
+        os.replace(tmp, lib_path)   # atomic: concurrent builders never see half
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr}")
-    ptxas_log = proc.stderr
-    os.replace(tmp, lib_path)   # atomic: concurrent builders never see half
+    ptxas_log = "".join(logs)
     return lib_path
 
 

@@ -14,13 +14,15 @@ import textwrap
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sct_gan_tpu.data.synthetic import generate_corpus
 from sct_gan_tpu.data.tokenizer import SolidityTokenizer
 from sct_gan_tpu.infer import SmartContractAnalyzer as JaxAnalyzer
 from sct_gan_tpu.infer.generate import make_generate_fn as jax_generate_fn
 from sct_gan_tpu.losses.syntax import SyntaxLossTables
-from sct_gan_tpu_torch import SmartContractAnalyzer, convert_flax_params
+from sct_gan_tpu_torch import (SmartContractAnalyzer, SmartContractTrainer,
+                               SmartContractTransformer, convert_flax_params)
 from sct_gan_tpu_torch.infer.generate import make_generate_fn
 from test_torch_model import CFG, flax_params
 
@@ -137,29 +139,72 @@ def test_generate_synthetic_contract(analyzers, contracts):
         "// Generated contract based on template")
 
 
+def test_entry_points_default_to_the_card(analyzers):
+    """Without ``device="cpu"`` the analyzer and the trainer run on the
+    card, and without a card they raise instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    _, port, _ = analyzers
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SmartContractAnalyzer(model_config=CFG, tokenizer=port.tokenizer,
+                              verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SmartContractTrainer(SmartContractTransformer(CFG, seed=0), [], [],
+                             port.tokenizer, verbose=False)
+
+
 def test_port_imports_no_jax():
-    """The port runs the tiny slice (detection and generation) in a fresh
-    process without importing jax, flax or orbax."""
+    """In a fresh process the port imports every one of its modules, runs
+    the tiny detection and generation and two steps of the tiny training
+    (``SmartContractTrainer``, dropout on) from its own config, tokenizer
+    and corpus copies (the native tokenizer built from its own C++
+    source), and never imports jax, flax, orbax, optax or any module of
+    the JAX package."""
     code = textwrap.dedent("""
-        import sys
-        from sct_gan_tpu.config import ModelConfig
-        from sct_gan_tpu.data.synthetic import generate_corpus
-        from sct_gan_tpu.data.tokenizer import SolidityTokenizer
-        from sct_gan_tpu_torch import SmartContractAnalyzer
+        import importlib, pkgutil, sys, tempfile
+        import sct_gan_tpu_torch
+        for mod in pkgutil.walk_packages(sct_gan_tpu_torch.__path__,
+                                         "sct_gan_tpu_torch."):
+            importlib.import_module(mod.name)
+        from sct_gan_tpu_torch import (SmartContractAnalyzer,
+                                       SmartContractTrainer,
+                                       SmartContractTransformer)
+        from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
+        from sct_gan_tpu_torch.data import (create_dataloaders,
+                                            generate_corpus, write_corpus_csv)
+        from sct_gan_tpu_torch.data.native_tokenizer import (
+            NativeSolidityTokenizer)
+        from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+        from sct_gan_tpu_torch.native import build
         cfg = ModelConfig(d_model=64, nhead=4, num_encoder_layers=2,
                           num_decoder_layers=2, dim_feedforward=128,
                           dropout=0.1, max_length=64, max_lines=64,
                           vocab_size=512, use_gan=True,
                           compute_dtype="float32")
-        an = SmartContractAnalyzer(
-            model_config=cfg, tokenizer=SolidityTokenizer(vocab_size=512),
-            device="cpu", verbose=False)
+        tok = NativeSolidityTokenizer(vocab_size=512)
+        an = SmartContractAnalyzer(model_config=cfg, tokenizer=tok,
+                                   device="cpu", verbose=False)
         codes = [r["source_code"] for r in generate_corpus(n=3, seed=0)]
+        # the native tokenizer is built from the port's own C++ copy
+        assert tok.native_active
+        assert build.load_library()._name == build.library_path()
+        assert tok.encode(codes[0]) == SolidityTokenizer(
+            vocab_size=512).encode(codes[0])
         assert len(an.analyze_multiple_contracts(codes)) == 3
         assert len(an.generate_synthetic_contract(codes[0], 2)) == 2
-        loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                               "orbax"))
+        with tempfile.TemporaryDirectory() as d:
+            write_corpus_csv(d + "/c.csv", n=10, seed=0)
+            train, val = create_dataloaders(d + "/c.csv", tok, batch_size=4,
+                                            max_length=64)
+            trainer = SmartContractTrainer(
+                SmartContractTransformer(cfg, seed=0), train, val, tok,
+                config=TrainConfig(learning_rate=1e-5, use_gan=True,
+                                   warmup_epochs=1), device="cpu",
+                verbose=False)
+            out = trainer.train_epoch(0)
+        assert out["batches"] == 2 and trainer.state.step == 2, out
+        banned = ("jax", "jaxlib", "flax", "orbax", "optax", "sct_gan_tpu")
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
         assert not loaded, loaded
         print("NO-JAX-OK")
     """)

@@ -204,8 +204,36 @@ def test_init_follows_jax_distributions():
 
 
 def test_training_mode_dropout_raises():
+    """Training mode with dropout raises when the forward is given no seed
+    generator, in the encoder and in the full forward."""
     cfg = CFG.__class__(**{**CFG.__dict__, "dropout": 0.1})
     m = SmartContractTransformer(cfg, seed=0)      # torch modules start in train
     b = _t(_batch())
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(RuntimeError, match="generator"):
         m.encode(b["input_ids"], b["attention_mask"])
+    with pytest.raises(RuntimeError, match="generator"):
+        m(**b, target_ids=b["input_ids"])
+
+
+def test_training_mode_dropout_is_reproducible():
+    """Training mode with dropout, given a seed generator, gives a finite
+    output that differs from eval mode and is reproduced by the same
+    generator seed."""
+    cfg = CFG.__class__(**{**CFG.__dict__, "dropout": 0.1})
+    m = SmartContractTransformer(cfg, seed=0)      # torch modules start in train
+    b = _t(_batch())
+
+    def run(seed):
+        with torch.no_grad():
+            return m(**b, target_ids=b["input_ids"],
+                     generator=torch.Generator().manual_seed(seed))
+    first, again, other = run(0), run(0), run(1)
+    m.eval()
+    with torch.no_grad():
+        ref = m(**b, target_ids=b["input_ids"])
+    for key in ("memory", "logits", "line_vulnerability_logits",
+                "contract_vulnerability_logits", "discriminator_logits"):
+        assert torch.isfinite(first[key]).all(), key
+        assert torch.equal(first[key], again[key]), key
+        assert not torch.equal(first[key], ref[key]), key
+        assert not torch.equal(first[key], other[key]), key

@@ -161,8 +161,99 @@ def test_sampler_distribution_matches_jax_filter():
 
 
 def test_flash_wrapper_refuses_training_options():
+    """The wrapper refuses an attention dropout rate of 1 or more, on every
+    device (a rate below 1 is taken: see the test below)."""
     x = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, return_lse=True)
+    with pytest.raises(ValueError, match="dropout"):
+        flash_attention(x, x, x, dropout_rate=1.0)
+    with pytest.raises(ValueError, match="dropout"):
+        flash_attention(x, x, x, dropout_rate=1.5, seed=3)
+
+
+def test_flash_wrapper_takes_dropout_and_returns_lse():
+    """The wrapper takes attention dropout and returns the f32 row LSE,
+    here against ``logsumexp`` of JAX's masked scores."""
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, 2, 2, 24, 40, 16)
+    mask = np.arange(40)[None, :] < np.asarray([33, 0])[:, None]
+    out, lse = flash_attention(*map(torch.from_numpy, (q, k, v)),
+                               key_padding_mask=torch.from_numpy(mask),
+                               dropout_rate=0.2, seed=5, return_lse=True)
+    scores = (jnp.einsum("bhqd,bhkd->bhqk", q, k) / 16 ** 0.5
+              + jnp.where(jnp.asarray(mask)[:, None, None, :], 0.0, -1e30))
+    want = jax.nn.logsumexp(scores, axis=-1)
+    assert out.shape == (2, 2, 24, 16) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), **TOL)
+    assert np.all(out.numpy()[1] == 0.0)       # the fully-masked batch row
+
+
+def _jax_seed(key) -> int:
+    """The seed JAX's mha_reference draws from its dropout key."""
+    return int(jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max,
+                                  dtype=jnp.int32))
+
+
+@pytest.mark.parametrize("case", ["key_mask", "causal", "fully_masked_row"])
+def test_flash_dropout_matches_jax_reference(case):
+    """With attention dropout, the plain version equals JAX's
+    ``mha_reference(..., deterministic=False)`` given JAX's own seed for
+    that key (the same hash mask over the flat (B, H, Sq, Sk) index), in
+    the output and in dq, dk, dv against ``jax.vjp``. f32, 1e-5."""
+    rng = np.random.default_rng(9)
+    b, h, sq, sk, d = 2, 2, 24, 40, 16
+    q, k, v = _qkv(rng, b, h, sq, sk, d)
+    g = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    mask = np.arange(sk)[None, :] < np.asarray([sk - 5, 17])[:, None]
+    if case == "fully_masked_row":
+        mask[1] = False
+    causal = case == "causal"
+    key = jax.random.PRNGKey(11)
+    rate = 0.3
+
+    def jax_fwd(q_, k_, v_):
+        return jax_mha(q_, k_, v_, key_padding_mask=jnp.asarray(mask),
+                       causal=causal, dropout_rate=rate, deterministic=False,
+                       dropout_rng=key)
+    want, vjp = jax.vjp(jax_fwd, *map(jnp.asarray, (q, k, v)))
+    want_g = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, key_padding_mask=torch.from_numpy(mask),
+                          causal=causal, dropout_rate=rate,
+                          seed=_jax_seed(key))
+    got_g = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for name, a, w in zip(("dq", "dk", "dv"), got_g, want_g):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+    if case == "fully_masked_row":
+        assert np.all(got_g[0].numpy()[1] == 0.0)
+
+
+@pytest.mark.parametrize("block_k,causal", [(256, False), (128, True)])
+def test_flash_gradient_matches_jax_kernel(block_k, causal):
+    """The plain version's gradient (autograd through ``mha_reference``)
+    equals ``jax.grad`` through JAX's Pallas flash kernels in interpret
+    mode: block_k >= Sk is the fused K2 backward (nk == 1), block_k < Sk
+    the K3/K4 pair (nk == 2). f32, 1e-5."""
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 1, 2, 256, 256, 64)
+    mask = rng.random((1, 256)) < 0.85
+    mask[:, 0] = True
+    g = rng.normal(size=q.shape).astype(np.float32)
+
+    def flash_loss(q_, k_, v_):
+        out = jax_flash_attention(q_, k_, v_,
+                                  key_padding_mask=jnp.asarray(mask),
+                                  causal=causal, block_q=128,
+                                  block_k=block_k)
+        return jnp.sum(out * jnp.asarray(g))
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(flash_loss, argnums=(0, 1, 2))(
+            *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, key_padding_mask=torch.from_numpy(mask),
+                          causal=causal)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
