@@ -6,7 +6,11 @@
 Builds the hand-written CUDA kernels from ``sct_gan_tpu_torch/csrc`` and
 holds each against its plain PyTorch version on the card at the main
 paths' shapes: the flash-attention forward (with dropout and LSE) and
-backward, the single-query decode attention and the hash dropout. Then it
+backward, the single-query decode attention and the hash dropout. It holds
+every mode of the kernel-timing tools' kernels (K7-K10,
+``sct_gan_tpu_torch/tools``) against its plain version at the tools'
+shapes, then runs the four tools' ``time_modes`` (their main path),
+counting launches. Then it
 drives both paths of the port at full width (d=768, 8 heads of 96, 6+6
 layers, L=1024, vocab 50265 padded to 50304, bf16 compute, random weights
 from seed 0), counting kernel launches to show each path ran through its
@@ -34,7 +38,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -42,6 +45,10 @@ os.environ.setdefault("HF_HUB_OFFLINE", "1")          # no network, ever
 os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+# the card's name and power limit, CUDA-event timing and the H100's peaks
+from sct_gan_tpu_torch.utils.profiling import (  # noqa: E402
+    GRAPH_REPLAYS, bound_ms, card_line, cuda_ms, ring_inputs, ring_ms)
 
 # Tolerances, with their reasons:
 # kernel vs plain, both bf16 outputs from the same bf16 inputs: each rounds
@@ -79,10 +86,6 @@ DECODE_TOL = 1e-1
 LOSS_RTOL = 1e-2
 GNORM_RTOL = 5e-2
 
-# H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth) for bound_ms
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
-
 KERNELS = {
     "flash_attention_fwd": (
         "sct_gan_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -96,6 +99,20 @@ KERNELS = {
     "decode_attention": (
         "sct_gan_tpu_torch/csrc/decode_attention.cu",
         "sct_gan_tpu/ops/decode_attention.py:83"),
+}
+# The kernel-timing tools' kernels (sct_gan_tpu_torch/tools): name ->
+# (source, TPU kernel replaced, the mode the kernels line reports at its top
+# level: the one closest to the shipped kernel)
+VARIANTS = {
+    "flash_parts": ("sct_gan_tpu_torch/csrc/flash_parts.cu",
+                    "tools/time_flash_parts.py:81", "full"),
+    "flash_variants": ("sct_gan_tpu_torch/csrc/flash_variants.cu",
+                       "tools/time_flash_variants.py:75", "nk1"),
+    "decode_variants": ("sct_gan_tpu_torch/csrc/decode_variants.cu",
+                        "tools/time_decode_kernel_variants.py:77 (v2), "
+                        ":113 (v3)", "v2"),
+    "dropout_variants": ("sct_gan_tpu_torch/csrc/dropout_variants.cu",
+                         "tools/time_dropout_kernel.py:76", "drop"),
 }
 # flash-attention calls per training forward: 6 encoder + 12 decoder +
 # AST and cross 2 + line heads 2 + discriminator 1 (the contract pooling
@@ -120,37 +137,6 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events over ``iters``."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(flops: float, nbytes: float):
-    """(least time in ms, what bounds it): operations at the bf16 peak or
-    bytes (each input read once, each output written once) at the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def max_err(a, b) -> float:
@@ -340,6 +326,128 @@ def phase_kernels():
         f"{k} {v:.3e} / {worst_rel[k]:.3e}" for k, v in worst.items()),
         flush=True)
     return worst, worst_rel
+
+
+def phase_variants(card: str) -> list:
+    """K7-K10, the kernel-timing tools. Every mode against its plain version
+    at the tool's shape (K7 and K8 at D = 96 and 128), then the tools'
+    ``time_modes`` at D = 96, the main path of this slice, with the launches
+    counted. Returns the tools' entries of the kernels line."""
+    import torch
+    from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
+    from sct_gan_tpu_torch.tools import time_dropout_kernel as k10
+    from sct_gan_tpu_torch.tools import time_flash_parts as k7
+    from sct_gan_tpu_torch.tools import time_flash_variants as k8
+    from sct_gan_tpu_torch.tools._common import summary_line
+    tools = {"flash_parts": (k7, k7.flash_parts),
+             "flash_variants": (k8, k8.flash_variants),
+             "decode_variants": (k9, k9.decode_variants),
+             "dropout_variants": (k10, k10.dropout_variants)}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs = {name: {} for name in VARIANTS}      # name -> mode -> (abs, rel)
+
+    def check(name, mode, got, want, what="", exact=False):
+        torch.cuda.synchronize()
+        err, rel = max_err(got, want), rel_err(got, want)
+        a, r = errs[name].get(mode, (0.0, 0.0))
+        errs[name][mode] = (max(a, err), max(r, rel))
+        if exact:     # bf16 bit patterns: a dropped negative x stays -0
+            ok = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            bar = "bit for bit"
+        else:
+            tol = kernel_tol(want)
+            ok = err <= tol and rel <= REL_TOL
+            bar = f"tol {tol:.3e}, rel tol {REL_TOL}"
+        print(f"  {name} {mode}{what}: max_abs_err {err:.3e}, rel_err "
+              f"{rel:.3e} ({bar})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {mode}{what}: max_abs_err {err}, "
+                                 f"rel_err {rel} ({bar})")
+
+    with torch.inference_mode():
+        b, h, s = k7.SHAPE
+        for dh in k7.HEAD_DIMS:
+            x = (torch.randn(b, h, s, dh, generator=g, device=dev)
+                 * 0.5).to(torch.bfloat16)
+            for mode in k7.MODES:
+                check("flash_parts", mode, k7.flash_parts(x, mode),
+                      k7.flash_parts_reference(x, mode), f" {tuple(x.shape)}")
+            for mode in k8.MODES:
+                check("flash_variants", mode, k8.flash_variants(x, mode),
+                      k8.flash_variants_reference(x, mode),
+                      f" {tuple(x.shape)}")
+        q, kc, vc, mask = k9.make_inputs(32, 8, 1024, 96, 3, dev)
+        mask[1] = False                           # a fully-masked row
+        for mode in ("v2", "v3"):
+            got = k9.decode_variants(q, kc, vc, mask, mode,
+                                     sm_scale=96 ** -0.5)
+            check("decode_variants", mode, got,
+                  k9.decode_variants_reference(q, kc, vc, mask,
+                                               sm_scale=96 ** -0.5),
+                  f" k{tuple(kc.shape)}, ~10% keys masked, row 1 all")
+            if got[1].abs().max().item() != 0.0:
+                raise AssertionError(f"K9 {mode}: a fully-masked row must "
+                                     f"give zeros")
+        x = torch.randn(*k10.SHAPE, generator=g, device=dev).to(
+            torch.bfloat16)
+        for mode in k10.MODES:
+            check("dropout_variants", mode,
+                  k10.dropout_variants(x, mode, k10.RATE, 17),
+                  k10.dropout_variants_reference(x, mode, k10.RATE, 17),
+                  f" {tuple(x.shape)} rate {k10.RATE}", exact=True)
+
+    # -- the main path: the four tools' timing entry points ------------------
+    for _, fn in tools.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = {"flash_parts": k7.time_modes(),
+               "flash_variants": k8.time_modes(),
+               "decode_variants": k9.time_modes(),
+               "dropout_variants": k10.time_modes()}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, (_, fn) in tools.items()}
+    # each timed mode: one eager call, then its calls captured in a CUDA
+    # graph; K9's v2 and v3 also run once in the parity gate
+    captured = {"flash_parts": k7.CHAIN * len(k7.MODES),
+                "flash_variants": k8.CHAIN * len(k8.MODES),
+                "decode_variants": 256 * 2,
+                "dropout_variants": k10.CHAIN * len(k10.MODES)}
+    eager = {"flash_parts": len(k7.MODES), "flash_variants": len(k8.MODES),
+             "decode_variants": 2 + 2, "dropout_variants": len(k10.MODES)}
+    want = {name: captured[name] + eager[name] for name in captured}
+    if launches != want:
+        raise AssertionError(f"variants: launches {launches}, expected "
+                             f"{want}")
+    print(f"phase variants: the four tools' time_modes in "
+          f"{time.perf_counter() - t0:.1f} s, launches {launches}",
+          flush=True)
+    entries = []
+    for name, (source, replaces, primary) in VARIANTS.items():
+        res = results[name]
+        tool = tools[name][0].__name__.rsplit(".", 1)[1]
+        print(f"phase variants {summary_line(tool, res, card)}", flush=True)
+        modes = {}
+        for mode, r in res.items():
+            a, rl = errs[name].get(mode, (None, None))
+            modes[mode] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                           "library_ms": r["library_ms"],
+                           "bound_ms": r["bound_ms"], "max_abs_err": a,
+                           "max_rel_err": rl}
+        top = res[primary]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            # a graph replay reruns the captured launches without calling
+            # the wrapper: the kernel's runs beyond ``launches``
+            "replayed_runs": GRAPH_REPLAYS * captured[name],
+            "max_abs_err": errs[name][primary][0],
+            "max_rel_err": errs[name][primary][1],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "mode": primary,
+            "modes": modes})
+    return entries
 
 
 def phase_serve():
@@ -687,11 +795,15 @@ def phase_times(an, codes, template, trainer, batch, card):
                       (2 * 2 * h * s * d + 2 * 2 * h * d) * bf + 2 * s))
         x = rb(8, 1024, 2048)
         n = x.numel()
+        # a 20 µs kernel: graph-replayed over inputs read from HBM, since an
+        # eager loop times the host's dispatch
+        xs = ring_inputs(x)
         t["dropout"] = (
-            cuda_ms(lambda: dropout(x, 0.3, 7), iters=50),
+            ring_ms(lambda y: dropout(y, 0.3, 7), xs, 50),
             cuda_ms(lambda: dropout_reference(x, 7, 0.3), iters=50),
-            cuda_ms(lambda: F.dropout(x, 0.3, training=True), iters=50),
+            ring_ms(lambda y: F.dropout(y, 0.3, training=True), xs, 50),
             *bound_ms(0, 2 * n * bf))
+        del xs
 
     # the backward: the kernel pair (with D = rowsum(dO∘O)) vs autograd
     # through the plain forward vs SDPA's backward, one dO, no dropout
@@ -824,10 +936,11 @@ def main() -> int:
     import torch
     phase_build()
     worst, worst_rel = phase_kernels()
+    card = card_line()
+    variants = phase_variants(card)
     an, codes, template, serve_launches = phase_serve()
     trainer, batch, train_launches = phase_train()
     phase_train_check(trainer)
-    card = card_line()
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
                                                     trainer, batch, card)
 
@@ -859,6 +972,7 @@ def main() -> int:
             "max_abs_err": worst[name], "max_rel_err": worst_rel[name],
             "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": libms})
+    kernels += variants
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,18 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I,            # q, k strides
                               _I, _I, _I, _I, _I, _I,            # v, o strides
                               _I, _F, _P],           # mask_sb scale stream
+    # the timing variants of the tools (sct_gan_tpu_torch/tools/)
+    "flash_parts_bf16": [_P, _P, _P, _P,                     # q k v o
+                         _I, _I, _I, _I, _F, _P],  # BH S D mode scale stream
+    "flash_variants_bf16": [_P, _P, _P, _P,
+                            _I, _I, _I, _I, _F, _P],   # as flash_parts_bf16
+    "decode_variants_bf16": [_P, _P, _P, _P, _P,             # q k v mask o
+                             _I, _I, _I, _I, _I,             # mode B H S D
+                             _I, _I, _I, _I, _I,             # q, k strides
+                             _I, _I, _I, _I, _I,             # v, o strides
+                             _I, _F, _P],        # mask_sb scale stream
+    "dropout_variants_bf16": [_P, _P, _I, _I, _I,            # x y N C mode
+                              _U, _U, _F, _P],   # seed threshold scale stream
 }
 
 _lib: Optional[ctypes.CDLL] = None

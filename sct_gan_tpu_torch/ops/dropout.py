@@ -28,8 +28,9 @@ def keep_threshold(rate: float) -> int:
     return int(min(rate, 0.999999) * 4294967296.0)
 
 
-def hash_keep(n: int, seed: int, rate: float, device=None) -> torch.Tensor:
-    """Keep mask of ``n`` flat elements: ``_hash_keep`` of the JAX package.
+def hash_bits(n: int, seed: int, device=None) -> torch.Tensor:
+    """The 32 hash bits of flat indices 0..n-1 (int64 holding uint32): the
+    murmur3 finaliser of ``_hash_keep`` in the JAX package.
 
     torch has no full uint32 multiply, so the arithmetic runs in int64 and
     is masked to 32 bits after every step (the low 32 bits of a product
@@ -38,8 +39,12 @@ def hash_keep(n: int, seed: int, rate: float, device=None) -> torch.Tensor:
     h = (h * 0x9E3779B1) & _MASK32
     h = ((h ^ (h >> 16)) * 0x85EBCA6B) & _MASK32
     h = ((h ^ (h >> 13)) * 0xC2B2AE35) & _MASK32
-    h = h ^ (h >> 16)
-    return h >= keep_threshold(rate)
+    return h ^ (h >> 16)
+
+
+def hash_keep(n: int, seed: int, rate: float, device=None) -> torch.Tensor:
+    """Keep mask of ``n`` flat elements: ``_hash_keep`` of the JAX package."""
+    return hash_bits(n, seed, device) >= keep_threshold(rate)
 
 
 def dropout_reference(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:

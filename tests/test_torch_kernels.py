@@ -5,8 +5,11 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-(``chip_smoke.py`` checks the same kernels at the main path's full shapes.)
+(``chip_smoke.py`` checks the same kernels at the main path's full shapes,
+and the kernel-timing tools' kernels, K7-K10, at the tools' shapes.)
 """
+import math
+
 import pytest
 import torch
 
@@ -15,6 +18,11 @@ from sct_gan_tpu_torch.ops.decode_attention import (
 from sct_gan_tpu_torch.ops.dropout import dropout, dropout_reference
 from sct_gan_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_reference)
+from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
+from sct_gan_tpu_torch.tools import time_dropout_kernel as k10
+from sct_gan_tpu_torch.tools import time_flash_parts as k7
+from sct_gan_tpu_torch.tools import time_flash_variants as k8
+from sct_gan_tpu_torch.utils import profiling
 
 FLASH_CASES = {
     # name: (sq, sk, causal, mask kind)
@@ -153,3 +161,92 @@ def test_decode_kernel_matches_plain_on_card(cuda_device):
         want = decode_attention_reference(q, k, v, None, sm_scale=96 ** -0.5)
         torch.cuda.synchronize()
         assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+
+
+def _bf16_steps(want, steps=2) -> float:
+    """``steps`` bf16 steps at the largest |value| of ``want``."""
+    top = max(want.float().abs().max().item(), 2.0 ** -8)
+    return steps * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _tool_input(device, dh, seq=256):
+    g = torch.Generator(device=device).manual_seed(0)
+    return (torch.randn(2, 8, seq, dh, generator=g, device=device)
+            * 0.5).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [96, 128])
+@pytest.mark.parametrize("mode", k7.MODES)
+def test_flash_parts_kernel_matches_plain_on_card(cuda_device, mode, dh):
+    """K7, each mode: within two bf16 steps at the largest |output| (both
+    round P and the output to bf16, at different places) and 1e-2
+    norm-wise relative."""
+    x = _tool_input(cuda_device, dh)
+    got, want = k7.flash_parts(x, mode), k7.flash_parts_reference(x, mode)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_steps(want)
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [96, 128])
+@pytest.mark.parametrize("mode", k8.MODES)
+def test_flash_variants_kernel_matches_plain_on_card(cuda_device, mode, dh):
+    """K8, each mode: the bound of the K7 test."""
+    x = _tool_input(cuda_device, dh)
+    got = k8.flash_variants(x, mode)
+    want = k8.flash_variants_reference(x, mode)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_steps(want)
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["v2", "v3"])
+def test_decode_variants_kernel_matches_plain_on_card(cuda_device, mode):
+    """K9 v2 and v3 on a key mask with a fully-masked row: within two bf16
+    steps at the largest |output|, that row zeros."""
+    q, k, v, mask = k9.make_inputs(4, 8, 300, 96, 0, cuda_device)
+    mask[2] = False
+    got = k9.decode_variants(q, k, v, mask, mode, sm_scale=96 ** -0.5)
+    want = k9.decode_variants_reference(q, k, v, mask, sm_scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_steps(want)
+    assert _rel_err(got, want) <= 1e-2
+    assert got[2].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", k10.MODES)
+def test_dropout_variants_kernel_matches_plain_on_card(cuda_device, mode):
+    """K10, each mode: bit for bit (bf16 bit patterns)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(100, 96, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    got = k10.dropout_variants(x, mode, 0.1, 99)
+    want = k10.dropout_variants_reference(x, mode, 0.1, 99)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("timer", ["chain", "ring"])
+def test_graph_timers_call_once_eagerly_and_n_times_captured(cuda_device,
+                                                             timer):
+    """``chain_ms`` and ``ring_ms``: one eager call, ``n`` captured; the
+    replays call nothing and the graph's results are the eager ones."""
+    x0 = torch.ones(64, 64, device=cuda_device)
+    calls, outs = [], []
+
+    def step(x):
+        calls.append(1)
+        outs.append(x * 2)
+        return outs[-1]
+    if timer == "chain":
+        ms = profiling.chain_ms(step, x0, 5)
+    else:
+        ms = profiling.ring_ms(step, [x0.clone() for _ in range(3)], 5)
+    torch.cuda.synchronize()
+    assert len(calls) == 1 + 5 and ms > 0.0
+    assert outs[-1].max().item() == (2.0 ** 5 if timer == "chain" else 2.0)
