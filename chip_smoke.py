@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``sct_gan_tpu_torch/csrc`` and
-holds each against its plain PyTorch version on the card at the main
-paths' shapes: the flash-attention forward (with dropout and LSE) and
-backward, the single-query decode attention and the hash dropout. It holds
+Builds the hand-written CUDA kernels from ``sct_gan_tpu_torch/csrc`` (and
+fails if ``ptxas`` reports a spill in the flash forward or backward), and
+holds each kernel against its plain PyTorch version on the card at the
+main paths' shapes: the flash-attention forward (with dropout
+and LSE) and backward (whose two runs must give the same bits), the
+single-query decode attention and the hash dropout. It holds
 every mode of the kernel-timing tools' kernels (K7-K10,
 ``sct_gan_tpu_torch/tools``) against its plain version at the tools'
 shapes, then runs the four tools' ``time_modes`` (their main path),
@@ -179,10 +181,33 @@ def phase_build():
             if "registers" in ln or "Compiling entry" in ln
             or "spill" in ln]
     print(f"phase build: {os.path.basename(path)} in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds})",
-          flush=True)
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{_build.build_seconds or 'not run: built before'})", flush=True)
     for ln in regs:
         print(f"  ptxas: {ln}")
+    if not any("flash_fwd_kernel" in ln for ln in regs) or not any(
+            "flash_bwd_" in ln for ln in regs):
+        raise AssertionError("build: no ptxas report of the flash kernels "
+                             f"beside {path}")
+    spilled = flash_spills(_build.ptxas_log)
+    if spilled:
+        raise AssertionError(f"build: flash kernels spill registers: "
+                             f"{spilled}")
+
+
+def flash_spills(log: str) -> list:
+    """The flash forward and backward kernels whose ``ptxas -v`` report
+    shows spill stores or loads (the redesign's budget allows none)."""
+    bad, entry = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "spill" in ln and ("flash_fwd_kernel" in entry
+                                or "flash_bwd_" in entry):
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            if any(nums[1:]):        # stack frame, spill stores, spill loads
+                bad.append(f"{entry}: {ln.strip()}")
+    return bad
 
 
 def _heads(x, h=8):
@@ -198,7 +223,7 @@ def phase_kernels():
         decode_attention, decode_attention_reference)
     from sct_gan_tpu_torch.ops.dropout import dropout, dropout_reference
     from sct_gan_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_backward, flash_attention_reference)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -246,6 +271,7 @@ def phase_kernels():
     flash_case("Sq != Sk", 512, 1024, False, pad_mask)
     ragged = torch.arange(1000, device=dev)[None, :] < lens[:, None]
     flash_case("ragged S=1000", 1000, 1000, True, ragged)
+    flash_case("Sq=200, Sk=1000, key mask", 200, 1000, False, ragged)
     flash_case("dropout 0.3, key mask", 1024, 1024, False, pad_mask, 0.3)
     flash_case("dropout 0.3, ragged causal", 1000, 1000, True, ragged, 0.3)
     empty = pad_mask.clone()
@@ -277,6 +303,7 @@ def phase_kernels():
     bwd_case("causal", 8, 1024, 1024, True, None)
     bwd_case("dropout 0.3", 8, 1024, 1024, False, pad_mask, 0.3)
     bwd_case("dropout 0.3, ragged causal", 8, 1000, 1000, True, ragged, 0.3)
+    bwd_case("Sq=200, Sk=1000, key mask", 8, 200, 1000, False, ragged, 0.3)
     dq, _, _ = bwd_case("fully-masked row", 8, 1024, 1024, False, empty)
     if dq[3].abs().max().item() != 0.0:
         raise AssertionError("K2: a fully-masked row must get dq = 0")
@@ -284,6 +311,23 @@ def phase_kernels():
                  < 2 * lens[:4, None])
     bwd_case("Sk=2048 (the TPU's nk>1 path)", 4, 2048, 2048, False,
              long_mask, 0.3)
+
+    # determinism: no atomics, so two runs give the same bits
+    q, k, v = (_heads(rnd(8, 1000, 768)) for _ in range(3))
+    dout = _heads(rnd(8, 1000, 768))
+    out, lse = flash_attention(q, k, v, key_padding_mask=ragged, causal=True,
+                               sm_scale=scale, dropout_rate=0.3, seed=5,
+                               return_lse=True)
+    runs = [flash_attention_backward(q, k, v, out, lse, dout, ragged, True,
+                                     scale, 0.3, 5) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a.view(torch.int16), b.view(torch.int16))
+            for a, b in zip(*runs)]
+    print(f"  flash_attention_bwd determinism, two runs at (8, 8, 1000, 96) "
+          f"ragged causal dropout 0.3: dq, dk, dv bit-identical {same}",
+          flush=True)
+    if not all(same):
+        raise AssertionError(f"K2: the backward is not deterministic: {same}")
 
     for shape, dt in (((8, 1024, 768), torch.float32),
                       ((8, 1024, 2048), torch.bfloat16)):
@@ -749,9 +793,39 @@ def phase_train_check(trainer):
         raise AssertionError("train cross-check: card and CPU disagree")
 
 
-def phase_times(an, codes, template, trainer, batch, card):
+def sdpa_backward_ms(q, k, v, mask, dout, scale: float) -> float:
+    """SDPA's backward alone under the key mask ``mask`` (B, Sk), in device
+    ms: its forward and backward captured together and replayed
+    (``ring_ms``), less its forward replayed alone. An eager loop of
+    ``autograd.grad`` times the host's dispatch, which moves from run to
+    run."""
+    import torch
+    import torch.nn.functional as F
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def fwd(_):
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask[:, None, None, :], scale=scale)
+    both = ring_ms(lambda _: torch.autograd.grad(fwd(_), (qs, ks, vs), dout),
+                   [None], 10)
+    return both - ring_ms(fwd, [None], 10)
+
+
+def phase_times(an, codes, template, trainer, batch, card, variants):
     """Kernels vs their plain versions and the library call, by CUDA
-    events; the detection, generation and train-step times."""
+    events; the detection, generation and train-step times. ``variants``
+    (phase_variants' entries) gives K1 re-timed on K7's input.
+
+    The kernels and the library calls are captured in CUDA graphs and
+    replayed (``ring_ms``), which times the device alone: an eager loop
+    times the host's dispatch wherever that is the slower, and the host's
+    speed moves from run to run. The plain versions, tens of launches and
+    milliseconds each, are timed eagerly.
+
+    A bound counts the work this run's inputs need: under the key mask a
+    masked key adds nothing to the output or to dQ and gets dK = dV = 0, so
+    the products count only the attended keys, and only their K and V rows
+    must be read."""
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops.decode_attention import (
@@ -771,32 +845,44 @@ def phase_times(an, codes, template, trainer, batch, card):
     t = {}
     bf = 2   # bytes of a bf16 element
     qkv_bytes = b * h * s * d * bf
+    keys = int(lens.sum())          # attended (b, key) pairs: 5301 of 8192
+    kv_bytes = h * keys * d * bf    # the attended keys' rows of K or of V
+    # the products' flops over the attended keys: Q K^T and P V; the
+    # backward's 5 (7 as run); and the same counting every key
+    flops = {"flash_attention_fwd": 4 * h * s * keys * d,
+             "flash_attention_bwd": 10 * h * s * keys * d}
+    dense = {"flash_attention_fwd": 4 * b * h * s * s * d,
+             "flash_attention_bwd": 10 * b * h * s * s * d}
     with torch.inference_mode():
+        qkv = ring_inputs((q, k, v))
         t["flash_attention_fwd"] = (
-            cuda_ms(lambda: flash_attention(q, k, v, key_padding_mask=mask,
-                                            sm_scale=sc)),
+            ring_ms(lambda a: flash_attention(*a, key_padding_mask=mask,
+                                              sm_scale=sc), qkv, 20),
             cuda_ms(lambda: flash_attention_reference(
                 q, k, v, key_padding_mask=mask, sm_scale=sc)),
-            cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=sdpa_mask, scale=sc)),
-            *bound_ms(4 * b * h * s * s * d, 4 * qkv_bytes + b * s))
-        qd = _heads(rb(2, 1, 768))
-        kd, vd = _heads(rb(2, s, 768)), _heads(rb(2, s, 768))
+            ring_ms(lambda a: F.scaled_dot_product_attention(
+                *a, attn_mask=sdpa_mask, scale=sc), qkv, 20),
+            # Q read, O written; the attended K and V rows; the mask
+            *bound_ms(flops["flash_attention_fwd"],
+                      2 * qkv_bytes + 2 * kv_bytes + b * s))
+        del qkv
         src2 = mask[:2]
+        qd, kd, vd = (_heads(rb(2, n, 768)) for n in (1, s, s))
+        dec = ring_inputs((qd, kd, vd))
+        dkeys = int(src2.sum())
         t["decode_attention"] = (
-            cuda_ms(lambda: decode_attention(qd, kd, vd, src2, sm_scale=sc),
-                    iters=200),
+            ring_ms(lambda a: decode_attention(*a, src2, sm_scale=sc), dec,
+                    64),
             cuda_ms(lambda: decode_attention_reference(
                 qd, kd, vd, src2, sm_scale=sc), iters=200),
-            cuda_ms(lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=src2[:, None, None, :], scale=sc),
-                iters=200),
-            *bound_ms(4 * 2 * h * s * d,
-                      (2 * 2 * h * s * d + 2 * 2 * h * d) * bf + 2 * s))
+            ring_ms(lambda a: F.scaled_dot_product_attention(
+                *a, attn_mask=src2[:, None, None, :], scale=sc), dec, 64),
+            # q read and o written; the attended keys' K and V rows; the mask
+            *bound_ms(4 * h * dkeys * d,
+                      (2 * h * dkeys * d + 2 * 2 * h * d) * bf + 2 * s))
+        del dec
         x = rb(8, 1024, 2048)
         n = x.numel()
-        # a 20 µs kernel: graph-replayed over inputs read from HBM, since an
-        # eager loop times the host's dispatch
         xs = ring_inputs(x)
         t["dropout"] = (
             ring_ms(lambda y: dropout(y, 0.3, 7), xs, 50),
@@ -814,21 +900,23 @@ def phase_times(an, codes, template, trainer, batch, card):
     out = out.detach()
     ref = flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
                                     sm_scale=sc)
-    lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask,
-                                         scale=sc)
     t["flash_attention_bwd"] = (
-        cuda_ms(lambda: flash_attention_backward(
-            q, k, v, out, lse, dout, mask, False, sc, 0.0, 0)),
+        ring_ms(lambda _: flash_attention_backward(
+            q, k, v, out, lse, dout, mask, False, sc, 0.0, 0), [None], 10),
         cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
                                             retain_graph=True), iters=10),
-        cuda_ms(lambda: torch.autograd.grad(lib, (qg, kg, vg), dout,
-                                            retain_graph=True)),
-        *bound_ms(5 * 2 * b * h * s * s * d,
-                  7 * qkv_bytes + 2 * b * h * s * 4 + b * s))
-    del ref, lib, qg, kg, vg
+        sdpa_backward_ms(q, k, v, mask, dout, sc),
+        # Q, O, dO read and dQ written; the attended K and V rows; dK, dV
+        # written in full (zeros at masked keys); lse; the mask
+        *bound_ms(flops["flash_attention_bwd"],
+                  6 * qkv_bytes + 2 * kv_bytes + b * h * s * 4 + b * s))
+    del ref, qg, kg, vg
 
     for name, (ms, plain, libms, bnd, by) in t.items():
-        print(f"phase times [{card}]: {name} {ms:.4f} ms vs plain "
+        rate = (f" ({flops[name] / ms / 1e9:.1f} TFLOP/s of the attended "
+                f"keys' products, {dense[name] / ms / 1e9:.1f} counting every"
+                f" key)" if name in flops else "")
+        print(f"phase times [{card}]: {name} {ms:.4f} ms{rate} vs plain "
               f"{plain:.4f} ms, library {libms:.4f} ms, bound {bnd:.4f} ms "
               f"({by})", flush=True)
 
@@ -842,22 +930,29 @@ def phase_times(an, codes, template, trainer, batch, card):
     out2 = out2.detach()
     ref2 = flash_attention_reference(q2, k2, v2, key_padding_mask=mask2,
                                      sm_scale=sc)
-    lib2 = F.scaled_dot_product_attention(
-        q2, k2, v2, attn_mask=mask2[:, None, None, :], scale=sc)
-    ms2 = cuda_ms(lambda: flash_attention_backward(
-        q2, k2, v2, out2, lse2, dout2, mask2, False, sc, 0.0, 0))
+    ms2 = ring_ms(lambda _: flash_attention_backward(
+        q2, k2, v2, out2, lse2, dout2, mask2, False, sc, 0.0, 0), [None], 10)
     plain2 = cuda_ms(lambda: torch.autograd.grad(
         ref2, (q2, k2, v2), dout2, retain_graph=True), iters=5)
-    lib2_ms = cuda_ms(lambda: torch.autograd.grad(
-        lib2, (q2, k2, v2), dout2, retain_graph=True))
-    bnd2, by2 = bound_ms(5 * 2 * b2 * h * s2 * s2 * d,
-                         7 * b2 * h * s2 * d * bf + 2 * b2 * h * s2 * 4
-                         + b2 * s2)
+    lib2_ms = sdpa_backward_ms(q2, k2, v2, mask2, dout2, sc)
+    keys2 = int(mask2.sum())        # 6272 of 8192
+    flops2 = 10 * h * s2 * keys2 * d
+    bnd2, by2 = bound_ms(flops2, 6 * b2 * h * s2 * d * bf
+                         + 2 * h * keys2 * d * bf + b2 * h * s2 * 4 + b2 * s2)
     print(f"phase times [{card}]: flash_attention_bwd at (4, 8, 2048, 96) "
-          f"(the TPU's K3/K4 blocking) {ms2:.4f} ms vs plain {plain2:.4f} "
-          f"ms, library {lib2_ms:.4f} ms, bound {bnd2:.4f} ms ({by2})",
-          flush=True)
-    del ref2, lib2, q2, k2, v2
+          f"(the TPU's K3/K4 blocking) {ms2:.4f} ms "
+          f"({flops2 / ms2 / 1e9:.1f} TFLOP/s of the attended keys' "
+          f"products, {10 * b2 * h * s2 * s2 * d / ms2 / 1e9:.1f} counting "
+          f"every key) vs plain {plain2:.4f} ms, library {lib2_ms:.4f} ms, "
+          f"bound {bnd2:.4f} ms ({by2})", flush=True)
+    del ref2, q2, k2, v2
+    k7 = next(e for e in variants if e["name"] == "flash_parts")["modes"]
+    k1_ms = k7["k1"]["ms"]
+    print(f"phase times [{card}]: K1 on K7's input (the reference row: "
+          f"(8, 8, 1024, 96), x = 0.01, a chain of x = f(x)) {k1_ms:.4f} ms "
+          f"({4 * b * h * s * s * d / k1_ms / 1e9:.1f} TFLOP/s) against K7 "
+          f"full {k7['full']['ms']:.4f} ms, which keeps the first K1 "
+          f"design's tiling (4 warps, mma.sync)", flush=True)
 
     # -- the paths --------------------------------------------------------------
     with torch.inference_mode():
@@ -942,7 +1037,8 @@ def main() -> int:
     trainer, batch, train_launches = phase_train()
     phase_train_check(trainer)
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
-                                                    trainer, batch, card)
+                                                    trainer, batch, card,
+                                                    variants)
 
     def detect5():
         with torch.inference_mode():

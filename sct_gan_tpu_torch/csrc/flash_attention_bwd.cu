@@ -11,26 +11,56 @@
 //   dS = P o (M o (dO V^T) / (1-r) - D),   D = rowsum(dO o O)  (from torch)
 //   dK = dS^T Q * scale,   dQ = dS K * scale
 //
-// Two kernels, no atomics, so the gradients are deterministic:
-//   dKV: one block of 4 warps per (b, h, 64-key tile), each warp 16 keys.
-//        It walks the query tiles (from the diagonal on, when causal) and
-//        keeps dK and dV in registers, working on S^T so that P^T and dS^T
-//        come out of one product in the A layout of the next.
-//   dQ:  one block per (b, h, 64-query tile), each warp 16 queries. It walks
-//        the key tiles (up to the diagonal, when causal) and keeps dQ in
-//        registers.
-// Together they compute what the TPU's fused kernel computes at nk == 1 and
-// what its dKV + dQ pair computes at nk > 1; they recompute S and P twice
-// (once per kernel), which a later performance change may share.
+// Two kernels, no atomics, so the gradients are bit-for-bit deterministic:
+//   dKV: one block of 8 warps per (b, h, 128-key tile), each warp 16 keys.
+//        It walks the 64-query tiles of Q, dO, lse and D (from the diagonal
+//        on, when causal) and keeps dK and dV in registers, working on S^T
+//        so that P^T and dS^T come out of one product in the A layout of
+//        the next.
+//   dQ:  one block of 8 warps per (b, h, 128-query tile), each warp 16
+//        queries. It walks the 32-key tiles of K, V and the key mask (up to
+//        the diagonal, when causal) and keeps dQ in registers.
+// Each recomputes S and P: 7 products as run for the 5 of the math.
 //
-// What bounds it on an H100: 5 matrix products of 2*S*S*dh flops each per
-// (b, h) (S^T, dP^T, dV, dK in one kernel; S, dP, dQ in the other: 7 as run)
-// against ~10*S*dh bf16 bytes, so it is compute-bound. The simple design
-// uses mma.sync.m16n8k16 with f32 accumulation; the operands that must be
-// read down a column of a row-major tile (dO and Q for dV and dK, K for dQ)
-// are gathered two bf16 at a time from shared memory rather than with
-// ldmatrix.trans. Loads are synchronous 16-byte copies; TMA, wgmma and warp
-// specialisation are later work.
+// Bound on an H100: the 5 products over the attended keys,
+// 10*H*Sq*dh*sum_b(attended keys of row b) flops at 989 TFLOP/s (a masked
+// key adds nothing to dQ and gets dK = dV = 0), against Q, O, dO, dQ, dK, dV
+// and the attended keys' K and V rows at 3.35 TB/s: at (8, 8, 1024, 96),
+// 0.065 ms of products with every key attended, 0.042 ms under
+// chip_smoke.py's key mask (5301 of 8192 keys); compute-bound. Both kernels
+// walk every tile, masked or not.
+//
+// The design. The first design gathered every operand read down a column
+// (dO and Q for dV and dK, K for dQ) two bf16 scalars at a time, and loaded
+// each tile it walked synchronously between two barriers. Here:
+//   * the walked tiles stream through a 2-stage cp.async ring (16-byte
+//     copies, rows past S zero-filled), so the next tile loads while this
+//     one is used; the block's own tiles (K, V in dKV; Q, dO in dQ) load
+//     once with the first stage;
+//   * every fragment is read with ldmatrix.x4 from rows padded to 208
+//     bytes (13 16-byte units: eight rows of one unit fall in eight bank
+//     groups), and the column reads with ldmatrix.x4.trans;
+//   * 8 warps a block (128 keys or queries) instead of 4, which halves how
+//     often each walked tile is loaded;
+//   * dQ walks 32-key tiles so that it fits 128 registers a thread and two
+//     blocks (16 warps) an SM, which on an H100 beats one block of 64-key
+//     tiles by far. dKV's dK and dV alone take 96 registers a thread, so it
+//     stays at one block of 8 warps: at 4 warps in 3 blocks (168 registers)
+//     ptxas spills, also with its products issued one at a time, and a
+//     shape that spills is not shipped.
+//     What holds dKV back is that each warp reads every fragment of the
+//     walked tile through ldmatrix and its warps move through the products
+//     and the elementwise dS in step; wgmma (operands read once a
+//     warpgroup from shared memory) is its fix.
+// The products stay mma.sync.m16n8k16 with f32 accumulation; wgmma is the
+// next redesign.
+//
+// Budget. dKV: shared memory K + V 52 KB, 2 stages of Q + dO + lse + D
+// (26.5 KB each): 105 KB; registers: dK + dV 96 f32, S^T + dP^T 64 f32 and
+// the P^T / dS^T operands per thread, one block of 256 threads an SM (up
+// to 255 registers). dQ: Q + dO 52 KB, 2 stages of K + V + mask (13 KB
+// each): 78 KB, two blocks an SM; dQ 48 f32, S + dP 32 f32, under 128
+// registers. ptxas -v must show no spills.
 //
 // The mask and causal semantics are the forward's: a masked key, a key past
 // Sk, a query past Sq and a causal key j > i all get P = 0 (the TPU kernel's
@@ -42,18 +72,30 @@
 #include <stdint.h>
 
 #include "hash_dropout.cuh"
+#include "hopper_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int NWARPS = 4;     // 16 rows each
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;        // bf16 row padding: spreads fragment reads over banks
-constexpr float LOG2E = 1.4426950408889634f;
-
+using namespace hopper;
 using bf16 = __nv_bfloat16;
+
+constexpr int D = 96;                 // the model's head dim
+constexpr int LD = D + 8;             // padded shared-memory row (208 bytes)
+constexpr int DKV_WARPS = 8;         // dKV: 16 keys a warp
+constexpr int DKV_THREADS = DKV_WARPS * 32;
+constexpr int DKV_ROWS = 16 * DKV_WARPS;   // keys a dKV block
+constexpr int DKV_MIN_BLOCKS = 1;     // blocks an SM (__launch_bounds__)
+constexpr int DQ_WARPS = 8;           // dQ: 16 queries a warp
+constexpr int DQ_THREADS = DQ_WARPS * 32;
+constexpr int DQ_ROWS = 16 * DQ_WARPS;     // queries a dQ block
+constexpr int DQ_MIN_BLOCKS = 2;    // caps it at 128 registers
+constexpr int BQ = 64;                // query tile walked by dKV
+constexpr int BK = 32;                // key tile walked by dQ
+constexpr int STAGES = 2;
+constexpr int KSTEPS = D / 16;        // k-steps over the head dim
+constexpr int NT_D = D / 8;           // 8-wide n-tiles of dK, dV, dQ
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {   // element strides of a (B, H, S, D) tensor, last dim contiguous
   int sb, sh, ss;
@@ -73,39 +115,81 @@ struct BwdArgs {
   float inv_keep;
 };
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * BK + 2 * BQ) * (D + PAD) * (int)sizeof(bf16) + 2 * BQ * (int)sizeof(float);
+struct DkvSmem {
+  bf16 k[DKV_ROWS * LD], v[DKV_ROWS * LD];
+  bf16 q[STAGES][BQ * LD], dout[STAGES][BQ * LD];
+  float lse[STAGES][BQ], d[STAGES][BQ];      // the walked rows' lse and D
+};
+
+struct DqSmem {
+  bf16 q[DQ_ROWS * LD], dout[DQ_ROWS * LD];
+  bf16 k[STAGES][BK * LD], v[STAGES][BK * LD];
+  uint8_t valid[STAGES][BK];
+};
+
+// cp.async rows [r0, r0 + ROWS) x D of a strided (rows, D) bf16 matrix into
+// shared rows of LD, zero-filling rows >= n_rows. 16-byte chunks.
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int r0,
+                                        int n_rows, int row_stride) {
+  constexpr int CH = D / 8;
+  for (int c = threadIdx.x; c < ROWS * CH; c += NTHREADS) {
+    const int r = c / CH, col = (c % CH) * 8;
+    const bool ok = r0 + r < n_rows;
+    cp_async_16(dst + r * LD + col, ok ? src + (size_t)(r0 + r) * row_stride + col : src, ok);
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdArgs a) {
-  constexpr int LD = D + PAD;
-  constexpr int KSTEPS = D / 16;   // k-steps over the head dim
-  constexpr int NT_D = D / 8;      // 8-wide n-tiles of dK, dV
-  constexpr int NT_Q = BQ / 8;     // 8-wide n-tiles of S^T (queries)
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sdO = sQ + BQ * LD;
-  float* sLse = reinterpret_cast<float*>(sdO + BQ * LD);   // log2 domain
-  float* sD = sLse + BQ;
+// ldmatrix.x4 addresses within a row-major tile of row stride LD, for this
+// lane, at tile origin (r, c):
+//   A operand (16 x 16, m x k), registers a0..a3 of mma.m16n8k16;
+__device__ __forceinline__ const bf16* a_addr(const bf16* base, int r, int c, int lane) {
+  return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
+}
+//   B operand of two n-tiles from rows n (16 x 16, n x k): b0, b1 of n-tile
+//   r / 8, then b0, b1 of the next;
+__device__ __forceinline__ const bf16* bn_addr(const bf16* base, int r, int c, int lane) {
+  return base + (r + (lane & 7) + (lane >> 4) * 8) * LD + c + ((lane >> 3) & 1) * 8;
+}
+//   B operand of two n-tiles read down columns (rows k, 16 x 16, k x n) with
+//   .trans: b0, b1 of n-tile c / 8, then b0, b1 of the next.
+__device__ __forceinline__ const bf16* bt_addr(const bf16* base, int r, int c, int lane) {
+  return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
+}
 
+__global__ void __launch_bounds__(DKV_THREADS, DKV_MIN_BLOCKS)
+flash_bwd_dkv_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvSmem& s = *reinterpret_cast<DkvSmem*>(smem_raw);
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * DKV_ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
   const bf16* qb = a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh;
-  const bf16* kb = a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh;
-  const bf16* vb = a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh;
   const bf16* dob = a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh;
   const float* lse_b = a.lse + (size_t)bh * a.Sq;
   const float* d_b = a.dvec + (size_t)bh * a.Sq;
 
-  load_tile<D, LD, NTHREADS>(sK, kb, k0, a.Sk, a.ks.ss);
-  load_tile<D, LD, NTHREADS>(sV, vb, k0, a.Sk, a.vs.ss);
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  // causal: query tiles before the diagonal see no key of this block
+  const int qt0 = a.causal ? k0 / BQ : 0;
+  auto issue = [&](int qt, int st) {        // one walked tile into stage st
+    const int q0 = qt * BQ;
+    cp_tile<BQ, DKV_THREADS>(s.q[st], qb, q0, a.Sq, a.qs.ss);
+    cp_tile<BQ, DKV_THREADS>(s.dout[st], dob, q0, a.Sq, a.dos.ss);
+    for (int c = threadIdx.x; c < BQ; c += DKV_THREADS) {
+      const bool in = q0 + c < a.Sq;
+      cp_async_4(&s.lse[st][c], in ? lse_b + q0 + c : lse_b, in);
+      cp_async_4(&s.d[st][c], in ? d_b + q0 + c : d_b, in);
+    }
+  };
+  cp_tile<DKV_ROWS, DKV_THREADS>(s.k, a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh, k0,
+                                 a.Sk, a.ks.ss);
+  cp_tile<DKV_ROWS, DKV_THREADS>(s.v, a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh, k0,
+                                 a.Sk, a.vs.ss);
+  if (qt0 < nq) issue(qt0, 0);
+  cp_async_commit();
 
   const int key0 = k0 + wr + g, key1 = key0 + 8;   // this thread's key rows
   const bool kv0 = key0 < a.Sk && (a.mask == nullptr || a.mask[(size_t)b * a.mask_sb + key0]);
@@ -117,44 +201,41 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdArgs a
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
-  const int nq = (a.Sq + BQ - 1) / BQ;
-  // causal: query tiles before the diagonal see no key of this tile
-  for (int qt = a.causal ? k0 / BQ : 0; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();                         // previous tile fully consumed
-    load_tile<D, LD, NTHREADS>(sQ, qb, q0, a.Sq, a.qs.ss);
-    load_tile<D, LD, NTHREADS>(sdO, dob, q0, a.Sq, a.dos.ss);
-    for (int c = threadIdx.x; c < BQ; c += NTHREADS) {
-      const bool in = q0 + c < a.Sq;
-      sLse[c] = in ? lse_b[q0 + c] * LOG2E : 0.f;
-      sD[c] = in ? d_b[q0 + c] : 0.f;
-    }
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) % STAGES, q0 = qt * BQ;
+    if (qt + 1 < nq) issue(qt + 1, (qt + 1 - qt0) % STAGES);   // overlaps this tile
+    cp_async_commit();
+    cp_async_wait<1>();                      // this tile (and K, V) landed
     __syncthreads();
+    const bf16* sQ = s.q[st];
+    const bf16* sdO = s.dout[st];
 
-    float s[NT_Q][4], dp[NT_Q][4];           // S^T and dP^T, 16 keys x 64 queries
+    float sc[BQ / 8][4], dp[BQ / 8][4];      // S^T and dP^T, 16 keys x 64 queries
 #pragma unroll
-    for (int nt = 0; nt < NT_Q; ++nt)
+    for (int nt = 0; nt < BQ / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
-      const bf16* pk = sK + (wr + g) * LD + kk * 16 + 2 * t;
-      const bf16* pv = sV + (wr + g) * LD + kk * 16 + 2 * t;
-      const uint32_t ka[4] = {ld32(pk), ld32(pk + 8 * LD), ld32(pk + 8), ld32(pk + 8 * LD + 8)};
-      const uint32_t va[4] = {ld32(pv), ld32(pv + 8 * LD), ld32(pv + 8), ld32(pv + 8 * LD + 8)};
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, a_addr(s.k, wr, kk * 16, lane));
+      ldsm_x4(va, a_addr(s.v, wr, kk * 16, lane));
 #pragma unroll
-      for (int nt = 0; nt < NT_Q; ++nt) {
-        const bf16* pq = sQ + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        const bf16* pd = sdO + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_16816(s[nt], ka, ld32(pq), ld32(pq + 8));    // K Q^T
-        mma_16816(dp[nt], va, ld32(pd), ld32(pd + 8));   // V dO^T
+      for (int np = 0; np < BQ / 16; ++np) {
+        uint32_t qf[4], of[4];
+        ldsm_x4(qf, bn_addr(sQ, np * 16, kk * 16, lane));
+        ldsm_x4(of, bn_addr(sdO, np * 16, kk * 16, lane));
+        mma_16816(sc[2 * np], ka, qf[0], qf[1]);       // K Q^T
+        mma_16816(sc[2 * np + 1], ka, qf[2], qf[3]);
+        mma_16816(dp[2 * np], va, of[0], of[1]);       // V dO^T
+        mma_16816(dp[2 * np + 1], va, of[2], of[3]);
       }
     }
 
     // P^T, its dropped form, and dS^T, packed as A operands (k = queries)
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < NT_Q; ++nt) {
+    for (int nt = 0; nt < BQ / 8; ++nt) {
       float pd[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -162,12 +243,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdArgs a
         const int qi = q0 + col;
         const int key = e < 2 ? key0 : key1;
         const bool ok = (e < 2 ? kv0 : kv1) && qi < a.Sq && !(a.causal && key > qi);
-        const float p = ok ? exp2f(s[nt][e] * a.scale_log2 - sLse[col]) : 0.f;
+        const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - s.lse[st][col] * LOG2E) : 0.f;
         const bool keep = !a.dropout ||
             hash_keep(((uint32_t)bh * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk +
                           (uint32_t)key, a.seed, a.threshold);
         pd[e] = keep ? p * a.inv_keep : 0.f;
-        ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - sD[col]);
+        ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - s.d[st][col]);
       }
       const int kk = nt >> 1, hi = (nt & 1) * 2;
       pa[kk][hi] = pack_bf16(pd[0], pd[1]);
@@ -179,17 +260,20 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdArgs a
     // dV += P_drop^T dO, dK += dS^T Q: B operands read down query columns
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      const int r = kk * 16 + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < NT_D; ++dt) {
-        const int c = dt * 8 + g;
-        const bf16* pd = sdO + r * LD + c;
-        const bf16* pq = sQ + r * LD + c;
-        mma_16816(dv_acc[dt], pa[kk], ld_pair(pd, pd + LD), ld_pair(pd + 8 * LD, pd + 9 * LD));
-        mma_16816(dk_acc[dt], da[kk], ld_pair(pq, pq + LD), ld_pair(pq + 8 * LD, pq + 9 * LD));
+      for (int dp2 = 0; dp2 < NT_D / 2; ++dp2) {
+        uint32_t ob[4], qf[4];
+        ldsm_x4_trans(ob, bt_addr(sdO, kk * 16, dp2 * 16, lane));
+        ldsm_x4_trans(qf, bt_addr(sQ, kk * 16, dp2 * 16, lane));
+        mma_16816(dv_acc[2 * dp2], pa[kk], ob[0], ob[1]);
+        mma_16816(dv_acc[2 * dp2 + 1], pa[kk], ob[2], ob[3]);
+        mma_16816(dk_acc[2 * dp2], da[kk], qf[0], qf[1]);
+        mma_16816(dk_acc[2 * dp2 + 1], da[kk], qf[2], qf[3]);
       }
     }
+    __syncthreads();                         // the stage may be refilled
   }
+  cp_async_wait<0>();
 
   bf16* dkb = a.dk + (size_t)b * a.dks.sb + (size_t)h * a.dks.sh;
   bf16* dvb = a.dv + (size_t)b * a.dvs.sb + (size_t)h * a.dvs.sh;
@@ -211,40 +295,36 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdArgs a
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int LD = D + PAD;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NT_D = D / 8;
-  constexpr int NT_K = BK / 8;
-  __shared__ __align__(16) bf16 sK[BK * LD];
-  __shared__ __align__(16) bf16 sV[BK * LD];
-  __shared__ bool sValid[BK];
-
+__global__ void __launch_bounds__(DQ_THREADS, DQ_MIN_BLOCKS)
+flash_bwd_dq_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqSmem& s = *reinterpret_cast<DqSmem*>(smem_raw);
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * DQ_ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
-  const bf16* qb = a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh;
   const bf16* kb = a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh;
   const bf16* vb = a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh;
-  const bf16* dob = a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh;
+  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
 
-  // this warp's 16 rows of Q and dO as A operands, staged through sK / sV
-  load_tile<D, LD, NTHREADS>(sK, qb, q0, a.Sq, a.qs.ss);
-  load_tile<D, LD, NTHREADS>(sV, dob, q0, a.Sq, a.dos.ss);
-  __syncthreads();
-  uint32_t qf[KSTEPS][4], of[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const bf16* pq = sK + (wr + g) * LD + kk * 16 + 2 * t;
-    const bf16* po = sV + (wr + g) * LD + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(pq); qf[kk][1] = ld32(pq + 8 * LD);
-    qf[kk][2] = ld32(pq + 8); qf[kk][3] = ld32(pq + 8 * LD + 8);
-    of[kk][0] = ld32(po); of[kk][1] = ld32(po + 8 * LD);
-    of[kk][2] = ld32(po + 8); of[kk][3] = ld32(po + 8 * LD + 8);
-  }
+  int n_tiles = (a.Sk + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + DQ_ROWS - 1) / BK + 1);
+  auto issue = [&](int j, int st) {         // one walked tile into stage st
+    const int k0 = j * BK;
+    cp_tile<BK, DQ_THREADS>(s.k[st], kb, k0, a.Sk, a.ks.ss);
+    cp_tile<BK, DQ_THREADS>(s.v[st], vb, k0, a.Sk, a.vs.ss);
+    for (int c = threadIdx.x; c < BK; c += DQ_THREADS) {
+      const int key = k0 + c;
+      s.valid[st][c] = key < a.Sk && (mrow == nullptr || mrow[key]);
+    }
+  };
+  cp_tile<DQ_ROWS, DQ_THREADS>(s.q, a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh, q0,
+                               a.Sq, a.qs.ss);
+  cp_tile<DQ_ROWS, DQ_THREADS>(s.dout, a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh,
+                               q0, a.Sq, a.dos.ss);
+  issue(0, 0);
+  cp_async_commit();
 
   const int row0 = q0 + wr + g, row1 = row0 + 8;
   const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] * LOG2E : 0.f;
@@ -258,44 +338,48 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const BwdArgs a)
 #pragma unroll
   for (int i = 0; i < NT_D; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
 
-  int n_tiles = (a.Sk + BK - 1) / BK;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();                         // previous tile (or staging) consumed
-    load_tile<D, LD, NTHREADS>(sK, kb, k0, a.Sk, a.ks.ss);
-    load_tile<D, LD, NTHREADS>(sV, vb, k0, a.Sk, a.vs.ss);
-    for (int c = threadIdx.x; c < BK; c += NTHREADS) {
-      const int key = k0 + c;
-      sValid[c] = key < a.Sk && (a.mask == nullptr || a.mask[(size_t)b * a.mask_sb + key]);
-    }
+    const int st = j % STAGES, k0 = j * BK;
+    if (j + 1 < n_tiles) issue(j + 1, (j + 1) % STAGES);   // overlaps this tile
+    cp_async_commit();
+    cp_async_wait<1>();                      // this tile (and Q, dO) landed
     __syncthreads();
+    const bf16* sK = s.k[st];
+    const bf16* sV = s.v[st];
 
-    float s[NT_K][4], dp[NT_K][4];           // S and dP, 16 queries x 64 keys
+    float sc[BK / 8][4], dp[BK / 8][4];      // S and dP, 16 queries x 64 keys
 #pragma unroll
-    for (int nt = 0; nt < NT_K; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const bf16* pk = sK + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        const bf16* pv = sV + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_16816(s[nt], qf[kk], ld32(pk), ld32(pk + 8));    // Q K^T
-        mma_16816(dp[nt], of[kk], ld32(pv), ld32(pv + 8));   // dO V^T
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, a_addr(s.q, wr, kk * 16, lane));
+      ldsm_x4(oa, a_addr(s.dout, wr, kk * 16, lane));
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t kf[4], vf[4];
+        ldsm_x4(kf, bn_addr(sK, np * 16, kk * 16, lane));
+        ldsm_x4(vf, bn_addr(sV, np * 16, kk * 16, lane));
+        mma_16816(sc[2 * np], qa, kf[0], kf[1]);       // Q K^T
+        mma_16816(sc[2 * np + 1], qa, kf[2], kf[3]);
+        mma_16816(dp[2 * np], oa, vf[0], vf[1]);       // dO V^T
+        mma_16816(dp[2 * np + 1], oa, vf[2], vf[3]);
       }
     }
 
     uint32_t da[BK / 16][4];                 // dS as A operands (k = keys)
 #pragma unroll
-    for (int nt = 0; nt < NT_K; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + 2 * t + (e & 1);
         const int key = k0 + col;
         const int row = e < 2 ? row0 : row1;
-        const bool ok = sValid[col] && row < a.Sq && !(a.causal && key > row);
-        const float p = ok ? exp2f(s[nt][e] * a.scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
+        const bool ok = s.valid[st][col] && row < a.Sq && !(a.causal && key > row);
+        const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
         const bool keep = !a.dropout ||
             hash_keep((e < 2 ? drop0 : drop1) + (uint32_t)key, a.seed, a.threshold);
         ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - (e < 2 ? d0 : d1));
@@ -308,14 +392,17 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const BwdArgs a)
     // dQ += dS K: B operands read down key columns of sK
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const int r = kk * 16 + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < NT_D; ++dt) {
-        const bf16* pk = sK + r * LD + dt * 8 + g;
-        mma_16816(dq_acc[dt], da[kk], ld_pair(pk, pk + LD), ld_pair(pk + 8 * LD, pk + 9 * LD));
+      for (int dp2 = 0; dp2 < NT_D / 2; ++dp2) {
+        uint32_t kf[4];
+        ldsm_x4_trans(kf, bt_addr(sK, kk * 16, dp2 * 16, lane));
+        mma_16816(dq_acc[2 * dp2], da[kk], kf[0], kf[1]);
+        mma_16816(dq_acc[2 * dp2 + 1], da[kk], kf[2], kf[3]);
       }
     }
+    __syncthreads();                         // the stage may be refilled
   }
+  cp_async_wait<0>();
 
   bf16* dqb = a.dq + (size_t)b * a.dqs.sb + (size_t)h * a.dqs.sh;
 #pragma unroll
@@ -330,43 +417,50 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const BwdArgs a)
   }
 }
 
-template <int D>
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
+  if (configured) return cudaSuccess;        // above 48 KB needs an opt-in
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  configured = err == cudaSuccess;
+  return err;
+}
+
 int launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  static bool configured = false;            // above 48 KB needs an opt-in
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  flash_bwd_dkv_kernel<D><<<dim3((a.Sk + BK - 1) / BK, B * a.H), NTHREADS, smem, stream>>>(a);
-  const cudaError_t err = cudaGetLastError();
+  static bool dkv_ready = false, dq_ready = false;
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, sizeof(DkvSmem), dkv_ready);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel, sizeof(DqSmem), dq_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<D><<<dim3((a.Sq + BQ - 1) / BQ, B * a.H), NTHREADS, 0, stream>>>(a);
+  flash_bwd_dkv_kernel<<<dim3((a.Sk + DKV_ROWS - 1) / DKV_ROWS, B * a.H), DKV_THREADS,
+                         sizeof(DkvSmem), stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<<<dim3((a.Sq + DQ_ROWS - 1) / DQ_ROWS, B * a.H), DQ_THREADS,
+                        sizeof(DqSmem), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: bf16 (B, H, S, D) with element strides
-// (sb, sh, ss) and the last dimension contiguous; mask: (B, Sk) uint8
-// (nonzero = attend) with row stride mask_sb, or null; lse (the forward's
-// natural-log row LSE) and dvec (D = rowsum(dO o O)): contiguous f32
-// (B, H, Sq). dropout != 0 regenerates the forward's hash keep mask from
-// (seed, threshold) and scales by inv_keep = 1/(1-rate). Launches the dKV
-// kernel, then the dQ kernel, on `stream`; returns the first CUDA error.
+// (sb, sh, ss) and the last dimension contiguous (rows of q, k, v, dout on
+// 16-byte lines); mask: (B, Sk) uint8 (nonzero = attend) with row stride
+// mask_sb, or null; lse (the forward's natural-log row LSE) and dvec
+// (D = rowsum(dO o O)): contiguous f32 (B, H, Sq). dropout != 0 regenerates
+// the forward's hash keep mask from (seed, threshold) and scales by
+// inv_keep = 1/(1-rate). Launches the dKV kernel, then the dQ kernel, on
+// `stream`; returns the first CUDA error.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* mask, const void* lse, const void* dvec, void* dq, void* dk,
-    void* dv, int B, int H, int Sq, int Sk, int D,
+    void* dv, int B, int H, int Sq, int Sk, int Dh,
     int q_sb, int q_sh, int q_ss, int k_sb, int k_sh, int k_ss,
     int v_sb, int v_sh, int v_ss, int do_sb, int do_sh, int do_ss,
     int dq_sb, int dq_sh, int dq_ss, int dk_sb, int dk_sh, int dk_ss,
     int dv_sb, int dv_sh, int dv_ss, int mask_sb, int causal, float scale,
     int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
     void* stream) {
-  if (D != 96) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
+  if (Dh != D) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
   BwdArgs a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -396,5 +490,5 @@ extern "C" int flash_attention_bwd_bf16(
   a.seed = seed;
   a.threshold = threshold;
   a.inv_keep = inv_keep;
-  return launch<96>(a, B, static_cast<cudaStream_t>(stream));
+  return launch(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -13,23 +13,43 @@
 // sct_gan_tpu/ops/attention.py::mha_reference draws; the TPU kernel's own
 // PRNG stream is TPU hardware and is not reproduced.
 //
-// What bounds it on an H100: at S = 1024, dh = 96 it does 4*S*S*dh flops per
-// (b, h) against 4*S*dh*2 bytes of Q/K/V/O, so it is compute-bound, and the
-// softmax (one exp per score, row max/sum shuffles) competes with the matrix
-// products for issue slots.
+// Bound on an H100: the products Q K^T and P V over the attended keys,
+// 4*H*Sq*dh*sum_b(attended keys of row b) flops at 989 TFLOP/s, against Q and
+// O and the attended keys' K and V rows at 3.35 TB/s. A masked key adds
+// nothing to O, so it needs no product. At (8, 8, 1024, 96) with every key
+// attended that is 0.026 ms of products, 6x the 0.004 ms of bytes:
+// compute-bound. Under chip_smoke.py's key mask (5301 of 8192 keys) it is
+// 0.017 ms. This kernel still walks every K/V tile up to Sk (a fully masked
+// tile costs its products), so the mask's share is time it could skip.
 //
-// The simple design: one block of 4 warps per (b, h, 64-row query tile); each
-// warp owns 16 query rows. A loop inside the block walks 64-key K/V tiles
-// (the TPU's single-pass nk == 1 layout does not carry over: a 1024-wide K
-// block would not fit in shared memory). Matrix products are bf16
-// mma.sync.m16n8k16 with f32 accumulation, so dh = 96 is 6 k-steps with no
-// padding to 128. The scores stay in registers: the accumulator layout of
-// Q K^T is the A-operand layout of P V (the FlashAttention-2 register
-// reuse), so P never touches shared memory. The online softmax keeps the
-// running max and sum per row in registers and rescales the f32 output
-// accumulator in place. Causal tiles above the diagonal are skipped. Loads
-// are plain synchronous 16-byte copies; TMA, wgmma and warp specialisation
-// are later work.
+// The design. The kernel-timing tools found that the first design (4 warps,
+// 64 query rows, mma.sync) lost its time feeding the products, not in the
+// softmax: synchronous tile loads with nothing overlapping them, V
+// transposed into shared memory one element at a time, every fragment a
+// separate 32-bit shared load, and the time following the warps in flight.
+// This design answers each:
+//   * a block takes 128 query rows: two consumer warpgroups of 64 rows and
+//     one producer warp (288 threads);
+//   * the producer loads Q once and streams K and V through a ring of
+//     STAGES shared-memory stages by TMA (rank-4 (D, S, H, B) maps built on
+//     the host from the caller's strides; rows past S read as zeros), with
+//     full/empty mbarriers, so the next tiles load while this one is used.
+//     It also writes each tile's key-mask bias (0 or -inf; -inf past Sk)
+//     beside its K tile;
+//   * both products run on wgmma: S = Q K^T as m64n64k16 with both operands
+//     in shared memory (K-major), O += P V as m64n96k16 with P from
+//     registers (the S accumulator layout is the A register layout) and V
+//     read MN-major through the transpose bit, so nothing transposes V and
+//     no fragment is loaded by hand. Layouts: hopper_tile.cuh.
+// The online softmax, the causal tile skip, the key-mask bias, dropout and
+// the LSE are the first design's arithmetic.
+//
+// Budget. Shared memory: Q 24 KB + STAGES x (K 12 KB + V 12 KB + 256 B of
+// bias) + barriers + 1 KB of alignment slack = 98 KB at STAGES = 3 (one
+// block an SM; 512 blocks at (8, 8, 1024, 96)). Registers: a consumer
+// thread holds the O accumulator (48 f32), the S tile (32 f32), P packed
+// (16) and its row statistics, under the 224 that 288 threads leave each;
+// ptxas -v must show no spills. setmaxnreg is not needed at this budget.
 //
 // Semantics (the JAX kernel's): a masked key gets -inf; a fully-masked row
 // gives zeros and lse = -1e30 (the JAX kernel's m + log(1) with its finite
@@ -40,115 +60,142 @@
 #include <stdint.h>
 
 #include "hash_dropout.cuh"
+#include "hopper_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block, 16 per warp
-constexpr int BK = 64;        // keys per K/V tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;        // bf16 row padding: spreads fragment reads over banks
+using namespace hopper;
+
+constexpr int D = 96;                       // the model's head dim
+constexpr int NCHUNK = D / CHUNK_COLS;      // 32-column swizzled boxes a row
+constexpr int BQ = 128;                     // query rows per block
+constexpr int BK = 64;                      // keys per K/V tile
+constexpr int STAGES = 3;                   // K/V ring depth
+constexpr int NCONSUMERS = 8;               // warps in the two warpgroups
+constexpr int NTHREADS = (NCONSUMERS + 1) * 32;
+constexpr int Q_CHUNK = BQ * CHUNK_BYTES_ROW;
+constexpr int KV_CHUNK = BK * CHUNK_BYTES_ROW;
+constexpr uint32_t TILE_BYTES = 2 * NCHUNK * KV_CHUNK;   // K + V of one stage
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int H, int Sq, int Sk,
-                 int q_sb, int q_sh, int q_ss, int k_sb, int k_sh, int k_ss,
-                 int v_sb, int v_sh, int v_ss, int o_sb, int o_sh, int o_ss,
-                 int mask_sb, int causal, float scale_log2, int dropout,
-                 uint32_t seed, uint32_t threshold, float inv_keep) {
-  constexpr int LD = D + PAD;      // Q and K row stride in shared memory
-  constexpr int LDV = BK + PAD;    // V^T row stride in shared memory
-  constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
-  constexpr int NT_D = D / 8;      // 8-wide n-tiles of the output
-  constexpr int NT_K = BK / 8;     // 8-wide n-tiles of the scores
-  __shared__ __align__(16) __nv_bfloat16 sQ[BQ * LD];
-  __shared__ __align__(16) __nv_bfloat16 sK[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 sVt[D * LDV];
-  __shared__ float sBias[BK];
+struct Smem {
+  alignas(1024) unsigned char q[NCHUNK][Q_CHUNK];
+  alignas(1024) unsigned char k[STAGES][NCHUNK][KV_CHUNK];
+  alignas(1024) unsigned char v[STAGES][NCHUNK][KV_CHUNK];
+  float bias[STAGES][BK];
+  uint64_t q_full, full[STAGES], empty[STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + 1024;   // + alignment slack
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+__device__ __forceinline__ Smem& smem_tile(unsigned char* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<Smem*>(raw + pad);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int H, int Sq, int Sk, int o_sb,
+                 int o_sh, int o_ss, int mask_sb, int causal, float scale_log2,
+                 int dropout, uint32_t seed, uint32_t threshold, float inv_keep) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& s = smem_tile(smem_raw);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;    // mma group / thread-in-group
-  const __nv_bfloat16* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
-  const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
-  const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
-  __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh;
-
-  load_tile<D, LD, NTHREADS>(sQ, qb, q0, Sq, q_ss);
-  __syncthreads();
-  uint32_t qf[KSTEPS][4];                    // this warp's 16 Q rows, A layout
-  const int wr = warp * 16;
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const __nv_bfloat16* p = sQ + (wr + g) * LD + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * LD);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * LD + 8);
-  }
-
-  float acc[NT_D][4];
-#pragma unroll
-  for (int i = 0; i < NT_D; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};   // rows g and g + 8, log2 domain
-  float l_run[2] = {0.f, 0.f};
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  // flat dropout index of (b, h, row, 0) over the true Sq, Sk
-  const uint32_t drop0 = ((uint32_t)blockIdx.y * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
-  const uint32_t drop1 = drop0 + 8u * (uint32_t)Sk;
-
   int n_tiles = (Sk + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();                         // previous tile fully consumed
-    load_tile<D, LD, NTHREADS>(sK, kb, k0, Sk, k_ss);
-    constexpr int CH = D / 8;
-    for (int c = threadIdx.x; c < BK * CH; c += NTHREADS) {   // V, transposed
-      const int r = c / CH, col = (c % CH) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + r < Sk)
-        val = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * v_ss + col);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+  if (threadIdx.x == 0) {
+    mbar_init(&s.q_full, 1);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sVt[(col + i) * LDV + r] = e[i];
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s.full[i], 32);            // the producer warp's lanes
+      mbar_init(&s.empty[i], NCONSUMERS);   // one lane a consumer warp
     }
-    for (int c = threadIdx.x; c < BK; c += NTHREADS) {
-      const int key = k0 + c;
-      const bool ok = key < Sk && (mask == nullptr || mask[(size_t)b * mask_sb + key]);
-      sBias[c] = ok ? 0.f : -INFINITY;
-    }
-    __syncthreads();
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    float s[NT_K][4];                        // S = Q K^T, 16 x 64 per warp
+  if (warp == NCONSUMERS) {                 // ---- producer warp ----
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&s.q_full, NCHUNK * Q_CHUNK);
 #pragma unroll
-    for (int nt = 0; nt < NT_K; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int c = 0; c < NCHUNK; ++c)
+        tma_load_4d(s.q[c], &q_map, &s.q_full, c * CHUNK_COLS, q0, h, b);
+    }
+    const uint8_t* mrow = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % STAGES, k0 = j * BK;
+      const int ka = k0 + lane, kb = ka + 32;
+      const bool oka = ka < Sk && (mrow == nullptr || mrow[ka]);
+      const bool okb = kb < Sk && (mrow == nullptr || mrow[kb]);
+      mbar_wait(&s.empty[st], ((j / STAGES) & 1) ^ 1);   // the stage is free
+      s.bias[st][lane] = oka ? 0.f : -INFINITY;
+      s.bias[st][lane + 32] = okb ? 0.f : -INFINITY;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&s.full[st], TILE_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_16816(s[nt], qf[kk], ld32(p), ld32(p + 8));
+        for (int c = 0; c < NCHUNK; ++c) {
+          tma_load_4d(s.k[st][c], &k_map, &s.full[st], c * CHUNK_COLS, k0, h, b);
+          tma_load_4d(s.v[st][c], &v_map, &s.full[st], c * CHUNK_COLS, k0, h, b);
+        }
+      } else {
+        mbar_arrive(&s.full[st]);
       }
     }
+    return;
+  }
 
+  // ---- consumer warpgroups: wg takes rows q0 + 64 wg .. + 63 ----
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;    // accumulator group / thread-in-group
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + g, row1 = row0 + 8;
+  // flat dropout index of (b, h, row, 0) over the true Sq, Sk
+  const uint32_t drop0 = ((uint32_t)bh * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
+  const uint32_t drop1 = drop0 + 8u * (uint32_t)Sk;
+
+  float acc[48];                            // O, 12 blocks of 8 columns
+#pragma unroll
+  for (int i = 0; i < 48; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
+  float l_run[2] = {0.f, 0.f};
+
+  mbar_wait(&s.q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES, k0 = j * BK;
+    mbar_wait(&s.full[st], (j / STAGES) & 1);
+
+    float sc[32];                           // S = Q K^T, 64 x 64 per warpgroup
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int c = ks / 2, off = (ks % 2) * 32;
+      const uint64_t da = desc_b64(&s.q[c][wg * 64 * CHUNK_BYTES_ROW + off], 16, 512);
+      const uint64_t db = desc_b64(&s.k[st][c][off], 16, 512);
+      wgmma_m64n64k16_ss(sc, da, db, ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+
+    const float* bias = s.bias[st];
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int nt = 0; nt < NT_K; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + 2 * t + (e & 1);
-        float x = s[nt][e] * scale_log2 + sBias[col];
+        float x = sc[nt * 4 + e] * scale_log2 + bias[col];
         if (causal && k0 + col > (e < 2 ? row0 : row1)) x = -INFINITY;
-        s[nt][e] = x;
+        sc[nt * 4 + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
@@ -163,12 +210,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < NT_K; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - base[e >> 1]);
-        rs[e >> 1] += s[nt][e];
-      }
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = exp2f(sc[i] - base[(i >> 1) & 1]);
+      rs[(i >> 1) & 1] += sc[i];
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -176,90 +220,89 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
       l_run[i] = l_run[i] * alpha[i] + rs[i];
     }
-    if (dropout) {                           // after l: dropout acts on P only
+    if (dropout) {                          // after l: dropout acts on P only
 #pragma unroll
-      for (int nt = 0; nt < NT_K; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t key = (uint32_t)(k0 + nt * 8 + 2 * t + (e & 1));
-          const bool keep = hash_keep((e < 2 ? drop0 : drop1) + key, seed, threshold);
-          s[nt][e] = keep ? s[nt][e] * inv_keep : 0.f;
-        }
+      for (int i = 0; i < 32; ++i) {
+        const uint32_t key = (uint32_t)(k0 + (i >> 2) * 8 + 2 * t + (i & 1));
+        const bool keep = hash_keep((((i >> 1) & 1) ? drop1 : drop0) + key, seed, threshold);
+        sc[i] = keep ? sc[i] * inv_keep : 0.f;
       }
     }
 #pragma unroll
-    for (int dt = 0; dt < NT_D; ++dt) {
-      acc[dt][0] *= alpha[0]; acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1]; acc[dt][3] *= alpha[1];
-    }
+    for (int i = 0; i < 48; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {   // O += P V
-      uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < NT_D; ++dt) {
-        const __nv_bfloat16* p = sVt + (dt * 8 + g) * LDV + kk * 16 + 2 * t;
-        mma_16816(acc[dt], pa, ld32(p), ld32(p + 8));
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) {  // O += P V, 16 keys a step
+      const uint32_t pa[4] = {pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
+                              pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+                              pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
+                              pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+      const uint64_t db = desc_b64(&s.v[st][0][kk * 16 * CHUNK_BYTES_ROW], KV_CHUNK, 512);
+      wgmma_m64n96k16_rs(acc, pa, db);
     }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[st]);   // this warp is done with the stage
   }
 
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;   // masked row -> 0
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
-  if (lse != nullptr && t == 0) {            // one lane per row writes it
-    float* lb = lse + (size_t)blockIdx.y * Sq;
+  if (lse != nullptr && t == 0) {           // one lane per row writes it
+    float* lb = lse + (size_t)bh * Sq;
     if (row0 < Sq)
       lb[row0] = l_run[0] > 0.f ? (m_run[0] + log2f(l_run[0])) * LN2 : -1e30f;
     if (row1 < Sq)
       lb[row1] = l_run[1] > 0.f ? (m_run[1] + log2f(l_run[1])) * LN2 : -1e30f;
   }
+  __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh;
 #pragma unroll
-  for (int dt = 0; dt < NT_D; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (row0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * o_ss + col) =
-          __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0);
+          __floats2bfloat162_rn(acc[dt * 4] * inv0, acc[dt * 4 + 1] * inv0);
     if (row1 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * o_ss + col) =
-          __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
+          __floats2bfloat162_rn(acc[dt * 4 + 2] * inv1, acc[dt * 4 + 3] * inv1);
   }
-}
-
-template <int D>
-void launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-            void* lse, int B, int H, int Sq, int Sk, int q_sb, int q_sh, int q_ss,
-            int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
-            int o_sb, int o_sh, int o_ss, int mask_sb, int causal, float scale,
-            int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
-            cudaStream_t stream) {
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Sq, Sk, q_sb,
-      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb,
-      causal, scale * LOG2E, dropout, seed, threshold, inv_keep);
 }
 
 }  // namespace
 
-// q, k, v, o: bf16 (B, H, S, D) with element strides (sb, sh, ss) and the
-// last dimension contiguous; mask: (B, Sk) uint8 (nonzero = attend) with row
-// stride mask_sb, or null; lse: contiguous f32 (B, H, Sq), or null for none.
-// dropout != 0 turns on attention-weight dropout with the hash keep mask
-// (seed, threshold) and the scale inv_keep = 1/(1-rate). Returns
-// cudaGetLastError() after the launch.
+// q, k, v, o: bf16 (B, H, S, D) with element strides (sb, sh, ss), the last
+// dimension contiguous, q/k/v 16-byte aligned with strides of whole 16-byte
+// units (the TMA maps' rule); mask: (B, Sk) uint8 (nonzero = attend) with
+// row stride mask_sb, or null; lse: contiguous f32 (B, H, Sq), or null for
+// none. dropout != 0 turns on attention-weight dropout with the hash keep
+// mask (seed, threshold) and the scale inv_keep = 1/(1-rate). Returns the
+// first error: a refused tensor map, or cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    void* lse, int B, int H, int Sq, int Sk, int D, int q_sb, int q_sh, int q_ss,
+    void* lse, int B, int H, int Sq, int Sk, int Dh, int q_sb, int q_sh, int q_ss,
     int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
     int o_sh, int o_ss, int mask_sb, int causal, float scale, int dropout,
     uint32_t seed, uint32_t threshold, float inv_keep, void* stream) {
-  if (D != 96) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
-  launch<96>(q, k, v, mask, o, lse, B, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh,
-             k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, scale,
-             dropout, seed, threshold, inv_keep, static_cast<cudaStream_t>(stream));
+  if (Dh != D) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
+  CUtensorMap qm, km, vm;
+  int err = make_head_map(&qm, q, B, H, Sq, D, q_sb, q_sh, q_ss, BQ);
+  if (err == 0) err = make_head_map(&km, k, B, H, Sk, D, k_sb, k_sh, k_ss, BK);
+  if (err == 0) err = make_head_map(&vm, v, B, H, Sk, D, v_sb, v_sh, v_ss, BK);
+  if (err != 0) return err;
+  static bool configured = false;           // above 48 KB needs an opt-in
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), H, Sq, Sk, o_sb, o_sh, o_ss, mask_sb, causal,
+      scale * LOG2E, dropout, seed, threshold, inv_keep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,7 @@
 // Helpers shared by the flash-attention kernels: the bf16 mma.sync tile
-// product, bf16 packing and shared-memory tile loads.
+// product and bf16 packing, and the synchronous shared-memory tile loads
+// that the timing tools' kernels (flash_parts.cu, flash_variants.cu) keep
+// from the first forward design.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..2t+1],
@@ -29,16 +31,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // two consecutive bf16 (the low one first) as one 32-bit operand register
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from two addresses (lo, hi) as one operand register: a B operand
-// read down a column of a row-major tile
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* lo,
-                                            const __nv_bfloat16* hi) {
-  __nv_bfloat162 v;
-  v.x = *lo;
-  v.y = *hi;
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Copy rows [r0, r0 + 64) x D of a strided (rows, D) matrix into shared

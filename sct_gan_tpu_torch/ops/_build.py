@@ -7,7 +7,9 @@ library with a
 plain C interface, loaded with ``ctypes``. The library is built at first
 use, in ``_kernels_build/`` beside the package (listed in ``.gitignore``),
 under a name keyed by a hash of the sources and the flags, so an edited
-source rebuilds and an unchanged one loads at once.
+source rebuilds and an unchanged one loads at once. ``ptxas``'s ``-v``
+report (registers, stack, spills) is kept beside the library under the same
+key, so a loaded library's report can be checked as a fresh build's can.
 
 A failed build raises with the compiler's stderr: there is no fallback.
 """
@@ -68,7 +70,7 @@ _SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the last nvcc run
-ptxas_log: str = ""                     # nvcc's -Xptxas -v report
+ptxas_log: str = ""         # nvcc's -Xptxas -v report of the library built
 
 
 def _sources():
@@ -96,12 +98,22 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsct_kernels_{h.hexdigest()[:16]}.so")
 
 
+def report_path(lib_path: str) -> str:
+    """Where the ``ptxas -v`` report of the library ``lib_path`` is kept."""
+    return lib_path[:-len(".so")] + ".ptxas.txt"
+
+
 def build() -> str:
     """Compile the kernels if no library for these sources exists: one
-    ``nvcc -c`` per source, all running at once, then one link."""
+    ``nvcc -c`` per source, all running at once, then one link. Sets
+    ``ptxas_log`` to the library's ``ptxas`` report, read back from its file
+    when the library was already built (a library without its report is
+    built again)."""
     global build_seconds, ptxas_log
     lib_path = library_path()
-    if os.path.exists(lib_path):
+    if os.path.exists(lib_path) and os.path.exists(report_path(lib_path)):
+        with open(report_path(lib_path)) as f:
+            ptxas_log = f.read()
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -129,7 +141,13 @@ def build() -> str:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed (exit {link.returncode}):"
                                f"\n{link.stderr}")
-        os.replace(tmp, lib_path)   # atomic: concurrent builders never see half
+        report = os.path.join(work, "ptxas.txt")
+        with open(report, "w") as f:
+            f.write("".join(logs))
+        # atomic, the report first: a library is never seen without its
+        # report, nor half written by concurrent builders
+        os.replace(report, report_path(lib_path))
+        os.replace(tmp, lib_path)
     build_seconds = time.perf_counter() - t0
     ptxas_log = "".join(logs)
     return lib_path

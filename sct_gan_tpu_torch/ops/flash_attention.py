@@ -51,11 +51,23 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def _strides(t: torch.Tensor, name: str, align: int):
-    """(sb, sh, ss) element strides of a (B, H, S, D) bf16 CUDA tensor whose
-    last dim is contiguous and whose rows start on ``align``-byte lines."""
+    """(sb, sh, ss) element strides of a (B, H, S, D) bf16 CUDA tensor laid
+    out as ``head_strides`` requires."""
     if t.device.type != "cuda" or t.dtype != torch.bfloat16:
         raise ValueError(f"{name}: expected a bf16 CUDA tensor, got "
                          f"{t.dtype} on {t.device}")
+    return head_strides(t, name, align)
+
+
+def head_strides(t: torch.Tensor, name: str, align: int):
+    """(sb, sh, ss) element strides of a (B, H, S, D) 2-byte tensor whose
+    last dim is contiguous and whose base and rows start on ``align``-byte
+    lines. The kernels read q, k, v and dO at ``align`` = 16: the forward
+    through rank-4 (D, S, H, B) TMA maps built from these strides (a map
+    takes only byte strides of whole 16-byte units), the backward by
+    16-byte copies. The model's head views of (B, S, H*96) pass as they
+    are. It reads only the shape, the strides and the base address, so it
+    holds for a tensor on any device."""
     if t.dim() != 4 or t.stride(3) != 1:
         raise ValueError(f"{name}: expected (B, H, S, D) with a contiguous "
                          f"last dim, got shape {tuple(t.shape)} strides "
@@ -108,7 +120,7 @@ def _dropout_args(rate: float, seed: int):
     return 1, seed, keep_threshold(rate), ctypes.c_float(1.0 / (1.0 - rate))
 
 
-def _check_shapes(q, k, v):
+def _check_shapes(q, k, v, rate: float):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
@@ -117,14 +129,16 @@ def _check_shapes(q, k, v):
     if d != KERNEL_HEAD_DIM:
         raise ValueError(f"head dim {d}: the kernels are built for "
                          f"{KERNEL_HEAD_DIM}")
-    if b * h * sq * sk >= 2 ** 32:
-        raise ValueError("B*H*Sq*Sk must stay below 2^32 (dropout index)")
+    # only the dropout hash takes the 32-bit flat (b, h, i, j) index
+    if rate > 0.0 and b * h * sq * sk >= 2 ** 32:
+        raise ValueError("with dropout, B*H*Sq*Sk must stay below 2^32 "
+                         "(the dropout index)")
     return b, h, sq, sk, d
 
 
 def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse):
     """Launch the forward kernel; (out, lse or None)."""
-    b, h, sq, sk, d = _check_shapes(q, k, v)
+    b, h, sq, sk, d = _check_shapes(q, k, v, rate)
     qs, ks, vs = (_strides(q, "q", 16), _strides(k, "k", 16),
                   _strides(v, "v", 16))
     out = _heads_like(q, sq)
@@ -147,7 +161,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
     """Launch the backward kernel pair; (dq, dk, dv) in q's dtype, laid out
     like the forward's output. dout is read through its strides when it can
     be, else copied contiguous."""
-    b, h, sq, sk, d = _check_shapes(q, k, v)
+    b, h, sq, sk, d = _check_shapes(q, k, v, rate)
     dout = _kernel_operand(dout.to(q.dtype))
     # D = rowsum(dO ∘ O) in f32, from the bf16 dO and O (flash_attention.py:
     # 470-475 of the JAX package)

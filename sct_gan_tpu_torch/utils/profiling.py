@@ -249,11 +249,18 @@ def ring_ms(fn: Callable[[Any], Any], inputs: Sequence[Any], n: int) -> float:
     return _replay_ms(calls, n)
 
 
-def ring_inputs(x0: torch.Tensor) -> List[torch.Tensor]:
+def ring_inputs(x0):
     """Distinct copies of ``x0``, at least 3 and ``RING_BYTES`` together,
-    for ``ring_ms``."""
-    count = max(3, -(-RING_BYTES // (x0.numel() * x0.element_size())))
-    return [x0.clone() for _ in range(count)]
+    for ``ring_ms``. ``x0`` is a tensor, or a tuple of tensors that one
+    call takes, copied together (each copy keeps its tensor's strides)."""
+    if isinstance(x0, torch.Tensor):
+        return [x0.clone() for _ in range(_ring_count((x0,)))]
+    return [tuple(x.clone() for x in x0) for _ in range(_ring_count(x0))]
+
+
+def _ring_count(xs: Sequence[torch.Tensor]) -> int:
+    return max(3, -(-RING_BYTES // sum(x.numel() * x.element_size()
+                                       for x in xs)))
 
 
 def bound_ms(flops: float, nbytes: float) -> Tuple[float, str]:

@@ -16,8 +16,8 @@ import torch
 from sct_gan_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
 from sct_gan_tpu_torch.ops.dropout import dropout, dropout_reference
-from sct_gan_tpu_torch.ops.flash_attention import (flash_attention,
-                                                   flash_attention_reference)
+from sct_gan_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward, flash_attention_reference)
 from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
 from sct_gan_tpu_torch.tools import time_dropout_kernel as k10
 from sct_gan_tpu_torch.tools import time_flash_parts as k7
@@ -25,12 +25,20 @@ from sct_gan_tpu_torch.tools import time_flash_variants as k8
 from sct_gan_tpu_torch.utils import profiling
 
 FLASH_CASES = {
-    # name: (sq, sk, causal, mask kind)
-    "key_mask": (128, 128, False, "tail"),
-    "causal": (128, 128, True, None),
-    "sq_ne_sk": (64, 160, False, "tail"),
-    "ragged": (100, 100, True, "tail"),
-    "fully_masked_row": (64, 96, False, "one_row_empty"),
+    # name: (sq, sk, causal, mask kind, (B, H, layout)); layout "bhsd" is a
+    # contiguous (B, H, S, 96) tensor, "heads" the model's (B, H, S, 96)
+    # view of its (B, S, H*96) projections
+    "key_mask": (128, 128, False, "tail", (2, 8, "bhsd")),
+    "causal": (128, 128, True, None, (2, 8, "bhsd")),
+    "sq_ne_sk": (64, 160, False, "tail", (2, 8, "bhsd")),
+    "ragged": (100, 100, True, "tail", (2, 8, "bhsd")),
+    "fully_masked_row": (64, 96, False, "one_row_empty", (2, 8, "bhsd")),
+    # the edges of the kernels' tiles: 128 query rows a forward block, 64
+    # keys a forward tile, 128 keys (dKV) or queries (dQ) a backward block
+    "sq200_sk1000": (200, 1000, False, "tail", (2, 8, "bhsd")),
+    "causal_1000": (1000, 1000, True, None, (2, 8, "bhsd")),
+    "head_view_1024": (1024, 1024, False, "tail", (2, 8, "heads")),
+    "b4_h8_2048": (2048, 2048, False, "tail", (4, 8, "bhsd")),
 }
 
 
@@ -41,22 +49,37 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _qkv_mask(device, case):
+    """q, k, v (bf16, seed 0) and the key mask of a ``FLASH_CASES`` case."""
+    sq, sk, _, kind, (b, h, layout) = FLASH_CASES[case]
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def make(s):
+        if layout == "heads":
+            return torch.randn(b, s, h * 96, generator=g, device=device,
+                               dtype=torch.bfloat16).view(
+                                   b, s, h, 96).transpose(1, 2)
+        return torch.randn(b, h, s, 96, generator=g, device=device,
+                           dtype=torch.bfloat16)
+    q, k, v = make(sq), make(sk), make(sk)
+    mask = None
+    if kind is not None:
+        lens = torch.tensor([sk - 7, sk // 2, sk // 3, sk - 100][:b],
+                            device=device)
+        mask = torch.arange(sk, device=device)[None, :] < lens[:, None]
+        if kind == "one_row_empty":
+            mask[1] = False
+    return q, k, v, mask
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_kernel_matches_plain_on_card(cuda_device, case):
     """bf16 kernel vs the plain version on the same bf16 inputs: within
     2^-5 absolute (a few bf16 steps at |out| <= 4; P is rounded to bf16
     in both)."""
-    sq, sk, causal, kind = FLASH_CASES[case]
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(2, 8, s, 96, generator=g, device=cuda_device,
-                           dtype=torch.bfloat16) for s in (sq, sk, sk))
-    mask = None
-    if kind is not None:
-        mask = (torch.arange(sk, device=cuda_device)[None, :]
-                < torch.tensor([[sk - 7], [sk // 2]], device=cuda_device))
-        if kind == "one_row_empty":
-            mask[1] = False
+    causal = FLASH_CASES[case][2]
+    q, k, v, mask = _qkv_mask(cuda_device, case)
     got = flash_attention(q, k, v, key_padding_mask=mask, causal=causal)
     want = flash_attention_reference(q, k, v, key_padding_mask=mask,
                                      causal=causal)
@@ -70,19 +93,6 @@ def _rel_err(got, want) -> float:
     return ((got.float() - want).norm() / want.norm()).item()
 
 
-def _qkv_mask(device, sq, sk, kind, b=2):
-    g = torch.Generator(device=device).manual_seed(0)
-    q, k, v = (torch.randn(b, 8, s, 96, generator=g, device=device,
-                           dtype=torch.bfloat16) for s in (sq, sk, sk))
-    mask = None
-    if kind is not None:
-        mask = (torch.arange(sk, device=device)[None, :]
-                < torch.tensor([[sk - 7], [sk // 2]], device=device))
-        if kind == "one_row_empty":
-            mask[1] = False
-    return q, k, v, mask
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_dropout_and_lse_match_plain_on_card(cuda_device, case):
@@ -90,8 +100,8 @@ def test_flash_dropout_and_lse_match_plain_on_card(cuda_device, case):
     the plain version) and its f32 LSE: output within 2^-4 absolute (the
     kept weights are scaled by 1/0.7) and 1e-2 norm-wise relative, LSE
     within 1e-3."""
-    sq, sk, causal, kind = FLASH_CASES[case]
-    q, k, v, mask = _qkv_mask(cuda_device, sq, sk, kind)
+    causal = FLASH_CASES[case][2]
+    q, k, v, mask = _qkv_mask(cuda_device, case)
     args = dict(key_padding_mask=mask, causal=causal, dropout_rate=0.3,
                 seed=77, return_lse=True)
     got, lse = flash_attention(q, k, v, **args)
@@ -111,8 +121,8 @@ def test_flash_backward_matches_autograd_on_card(cuda_device, case, rate):
     dK and dQ products, as in the TPU kernels) and within 1e-2 norm-wise
     relative (independent bf16 roundings of ~2^-9 each; the absolute bound
     alone checks only the peak entries); a fully-masked row gets dq = 0."""
-    sq, sk, causal, kind = FLASH_CASES[case]
-    q, k, v, mask = _qkv_mask(cuda_device, sq, sk, kind)
+    causal, kind = FLASH_CASES[case][2:4]
+    q, k, v, mask = _qkv_mask(cuda_device, case)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     dout = torch.randn_like(q)
     args = dict(key_padding_mask=mask, causal=causal, dropout_rate=rate,
@@ -127,6 +137,54 @@ def test_flash_backward_matches_autograd_on_card(cuda_device, case, rate):
         assert _rel_err(a, w) <= 1e-2
     if kind == "one_row_empty":
         assert got[0][1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_takes_2_32_scores_without_dropout_on_card(cuda_device):
+    """B=512 at L=1024 (the analyzer's batch_size=512): B*H*Sq*Sk = 2^32,
+    past the dropout hash's 32-bit index, runs forward and backward without
+    dropout; the first and last batch rows match the plain version on
+    those rows alone (rows are independent) within the bounds above."""
+    b, h, s = 512, 8, 1024
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def heads():
+        return torch.randn(b, s, h * 96, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16).view(b, s, h, 96).transpose(1, 2)
+    q, k, v, dout = heads(), heads(), heads(), heads()
+    mask = torch.arange(s, device=cuda_device)[None, :] < torch.randint(
+        1, s + 1, (b, 1), generator=g, device=cuda_device)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = flash_attention(q, k, v, key_padding_mask=mask)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    for i in (0, b - 1):
+        rows = [t[i:i + 1].detach().requires_grad_() for t in (q, k, v)]
+        want = flash_attention_reference(*rows, key_padding_mask=mask[i:i + 1])
+        want_g = torch.autograd.grad(want, rows, dout[i:i + 1])
+        torch.cuda.synchronize()
+        assert (out[i:i + 1].float() - want.float()).abs().max().item() <= 2 ** -5
+        for got, w in zip(grads, want_g):
+            assert (got[i:i + 1].float() - w.float()).abs().max().item() <= 2 ** -3
+            assert _rel_err(got[i:i + 1], w) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal_1000", "b4_h8_2048"])
+def test_flash_backward_is_deterministic_on_card(cuda_device, case):
+    """The backward pair uses no atomics: two runs on the same inputs, with
+    dropout 0.3, give bit-identical dq, dk and dv."""
+    causal = FLASH_CASES[case][2]
+    q, k, v, mask = _qkv_mask(cuda_device, case)
+    scale = 96 ** -0.5
+    out, lse = flash_attention(q, k, v, key_padding_mask=mask, causal=causal,
+                               sm_scale=scale, dropout_rate=0.3, seed=5,
+                               return_lse=True)
+    dout = torch.randn_like(q)
+    runs = [flash_attention_backward(q, k, v, out, lse, dout, mask, causal,
+                                     scale, 0.3, 5) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.cuda

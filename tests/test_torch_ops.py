@@ -35,9 +35,20 @@ def _qkv(rng, b, h, sq, sk, d):
                  for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
 
 
+def _as_layout(x: np.ndarray, layout: str) -> torch.Tensor:
+    """(B, H, S, d) numpy array as a torch tensor in a FLASH_CASES layout:
+    "heads" is the model's (B, H, S, d) view of a (B, S, H*d) tensor."""
+    if layout != "heads":
+        return torch.from_numpy(x)
+    b, h, s, d = x.shape
+    flat = torch.from_numpy(x).transpose(1, 2).reshape(b, s, h * d)
+    return flat.view(b, s, h, d).transpose(1, 2)
+
+
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_plain_matches_jax_kernel_and_reference(case):
-    sq, sk, causal, kind = FLASH_CASES[case]
+    """At the case's Sq, Sk, mask and layout (B=2, H=2, d=32 here)."""
+    sq, sk, causal, kind, (_, _, layout) = FLASH_CASES[case]
     rng = np.random.default_rng(0)
     b, h, d = 2, 2, 32
     q, k, v = _qkv(rng, b, h, sq, sk, d)
@@ -54,8 +65,8 @@ def test_flash_plain_matches_jax_kernel_and_reference(case):
                                      causal=causal, sm_scale=scale)
     want_r = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                      key_padding_mask=jmask, causal=causal, sm_scale=scale)
-    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
-                          torch.from_numpy(v),
+    got = flash_attention(_as_layout(q, layout), _as_layout(k, layout),
+                          _as_layout(v, layout),
                           key_padding_mask=(None if mask is None
                                             else torch.from_numpy(mask)),
                           causal=causal, sm_scale=scale).numpy()
