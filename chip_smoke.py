@@ -4,16 +4,16 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``sct_gan_tpu_torch/csrc`` (and
-fails if ``ptxas`` reports a spill in the flash forward or backward), and
-holds each kernel against its plain PyTorch version on the card at the
-main paths' shapes: the flash-attention forward (with dropout
-and LSE) and backward (whose two runs must give the same bits), the
-single-query decode attention and the hash dropout. It holds
+fails if ``ptxas`` reports a spill in the flash forward or backward or the
+decode attention), and holds each kernel against its plain PyTorch version
+on the card at the main paths' shapes: the flash-attention forward (with
+dropout and LSE) and backward, the single-query decode attention (split-K,
+at the edges of its tiles and splits) and the hash dropout; the backward's
+and the decode attention's two runs must give the same bits. It holds
 every mode of the kernel-timing tools' kernels (K7-K10,
 ``sct_gan_tpu_torch/tools``) against its plain version at the tools'
 shapes, then runs the four tools' ``time_modes`` (their main path),
-counting launches. Then it
-drives both paths of the port at full width (d=768, 8 heads of 96, 6+6
+counting launches. Then it drives both paths of the port at full width (d=768, 8 heads of 96, 6+6
 layers, L=1024, vocab 50265 padded to 50304, bf16 compute, random weights
 from seed 0), counting kernel launches to show each path ran through its
 kernels:
@@ -185,25 +185,27 @@ def phase_build():
           f"{_build.build_seconds or 'not run: built before'})", flush=True)
     for ln in regs:
         print(f"  ptxas: {ln}")
-    if not any("flash_fwd_kernel" in ln for ln in regs) or not any(
-            "flash_bwd_" in ln for ln in regs):
-        raise AssertionError("build: no ptxas report of the flash kernels "
-                             f"beside {path}")
-    spilled = flash_spills(_build.ptxas_log)
+    if not all(any(name in ln for ln in regs) for name in NO_SPILL):
+        raise AssertionError(f"build: no ptxas report of {NO_SPILL} beside "
+                             f"{path}")
+    spilled = kernel_spills(_build.ptxas_log)
     if spilled:
-        raise AssertionError(f"build: flash kernels spill registers: "
-                             f"{spilled}")
+        raise AssertionError(f"build: kernels spill registers: {spilled}")
 
 
-def flash_spills(log: str) -> list:
-    """The flash forward and backward kernels whose ``ptxas -v`` report
-    shows spill stores or loads (the redesign's budget allows none)."""
+# the kernels whose ptxas report must show no spill (their designs' budgets
+# allow none): the flash forward, the backward pair, the decode attention
+NO_SPILL = ("flash_fwd_kernel", "flash_bwd_", "decode_splitk_kernel")
+
+
+def kernel_spills(log: str) -> list:
+    """The ``NO_SPILL`` kernels whose ``ptxas -v`` report shows spill
+    stores or loads."""
     bad, entry = [], ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
-        elif "spill" in ln and ("flash_fwd_kernel" in entry
-                                or "flash_bwd_" in entry):
+        elif "spill" in ln and any(name in entry for name in NO_SPILL):
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
             if any(nums[1:]):        # stack frame, spill stores, spill loads
                 bad.append(f"{entry}: {ln.strip()}")
@@ -353,19 +355,53 @@ def phase_kernels():
               f" q{tuple(q.shape)} k{tuple(k.shape)} strides {k.stride()}")
         return got
 
+    # K5 splits the keys of a (b, h) over up to 8 blocks of 64-key tiles:
+    # 8 splits of 2 tiles at B=2, S=1024; 1 split from B*H = 132 up
     q = _heads(rnd(2, 1, 768, scale=2.0))
     mem_k, mem_v = _heads(rnd(2, 1024, 768)), _heads(rnd(2, 1024, 768))
+    # lens 874 and 750: row 1's last two splits attend no key
     src = torch.arange(1024, device=dev)[None, :] < lens[:2, None] - 150
-    decode_case("cross S=1024, src mask", q, mem_k, mem_v, src)
+    first = decode_case("cross S=1024, src mask", q, mem_k, mem_v, src)
+    again = decode_attention(q, mem_k, mem_v, src, sm_scale=scale)
+    torch.cuda.synchronize()
+    same = torch.equal(first.view(torch.int16), again.view(torch.int16))
+    print(f"  decode_attention determinism, two runs of the cross case: "
+          f"bit-identical {same}", flush=True)
+    if not same:
+        raise AssertionError("K5: two runs differ")
     cache_k, cache_v = rnd(2, 8, 1024, 96), rnd(2, 8, 1024, 96)
-    for pos in (0, 127, 1023):
+    for pos in (0, 63, 64, 65, 127, 1023):   # the tile edges
         decode_case(f"self step pos={pos}", q, cache_k[:, :, :pos + 1],
                     cache_v[:, :, :pos + 1], None)
+    last = src.clone()
+    last[0] = False
+    last[0, -1] = True
+    decode_case("row 0 keeps only the last key", q, mem_k, mem_v, last)
     none = src.clone()
     none[1] = False
     out = decode_case("fully-masked row", q, mem_k, mem_v, none)
     if out[1].abs().max().item() != 0.0:
         raise AssertionError("K5: a fully-masked row must give zeros")
+    decode_case("B=1 (8 splits), cross, src mask", q[:1], mem_k[:1],
+                mem_v[:1], src[:1])
+    lens64 = torch.randint(1, 1025, (64, 1), generator=g, device=dev)
+    decode_case("B=64 (1 split), cross, ragged src mask",
+                _heads(rnd(64, 1, 768, scale=2.0)), _heads(rnd(64, 1024, 768)),
+                _heads(rnd(64, 1024, 768)),
+                torch.arange(1024, device=dev)[None, :] < lens64)
+    # one split of 64 tiles: the mask is read in two windows of 32 tiles,
+    # whole dead tiles in both are skipped
+    keys = torch.arange(4096, device=dev)[None, :]
+    sparse = ((keys < 100) | ((keys >= 3000) & (keys < 3070))
+              | (keys == 4095)).expand(17, 4096).clone()
+    sparse[5] = keys[0] == 2100
+    decode_case("B=17 (1 split), S=4096, sparse mask",
+                _heads(rnd(17, 1, 768, scale=2.0)), rnd(17, 8, 4096, 96),
+                rnd(17, 8, 4096, 96), sparse)
+    long_k, long_v = rnd(2, 8, 16384, 96), rnd(2, 8, 16384, 96)
+    decode_case("self S=16384 (past the old 8192-key limit)", q, long_k,
+                long_v, None)
+    del long_k, long_v
     print("phase kernels: worst max_abs_err / rel_err " + ", ".join(
         f"{k} {v:.3e} / {worst_rel[k]:.3e}" for k, v in worst.items()),
         flush=True)
@@ -811,6 +847,71 @@ def sdpa_backward_ms(q, k, v, mask, dout, scale: float) -> float:
     return both - ring_ms(fwd, [None], 10)
 
 
+def decode_times(card: str) -> dict:
+    """K5 at the generation path's shapes, each against its plain version,
+    SDPA and its bound; prints a line each. Returns label -> (ms, plain ms,
+    SDPA ms, bound ms, bound by); the first row is the kernels line's.
+
+    * the cross-attention at B=2: head views of (2, 1024, 768) under the
+      source mask of lens (1024, 900), 1924 attended keys;
+    * the JAX bench's decode batch, (64, 8, 1024, 96), every key attended:
+      the cross layout under an all-True source mask;
+    * a self-attention step: the contiguous (2, 8, 1024, 96) cache cut to
+      512 keys, no mask.
+
+    The kernel and SDPA are replayed from CUDA graphs round inputs twice
+    the L2 (``ring_ms``), so K and V come from HBM; the plain version is
+    timed eagerly. A bound counts the attended keys' K and V rows, q read
+    and o written, and the mask's bytes."""
+    import torch
+    import torch.nn.functional as F
+    from sct_gan_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    rb = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+    sc, h, d, bf = 96 ** -0.5, 8, 96, 2
+    rows = {}
+
+    def row(label, q, k, v, mask, keep, n):
+        """``keep`` cuts the cache to the live length inside the call."""
+        b, s = q.shape[0], keep
+        keys = int(mask.sum()) if mask is not None else b * s
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        ring = ring_inputs((q, k, v))
+        cut = lambda a: (a[0], a[1][:, :, :s], a[2][:, :, :s])
+        with torch.inference_mode():
+            ms = ring_ms(lambda a: decode_attention(*cut(a), mask, sm_scale=sc),
+                         ring, n)
+            lib = ring_ms(lambda a: F.scaled_dot_product_attention(
+                *cut(a), attn_mask=sdpa_mask, scale=sc), ring, n)
+            plain = cuda_ms(lambda: decode_attention_reference(
+                *cut((q, k, v)), mask, sm_scale=sc), iters=50)
+        del ring
+        bnd, by = bound_ms(4 * h * keys * d,
+                           (2 * h * keys * d + 2 * b * h * d) * bf
+                           + (0 if mask is None else b * s))
+        rows[label] = (ms, plain, lib, bnd, by)
+        print(f"phase times [{card}]: decode_attention {label}, {keys} "
+              f"attended (b, key) pairs: {ms:.4f} ms ({ms / bnd:.2f}x the "
+              f"bound) vs plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
+
+    lens = torch.tensor([1024, 900], device=dev)
+    src = torch.arange(1024, device=dev)[None, :] < lens[:, None]
+    row("cross (2, 8, 1024, 96), source mask lens (1024, 900)",
+        _heads(rb(2, 1, 768)), _heads(rb(2, 1024, 768)),
+        _heads(rb(2, 1024, 768)), src, 1024, 64)
+    row("cross (64, 8, 1024, 96), every key attended",
+        _heads(rb(64, 1, 768)), _heads(rb(64, 1024, 768)),
+        _heads(rb(64, 1024, 768)),
+        torch.ones(64, 1024, dtype=torch.bool, device=dev), 1024, 20)
+    row("self (2, 8, 512 of a 1024-key cache, 96), no mask",
+        _heads(rb(2, 1, 768)), rb(2, 8, 1024, 96), rb(2, 8, 1024, 96), None,
+        512, 64)
+    return rows
+
+
 def phase_times(an, codes, template, trainer, batch, card, variants):
     """Kernels vs their plain versions and the library call, by CUDA
     events; the detection, generation and train-step times. ``variants``
@@ -828,8 +929,6 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
     must be read."""
     import torch
     import torch.nn.functional as F
-    from sct_gan_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
     from sct_gan_tpu_torch.ops.dropout import dropout, dropout_reference
     from sct_gan_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_backward, flash_attention_reference)
@@ -866,21 +965,6 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
             *bound_ms(flops["flash_attention_fwd"],
                       2 * qkv_bytes + 2 * kv_bytes + b * s))
         del qkv
-        src2 = mask[:2]
-        qd, kd, vd = (_heads(rb(2, n, 768)) for n in (1, s, s))
-        dec = ring_inputs((qd, kd, vd))
-        dkeys = int(src2.sum())
-        t["decode_attention"] = (
-            ring_ms(lambda a: decode_attention(*a, src2, sm_scale=sc), dec,
-                    64),
-            cuda_ms(lambda: decode_attention_reference(
-                qd, kd, vd, src2, sm_scale=sc), iters=200),
-            ring_ms(lambda a: F.scaled_dot_product_attention(
-                *a, attn_mask=src2[:, None, None, :], scale=sc), dec, 64),
-            # q read and o written; the attended keys' K and V rows; the mask
-            *bound_ms(4 * h * dkeys * d,
-                      (2 * h * dkeys * d + 2 * 2 * h * d) * bf + 2 * s))
-        del dec
         x = rb(8, 1024, 2048)
         n = x.numel()
         xs = ring_inputs(x)
@@ -919,6 +1003,7 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
         print(f"phase times [{card}]: {name} {ms:.4f} ms{rate} vs plain "
               f"{plain:.4f} ms, library {libms:.4f} ms, bound {bnd:.4f} ms "
               f"({by})", flush=True)
+    t["decode_attention"] = next(iter(decode_times(card).values()))
 
     # the backward at Sk = 2048, where the TPU runs its K3/K4 pair
     b2, s2 = 4, 2048

@@ -1,35 +1,99 @@
-// Single-query (decode-step) attention for Hopper (sm_90a), bf16 in and out.
+// Single-query (decode-step) attention for Hopper (sm_90a), bf16 in and out:
+// split-K over the cache (flash-decoding), the splits combined inside the
+// same launch through a thread block cluster.
 //
-// Replaces the TPU kernel sct_gan_tpu/ops/decode_attention.py::_kernel (via
-// decode_attention): for one new token per (b, h),
+// Replaces the TPU kernel sct_gan_tpu/ops/decode_attention.py::_kernel (its
+// pallas_call at line 83, via decode_attention): for one new token per
+// (b, h),
 //
 //   o = softmax(q . K^T * scale, masked) V        q: (D,), K, V: (S, D)
 //
-// What bounds it on an H100: it reads 2*S*D*2 bytes of K/V cache for
-// 4*S*D flops, so it is bound by the bytes of cache read; at the decode
-// batch the grid is also too small to fill 132 SMs.
+// Bound on an H100: bytes. Each attended key's K and V rows are read once
+// (2 x 192 bytes), plus q, o and the mask, for 4 flops a key and head dim:
+// about 1 flop a byte, far under the card's ratio, so the CUDA cores' f32
+// rate is ample and tensor cores would buy nothing: both products run on
+// the CUDA cores. At 3.35 TB/s the (2, 8, 1024, 96) cross-attention step
+// with 1924 attended keys needs 1.8 us, the (64, 8, 1024, 96) decode batch
+// 60 us.
 //
-// The simple design: one block of 8 warps per (b, h). K and V are read
-// through their strides, so the caller passes a view of the cache cut to
-// the live length (pos + 1) and the kernel reads no further, and never
-// copies the cache. Pass 1: each warp strides over keys; its lanes read
-// one key row as coalesced bf16 pairs and a shuffle reduction gives the
-// score, kept in shared memory (masked keys are skipped and read nothing).
-// Pass 2: block max and sum of the exponentials (a two-pass softmax).
-// Pass 3: each warp strides over keys again, accumulating p * v in f32
-// registers (D / 2 bf16 pairs over 32 lanes); the 8 partial sums meet in
-// shared memory. Split-K over S for small batches is later work.
+// What held the one-block-per-(b, h) design back was a latency chain, not
+// bytes: 16 blocks at B = 2 on 132 SMs, each warp with one 192-byte row of
+// K in flight, then V walked again. This design:
+//
+// * Grid (splits, H, B). The wrapper picks the split count
+//   (ops/decode_attention.py::decode_splits) so that B * H * splits fills a
+//   wave of 132 SMs where S allows, at most 8; split r takes the key tiles
+//   [r * T / splits, (r + 1) * T / splits) of the T tiles of 64 keys, none
+//   empty.
+// * Loads: a split streams its K and V tiles through a 3-stage ring in
+//   shared memory with cp.async.cg, 16 bytes a thread (a 192-byte row is 12
+//   such units, so rows need only 16-byte alignment: the contiguous self
+//   cache and the head views of the cross K/V, rows 1536 bytes apart, load
+//   as they are). Two tiles are in flight while a third is computed; rows
+//   past S are zero-filled. A tile whose mask bytes are all zero is never
+//   loaded: each warp reads the split's mask bytes 32 tiles at a time
+//   (coalesced, one vote a half tile) and walks the live tiles only. All
+//   warps read the same bytes, so they agree without a barrier. A split with
+//   no attended key reads no K or V and leaves m = -inf, l = 0.
+// * Scores: thread t of 192 takes key t % 64 of the tile and the third
+//   t / 64 of the head dim (4 units; that third of q, pre-scaled, in f32
+//   registers); the three partial dots meet in shared memory. Bank
+//   conflicts: a 192-byte row starts 64 bytes past a multiple of 128, so
+//   rows j and j + 2 start in the same bank group. Each thread walks its 4
+//   units starting at unit (j / 2) % 4, so the 8 threads of a quarter warp
+//   (keys j0..j0+7) read 8 distinct 16-byte bank groups at every step; q
+//   sits in registers rotated the same way, so its index stays static.
+// * Online softmax across the split's tiles (warp 0 keeps the running m
+//   and l in f32, base-2 exponents), then p V on the CUDA cores: thread t
+//   owns the 16-byte unit t % 12 of the head dim for keys t / 12 + 16 i of
+//   the tile, 8 f32 accumulators, and consecutive threads read consecutive
+//   16-byte units of V (no conflict). The 16 key slots meet in shared
+//   memory at the end, in a fixed order.
+// * The combine, inside the launch: the splits of a (b, h) form one thread
+//   block cluster (cudaLaunchKernelEx with a cluster dimension of `splits`,
+//   at most 8, the portable size). Each block leaves its (m, l, o[96]) in
+//   its shared memory; after a cluster barrier block 0 reads the others'
+//   through distributed shared memory, combines them in split order and
+//   writes o; a second barrier keeps the others' shared memory alive until
+//   it has read. No global workspace, no atomics, no second kernel, and
+//   the result does not depend on which block finishes first: two runs
+//   give the same bits. With one split (large B) the block normalises and
+//   writes o itself.
+//
+// Budget: 72 KB of dynamic shared memory (3 stages x (K + V) x 64 keys x
+// 192 bytes; the key slots' sums reuse it at the end) and 1920 bytes
+// static; 192 threads; __launch_bounds__(192, 3) caps registers at 112 so
+// that 3 blocks fit an SM (ptxas: 96, no spill; the build phase of
+// chip_smoke.py fails on a spill).
 //
 // Semantics (the JAX kernel's): masked keys get -inf; a fully-masked row
-// gives zeros.
+// gives zeros; any S >= 1.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_tile.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int D = 96;                        // the model's head dim
+constexpr int UNITS = D / 8;                 // 16-byte units of a row: 12
+constexpr int TILE = 64;                     // keys a tile
+constexpr int STAGES = 3;
+constexpr int NTHREADS = 192;
+constexpr int PARTS = NTHREADS / TILE;       // scores: thirds of the head dim
+constexpr int PART_UNITS = UNITS / PARTS;    // 4 units a third
+constexpr int SLOTS = NTHREADS / UNITS;      // p V: 16 key slots
+constexpr int MAX_SPLITS = 8;                // a portable cluster
+constexpr int TILE_ELEMS = TILE * D;
+constexpr int SMEM_BYTES = STAGES * 2 * TILE_ELEMS * 2;
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(PARTS * PART_UNITS == UNITS && PART_UNITS == 4, "rotation by 4");
+static_assert(SLOTS * UNITS == NTHREADS && TILE % SLOTS == 0, "p V slots");
+static_assert(SLOTS * D * 4 <= SMEM_BYTES, "the slots' sums reuse the ring");
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -43,141 +107,293 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Block-wide reduction of one value per thread; every thread gets the result.
-template <bool IS_MAX>
-__device__ float block_reduce(float x, float* red) {
-  x = IS_MAX ? warp_max(x) : warp_sum(x);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();                 // red may still be read by a prior call
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
+// The live tiles of one split, in order: a tile is live when one of its
+// keys is attended. Every thread keeps its own copy; called by all threads
+// alike, every warp gets the same answers from the same mask bytes.
+struct LiveTiles {
+  const uint8_t* mask;   // the batch row's mask, or null: every tile live
+  int end, S;            // the split's end tile; the keys
+  int w0;                // first tile of the window whose bits are held
+  uint32_t bits;         // bit i: tile w0 + i is live
+
+  // The bits of the 32 tiles from w: the warp reads their mask bytes
+  // coalesced, 32 a load, eight loads in flight, one vote a half tile.
+  __device__ void load_window(int w) {
+    const int lane = threadIdx.x & 31;
+    const int j_end = min(S, end * TILE);
+    const int halves = 2 * min(32, end - w);
+    w0 = w;
+    bits = 0;
+    for (int k0 = 0; k0 < halves; k0 += 8) {
+      bool on[8];
 #pragma unroll
-  for (int w = 1; w < NWARPS; ++w) r = IS_MAX ? fmaxf(r, red[w]) : r + red[w];
-  return r;
+      for (int e = 0; e < 8; ++e) {
+        const int j = w * TILE + (k0 + e) * 32 + lane;
+        on[e] = j < j_end && mask[j] != 0;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (__any_sync(0xffffffffu, on[e])) bits |= 1u << ((k0 + e) >> 1);
+    }
+  }
+
+  // The first live tile at or after t, or `end`. t never decreases.
+  __device__ int next(int t) {
+    if (mask == nullptr) return min(t, end);
+    while (t < end) {
+      if (t >= w0 + 32) load_window(t);
+      const uint32_t rest = bits >> (t - w0);
+      if (rest) return t + __ffs(rest) - 1;
+      t = w0 + 32;
+    }
+    return end;
+  }
+};
+
+// Start copying the K and V rows of `tile` into ring stage `st` (K then V):
+// 16 bytes a copy, 8 copies a thread; rows past S are zero-filled.
+__device__ __forceinline__ void load_tile(__nv_bfloat16* st, const __nv_bfloat16* kb,
+                                          const __nv_bfloat16* vb, int k_ss, int v_ss,
+                                          int tile, int S) {
+#pragma unroll
+  for (int i = 0; i < TILE * UNITS / NTHREADS; ++i) {
+    const int c = threadIdx.x + i * NTHREADS;
+    const int row = c / UNITS, unit = c % UNITS;
+    const int key = tile * TILE + row;
+    const bool valid = key < S;
+    const size_t r = valid ? key : 0;
+    hopper::cp_async_16(st + row * D + unit * 8, kb + r * k_ss + unit * 8, valid);
+    hopper::cp_async_16(st + TILE_ELEMS + row * D + unit * 8, vb + r * v_ss + unit * 8,
+                        valid);
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-              __nv_bfloat16* __restrict__ o, int H, int S,
-              int q_sb, int q_sh, int k_sb, int k_sh, int k_ss,
-              int v_sb, int v_sh, int v_ss, int o_sb, int o_sh, int mask_sb,
-              float scale) {
-  constexpr int P = D / 2;                     // bf16 pairs per row
-  constexpr int PL = (P + 31) / 32;            // pairs per lane
-  extern __shared__ float scores[];            // (S,)
+__global__ void __launch_bounds__(NTHREADS, 3)
+decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+                     __nv_bfloat16* __restrict__ o, int S, int q_sb, int q_sh,
+                     int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
+                     int o_sb, int o_sh, int mask_sb, float scale_log2) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][K, V][TILE][D]
   __shared__ float sq[D];
-  __shared__ float red[NWARPS];
-  __shared__ float part[NWARPS][D];
+  __shared__ float part[PARTS][TILE];
+  __shared__ float ps[TILE];
+  __shared__ float alpha_s;
+  __shared__ float split_o[D];     // this split's unnormalised o, m and l,
+  __shared__ float split_ml[2];    // read by block 0 of the cluster
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const __nv_bfloat16* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
   const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
   const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
 
-  for (int d = threadIdx.x; d < D; d += NTHREADS) sq[d] = __bfloat162float(qb[d]);
-  __syncthreads();
+  const int tiles = (S + TILE - 1) / TILE;
+  const int t_begin = static_cast<int>((long long)split * tiles / nsplit);
+  const int t_end = static_cast<int>((long long)(split + 1) * tiles / nsplit);
 
-  for (int j = warp; j < S; j += NWARPS) {     // pass 1: scores
-    float dot = -INFINITY;
-    if (mb == nullptr || mb[j]) {              // warp-uniform
-      const __nv_bfloat162* kr =
-          reinterpret_cast<const __nv_bfloat162*>(kb + (size_t)j * k_ss);
-      float acc = 0.f;
+  // the split's first two live tiles start loading before anything else
+  LiveTiles live{mb, t_end, S, t_begin - 32, 0u};
+  int cur = live.next(t_begin);
+  if (cur < t_end) load_tile(ring, kb, vb, k_ss, v_ss, cur, S);
+  hopper::cp_async_commit();
+  int nxt = live.next(cur + 1);
+  if (nxt < t_end) load_tile(ring + 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, nxt, S);
+  hopper::cp_async_commit();
+  int ahead = live.next(nxt + 1);
+
+  if (tid < D / 2) {
+    const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(qb)[tid]);
+    sq[2 * tid] = f.x * scale_log2;
+    sq[2 * tid + 1] = f.y * scale_log2;
+  }
+  __syncthreads();
+  // scores: key kj of the tile, third pi of the head dim, units rotated
+  const int kj = tid % TILE, pi = tid / TILE, rot = (kj >> 1) % PART_UNITS;
+  float qr[PART_UNITS * 8];
 #pragma unroll
-      for (int i = 0; i < PL; ++i) {
-        const int c = lane + 32 * i;
-        if (c < P) {
-          const float2 kv = __bfloat1622float2(kr[c]);
-          acc += sq[2 * c] * kv.x + sq[2 * c + 1] * kv.y;
-        }
+  for (int c = 0; c < PART_UNITS; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      qr[c * 8 + e] = sq[(pi * PART_UNITS + (c + rot) % PART_UNITS) * 8 + e];
+  // p V: unit pu of the head dim, key slot ks
+  const int pu = tid % UNITS, ks = tid / UNITS;
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;     // warp 0's
+
+  for (int i = 0; cur < t_end; ++i) {
+    hopper::cp_async_wait<STAGES - 2>();
+    __syncthreads();              // tile i has landed; stage (i + 2) % 3 is free
+    if (ahead < t_end)
+      load_tile(ring + ((i + 2) % STAGES) * 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, ahead, S);
+    hopper::cp_async_commit();
+    const __nv_bfloat16* kt = ring + (i % STAGES) * 2 * TILE_ELEMS;
+    const __nv_bfloat16* vt = kt + TILE_ELEMS;
+
+    bool on0 = true, on1 = true;  // warp 0: are keys lane and lane + 32 attended
+    if (warp == 0) {
+      const int j0 = cur * TILE + lane, j1 = j0 + 32;
+      on0 = j0 < S && (mb == nullptr || mb[j0] != 0);
+      on1 = j1 < S && (mb == nullptr || mb[j1] != 0);
+    }
+
+    float s = 0.f;
+    const __nv_bfloat16* krow = kt + kj * D + pi * PART_UNITS * 8;
+#pragma unroll
+    for (int c = 0; c < PART_UNITS; ++c) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(krow + ((c + rot) % PART_UNITS) * 8);
+      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p2[e]);
+        s = fmaf(qr[c * 8 + 2 * e], f.x, s);
+        s = fmaf(qr[c * 8 + 2 * e + 1], f.y, s);
       }
-      dot = warp_sum(acc) * scale;
     }
-    if (lane == 0) scores[j] = dot;
-  }
-  __syncthreads();
+    part[pi][kj] = s;
+    __syncthreads();
 
-  float mx = -INFINITY;                        // pass 2: softmax statistics
-  for (int j = threadIdx.x; j < S; j += NTHREADS) mx = fmaxf(mx, scores[j]);
-  mx = block_reduce<true>(mx, red);
-  const float base = mx == -INFINITY ? 0.f : mx;   // fully masked: p = 0
-  float sum = 0.f;
-  for (int j = threadIdx.x; j < S; j += NTHREADS) {
-    const float p = expf(scores[j] - base);
-    scores[j] = p;
-    sum += p;
-  }
-  sum = block_reduce<false>(sum, red);         // its barriers publish scores
-  const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    if (warp == 0) {              // the online softmax over this tile
+      float s0 = part[0][lane] + part[1][lane] + part[2][lane];
+      float s1 = part[0][lane + 32] + part[1][lane + 32] + part[2][lane + 32];
+      s0 = on0 ? s0 : -INFINITY;
+      s1 = on1 ? s1 : -INFINITY;
+      // finite: a live tile has an attended key
+      const float m_new = fmaxf(m_run, warp_max(fmaxf(s0, s1)));
+      const float a = exp2f(m_run - m_new);        // 0 on the first tile
+      const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
+      l_run = l_run * a + warp_sum(p0 + p1);
+      m_run = m_new;
+      ps[lane] = p0;
+      ps[lane + 32] = p1;
+      if (lane == 0) alpha_s = a;
+    }
+    __syncthreads();
 
-  float acc[PL][2];                            // pass 3: p . V
+    const float a = alpha_s;
 #pragma unroll
-  for (int i = 0; i < PL; ++i) acc[i][0] = acc[i][1] = 0.f;
-  for (int j = warp; j < S; j += NWARPS) {
-    const float p = scores[j];
-    if (p == 0.f) continue;                    // warp-uniform: masked key
-    const __nv_bfloat162* vr =
-        reinterpret_cast<const __nv_bfloat162*>(vb + (size_t)j * v_ss);
+    for (int e = 0; e < 8; ++e) acc[e] *= a;
 #pragma unroll
-    for (int i = 0; i < PL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < P) {
-        const float2 vv = __bfloat1622float2(vr[c]);
-        acc[i][0] += p * vv.x;
-        acc[i][1] += p * vv.y;
+    for (int r = 0; r < TILE / SLOTS; ++r) {
+      const int j = ks + r * SLOTS;
+      const float p = ps[j];
+      const uint4 raw = *reinterpret_cast<const uint4*>(vt + j * D + pu * 8);
+      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(p2[e]);
+        acc[2 * e] = fmaf(p, f.x, acc[2 * e]);
+        acc[2 * e + 1] = fmaf(p, f.y, acc[2 * e + 1]);
       }
     }
+    cur = nxt;
+    nxt = ahead;
+    ahead = live.next(ahead + 1);
   }
-#pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < P) {
-      part[warp][2 * c] = acc[i][0];
-      part[warp][2 * c + 1] = acc[i][1];
-    }
+
+  hopper::cp_async_wait<0>();
+  __syncthreads();                // the ring is free: the key slots meet there
+  float* slots = reinterpret_cast<float*>(smem);   // [SLOTS][D]
+  float4* dst = reinterpret_cast<float4*>(slots + ks * D + pu * 8);
+  dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  if (tid == 0) {
+    split_ml[0] = m_run;
+    split_ml[1] = l_run;
   }
   __syncthreads();
+  float od = 0.f;
+  if (tid < D) {
+#pragma unroll
+    for (int r = 0; r < SLOTS; ++r) od += slots[r * D + tid];
+  }
   __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh;
-  for (int d = threadIdx.x; d < D; d += NTHREADS) {
-    float r = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) r += part[w][d];
-    ob[d] = __float2bfloat16(r * inv);
+  if (nsplit == 1) {
+    if (tid < D) {
+      const float l = split_ml[1];
+      ob[tid] = __float2bfloat16(l > 0.f ? od / l : 0.f);
+    }
+    return;
   }
-}
-
-template <int D>
-void launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-            int B, int H, int S, int q_sb, int q_sh, int k_sb, int k_sh, int k_ss,
-            int v_sb, int v_sh, int v_ss, int o_sb, int o_sh, int mask_sb,
-            float scale, cudaStream_t stream) {
-  decode_kernel<D><<<B * H, NTHREADS, S * sizeof(float), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), H, S, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb,
-      v_sh, v_ss, o_sb, o_sh, mask_sb, scale);
+  if (tid < D) split_o[tid] = od;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                 // every split's (m, l, o) is in place
+  if (cluster.block_rank() == 0 && tid < D) {
+    float mr[MAX_SPLITS], lr[MAX_SPLITS], orr[MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {
+      mr[r] = -INFINITY;
+      lr[r] = orr[r] = 0.f;
+      if (r < nsplit) {
+        const float* ml = cluster.map_shared_rank(split_ml, r);
+        mr[r] = ml[0];
+        lr[r] = ml[1];
+        orr[r] = cluster.map_shared_rank(split_o, r)[tid];
+      }
+    }
+    float m_max = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) m_max = fmaxf(m_max, mr[r]);
+    float l = 0.f, acc_o = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {      // in split order
+      const float w = mr[r] == -INFINITY ? 0.f : exp2f(mr[r] - m_max);
+      l = fmaf(lr[r], w, l);
+      acc_o = fmaf(orr[r], w, acc_o);
+    }
+    ob[tid] = __float2bfloat16(l > 0.f ? acc_o / l : 0.f);
+  }
+  cluster.sync();                 // block 0 has read the others' shared memory
 }
 
 }  // namespace
 
 // q, o: bf16 (B, H, 1, D); k, v: bf16 (B, H, S, D); each with element
 // strides (sb, sh, ss) and the last dimension contiguous (the q/o sequence
-// strides are unused). mask: (B, S) uint8 (nonzero = attend) with row stride
-// mask_sb, or null for "all S keys visible". Returns cudaGetLastError().
+// strides are unused); q and o on 4-byte lines, k and v rows on 16-byte
+// lines. mask: (B, S) uint8 (nonzero = attend) with row stride mask_sb, or
+// null for "all S keys visible". splits: blocks (one cluster) per (b, h),
+// 1..8 and at most the 64-key tiles of S. Returns a cudaError_t.
 extern "C" int decode_attention_bf16(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    int B, int H, int S, int D, int q_sb, int q_sh, int q_ss, int k_sb,
+    int B, int H, int S, int Dh, int q_sb, int q_sh, int q_ss, int k_sb,
     int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb, int o_sh,
-    int o_ss, int mask_sb, float scale, void* stream) {
+    int o_ss, int mask_sb, int splits, float scale, void* stream) {
   (void)q_ss;
   (void)o_ss;
-  if (D != 96) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
-  launch<96>(q, k, v, mask, o, B, H, S, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh,
-             v_ss, o_sb, o_sh, mask_sb, scale, static_cast<cudaStream_t>(stream));
+  if (Dh != D || S < 1 || B < 1 || B > 65535 || H < 1 || H > 65535 || splits < 1 ||
+      splits > MAX_SPLITS || splits > (S + TILE - 1) / TILE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;           // above 48 KB needs an opt-in
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_splitk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, H, B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_splitk_kernel, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o), S, q_sb, q_sh,
+      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, scale * LOG2E);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

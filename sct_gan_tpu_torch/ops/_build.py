@@ -53,7 +53,7 @@ _SIGNATURES = {
                               _I, _I, _I, _I,                    # B H S D
                               _I, _I, _I, _I, _I, _I,            # q, k strides
                               _I, _I, _I, _I, _I, _I,            # v, o strides
-                              _I, _F, _P],           # mask_sb scale stream
+                              _I, _I, _F, _P],  # mask_sb splits scale stream
     # the timing variants of the tools (sct_gan_tpu_torch/tools/)
     "flash_parts_bf16": [_P, _P, _P, _P,                     # q k v o
                          _I, _I, _I, _I, _F, _P],  # BH S D mode scale stream

@@ -1,11 +1,12 @@
-"""Time the decode attention's blocking on the card: per (b, h), per b, or
-over an (H*S) slab (K9).
+"""Time the decode attention's blocking on the card: split over the keys of
+each (b, h), per b, or over an (H*S) slab (K9).
 
 Port of ``tools/time_decode_kernel_variants.py`` (its TPU kernels, the
 ``pallas_call``s at ``:77``, v2, and ``:113``, v3):
 
-  v1  the shipped kernel K5 (``csrc/decode_attention.cu``): one block per
-      (b, h)
+  v1  the shipped kernel K5 (``csrc/decode_attention.cu``): split-K over
+      the keys, up to 8 blocks per (b, h) (one block at this tool's B=32),
+      combined inside the launch through a thread block cluster
   v2  one block per batch row looping over the heads, all warps on one head
   v3  one block per batch row reading K and V as a (B, H*S, dh) slab, one
       warp per head slice
@@ -30,8 +31,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops import _build
-from ..ops.decode_attention import (MAX_KEYS, decode_attention,
-                                    decode_attention_reference)
+from ..ops.decode_attention import decode_attention, decode_attention_reference
 from ..ops.flash_attention import KERNEL_HEAD_DIM, _mask_arg, _strides
 from ..utils.profiling import (bound_ms, card_line, chain_ms, cuda_ms,
                                require_card)
@@ -39,6 +39,7 @@ from ._common import device_kind, mode_index, summary_line, timing_row
 
 MODES = ("v1", "v2", "v3")
 PARITY_TOL = 2e-2               # the tool's gate: v2, v3 against v1, max abs
+MAX_KEYS = 8192                 # v2: one head's scores in shared memory
 MAX_SLAB_KEYS = 4096            # v3: 8 warps' score rows in shared memory
 
 

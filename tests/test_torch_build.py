@@ -12,6 +12,7 @@ from sct_gan_tpu_torch.ops import _build
 FWD = "_ZN12_GLOBAL__N_116flash_fwd_kernelE14CUtensorMap_st"
 DKV = "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelENS_7BwdArgsE"
 DECODE = "_ZN12_GLOBAL__N_122decode_perbatch_kernelEPK13__nv_bfloat16"
+SPLITK = "_ZN12_GLOBAL__N_120decode_splitk_kernelEPK13__nv_bfloat16"
 
 
 def _entry(name, stack, stores, loads, regs):
@@ -69,9 +70,13 @@ def test_report_path_sits_beside_the_library():
     (_entry(DKV, 48, 0, 0, 168), []),
     (_entry(FWD, 0, 0, 0, 148) + _entry(DKV, 48, 42, 72, 168), [DKV]),
     (_entry(FWD, 8, 6, 4, 200), [FWD]),
-    # another kernel's spill is not the flash kernels' budget
+    # another kernel's spill is not the flash kernels' budget; K9's
+    # per-batch decode kernel stays out of it
     (_entry(DECODE, 8, 4, 4, 32) + _entry(FWD, 0, 0, 0, 148), []),
+    # the split-K decode attention (K5) is held to no spill as well
+    (_entry(SPLITK, 16, 12, 12, 112) + _entry(DECODE, 0, 0, 0, 40), [SPLITK]),
+    (_entry(SPLITK, 0, 0, 0, 96), []),
 ])
 def test_flash_spills_flags_only_the_flash_kernels_spills(log, flagged):
-    got = chip_smoke.flash_spills(log)
+    got = chip_smoke.kernel_spills(log)
     assert [g.split(":")[0] for g in got] == flagged
