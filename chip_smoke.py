@@ -4,31 +4,43 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``sct_gan_tpu_torch/csrc`` (and
-fails if ``ptxas`` reports a spill in the flash forward or backward or the
-decode attention), and holds each kernel against its plain PyTorch version
-on the card at the main paths' shapes: the flash-attention forward (with
-dropout and LSE) and backward, the single-query decode attention (split-K,
-at the edges of its tiles and splits) and the hash dropout; the backward's
-and the decode attention's two runs must give the same bits. It holds
-every mode of the kernel-timing tools' kernels (K7-K10,
-``sct_gan_tpu_torch/tools``) against its plain version at the tools'
-shapes, then runs the four tools' ``time_modes`` (their main path),
-counting launches. Then it drives both paths of the port at full width (d=768, 8 heads of 96, 6+6
-layers, L=1024, vocab 50265 padded to 50304, bf16 compute, random weights
-from seed 0), counting kernel launches to show each path ran through its
-kernels:
+fails if ``ptxas`` reports a spill in any instance of the flash forward or
+backward or the decode attention), and holds each kernel against its plain
+PyTorch version on the card at the main paths' shapes: the flash-attention
+forward (with dropout and LSE) and backward, the single-query decode
+attention (split-K, at the edges of its tiles and splits) and the hash
+dropout; the backward's and the decode attention's two runs must give the
+same bits. The flash forward, the backward pair and the decode attention
+are held so at each head-dim instance (64, 96, 128) and on the padded
+route (head dim 80). It holds every mode of the kernel-timing tools'
+kernels (K7-K10, ``sct_gan_tpu_torch/tools``) against its plain version at
+the tools' shapes, then runs the four tools' ``time_modes`` (their main
+path), counting launches. Then it drives the paths of the port at full
+width (d=768, L=1024, vocab 50265 padded to 50304, bf16 compute, random
+weights from seed 0), counting kernel launches around each path to show it
+ran through its kernels:
 
-  * serving: batched detection of 8 contracts and sampled generation of 2,
-    cross-checked against the port on the CPU in f32;
-  * training: ``SmartContractTrainer.train_step`` on the JAX bench's batch
-    (B=8, L=1024, dropout 0.3, fused LM-head CE, fused optimizer), then
-    ``train_epoch`` over a 16-contract corpus; the loss and gradient norms
-    are cross-checked against the CPU in f32 at B=2.
+  * serving (8 heads of 96, 6+6 layers): batched detection of 8 contracts
+    and sampled generation of 2, cross-checked against the port on the CPU
+    in f32;
+  * training (the same): ``SmartContractTrainer.train_step`` on the JAX
+    bench's batch (B=8, L=1024, dropout 0.3, fused LM-head CE, fused
+    optimizer), then ``train_epoch`` over a 16-contract corpus; the loss
+    and gradient norms are cross-checked against the CPU in f32 at B=2;
+  * the training loop (``loop``, the same model, augmentation on):
+    ``train(2)`` over 16 training and 8 validation contracts with best and
+    latest checkpoints, a fresh trainer's ``restore`` of the latest held
+    bit for bit, and ``SmartContractAnalyzer(model_path=best)`` held to
+    detection on the trained weights;
+  * the other head dims (``heads``): ModelConfig(nhead=12) (head dim 64)
+    and ModelConfig(nhead=6) (head dim 128), depth cut to 2+2 layers: one
+    detection forward, one train step and 16 generation steps each.
 
-It times the kernels, their plain versions, the PyTorch library call for
-the same function and each path with CUDA events or synchronised host
-clocks, and profiles detection, generation and one train step with
-``torch.profiler`` (tables in ``profile_out/profile_*.txt``).
+It times the kernels (every head-dim instance), their plain versions, the
+PyTorch library call for the same function and each path with CUDA events
+or synchronised host clocks, and profiles detection, generation and one
+train step with ``torch.profiler`` (tables in
+``profile_out/profile_*.txt``).
 
 Every phase prints a line; any failure raises (non-zero exit). The line
 before the last is a JSON object of the kernels; the last line is
@@ -183,8 +195,8 @@ def phase_build():
     print(f"phase build: {os.path.basename(path)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds or 'not run: built before'})", flush=True)
-    for ln in regs:
-        print(f"  ptxas: {ln}")
+    for entry, lines in main_path_reports(_build.ptxas_log):
+        print(f"  ptxas {entry}: " + "; ".join(lines))
     if not all(any(name in ln for ln in regs) for name in NO_SPILL):
         raise AssertionError(f"build: no ptxas report of {NO_SPILL} beside "
                              f"{path}")
@@ -196,6 +208,21 @@ def phase_build():
 # the kernels whose ptxas report must show no spill (their designs' budgets
 # allow none): the flash forward, the backward pair, the decode attention
 NO_SPILL = ("flash_fwd_kernel", "flash_bwd_", "decode_splitk_kernel")
+
+
+def main_path_reports(log: str) -> list:
+    """(entry, [report lines]) of each ``NO_SPILL`` kernel instance in the
+    ``ptxas -v`` log: its registers, shared memory and spills."""
+    out, entry = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            entry = name if any(k in name for k in NO_SPILL) else None
+            if entry is not None:
+                out.append((entry, []))
+        elif entry is not None and ("Used" in ln or "spill" in ln):
+            out[-1][1].append(ln.replace("ptxas info    :", "").strip())
+    return out
 
 
 def kernel_spills(log: str) -> list:
@@ -218,6 +245,20 @@ def _heads(x, h=8):
     return x.view(b, s, h, d // h).transpose(1, 2)
 
 
+def check_close(errs: dict, kernel: str, name: str, got, want, tol: float,
+                what: str = "") -> None:
+    """Hold ``got`` to ``want`` within ``tol`` (max abs) and ``REL_TOL``
+    (norm-wise); keep the worst of each in ``errs[kernel]``; print a line."""
+    err, rel = max_err(got, want), rel_err(got, want)
+    a, r = errs.get(kernel, (0.0, 0.0))
+    errs[kernel] = (max(a, err), max(r, rel))
+    print(f"  {kernel} {name}{what}: max_abs_err {err:.3e} "
+          f"(tol {tol:.3e}), rel_err {rel:.3e} (tol {REL_TOL})", flush=True)
+    if not (err <= tol and rel <= REL_TOL):
+        raise AssertionError(f"{kernel} {name}{what}: max_abs_err {err} "
+                             f"(tol {tol}), rel_err {rel} (tol {REL_TOL})")
+
+
 def phase_kernels():
     """Every kernel against its plain version at the main paths' shapes."""
     import torch
@@ -235,20 +276,10 @@ def phase_kernels():
 
     scale = 96 ** -0.5
     lens = torch.tensor([1024, 900, 700, 512, 300, 1000, 64, 801], device=dev)
-    worst = {name: 0.0 for name in KERNELS}
-    worst_rel = {name: 0.0 for name in KERNELS}
+    errs = {}
 
     def check(kernel, name, got, want, tol, what=""):
-        err, rel = max_err(got, want), rel_err(got, want)
-        worst[kernel] = max(worst[kernel], err)
-        worst_rel[kernel] = max(worst_rel[kernel], rel)
-        print(f"  {kernel} {name}{what}: max_abs_err {err:.3e} "
-              f"(tol {tol:.3e}), rel_err {rel:.3e} (tol {REL_TOL})",
-              flush=True)
-        if not (err <= tol and rel <= REL_TOL):
-            raise AssertionError(f"{kernel} {name}{what}: max_abs_err {err} "
-                                 f"(tol {tol}), rel_err {rel} "
-                                 f"(tol {REL_TOL})")
+        check_close(errs, kernel, name, got, want, tol, what)
 
     def flash_case(name, sq, sk, causal, mask, rate=0.0):
         q = _heads(rnd(8, sq, 768, scale=2.0))
@@ -403,9 +434,113 @@ def phase_kernels():
                 long_v, None)
     del long_k, long_v
     print("phase kernels: worst max_abs_err / rel_err " + ", ".join(
-        f"{k} {v:.3e} / {worst_rel[k]:.3e}" for k, v in worst.items()),
-        flush=True)
-    return worst, worst_rel
+        f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items()), flush=True)
+    return errs
+
+
+# The head dims of the kernels' other instances, each with the heads that
+# make it at d=768 (ModelConfig(nhead=12) and ModelConfig(nhead=6)), and a
+# head dim without an instance (the padded route to 128), held at 8 heads.
+HEAD_DIMS = {64: 12, 128: 6}
+PADDED_DIM = 80
+
+
+def instance(kernel: str, d: int) -> str:
+    """The kernels line's name of ``kernel``'s head-dim-``d`` instance (96
+    keeps the bare name)."""
+    return kernel if d == 96 else f"{kernel}_dh{d}"
+
+
+def phase_head_kernels():
+    """K1, the K2-K4 pair and K5 at head dims 64 and 128 (their instances)
+    and 80 (the padded route, which runs the 128 instances) against their
+    plain versions at full width: (8, H, 1024, d) for the flash kernels,
+    (2, H, 1024, d) and (64, H, 1024, d) for K5. Returns the worst errors
+    by instance name; the padded route's under ``<name>_dh128:padded80``."""
+    import torch
+    from sct_gan_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    errs = {}
+    lens = torch.tensor([1024, 900, 700, 512, 300, 1000, 64, 801], device=dev)
+    pad_mask = torch.arange(1024, device=dev)[None, :] < lens[:, None]
+    ragged = torch.arange(1000, device=dev)[None, :] < lens[:, None]
+
+    for d, h in [*HEAD_DIMS.items(), (PADDED_DIM, 8)]:
+        tag = f"_dh128:padded{d}" if d == PADDED_DIM else f"_dh{d}"
+        scale = d ** -0.5
+
+        def rnd(b, s, sd=1.0):
+            x = torch.randn(b, s, h * d, generator=g, device=dev) * sd
+            return _heads(x.to(torch.bfloat16), h)
+
+        def fwd(name, sq, sk, causal, mask, rate=0.0):
+            q, k, v = rnd(8, sq, 2.0), rnd(8, sk), rnd(8, sk)
+            args = dict(key_padding_mask=mask, causal=causal, sm_scale=scale,
+                        dropout_rate=rate, seed=1234, return_lse=True)
+            got, lse = flash_attention(q, k, v, **args)
+            want, want_lse = flash_attention_reference(q, k, v, **args)
+            torch.cuda.synchronize()
+            check_close(errs, "flash_attention_fwd" + tag, name, got, want,
+                        kernel_tol(want), f" q{tuple(q.shape)}")
+            err = max_err(lse, want_lse)
+            if not err <= LSE_TOL:
+                raise AssertionError(f"K1 d={d} {name} lse: {err}")
+
+        def bwd(name, sq, sk, causal, mask, rate=0.0):
+            q, k, v = (rnd(8, s_, sd).requires_grad_()
+                       for s_, sd in ((sq, 2.0), (sk, 1.0), (sk, 1.0)))
+            dout = rnd(8, sq)
+            args = dict(key_padding_mask=mask, causal=causal, sm_scale=scale,
+                        dropout_rate=rate, seed=99)
+            got = torch.autograd.grad(flash_attention(q, k, v, **args),
+                                      (q, k, v), dout)
+            want = torch.autograd.grad(
+                flash_attention_reference(q, k, v, **args), (q, k, v), dout)
+            torch.cuda.synchronize()
+            for nm, gt, wt in zip(("dq", "dk", "dv"), got, want):
+                check_close(errs, "flash_attention_bwd" + tag, name, gt, wt,
+                            kernel_tol(wt, 4), f" {nm} q{tuple(q.shape)}")
+
+        fwd("key mask, padded tails", 1024, 1024, False, pad_mask)
+        fwd("causal", 1024, 1024, True, None)
+        fwd("dropout 0.3, ragged causal", 1000, 1000, True, ragged, 0.3)
+        fwd("Sq=200, Sk=1000, key mask", 200, 1000, False, ragged)
+        bwd("key mask, padded tails", 1024, 1024, False, pad_mask)
+        bwd("dropout 0.3, ragged causal", 1000, 1000, True, ragged, 0.3)
+        bwd("Sq=200, Sk=1000, key mask, dropout 0.3", 200, 1000, False,
+            ragged, 0.3)
+
+        def dec(name, b, k, v, mask):
+            q = rnd(b, 1, 2.0)
+            got = decode_attention(q, k, v, mask, sm_scale=scale)
+            want = decode_attention_reference(q, k, v, mask, sm_scale=scale)
+            torch.cuda.synchronize()
+            check_close(errs, "decode_attention" + tag, name, got, want,
+                        kernel_tol(want), f" k{tuple(k.shape)}")
+            return got
+
+        src = torch.arange(1024, device=dev)[None, :] < lens[:2, None] - 150
+        mk, mv = rnd(2, 1024), rnd(2, 1024)
+        dec("cross S=1024, src mask (8 splits)", 2, mk, mv, src)
+        none = src.clone()
+        none[1] = False
+        if dec("fully-masked row", 2, mk, mv, none)[1].abs().max().item():
+            raise AssertionError(f"K5 d={d}: a fully-masked row must give 0")
+        cache = torch.randn(2, 2, h, 1024, d, generator=g, device=dev).to(
+            torch.bfloat16)
+        for pos in (0, 63, 64, 65, 1023):
+            dec(f"self step pos={pos}", 2, cache[0, :, :, :pos + 1],
+                cache[1, :, :, :pos + 1], None)
+        lens64 = torch.randint(1, 1025, (64, 1), generator=g, device=dev)
+        dec("B=64 (1 split), ragged src mask", 64, rnd(64, 1024),
+            rnd(64, 1024), torch.arange(1024, device=dev)[None, :] < lens64)
+    print("phase head kernels: worst max_abs_err / rel_err " + ", ".join(
+        f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items()), flush=True)
+    return errs
 
 
 def phase_variants(card: str) -> list:
@@ -778,6 +913,230 @@ def phase_train():
     return trainer, batch, launches
 
 
+def _loader(tok, n: int, seed: int, shuffle: bool):
+    """A batch-8 loader over ``n`` generated contracts at L=1024."""
+    from sct_gan_tpu_torch.data.dataset import (
+        ArrayDataLoader, SmartContractVulnerabilityDataset)
+    from sct_gan_tpu_torch.data.synthetic import generate_corpus
+    return ArrayDataLoader(SmartContractVulnerabilityDataset(
+        tokenizer=tok, max_length=1024,
+        records=generate_corpus(n=n, seed=seed)), 8, shuffle=shuffle)
+
+
+def phase_loop() -> dict:
+    """The full training loop at the reference geometry: the JAX bench's
+    configuration with augmentation on, ``train(2)`` over 16 training and
+    8 validation contracts (2 steps and 1 validation step an epoch), best
+    and latest checkpoints; a fresh trainer restores the latest bit for
+    bit; the analyzer serves the best by ``model_path`` and agrees with
+    detection on the trained weights. Returns the launches of the two
+    paths (the training loop, the served detection)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch import (SmartContractAnalyzer,
+                                   SmartContractTrainer,
+                                   SmartContractTransformer)
+    from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.train.checkpoint import (find_checkpoint,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
+
+    cfg = ModelConfig(use_gan=True, max_length=1024, max_lines=1024)
+    tcfg = TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1,
+                       use_augmentation=True)
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    t0 = time.perf_counter()
+    train, val = _loader(tok, 16, 0, True), _loader(tok, 8, 1, False)
+    # verbose: the trainer prints each epoch's losses and host times
+    trainer = SmartContractTrainer(SmartContractTransformer(cfg, seed=0),
+                                   train, val, tok, config=tcfg)
+    print(f"phase loop: 16 train / 8 val contracts, augmentation and GAN on; "
+          f"data and trainer in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ckdir = tempfile.mkdtemp(prefix="loop_ckpt_", dir=ROOT)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = trainer.train(2, checkpoint_dir=ckdir)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_counts()
+        # per epoch 2 train steps (23 flash calls forward and backward
+        # each) and 1 validation forward (23)
+        want_flash = (2 * 3 * FLASH_PER_TRAIN_FORWARD,
+                      2 * 2 * FLASH_PER_TRAIN_FORWARD)
+        if ((counts["flash_attention_fwd"], counts["flash_attention_bwd"])
+                != want_flash or counts["dropout"] == 0
+                or counts["decode_attention"] != 0):
+            raise AssertionError(f"loop: launches {counts}, expected flash "
+                                 f"{want_flash} and dropout > 0")
+        finite = all(math.isfinite(x) for k in ("train_loss", "val_loss")
+                     for x in hist[k])
+        names = sorted(os.listdir(ckdir))
+        best, latest = (find_checkpoint(ckdir, "best"),
+                        find_checkpoint(ckdir, "latest"))
+        if (not finite or trainer.state.step != 4 or best is None
+                or not latest.endswith("latest_model_augmented_gan")):
+            raise AssertionError(f"loop: history {hist}, step "
+                                 f"{trainer.state.step}, checkpoints {names}")
+        state = trainer.state_tree()
+        t0 = time.perf_counter()
+        save_checkpoint(ckdir, "probe", state, {})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_checkpoint(os.path.join(ckdir, "probe"))
+        load_s = time.perf_counter() - t0
+        nbytes = sum(x.numel() * x.element_size() for x in
+                     trainer.state.params.values()) * 3
+        print(f"phase loop: train(2) in {train_s:.1f} s of host time "
+              f"(epochs {hist['train_loss']} train, {hist['val_loss']} val "
+              f"gen loss), launches {counts}; checkpoints {names}; a full "
+              f"state ({nbytes / 2 ** 30:.2f} GiB) saves in {save_s:.1f} s "
+              f"and loads in {load_s:.1f} s", flush=True)
+
+        # -- a fresh trainer restores the latest checkpoint bit for bit -----
+        fresh = SmartContractTrainer(SmartContractTransformer(cfg, seed=1),
+                                     _Empty(), _Empty(), tok, config=tcfg,
+                                     verbose=False)
+        epoch = fresh.restore(latest)
+        same = {
+            "params": all(torch.equal(p, fresh.state.params[n])
+                          for n, p in trainer.state.params.items()),
+            "opt_state": all(
+                torch.equal(trainer.state.opt_state[key][n],
+                            fresh.state.opt_state[key][n])
+                for key in ("mu", "nu") for n in trainer.state.params)
+            and int(trainer.state.opt_state["count"])
+            == int(fresh.state.opt_state["count"]),
+            "step": fresh.state.step == trainer.state.step,
+            "lrs": fresh.lrs == trainer.lrs,
+            "scheduler": (fresh.scheduler.state_dict()
+                          == trainer.scheduler.state_dict()),
+            "history": fresh.training_history == trainer.training_history,
+            "epoch": epoch == 2}
+        print(f"phase loop: restore({os.path.basename(latest)}) into a "
+              f"fresh trainer: bit for bit {same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"loop: restore differs: {same}")
+        del fresh
+
+        # -- serve the best checkpoint by model_path ------------------------
+        best_epoch = int(best.rsplit("_", 1)[1])
+        if best_epoch != 2:     # the trained weights of the best epoch
+            trainer.restore(best)
+        codes = [r["source_code"] for r in val.dataset.data]
+        direct = SmartContractAnalyzer(
+            params={n: p.detach() for n, p in trainer.state.params.items()},
+            model_config=cfg, tokenizer=tok, verbose=False)
+        reset_counts()
+        served_an = SmartContractAnalyzer(best, model_config=cfg,
+                                          tokenizer=tok, verbose=False)
+        served = served_an.analyze_multiple_contracts(codes)
+        torch.cuda.synchronize()
+        serve_counts = read_counts()
+        want = direct.analyze_multiple_contracts(codes)
+        diff = max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+                   for a, b in zip(served, want)
+                   for k in ("contract_probabilities", "line_probabilities"))
+        print(f"phase loop: SmartContractAnalyzer({os.path.basename(best)}) "
+              f"on the 8 validation contracts: launches {serve_counts}; "
+              f"probabilities against detection on the trained weights of "
+              f"epoch {best_epoch}: max diff {diff:.3e} (tol {DETECT_TOL})",
+              flush=True)
+        if not diff <= DETECT_TOL or serve_counts["flash_attention_fwd"] == 0:
+            raise AssertionError("loop: the served checkpoint disagrees")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del trainer, direct, served_an
+    torch.cuda.empty_cache()
+    return {k: counts[k] + serve_counts[k] for k in counts}
+
+
+def phase_heads() -> dict:
+    """ModelConfig(nhead=12) (head dim 64) and ModelConfig(nhead=6) (head
+    dim 128) at full width (d=768, L=1024, B=8), depth cut to 2+2 layers:
+    one detection forward, one train step and 16 generation steps each,
+    the counts read around each. Returns the launches by instance name."""
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch import (SmartContractAnalyzer,
+                                   SmartContractTrainer,
+                                   SmartContractTransformer)
+    from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
+    from sct_gan_tpu_torch.data.synthetic import generate_corpus
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    codes = [r["source_code"] for r in generate_corpus(n=8, seed=0)]
+    launches = {}
+    for d, h in HEAD_DIMS.items():
+        cfg = ModelConfig(use_gan=True, max_length=1024, max_lines=1024,
+                          nhead=h, num_encoder_layers=2,
+                          num_decoder_layers=2)
+        tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+        an = SmartContractAnalyzer(model_config=cfg, tokenizer=tok, seed=0,
+                                   verbose=False)
+        reset_counts()
+        det = an.analyze_multiple_contracts(codes)
+        torch.cuda.synchronize()
+        c_det = read_counts()
+        cp = np.asarray([r["contract_probabilities"][0] for r in det])
+
+        trainer = SmartContractTrainer(
+            SmartContractTransformer(cfg, seed=0), _Empty(), _Empty(), tok,
+            config=TrainConfig(learning_rate=1e-5, use_gan=True,
+                               warmup_epochs=1), verbose=False)
+        batch = trainer.to_device(make_batch(8, 1024, cfg.vocab_size))
+        reset_counts()
+        trainer.state, metrics, _ = trainer.train_step(
+            trainer.state, batch, trainer._scalars(1.0),
+            trainer._group_lrs(), trainer.generator)
+        torch.cuda.synchronize()
+        c_train = read_counts()
+        loss = float(metrics["total_loss"])
+
+        model = an.model
+        with torch.inference_mode():
+            b = an._prepare_inputs(codes[:2])
+            memory = model.encode(b["input_ids"], b["attention_mask"],
+                                  b["ast_input_ids"], b["ast_attention_mask"])
+            src = b["attention_mask"].bool()
+            caches = model.init_decode_cache(2)
+            cross = model.precompute_cross_kv(memory)
+            tokens = b["input_ids"][:, :16]
+            reset_counts()
+            for pos in range(16):
+                logits = model.decode_step(tokens[:, pos:pos + 1], pos,
+                                           caches, cross, src)
+            torch.cuda.synchronize()
+            c_gen = read_counts()
+        # 2+2 layers: detection 2 encoder + AST/cross 2 + line heads 2 = 6
+        # flash forwards; a train step 2 + 4 decoder + 2 + 2 + 1 = 11
+        # forward and backward; 16 steps x 2 layers x (self + cross) = 64
+        # decode calls
+        ok = (c_det["flash_attention_fwd"] == 6
+              and c_train["flash_attention_fwd"] == 11
+              and c_train["flash_attention_bwd"] == 11
+              and c_train["dropout"] > 0 and c_gen["decode_attention"] == 64
+              and np.isfinite(cp).all() and math.isfinite(loss)
+              and bool(torch.isfinite(logits).all()))
+        print(f"phase heads: ModelConfig(nhead={h}), head dim {d}, 2+2 "
+              f"layers at d=768 L=1024 B=8: detection launches {c_det}, "
+              f"contract probs [{cp.min():.4f}, {cp.max():.4f}]; train step "
+              f"launches {c_train}, total_loss {loss:.4f}; 16 decode steps "
+              f"at B=2 launches {c_gen}", flush=True)
+        if not ok:
+            raise AssertionError(f"heads d={d}: launches or outputs wrong")
+        for kernel in KERNELS:
+            launches[instance(kernel, d)] = (c_det[kernel] + c_train[kernel]
+                                             + c_gen[kernel])
+        del an, trainer, model, caches, cross
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _loss_and_norms(model, batch, tables, device):
     """Deterministic compute_losses with its gradients: (total loss, the
     global grad norm, the grad norm of the q/k/v projections)."""
@@ -847,17 +1206,18 @@ def sdpa_backward_ms(q, k, v, mask, dout, scale: float) -> float:
     return both - ring_ms(fwd, [None], 10)
 
 
-def decode_times(card: str) -> dict:
-    """K5 at the generation path's shapes, each against its plain version,
-    SDPA and its bound; prints a line each. Returns label -> (ms, plain ms,
-    SDPA ms, bound ms, bound by); the first row is the kernels line's.
+def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
+    """K5's ``h`` x ``d`` instance at the generation path's shapes, each
+    against its plain version, SDPA and its bound; prints a line each.
+    Returns label -> (ms, plain ms, SDPA ms, bound ms, bound by); the first
+    row is the kernels line's.
 
-    * the cross-attention at B=2: head views of (2, 1024, 768) under the
+    * the cross-attention at B=2: head views of (2, 1024, h*d) under the
       source mask of lens (1024, 900), 1924 attended keys;
-    * the JAX bench's decode batch, (64, 8, 1024, 96), every key attended:
+    * the JAX bench's decode batch, (64, h, 1024, d), every key attended:
       the cross layout under an all-True source mask;
-    * a self-attention step: the contiguous (2, 8, 1024, 96) cache cut to
-      512 keys, no mask.
+    * at d = 96, a self-attention step: the contiguous (2, 8, 1024, 96)
+      cache cut to 512 keys, no mask.
 
     The kernel and SDPA are replayed from CUDA graphs round inputs twice
     the L2 (``ring_ms``), so K and V come from HBM; the plain version is
@@ -870,7 +1230,7 @@ def decode_times(card: str) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     rb = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
-    sc, h, d, bf = 96 ** -0.5, 8, 96, 2
+    sc, bf, width = d ** -0.5, 2, h * d
     rows = {}
 
     def row(label, q, k, v, mask, keep, n):
@@ -892,24 +1252,116 @@ def decode_times(card: str) -> dict:
                            (2 * h * keys * d + 2 * b * h * d) * bf
                            + (0 if mask is None else b * s))
         rows[label] = (ms, plain, lib, bnd, by)
-        print(f"phase times [{card}]: decode_attention {label}, {keys} "
-              f"attended (b, key) pairs: {ms:.4f} ms ({ms / bnd:.2f}x the "
-              f"bound) vs plain {plain:.4f} ms, library {lib:.4f} ms, bound "
-              f"{bnd:.4f} ms ({by})", flush=True)
+        print(f"phase times [{card}]: {instance('decode_attention', d)} "
+              f"{label}, {keys} attended (b, key) pairs: {ms:.4f} ms "
+              f"({ms / bnd:.2f}x the bound) vs plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
 
     lens = torch.tensor([1024, 900], device=dev)
     src = torch.arange(1024, device=dev)[None, :] < lens[:, None]
-    row("cross (2, 8, 1024, 96), source mask lens (1024, 900)",
-        _heads(rb(2, 1, 768)), _heads(rb(2, 1024, 768)),
-        _heads(rb(2, 1024, 768)), src, 1024, 64)
-    row("cross (64, 8, 1024, 96), every key attended",
-        _heads(rb(64, 1, 768)), _heads(rb(64, 1024, 768)),
-        _heads(rb(64, 1024, 768)),
+    row(f"cross (2, {h}, 1024, {d}), source mask lens (1024, 900)",
+        _heads(rb(2, 1, width), h), _heads(rb(2, 1024, width), h),
+        _heads(rb(2, 1024, width), h), src, 1024, 64)
+    row(f"cross (64, {h}, 1024, {d}), every key attended",
+        _heads(rb(64, 1, width), h), _heads(rb(64, 1024, width), h),
+        _heads(rb(64, 1024, width), h),
         torch.ones(64, 1024, dtype=torch.bool, device=dev), 1024, 20)
-    row("self (2, 8, 512 of a 1024-key cache, 96), no mask",
-        _heads(rb(2, 1, 768)), rb(2, 8, 1024, 96), rb(2, 8, 1024, 96), None,
-        512, 64)
+    if d == 96:
+        row("self (2, 8, 512 of a 1024-key cache, 96), no mask",
+            _heads(rb(2, 1, 768)), rb(2, 8, 1024, 96), rb(2, 8, 1024, 96),
+            None, 512, 64)
     return rows
+
+
+def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
+    """K1 and the K2-K4 pair's ``h`` x ``d`` instance at the training
+    shape (8, h, 1024, d) under the key mask of padded tails (lens 1024,
+    900, 700, 512, 300, 1000, 64, 801: 5301 of 8192 keys): kernel
+    (``ring_ms``), plain version, SDPA (its backward less its forward) and
+    the bound; prints a line each. Returns name -> (ms, plain ms, library
+    ms, bound ms, bound by).
+
+    A bound counts the work this run's inputs need: under the key mask a
+    masked key adds nothing to the output or to dQ and gets dK = dV = 0, so
+    the products count only the attended keys, and only their K and V rows
+    must be read."""
+    import torch
+    import torch.nn.functional as F
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    rb = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+    b, s = 8, 1024
+    q, k, v = (_heads(rb(b, s, h * d), h) for _ in range(3))
+    lens = torch.tensor([1024, 900, 700, 512, 300, 1000, 64, 801], device=dev)
+    mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
+    sdpa_mask = mask[:, None, None, :]
+    sc = d ** -0.5
+    t = {}
+    bf = 2   # bytes of a bf16 element
+    qkv_bytes = b * h * s * d * bf
+    keys = int(lens.sum())          # attended (b, key) pairs: 5301 of 8192
+    kv_bytes = h * keys * d * bf    # the attended keys' rows of K or of V
+    # the products' flops over the attended keys: Q K^T and P V; the
+    # backward's 5 (7 as run); and the same counting every key
+    flops = {"fwd": 4 * h * s * keys * d, "bwd": 10 * h * s * keys * d}
+    dense = {"fwd": 4 * b * h * s * s * d, "bwd": 10 * b * h * s * s * d}
+    with torch.inference_mode():
+        qkv = ring_inputs((q, k, v))
+        t["fwd"] = (
+            ring_ms(lambda a: flash_attention(*a, key_padding_mask=mask,
+                                              sm_scale=sc), qkv, 20),
+            cuda_ms(lambda: flash_attention_reference(
+                q, k, v, key_padding_mask=mask, sm_scale=sc)),
+            ring_ms(lambda a: F.scaled_dot_product_attention(
+                *a, attn_mask=sdpa_mask, scale=sc), qkv, 20),
+            # Q read, O written; the attended K and V rows; the mask
+            *bound_ms(flops["fwd"], 2 * qkv_bytes + 2 * kv_bytes + b * s))
+        del qkv
+
+    # the backward: the kernel pair (with D = rowsum(dO∘O)) vs autograd
+    # through the plain forward vs SDPA's backward, one dO, no dropout
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    dout = _heads(rb(b, s, h * d), h)
+    out, lse = flash_attention(qg, kg, vg, key_padding_mask=mask,
+                               sm_scale=sc, return_lse=True)
+    out = out.detach()
+    ref = flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
+                                    sm_scale=sc)
+    t["bwd"] = (
+        ring_ms(lambda _: flash_attention_backward(
+            q, k, v, out, lse, dout, mask, False, sc, 0.0, 0), [None], 10),
+        cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
+                                            retain_graph=True), iters=10),
+        sdpa_backward_ms(q, k, v, mask, dout, sc),
+        # Q, O, dO read and dQ written; the attended K and V rows; dK, dV
+        # written in full (zeros at masked keys); lse; the mask
+        *bound_ms(flops["bwd"],
+                  6 * qkv_bytes + 2 * kv_bytes + b * h * s * 4 + b * s))
+    del ref, qg, kg, vg
+    named = {}
+    for part, (ms, plain, libms, bnd, by) in t.items():
+        name = instance(f"flash_attention_{part}", d)
+        named[name] = t[part]
+        print(f"phase times [{card}]: {name} at ({b}, {h}, {s}, {d}) "
+              f"{ms:.4f} ms ({flops[part] / ms / 1e9:.1f} TFLOP/s of the "
+              f"attended keys' products, {dense[part] / ms / 1e9:.1f} "
+              f"counting every key) vs plain {plain:.4f} ms, library "
+              f"{libms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    return named
+
+
+def head_dim_times(card: str) -> dict:
+    """The 64 and 128 instances of K1, the pair and K5 at the issue's
+    shapes: the kernels line's (ms, plain, library, bound, bound by) by
+    instance name; K5's first row is (2, H, 1024, d)."""
+    t = {}
+    for d, h in HEAD_DIMS.items():
+        t.update(flash_times(card, h, d))
+        t[instance("decode_attention", d)] = next(iter(
+            decode_times(card, h, d).values()))
+    return t
 
 
 def phase_times(an, codes, template, trainer, batch, card, variants):
@@ -921,12 +1373,7 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
     replayed (``ring_ms``), which times the device alone: an eager loop
     times the host's dispatch wherever that is the slower, and the host's
     speed moves from run to run. The plain versions, tens of launches and
-    milliseconds each, are timed eagerly.
-
-    A bound counts the work this run's inputs need: under the key mask a
-    masked key adds nothing to the output or to dQ and gets dK = dV = 0, so
-    the products count only the attended keys, and only their K and V rows
-    must be read."""
+    milliseconds each, are timed eagerly."""
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops.dropout import dropout, dropout_reference
@@ -936,35 +1383,11 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
     g = torch.Generator(device=dev).manual_seed(1)
     rb = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
     b, h, s, d = 8, 8, 1024, 96
-    q, k, v = (_heads(rb(b, s, 768)) for _ in range(3))
     lens = torch.tensor([1024, 900, 700, 512, 300, 1000, 64, 801], device=dev)
-    mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
-    sdpa_mask = mask[:, None, None, :]
     sc = 96 ** -0.5
-    t = {}
     bf = 2   # bytes of a bf16 element
-    qkv_bytes = b * h * s * d * bf
-    keys = int(lens.sum())          # attended (b, key) pairs: 5301 of 8192
-    kv_bytes = h * keys * d * bf    # the attended keys' rows of K or of V
-    # the products' flops over the attended keys: Q K^T and P V; the
-    # backward's 5 (7 as run); and the same counting every key
-    flops = {"flash_attention_fwd": 4 * h * s * keys * d,
-             "flash_attention_bwd": 10 * h * s * keys * d}
-    dense = {"flash_attention_fwd": 4 * b * h * s * s * d,
-             "flash_attention_bwd": 10 * b * h * s * s * d}
+    t = flash_times(card)
     with torch.inference_mode():
-        qkv = ring_inputs((q, k, v))
-        t["flash_attention_fwd"] = (
-            ring_ms(lambda a: flash_attention(*a, key_padding_mask=mask,
-                                              sm_scale=sc), qkv, 20),
-            cuda_ms(lambda: flash_attention_reference(
-                q, k, v, key_padding_mask=mask, sm_scale=sc)),
-            ring_ms(lambda a: F.scaled_dot_product_attention(
-                *a, attn_mask=sdpa_mask, scale=sc), qkv, 20),
-            # Q read, O written; the attended K and V rows; the mask
-            *bound_ms(flops["flash_attention_fwd"],
-                      2 * qkv_bytes + 2 * kv_bytes + b * s))
-        del qkv
         x = rb(8, 1024, 2048)
         n = x.numel()
         xs = ring_inputs(x)
@@ -974,35 +1397,10 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
             ring_ms(lambda y: F.dropout(y, 0.3, training=True), xs, 50),
             *bound_ms(0, 2 * n * bf))
         del xs
-
-    # the backward: the kernel pair (with D = rowsum(dO∘O)) vs autograd
-    # through the plain forward vs SDPA's backward, one dO, no dropout
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    dout = _heads(rb(b, s, 768))
-    out, lse = flash_attention(qg, kg, vg, key_padding_mask=mask,
-                               sm_scale=sc, return_lse=True)
-    out = out.detach()
-    ref = flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
-                                    sm_scale=sc)
-    t["flash_attention_bwd"] = (
-        ring_ms(lambda _: flash_attention_backward(
-            q, k, v, out, lse, dout, mask, False, sc, 0.0, 0), [None], 10),
-        cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
-                                            retain_graph=True), iters=10),
-        sdpa_backward_ms(q, k, v, mask, dout, sc),
-        # Q, O, dO read and dQ written; the attended K and V rows; dK, dV
-        # written in full (zeros at masked keys); lse; the mask
-        *bound_ms(flops["flash_attention_bwd"],
-                  6 * qkv_bytes + 2 * kv_bytes + b * h * s * 4 + b * s))
-    del ref, qg, kg, vg
-
-    for name, (ms, plain, libms, bnd, by) in t.items():
-        rate = (f" ({flops[name] / ms / 1e9:.1f} TFLOP/s of the attended "
-                f"keys' products, {dense[name] / ms / 1e9:.1f} counting every"
-                f" key)" if name in flops else "")
-        print(f"phase times [{card}]: {name} {ms:.4f} ms{rate} vs plain "
-              f"{plain:.4f} ms, library {libms:.4f} ms, bound {bnd:.4f} ms "
-              f"({by})", flush=True)
+    ms, plain, libms, bnd, by = t["dropout"]
+    print(f"phase times [{card}]: dropout {ms:.4f} ms vs plain {plain:.4f} "
+          f"ms, library {libms:.4f} ms, bound {bnd:.4f} ms ({by})",
+          flush=True)
     t["decode_attention"] = next(iter(decode_times(card).values()))
 
     # the backward at Sk = 2048, where the TPU runs its K3/K4 pair
@@ -1115,15 +1513,19 @@ def main() -> int:
     phase_device()
     import torch
     phase_build()
-    worst, worst_rel = phase_kernels()
+    errs = phase_kernels()
+    errs.update(phase_head_kernels())
     card = card_line()
     variants = phase_variants(card)
     an, codes, template, serve_launches = phase_serve()
     trainer, batch, train_launches = phase_train()
     phase_train_check(trainer)
+    loop_launches = phase_loop()
+    head_launches = phase_heads()
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
                                                     trainer, batch, card,
                                                     variants)
+    t.update(head_dim_times(card))
 
     def detect5():
         with torch.inference_mode():
@@ -1144,15 +1546,29 @@ def main() -> int:
     profile_device(train1, "train", train_ms, card)
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    names = [(k, instance(k, d)) for k in KERNELS
+             for d in ((96, *HEAD_DIMS) if k != "dropout" else (96,))]
+    for kernel, name in names:
+        source, replaces = KERNELS[kernel]
         ms, plain, libms, bnd, by = t[name]
-        launches = serve_launches[name] + train_launches[name]
-        kernels.append({
+        if name == kernel:          # head dim 96: every path of the model
+            launches = (serve_launches[name] + train_launches[name]
+                        + loop_launches[name])
+        else:
+            launches = head_launches[name]
+        if launches == 0:
+            raise AssertionError(f"{name}: no launch on its main path")
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": worst[name], "max_rel_err": worst_rel[name],
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": libms})
+            "bound_ms": bnd, "bound_by": by, "library_ms": libms}
+        padded = errs.get(f"{name}:padded{PADDED_DIM}")
+        if padded is not None:      # the padded route runs this instance
+            entry[f"padded_dh{PADDED_DIM}_max_abs_err"] = padded[0]
+            entry[f"padded_dh{PADDED_DIM}_max_rel_err"] = padded[1]
+        kernels.append(entry)
     kernels += variants
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -94,7 +94,7 @@ class TrainConfig:
     latest_every: int = 1
     line_lr_max: Optional[float] = None
     # the single-pass fused optimizer (train/optimizer.py::FusedOptimizer);
-    # the port has no other optimizer path
+    # False takes the unfused chain (GradientTransform)
     fused_optimizer: bool = True
     # LM head + mean token CE as one autograd op (ops/fused_ce.py)
     fused_lm_ce: bool = True

@@ -11,6 +11,10 @@ The port's modules carry the flax names, so the mapping is by rule:
 q, k and v stay separate projections. The result is checked against the
 port's own parameter list: a key left over on either side, or a shape that
 differs, raises.
+
+``flax_params_from_torch`` and ``flax_opt_state_from_torch`` go the other
+way, so that the port's checkpoints (``train/checkpoint.py``) hold flax
+trees, which ``flax_tree_from_npz`` and ``convert_flax_params`` read back.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .models.layers import Dense, Embed, LayerNorm
 from .models.sct_transformer import SmartContractTransformer
 
 
@@ -85,3 +90,54 @@ def convert_flax_opt_state(opt_state: Mapping, config: ModelConfig
                                   dtype=torch.int32),
             "mu": convert_flax_params(opt_state["mu"], config),
             "nu": convert_flax_params(opt_state["nu"], config)}
+
+
+def _flax_leaves(config: ModelConfig) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """Port parameter name → (flax leaf path, transposed?), by the type of
+    the module that holds the parameter (the rules above, inverted)."""
+    with torch.device("meta"):
+        model = SmartContractTransformer(config, seed=None)
+    leaves = {}
+    for mod_name, mod in model.named_modules():
+        mods = tuple(mod_name.split(".")) if mod_name else ()
+        for name, _ in mod.named_parameters(recurse=False):
+            leaf, transpose = name, False
+            if isinstance(mod, Dense) and name == "weight":
+                leaf, transpose = "kernel", True
+            elif isinstance(mod, Embed):
+                leaf = "embedding"
+            elif isinstance(mod, LayerNorm) and name == "weight":
+                leaf = "scale"
+            leaves[".".join((*mods, name))] = ((*mods, leaf), transpose)
+    return leaves
+
+
+def flax_params_from_torch(named: Mapping[str, Any],
+                           config: ModelConfig) -> Dict[str, Any]:
+    """The port's parameters by name (tensors or arrays) → the nested flax
+    tree of ``config``'s JAX model. Leaves are views of the inputs (a Dense
+    weight transposed), not copies; every name of the port must be there."""
+    leaves = _flax_leaves(config)
+    extra, missing = (sorted(named.keys() - leaves.keys()),
+                      sorted(leaves.keys() - named.keys()))
+    if extra or missing:
+        raise ValueError(f"parameters do not match the port: unknown "
+                         f"{extra}, missing {missing}")
+    tree: Dict[str, Any] = {}
+    for name, x in named.items():
+        path, transpose = leaves[name]
+        node = tree
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = x.T if transpose else x
+    return tree
+
+
+def flax_opt_state_from_torch(opt_state: Mapping[str, Any],
+                              config: ModelConfig) -> Dict[str, Any]:
+    """The port's optimizer state (``count``, ``mu``, ``nu`` by parameter
+    name) → the JAX ``FusedOptimizer`` layout, which
+    ``convert_flax_opt_state`` reads."""
+    return {"count": opt_state["count"],
+            "mu": flax_params_from_torch(opt_state["mu"], config),
+            "nu": flax_params_from_torch(opt_state["nu"], config)}

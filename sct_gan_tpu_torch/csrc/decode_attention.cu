@@ -35,23 +35,33 @@
 //   (coalesced, one vote a half tile) and walks the live tiles only. All
 //   warps read the same bytes, so they agree without a barrier. A split with
 //   no attended key reads no K or V and leaves m = -inf, l = 0.
-// * Scores: thread t of 192 takes key t % 64 of the tile and the third
-//   t / 64 of the head dim (4 units; that third of q, pre-scaled, in f32
-//   registers); the three partial dots meet in shared memory. Bank
-//   conflicts: a 192-byte row starts 64 bytes past a multiple of 128, so
-//   rows j and j + 2 start in the same bank group. Each thread walks its 4
-//   units starting at unit (j / 2) % 4, so the 8 threads of a quarter warp
-//   (keys j0..j0+7) read 8 distinct 16-byte bank groups at every step; q
-//   sits in registers rotated the same way, so its index stays static.
+// * Head dims: one instance each for D = 64, 96 and 128 (DecodeShape
+//   below; the wrapper pads any other D <= 128 to the next one). A row is
+//   D / 8 16-byte units (8, 12 or 16); a block has 16 threads for each
+//   unit of a row: 128, 192 or 256 threads.
+// * Scores: thread t takes key t % 64 of the tile and the part t / 64 of
+//   the head dim (4 units; that part of q, pre-scaled, in f32 registers);
+//   the D / 32 partial dots meet in shared memory. Bank conflicts: the 8
+//   threads of a quarter warp (keys j0..j0+7) read one unit index each and
+//   must hit 8 distinct 16-byte bank groups. At D = 96 a 192-byte row
+//   starts 64 bytes past a multiple of 128, so rows j and j + 2 start in
+//   the same bank group: each thread walks its 4 units starting at unit
+//   (j / 2) % 4, with q rotated the same way in registers so that its
+//   index stays static. At D = 64 and 128 every row (128 or 256 bytes)
+//   starts in bank group 0 and a part has only 4 units, so no rotation can
+//   spread 8 rows: instead the tile itself is stored swizzled, unit u of
+//   row j at unit u ^ (j % 8) of that row (the copies write it so), and
+//   the 8 rows of a quarter warp read 8 distinct bank groups.
 // * Online softmax across the split's tiles (warp 0 keeps the running m
 //   and l in f32, base-2 exponents), then p V on the CUDA cores: thread t
-//   owns the 16-byte unit t % 12 of the head dim for keys t / 12 + 16 i of
-//   the tile, 8 f32 accumulators, and consecutive threads read consecutive
-//   16-byte units of V (no conflict). The 16 key slots meet in shared
-//   memory at the end, in a fixed order.
+//   owns the 16-byte unit t % (D / 8) of the head dim for keys
+//   t / (D / 8) + 16 i of the tile, 8 f32 accumulators, and consecutive
+//   threads read consecutive 16-byte units of V (no conflict; the swizzle
+//   permutes units within each group of 8). The 16 key slots meet in
+//   shared memory at the end, in a fixed order.
 // * The combine, inside the launch: the splits of a (b, h) form one thread
 //   block cluster (cudaLaunchKernelEx with a cluster dimension of `splits`,
-//   at most 8, the portable size). Each block leaves its (m, l, o[96]) in
+//   at most 8, the portable size). Each block leaves its (m, l, o[D]) in
 //   its shared memory; after a cluster barrier block 0 reads the others'
 //   through distributed shared memory, combines them in split order and
 //   writes o; a second barrier keeps the others' shared memory alive until
@@ -60,11 +70,13 @@
 //   give the same bits. With one split (large B) the block normalises and
 //   writes o itself.
 //
-// Budget: 72 KB of dynamic shared memory (3 stages x (K + V) x 64 keys x
-// 192 bytes; the key slots' sums reuse it at the end) and 1920 bytes
-// static; 192 threads; __launch_bounds__(192, 3) caps registers at 112 so
-// that 3 blocks fit an SM (ptxas: 96, no spill; the build phase of
-// chip_smoke.py fails on a spill).
+// Budget at D = 96: 72 KB of dynamic shared memory (3 stages x (K + V) x
+// 64 keys x 192 bytes; the key slots' sums reuse it at the end) and 1920
+// bytes static; 192 threads; __launch_bounds__(192, 3) caps registers at
+// 112 so that 3 blocks fit an SM (ptxas: 96, no spill; the build phase of
+// chip_smoke.py fails on a spill). D = 64: 48 KB, 128 threads, 4 blocks
+// an SM; D = 128: 96 KB, 256 threads, 2 blocks an SM; both at most 128
+// registers.
 //
 // Semantics (the JAX kernel's): masked keys get -inf; a fully-masked row
 // gives zeros; any S >= 1.
@@ -79,21 +91,34 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int D = 96;                        // the model's head dim
-constexpr int UNITS = D / 8;                 // 16-byte units of a row: 12
 constexpr int TILE = 64;                     // keys a tile
 constexpr int STAGES = 3;
-constexpr int NTHREADS = 192;
-constexpr int PARTS = NTHREADS / TILE;       // scores: thirds of the head dim
-constexpr int PART_UNITS = UNITS / PARTS;    // 4 units a third
-constexpr int SLOTS = NTHREADS / UNITS;      // p V: 16 key slots
+constexpr int PART_UNITS = 4;                // scores: 16-byte units a part
 constexpr int MAX_SPLITS = 8;                // a portable cluster
-constexpr int TILE_ELEMS = TILE * D;
-constexpr int SMEM_BYTES = STAGES * 2 * TILE_ELEMS * 2;
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(PARTS * PART_UNITS == UNITS && PART_UNITS == 4, "rotation by 4");
-static_assert(SLOTS * UNITS == NTHREADS && TILE % SLOTS == 0, "p V slots");
-static_assert(SLOTS * D * 4 <= SMEM_BYTES, "the slots' sums reuse the ring");
+
+// The thread layout of each head-dim instance.
+template <int D>
+struct DecodeShape {
+  static constexpr int UNITS = D / 8;                   // 16-byte units a row
+  static constexpr int PARTS = UNITS / PART_UNITS;      // scores: parts of D
+  static constexpr int NTHREADS = TILE * PARTS;
+  static constexpr int SLOTS = NTHREADS / UNITS;        // p V: 16 key slots
+  static constexpr int TILE_ELEMS = TILE * D;
+  static constexpr int SMEM_BYTES = STAGES * 2 * TILE_ELEMS * 2;
+  static constexpr bool SWIZZLE = UNITS % 8 == 0;       // see the header
+  static constexpr int MIN_BLOCKS = D == 64 ? 4 : D == 96 ? 3 : 2;
+  static_assert(PARTS * PART_UNITS == UNITS, "whole parts");
+  static_assert(SLOTS * UNITS == NTHREADS && TILE % SLOTS == 0, "p V slots");
+  static_assert(SLOTS * D * 4 <= SMEM_BYTES, "the slots' sums reuse the ring");
+  static_assert(NTHREADS >= D, "one thread a column in the combine");
+};
+
+// Where unit `unit` of tile row `row` is stored: swizzled at D = 64 and 128.
+template <int D>
+__device__ __forceinline__ int unit_at(int row, int unit) {
+  return DecodeShape<D>::SWIZZLE ? unit ^ (row & 7) : unit;
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -151,10 +176,15 @@ struct LiveTiles {
 };
 
 // Start copying the K and V rows of `tile` into ring stage `st` (K then V):
-// 16 bytes a copy, 8 copies a thread; rows past S are zero-filled.
+// 16 bytes a copy, 4 of K and 4 of V a thread; rows past S are
+// zero-filled; unit u of a row lands at unit_at(row, u).
+template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* st, const __nv_bfloat16* kb,
                                           const __nv_bfloat16* vb, int k_ss, int v_ss,
                                           int tile, int S) {
+  using Shape = DecodeShape<D>;
+  constexpr int UNITS = Shape::UNITS, NTHREADS = Shape::NTHREADS;
+  static_assert(TILE * UNITS == 4 * NTHREADS, "4 copies a thread");
 #pragma unroll
   for (int i = 0; i < TILE * UNITS / NTHREADS; ++i) {
     const int c = threadIdx.x + i * NTHREADS;
@@ -162,18 +192,22 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* st, const __nv_bfloat16
     const int key = tile * TILE + row;
     const bool valid = key < S;
     const size_t r = valid ? key : 0;
-    hopper::cp_async_16(st + row * D + unit * 8, kb + r * k_ss + unit * 8, valid);
-    hopper::cp_async_16(st + TILE_ELEMS + row * D + unit * 8, vb + r * v_ss + unit * 8,
-                        valid);
+    const int at = row * D + unit_at<D>(row, unit) * 8;
+    hopper::cp_async_16(st + at, kb + r * k_ss + unit * 8, valid);
+    hopper::cp_async_16(st + Shape::TILE_ELEMS + at, vb + r * v_ss + unit * 8, valid);
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 3)
+template <int D>
+__global__ void __launch_bounds__(DecodeShape<D>::NTHREADS, DecodeShape<D>::MIN_BLOCKS)
 decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
                      __nv_bfloat16* __restrict__ o, int S, int q_sb, int q_sh,
                      int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
                      int o_sb, int o_sh, int mask_sb, float scale_log2) {
+  using Shape = DecodeShape<D>;
+  constexpr int UNITS = Shape::UNITS, PARTS = Shape::PARTS, SLOTS = Shape::SLOTS;
+  constexpr int TILE_ELEMS = Shape::TILE_ELEMS;
   extern __shared__ __align__(128) uint8_t smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][K, V][TILE][D]
   __shared__ float sq[D];
@@ -198,10 +232,10 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   // the split's first two live tiles start loading before anything else
   LiveTiles live{mb, t_end, S, t_begin - 32, 0u};
   int cur = live.next(t_begin);
-  if (cur < t_end) load_tile(ring, kb, vb, k_ss, v_ss, cur, S);
+  if (cur < t_end) load_tile<D>(ring, kb, vb, k_ss, v_ss, cur, S);
   hopper::cp_async_commit();
   int nxt = live.next(cur + 1);
-  if (nxt < t_end) load_tile(ring + 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, nxt, S);
+  if (nxt < t_end) load_tile<D>(ring + 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, nxt, S);
   hopper::cp_async_commit();
   int ahead = live.next(nxt + 1);
 
@@ -211,8 +245,10 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     sq[2 * tid + 1] = f.y * scale_log2;
   }
   __syncthreads();
-  // scores: key kj of the tile, third pi of the head dim, units rotated
-  const int kj = tid % TILE, pi = tid / TILE, rot = (kj >> 1) % PART_UNITS;
+  // scores: key kj of the tile, part pi of the head dim; at D = 96 the
+  // units are rotated (none where the tile is swizzled)
+  const int kj = tid % TILE, pi = tid / TILE;
+  const int rot = Shape::SWIZZLE ? 0 : (kj >> 1) % PART_UNITS;
   float qr[PART_UNITS * 8];
 #pragma unroll
   for (int c = 0; c < PART_UNITS; ++c)
@@ -230,7 +266,7 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     hopper::cp_async_wait<STAGES - 2>();
     __syncthreads();              // tile i has landed; stage (i + 2) % 3 is free
     if (ahead < t_end)
-      load_tile(ring + ((i + 2) % STAGES) * 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, ahead, S);
+      load_tile<D>(ring + ((i + 2) % STAGES) * 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, ahead, S);
     hopper::cp_async_commit();
     const __nv_bfloat16* kt = ring + (i % STAGES) * 2 * TILE_ELEMS;
     const __nv_bfloat16* vt = kt + TILE_ELEMS;
@@ -243,11 +279,11 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
 
     float s = 0.f;
-    const __nv_bfloat16* krow = kt + kj * D + pi * PART_UNITS * 8;
+    const __nv_bfloat16* krow = kt + kj * D;
 #pragma unroll
     for (int c = 0; c < PART_UNITS; ++c) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(krow + ((c + rot) % PART_UNITS) * 8);
+      const int unit = pi * PART_UNITS + (c + rot) % PART_UNITS;
+      const uint4 raw = *reinterpret_cast<const uint4*>(krow + unit_at<D>(kj, unit) * 8);
       const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -260,8 +296,12 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     __syncthreads();
 
     if (warp == 0) {              // the online softmax over this tile
-      float s0 = part[0][lane] + part[1][lane] + part[2][lane];
-      float s1 = part[0][lane + 32] + part[1][lane + 32] + part[2][lane + 32];
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) {
+        s0 += part[p][lane];
+        s1 += part[p][lane + 32];
+      }
       s0 = on0 ? s0 : -INFINITY;
       s1 = on1 ? s1 : -INFINITY;
       // finite: a live tile has an attended key
@@ -283,7 +323,7 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int r = 0; r < TILE / SLOTS; ++r) {
       const int j = ks + r * SLOTS;
       const float p = ps[j];
-      const uint4 raw = *reinterpret_cast<const uint4*>(vt + j * D + pu * 8);
+      const uint4 raw = *reinterpret_cast<const uint4*>(vt + j * D + unit_at<D>(j, pu) * 8);
       const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -352,36 +392,25 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   cluster.sync();                 // block 0 has read the others' shared memory
 }
 
-}  // namespace
-
-// q, o: bf16 (B, H, 1, D); k, v: bf16 (B, H, S, D); each with element
-// strides (sb, sh, ss) and the last dimension contiguous (the q/o sequence
-// strides are unused); q and o on 4-byte lines, k and v rows on 16-byte
-// lines. mask: (B, S) uint8 (nonzero = attend) with row stride mask_sb, or
-// null for "all S keys visible". splits: blocks (one cluster) per (b, h),
-// 1..8 and at most the 64-key tiles of S. Returns a cudaError_t.
-extern "C" int decode_attention_bf16(
-    const void* q, const void* k, const void* v, const void* mask, void* o,
-    int B, int H, int S, int Dh, int q_sb, int q_sh, int q_ss, int k_sb,
-    int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb, int o_sh,
-    int o_ss, int mask_sb, int splits, float scale, void* stream) {
-  (void)q_ss;
-  (void)o_ss;
-  if (Dh != D || S < 1 || B < 1 || B > 65535 || H < 1 || H > 65535 || splits < 1 ||
-      splits > MAX_SPLITS || splits > (S + TILE - 1) / TILE)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
+           int H, int S, int q_sb, int q_sh, int k_sb, int k_sh, int k_ss, int v_sb,
+           int v_sh, int v_ss, int o_sb, int o_sh, int mask_sb, int splits, float scale,
+           cudaStream_t stream) {
+  using Shape = DecodeShape<D>;
   static bool configured = false;           // above 48 KB needs an opt-in
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_splitk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        decode_splitk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Shape::SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, H, B);
-  cfg.blockDim = dim3(NTHREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.blockDim = dim3(Shape::NTHREADS);
+  cfg.dynamicSmemBytes = Shape::SMEM_BYTES;
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;
@@ -390,10 +419,41 @@ extern "C" int decode_attention_bf16(
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, decode_splitk_kernel, static_cast<const __nv_bfloat16*>(q),
+      &cfg, decode_splitk_kernel<D>, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
       static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o), S, q_sb, q_sh,
       k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, scale * LOG2E);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, o: bf16 (B, H, 1, Dh); k, v: bf16 (B, H, S, Dh), Dh 64, 96 or 128 (one
+// instance each); each with element strides (sb, sh, ss) and the last
+// dimension contiguous (the q/o sequence strides are unused); q and o on
+// 4-byte lines, k and v rows on 16-byte lines. mask: (B, S) uint8 (nonzero
+// = attend) with row stride mask_sb, or null for "all S keys visible".
+// splits: blocks (one cluster) per (b, h), 1..8 and at most the 64-key
+// tiles of S. Returns a cudaError_t.
+extern "C" int decode_attention_bf16(
+    const void* q, const void* k, const void* v, const void* mask, void* o,
+    int B, int H, int S, int Dh, int q_sb, int q_sh, int q_ss, int k_sb,
+    int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb, int o_sh,
+    int o_ss, int mask_sb, int splits, float scale, void* stream) {
+  (void)q_ss;
+  (void)o_ss;
+  if (S < 1 || B < 1 || B > 65535 || H < 1 || H > 65535 || splits < 1 ||
+      splits > MAX_SPLITS || splits > (S + TILE - 1) / TILE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DECODE_ARGS q, k, v, mask, o, B, H, S, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, \
+    v_ss, o_sb, o_sh, mask_sb, splits, scale, st
+  switch (Dh) {
+    case 64: return launch<64>(DECODE_ARGS);
+    case 96: return launch<96>(DECODE_ARGS);
+    case 128: return launch<128>(DECODE_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);   // no instance
+  }
+#undef DECODE_ARGS
 }

@@ -13,10 +13,10 @@
 //
 // Two kernels, no atomics, so the gradients are bit-for-bit deterministic:
 //   dKV: one block of 8 warps per (b, h, 128-key tile), each warp 16 keys.
-//        It walks the 64-query tiles of Q, dO, lse and D (from the diagonal
-//        on, when causal) and keeps dK and dV in registers, working on S^T
-//        so that P^T and dS^T come out of one product in the A layout of
-//        the next.
+//        It walks the 64-query tiles (32 at D = 128) of Q, dO, lse and D
+//        (from the diagonal on, when causal) and keeps dK and dV in
+//        registers, working on S^T so that P^T and dS^T come out of one
+//        product in the A layout of the next.
 //   dQ:  one block of 8 warps per (b, h, 128-query tile), each warp 16
 //        queries. It walks the 32-key tiles of K, V and the key mask (up to
 //        the diagonal, when causal) and keeps dQ in registers.
@@ -55,12 +55,21 @@
 // The products stay mma.sync.m16n8k16 with f32 accumulation; wgmma is the
 // next redesign.
 //
-// Budget. dKV: shared memory K + V 52 KB, 2 stages of Q + dO + lse + D
-// (26.5 KB each): 105 KB; registers: dK + dV 96 f32, S^T + dP^T 64 f32 and
-// the P^T / dS^T operands per thread, one block of 256 threads an SM (up
-// to 255 registers). dQ: Q + dO 52 KB, 2 stages of K + V + mask (13 KB
-// each): 78 KB, two blocks an SM; dQ 48 f32, S + dP 32 f32, under 128
-// registers. ptxas -v must show no spills.
+// Budget at D = 96. dKV: shared memory K + V 52 KB, 2 stages of Q + dO +
+// lse + D (26.5 KB each): 105 KB; registers: dK + dV 96 f32, S^T + dP^T 64
+// f32 and the P^T / dS^T operands per thread, one block of 256 threads an
+// SM (up to 255 registers). dQ: Q + dO 52 KB, 2 stages of K + V + mask (13
+// KB each): 78 KB, two blocks an SM; dQ 48 f32, S + dP 32 f32, under 128
+// registers. ptxas -v must show no spills in any instance.
+//
+// Head dims: one instance each for D = 64, 96 and 128 (BwdShape below;
+// the wrapper pads any other D <= 128 to the next one). Rows are padded to
+// D + 8 elements in shared memory (144, 208 or 272 bytes: an odd number of
+// 16-byte units, so eight rows of one unit fall in eight bank groups). D =
+// 64 keeps D = 96's block shapes. At D = 128, dK + dV alone take 128 f32 a
+// thread: dKV walks 32-query tiles instead of 64 (S^T and dP^T 32 f32, the
+// operands 16), and dQ (dQ 64 f32) gives up the second block an SM for up
+// to 255 registers; both to stay clear of spills, at some speed.
 //
 // The mask and causal semantics are the forward's: a masked key, a key past
 // Sk, a query past Sq and a causal key j > i all get P = 0 (the TPU kernel's
@@ -80,22 +89,23 @@ namespace {
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 96;                 // the model's head dim
-constexpr int LD = D + 8;             // padded shared-memory row (208 bytes)
-constexpr int DKV_WARPS = 8;         // dKV: 16 keys a warp
+constexpr int DKV_WARPS = 8;          // dKV: 16 keys a warp
 constexpr int DKV_THREADS = DKV_WARPS * 32;
 constexpr int DKV_ROWS = 16 * DKV_WARPS;   // keys a dKV block
 constexpr int DKV_MIN_BLOCKS = 1;     // blocks an SM (__launch_bounds__)
 constexpr int DQ_WARPS = 8;           // dQ: 16 queries a warp
 constexpr int DQ_THREADS = DQ_WARPS * 32;
 constexpr int DQ_ROWS = 16 * DQ_WARPS;     // queries a dQ block
-constexpr int DQ_MIN_BLOCKS = 2;    // caps it at 128 registers
-constexpr int BQ = 64;                // query tile walked by dKV
 constexpr int BK = 32;                // key tile walked by dQ
 constexpr int STAGES = 2;
-constexpr int KSTEPS = D / 16;        // k-steps over the head dim
-constexpr int NT_D = D / 8;           // 8-wide n-tiles of dK, dV, dQ
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The block shape of each head-dim instance: the query tile dKV walks, and
+// dQ's blocks an SM (2 caps it at 128 registers a thread).
+template <int D> struct BwdShape;
+template <> struct BwdShape<64> { static constexpr int BQ = 64, DQ_MIN_BLOCKS = 2; };
+template <> struct BwdShape<96> { static constexpr int BQ = 64, DQ_MIN_BLOCKS = 2; };
+template <> struct BwdShape<128> { static constexpr int BQ = 32, DQ_MIN_BLOCKS = 1; };
 
 struct Strides {   // element strides of a (B, H, S, D) tensor, last dim contiguous
   int sb, sh, ss;
@@ -115,24 +125,28 @@ struct BwdArgs {
   float inv_keep;
 };
 
+template <int D>
 struct DkvSmem {
+  static constexpr int LD = D + 8, BQ = BwdShape<D>::BQ;
   bf16 k[DKV_ROWS * LD], v[DKV_ROWS * LD];
   bf16 q[STAGES][BQ * LD], dout[STAGES][BQ * LD];
   float lse[STAGES][BQ], d[STAGES][BQ];      // the walked rows' lse and D
 };
 
+template <int D>
 struct DqSmem {
+  static constexpr int LD = D + 8;
   bf16 q[DQ_ROWS * LD], dout[DQ_ROWS * LD];
   bf16 k[STAGES][BK * LD], v[STAGES][BK * LD];
   uint8_t valid[STAGES][BK];
 };
 
 // cp.async rows [r0, r0 + ROWS) x D of a strided (rows, D) bf16 matrix into
-// shared rows of LD, zero-filling rows >= n_rows. 16-byte chunks.
-template <int ROWS, int NTHREADS>
+// shared rows of D + 8, zero-filling rows >= n_rows. 16-byte chunks.
+template <int D, int ROWS, int NTHREADS>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int r0,
                                         int n_rows, int row_stride) {
-  constexpr int CH = D / 8;
+  constexpr int CH = D / 8, LD = D + 8;
   for (int c = threadIdx.x; c < ROWS * CH; c += NTHREADS) {
     const int r = c / CH, col = (c % CH) * 8;
     const bool ok = r0 + r < n_rows;
@@ -143,24 +157,30 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int r0,
 // ldmatrix.x4 addresses within a row-major tile of row stride LD, for this
 // lane, at tile origin (r, c):
 //   A operand (16 x 16, m x k), registers a0..a3 of mma.m16n8k16;
+template <int LD>
 __device__ __forceinline__ const bf16* a_addr(const bf16* base, int r, int c, int lane) {
   return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
 }
 //   B operand of two n-tiles from rows n (16 x 16, n x k): b0, b1 of n-tile
 //   r / 8, then b0, b1 of the next;
+template <int LD>
 __device__ __forceinline__ const bf16* bn_addr(const bf16* base, int r, int c, int lane) {
   return base + (r + (lane & 7) + (lane >> 4) * 8) * LD + c + ((lane >> 3) & 1) * 8;
 }
 //   B operand of two n-tiles read down columns (rows k, 16 x 16, k x n) with
 //   .trans: b0, b1 of n-tile c / 8, then b0, b1 of the next.
+template <int LD>
 __device__ __forceinline__ const bf16* bt_addr(const bf16* base, int r, int c, int lane) {
   return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
 }
 
+template <int D>
 __global__ void __launch_bounds__(DKV_THREADS, DKV_MIN_BLOCKS)
 flash_bwd_dkv_kernel(const BwdArgs a) {
+  constexpr int LD = D + 8, BQ = BwdShape<D>::BQ;
+  constexpr int KSTEPS = D / 16, NT_D = D / 8;   // k-steps and 8-wide n-tiles of D
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DkvSmem& s = *reinterpret_cast<DkvSmem*>(smem_raw);
+  DkvSmem<D>& s = *reinterpret_cast<DkvSmem<D>*>(smem_raw);
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int k0 = blockIdx.x * DKV_ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -176,18 +196,18 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   const int qt0 = a.causal ? k0 / BQ : 0;
   auto issue = [&](int qt, int st) {        // one walked tile into stage st
     const int q0 = qt * BQ;
-    cp_tile<BQ, DKV_THREADS>(s.q[st], qb, q0, a.Sq, a.qs.ss);
-    cp_tile<BQ, DKV_THREADS>(s.dout[st], dob, q0, a.Sq, a.dos.ss);
+    cp_tile<D, BQ, DKV_THREADS>(s.q[st], qb, q0, a.Sq, a.qs.ss);
+    cp_tile<D, BQ, DKV_THREADS>(s.dout[st], dob, q0, a.Sq, a.dos.ss);
     for (int c = threadIdx.x; c < BQ; c += DKV_THREADS) {
       const bool in = q0 + c < a.Sq;
       cp_async_4(&s.lse[st][c], in ? lse_b + q0 + c : lse_b, in);
       cp_async_4(&s.d[st][c], in ? d_b + q0 + c : d_b, in);
     }
   };
-  cp_tile<DKV_ROWS, DKV_THREADS>(s.k, a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh, k0,
-                                 a.Sk, a.ks.ss);
-  cp_tile<DKV_ROWS, DKV_THREADS>(s.v, a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh, k0,
-                                 a.Sk, a.vs.ss);
+  cp_tile<D, DKV_ROWS, DKV_THREADS>(s.k, a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh,
+                                    k0, a.Sk, a.ks.ss);
+  cp_tile<D, DKV_ROWS, DKV_THREADS>(s.v, a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh,
+                                    k0, a.Sk, a.vs.ss);
   if (qt0 < nq) issue(qt0, 0);
   cp_async_commit();
 
@@ -210,7 +230,7 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
     const bf16* sQ = s.q[st];
     const bf16* sdO = s.dout[st];
 
-    float sc[BQ / 8][4], dp[BQ / 8][4];      // S^T and dP^T, 16 keys x 64 queries
+    float sc[BQ / 8][4], dp[BQ / 8][4];      // S^T and dP^T, 16 keys x BQ queries
 #pragma unroll
     for (int nt = 0; nt < BQ / 8; ++nt)
 #pragma unroll
@@ -218,13 +238,13 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       uint32_t ka[4], va[4];
-      ldsm_x4(ka, a_addr(s.k, wr, kk * 16, lane));
-      ldsm_x4(va, a_addr(s.v, wr, kk * 16, lane));
+      ldsm_x4(ka, a_addr<LD>(s.k, wr, kk * 16, lane));
+      ldsm_x4(va, a_addr<LD>(s.v, wr, kk * 16, lane));
 #pragma unroll
       for (int np = 0; np < BQ / 16; ++np) {
         uint32_t qf[4], of[4];
-        ldsm_x4(qf, bn_addr(sQ, np * 16, kk * 16, lane));
-        ldsm_x4(of, bn_addr(sdO, np * 16, kk * 16, lane));
+        ldsm_x4(qf, bn_addr<LD>(sQ, np * 16, kk * 16, lane));
+        ldsm_x4(of, bn_addr<LD>(sdO, np * 16, kk * 16, lane));
         mma_16816(sc[2 * np], ka, qf[0], qf[1]);       // K Q^T
         mma_16816(sc[2 * np + 1], ka, qf[2], qf[3]);
         mma_16816(dp[2 * np], va, of[0], of[1]);       // V dO^T
@@ -263,8 +283,8 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
 #pragma unroll
       for (int dp2 = 0; dp2 < NT_D / 2; ++dp2) {
         uint32_t ob[4], qf[4];
-        ldsm_x4_trans(ob, bt_addr(sdO, kk * 16, dp2 * 16, lane));
-        ldsm_x4_trans(qf, bt_addr(sQ, kk * 16, dp2 * 16, lane));
+        ldsm_x4_trans(ob, bt_addr<LD>(sdO, kk * 16, dp2 * 16, lane));
+        ldsm_x4_trans(qf, bt_addr<LD>(sQ, kk * 16, dp2 * 16, lane));
         mma_16816(dv_acc[2 * dp2], pa[kk], ob[0], ob[1]);
         mma_16816(dv_acc[2 * dp2 + 1], pa[kk], ob[2], ob[3]);
         mma_16816(dk_acc[2 * dp2], da[kk], qf[0], qf[1]);
@@ -295,10 +315,13 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(DQ_THREADS, DQ_MIN_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, BwdShape<D>::DQ_MIN_BLOCKS)
 flash_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int LD = D + 8;
+  constexpr int KSTEPS = D / 16, NT_D = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DqSmem& s = *reinterpret_cast<DqSmem*>(smem_raw);
+  DqSmem<D>& s = *reinterpret_cast<DqSmem<D>*>(smem_raw);
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int q0 = blockIdx.x * DQ_ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -312,17 +335,18 @@ flash_bwd_dq_kernel(const BwdArgs a) {
   if (a.causal) n_tiles = min(n_tiles, (q0 + DQ_ROWS - 1) / BK + 1);
   auto issue = [&](int j, int st) {         // one walked tile into stage st
     const int k0 = j * BK;
-    cp_tile<BK, DQ_THREADS>(s.k[st], kb, k0, a.Sk, a.ks.ss);
-    cp_tile<BK, DQ_THREADS>(s.v[st], vb, k0, a.Sk, a.vs.ss);
+    cp_tile<D, BK, DQ_THREADS>(s.k[st], kb, k0, a.Sk, a.ks.ss);
+    cp_tile<D, BK, DQ_THREADS>(s.v[st], vb, k0, a.Sk, a.vs.ss);
     for (int c = threadIdx.x; c < BK; c += DQ_THREADS) {
       const int key = k0 + c;
       s.valid[st][c] = key < a.Sk && (mrow == nullptr || mrow[key]);
     }
   };
-  cp_tile<DQ_ROWS, DQ_THREADS>(s.q, a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh, q0,
-                               a.Sq, a.qs.ss);
-  cp_tile<DQ_ROWS, DQ_THREADS>(s.dout, a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh,
-                               q0, a.Sq, a.dos.ss);
+  cp_tile<D, DQ_ROWS, DQ_THREADS>(s.q, a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh,
+                                  q0, a.Sq, a.qs.ss);
+  cp_tile<D, DQ_ROWS, DQ_THREADS>(s.dout,
+                                  a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh, q0,
+                                  a.Sq, a.dos.ss);
   issue(0, 0);
   cp_async_commit();
 
@@ -347,7 +371,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     const bf16* sK = s.k[st];
     const bf16* sV = s.v[st];
 
-    float sc[BK / 8][4], dp[BK / 8][4];      // S and dP, 16 queries x 64 keys
+    float sc[BK / 8][4], dp[BK / 8][4];      // S and dP, 16 queries x 32 keys
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
@@ -355,13 +379,13 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       uint32_t qa[4], oa[4];
-      ldsm_x4(qa, a_addr(s.q, wr, kk * 16, lane));
-      ldsm_x4(oa, a_addr(s.dout, wr, kk * 16, lane));
+      ldsm_x4(qa, a_addr<LD>(s.q, wr, kk * 16, lane));
+      ldsm_x4(oa, a_addr<LD>(s.dout, wr, kk * 16, lane));
 #pragma unroll
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t kf[4], vf[4];
-        ldsm_x4(kf, bn_addr(sK, np * 16, kk * 16, lane));
-        ldsm_x4(vf, bn_addr(sV, np * 16, kk * 16, lane));
+        ldsm_x4(kf, bn_addr<LD>(sK, np * 16, kk * 16, lane));
+        ldsm_x4(vf, bn_addr<LD>(sV, np * 16, kk * 16, lane));
         mma_16816(sc[2 * np], qa, kf[0], kf[1]);       // Q K^T
         mma_16816(sc[2 * np + 1], qa, kf[2], kf[3]);
         mma_16816(dp[2 * np], oa, vf[0], vf[1]);       // dO V^T
@@ -395,7 +419,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 #pragma unroll
       for (int dp2 = 0; dp2 < NT_D / 2; ++dp2) {
         uint32_t kf[4];
-        ldsm_x4_trans(kf, bt_addr(sK, kk * 16, dp2 * 16, lane));
+        ldsm_x4_trans(kf, bt_addr<LD>(sK, kk * 16, dp2 * 16, lane));
         mma_16816(dq_acc[2 * dp2], da[kk], kf[0], kf[1]);
         mma_16816(dq_acc[2 * dp2 + 1], da[kk], kf[2], kf[3]);
       }
@@ -426,24 +450,27 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
   return err;
 }
 
+template <int D>
 int launch(const BwdArgs& a, int B, cudaStream_t stream) {
   static bool dkv_ready = false, dq_ready = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, sizeof(DkvSmem), dkv_ready);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel, sizeof(DqSmem), dq_ready);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, sizeof(DkvSmem<D>), dkv_ready);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_bwd_dq_kernel<D>, sizeof(DqSmem<D>), dq_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<<<dim3((a.Sk + DKV_ROWS - 1) / DKV_ROWS, B * a.H), DKV_THREADS,
-                         sizeof(DkvSmem), stream>>>(a);
+  flash_bwd_dkv_kernel<D><<<dim3((a.Sk + DKV_ROWS - 1) / DKV_ROWS, B * a.H), DKV_THREADS,
+                            sizeof(DkvSmem<D>), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<<<dim3((a.Sq + DQ_ROWS - 1) / DQ_ROWS, B * a.H), DQ_THREADS,
-                        sizeof(DqSmem), stream>>>(a);
+  flash_bwd_dq_kernel<D><<<dim3((a.Sq + DQ_ROWS - 1) / DQ_ROWS, B * a.H), DQ_THREADS,
+                           sizeof(DqSmem<D>), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: bf16 (B, H, S, D) with element strides
-// (sb, sh, ss) and the last dimension contiguous (rows of q, k, v, dout on
+// q, k, v, dout, dq, dk, dv: bf16 (B, H, S, Dh) with element strides
+// (sb, sh, ss) and the last dimension contiguous, Dh 64, 96 or 128 (one
+// instance each) (rows of q, k, v, dout on
 // 16-byte lines); mask: (B, Sk) uint8 (nonzero = attend) with row stride
 // mask_sb, or null; lse (the forward's natural-log row LSE) and dvec
 // (D = rowsum(dO o O)): contiguous f32 (B, H, Sq). dropout != 0 regenerates
@@ -460,7 +487,6 @@ extern "C" int flash_attention_bwd_bf16(
     int dv_sb, int dv_sh, int dv_ss, int mask_sb, int causal, float scale,
     int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
     void* stream) {
-  if (Dh != D) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
   BwdArgs a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -490,5 +516,11 @@ extern "C" int flash_attention_bwd_bf16(
   a.seed = seed;
   a.threshold = threshold;
   a.inv_keep = inv_keep;
-  return launch(a, B, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return launch<64>(a, B, st);
+    case 96: return launch<96>(a, B, st);
+    case 128: return launch<128>(a, B, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);   // no instance
+  }
 }

@@ -13,6 +13,9 @@
 // sct_gan_tpu/ops/attention.py::mha_reference draws; the TPU kernel's own
 // PRNG stream is TPU hardware and is not reproduced.
 //
+// Head dims: one instance each for D = 64, 96 and 128 (the template
+// parameter below); the wrapper pads any other D <= 128 to the next one.
+//
 // Bound on an H100: the products Q K^T and P V over the attended keys,
 // 4*H*Sq*dh*sum_b(attended keys of row b) flops at 989 TFLOP/s, against Q and
 // O and the attended keys' K and V rows at 3.35 TB/s. A masked key adds
@@ -36,20 +39,22 @@
 //     full/empty mbarriers, so the next tiles load while this one is used.
 //     It also writes each tile's key-mask bias (0 or -inf; -inf past Sk)
 //     beside its K tile;
-//   * both products run on wgmma: S = Q K^T as m64n64k16 with both operands
-//     in shared memory (K-major), O += P V as m64n96k16 with P from
-//     registers (the S accumulator layout is the A register layout) and V
-//     read MN-major through the transpose bit, so nothing transposes V and
-//     no fragment is loaded by hand. Layouts: hopper_tile.cuh.
+//   * both products run on wgmma: S = Q K^T as m64n64k16 (D / 16 k-steps)
+//     with both operands in shared memory (K-major), O += P V as m64nDk16
+//     with P from registers (the S accumulator layout is the A register
+//     layout) and V read MN-major through the transpose bit, so nothing
+//     transposes V and no fragment is loaded by hand. Layouts:
+//     hopper_tile.cuh.
 // The online softmax, the causal tile skip, the key-mask bias, dropout and
 // the LSE are the first design's arithmetic.
 //
-// Budget. Shared memory: Q 24 KB + STAGES x (K 12 KB + V 12 KB + 256 B of
-// bias) + barriers + 1 KB of alignment slack = 98 KB at STAGES = 3 (one
-// block an SM; 512 blocks at (8, 8, 1024, 96)). Registers: a consumer
-// thread holds the O accumulator (48 f32), the S tile (32 f32), P packed
-// (16) and its row statistics, under the 224 that 288 threads leave each;
-// ptxas -v must show no spills. setmaxnreg is not needed at this budget.
+// Budget, at D = 96 (64; 128). Shared memory: Q 24 (16; 32) KB + STAGES x
+// (K and V 24 (16; 32) KB + 256 B of bias) + barriers + 1 KB of alignment
+// slack = 98 (66; 130) KB at STAGES = 3, one block an SM. Registers: a
+// consumer thread holds the O accumulator (D / 2 f32: 48, 32 or 64), the S
+// tile (32 f32), P packed (16) and its row statistics, under the 224 that
+// 288 threads leave each; ptxas -v must show no spills in any instance.
+// setmaxnreg is not needed at this budget.
 //
 // Semantics (the JAX kernel's): a masked key gets -inf; a fully-masked row
 // gives zeros and lse = -1e30 (the JAX kernel's m + log(1) with its finite
@@ -67,8 +72,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 96;                       // the model's head dim
-constexpr int NCHUNK = D / CHUNK_COLS;      // 32-column swizzled boxes a row
 constexpr int BQ = 128;                     // query rows per block
 constexpr int BK = 64;                      // keys per K/V tile
 constexpr int STAGES = 3;                   // K/V ring depth
@@ -76,24 +79,28 @@ constexpr int NCONSUMERS = 8;               // warps in the two warpgroups
 constexpr int NTHREADS = (NCONSUMERS + 1) * 32;
 constexpr int Q_CHUNK = BQ * CHUNK_BYTES_ROW;
 constexpr int KV_CHUNK = BK * CHUNK_BYTES_ROW;
-constexpr uint32_t TILE_BYTES = 2 * NCHUNK * KV_CHUNK;   // K + V of one stage
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+template <int D>
 struct Smem {
+  static constexpr int NCHUNK = D / CHUNK_COLS;   // 32-column swizzled boxes a row
   alignas(1024) unsigned char q[NCHUNK][Q_CHUNK];
   alignas(1024) unsigned char k[STAGES][NCHUNK][KV_CHUNK];
   alignas(1024) unsigned char v[STAGES][NCHUNK][KV_CHUNK];
   float bias[STAGES][BK];
   uint64_t q_full, full[STAGES], empty[STAGES];
 };
-constexpr int SMEM_BYTES = sizeof(Smem) + 1024;   // + alignment slack
+template <int D>
+constexpr int smem_bytes() { return sizeof(Smem<D>) + 1024; }   // + alignment slack
 
-__device__ __forceinline__ Smem& smem_tile(unsigned char* raw) {
+template <int D>
+__device__ __forceinline__ Smem<D>& smem_tile(unsigned char* raw) {
   const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<Smem*>(raw + pad);
+  return *reinterpret_cast<Smem<D>*>(raw + pad);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
@@ -102,8 +109,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  float* __restrict__ lse, int H, int Sq, int Sk, int o_sb,
                  int o_sh, int o_ss, int mask_sb, int causal, float scale_log2,
                  int dropout, uint32_t seed, uint32_t threshold, float inv_keep) {
+  constexpr int NCHUNK = D / CHUNK_COLS;
+  constexpr uint32_t TILE_BYTES = 2 * NCHUNK * KV_CHUNK;   // K + V of one stage
   extern __shared__ unsigned char smem_raw[];
-  Smem& s = smem_tile(smem_raw);
+  Smem<D>& s = smem_tile<D>(smem_raw);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -159,9 +168,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t drop0 = ((uint32_t)bh * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)Sk;
 
-  float acc[48];                            // O, 12 blocks of 8 columns
+  float acc[D / 2];                         // O, D / 8 blocks of 8 columns
 #pragma unroll
-  for (int i = 0; i < 48; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
   float l_run[2] = {0.f, 0.f};
 
@@ -229,7 +238,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
 #pragma unroll
-    for (int i = 0; i < 48; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     fence_regs(acc);
     wgmma_fence();
@@ -240,7 +249,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                               pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                               pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
       const uint64_t db = desc_b64(&s.v[st][0][kk * 16 * CHUNK_BYTES_ROW], KV_CHUNK, 512);
-      wgmma_m64n96k16_rs(acc, pa, db);
+      wgmma_rs(acc, pa, db);                // m64nDk16
     }
     wgmma_commit();
     wgmma_wait0();
@@ -271,22 +280,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-}  // namespace
-
-// q, k, v, o: bf16 (B, H, S, D) with element strides (sb, sh, ss), the last
-// dimension contiguous, q/k/v 16-byte aligned with strides of whole 16-byte
-// units (the TMA maps' rule); mask: (B, Sk) uint8 (nonzero = attend) with
-// row stride mask_sb, or null; lse: contiguous f32 (B, H, Sq), or null for
-// none. dropout != 0 turns on attention-weight dropout with the hash keep
-// mask (seed, threshold) and the scale inv_keep = 1/(1-rate). Returns the
-// first error: a refused tensor map, or cudaGetLastError() after the launch.
-extern "C" int flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* mask, void* o,
-    void* lse, int B, int H, int Sq, int Sk, int Dh, int q_sb, int q_sh, int q_ss,
-    int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
-    int o_sh, int o_ss, int mask_sb, int causal, float scale, int dropout,
-    uint32_t seed, uint32_t threshold, float inv_keep, void* stream) {
-  if (Dh != D) return static_cast<int>(cudaErrorInvalidValue);   // dh of the model
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* o,
+           void* lse, int B, int H, int Sq, int Sk, int q_sb, int q_sh, int q_ss,
+           int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
+           int o_sh, int o_ss, int mask_sb, int causal, float scale, int dropout,
+           uint32_t seed, uint32_t threshold, float inv_keep, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int err = make_head_map(&qm, q, B, H, Sq, D, q_sb, q_sh, q_ss, BQ);
   if (err == 0) err = make_head_map(&km, k, B, H, Sk, D, k_sb, k_sh, k_ss, BK);
@@ -295,14 +294,43 @@ extern "C" int flash_attention_fwd_bf16(
   static bool configured = false;           // above 48 KB needs an opt-in
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem_bytes<D>(), stream>>>(
       qm, km, vm, static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), H, Sq, Sk, o_sb, o_sh, o_ss, mask_sb, causal,
       scale * LOG2E, dropout, seed, threshold, inv_keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v, o: bf16 (B, H, S, Dh) with element strides (sb, sh, ss), the last
+// dimension contiguous, q/k/v 16-byte aligned with strides of whole 16-byte
+// units (the TMA maps' rule); Dh 64, 96 or 128 (one instance each); mask:
+// (B, Sk) uint8 (nonzero = attend) with row stride mask_sb, or null; lse:
+// contiguous f32 (B, H, Sq), or null for none. dropout != 0 turns on
+// attention-weight dropout with the hash keep mask (seed, threshold) and the
+// scale inv_keep = 1/(1-rate). Returns the first error: a head dim without an
+// instance, a refused tensor map, or cudaGetLastError() after the launch.
+extern "C" int flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* mask, void* o,
+    void* lse, int B, int H, int Sq, int Sk, int Dh, int q_sb, int q_sh, int q_ss,
+    int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
+    int o_sh, int o_ss, int mask_sb, int causal, float scale, int dropout,
+    uint32_t seed, uint32_t threshold, float inv_keep, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD_ARGS q, k, v, mask, o, lse, B, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh, \
+    k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, scale, dropout, seed, \
+    threshold, inv_keep, st
+  switch (Dh) {
+    case 64: return launch<64>(FWD_ARGS);
+    case 96: return launch<96>(FWD_ARGS);
+    case 128: return launch<128>(FWD_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);   // no instance
+  }
+#undef FWD_ARGS
 }

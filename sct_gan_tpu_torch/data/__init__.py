@@ -1,5 +1,6 @@
 """Host-side data pipeline of the port: copies of the JAX package's modules."""
 from .ast_parser import parse_solidity_to_ast, prepare_code2vec_input
+from .augmentation import SmartContractAugmenter
 from .dataset import (SmartContractVulnerabilityDataset, build_token_to_line,
                       create_dataloaders, custom_collate_fn)
 from .synthetic import generate_corpus, write_corpus_csv
@@ -8,6 +9,7 @@ from .tokenizer import SolidityTokenizer, get_tokenizer
 __all__ = [
     "parse_solidity_to_ast",
     "prepare_code2vec_input",
+    "SmartContractAugmenter",
     "SolidityTokenizer",
     "get_tokenizer",
     "SmartContractVulnerabilityDataset",

@@ -1,6 +1,7 @@
 """SmartContractAnalyzer — the serving engine of the port.
 
 Counterpart of ``sct_gan_tpu/infer/analyzer.py`` for the serving slice:
+loading a checkpoint written by the port's trainer (``model_path``),
 ``detect_vulnerabilities``, batched ``analyze_multiple_contracts``,
 ``get_vulnerability_summary``, ``generate_synthetic_contract`` (sampling
 mode) and ``generate_template_based_contract``. The three-tier
@@ -13,6 +14,7 @@ template transform). A CUDA or kernel error is never swallowed.
 """
 from __future__ import annotations
 
+import os
 import random
 import re
 from typing import Any, Dict, List, Mapping, Optional, Union
@@ -26,6 +28,7 @@ from ..data.ast_parser import parse_solidity_to_ast, prepare_code2vec_input
 from ..data.dataset import build_token_to_line
 from ..data.tokenizer import get_tokenizer
 from ..models.sct_transformer import SmartContractTransformer
+from ..train.checkpoint import adapt_vocab_params, load_checkpoint
 from ..utils import resolve_device
 from .generate import make_generate_fn, syntax_boost_ids
 
@@ -33,15 +36,20 @@ from .generate import make_generate_fn, syntax_boost_ids
 class SmartContractAnalyzer:
     """Analyze contracts for vulnerabilities and generate new ones.
 
-    ``params``: a state dict of the port (e.g. from ``convert_flax_params``),
-    or the path of an ``.npz`` holding a flattened flax tree (``/``-joined
-    keys); None initialises the weights from ``seed``. ``device``: where the
-    model runs, the card (``"cuda"``) by default; without one the
-    constructor raises unless ``device="cpu"`` is passed. A CUDA device runs
-    the hand-written kernels, the CPU their plain versions.
+    ``model_path``: a checkpoint directory written by the port's trainer
+    (``train/checkpoint.py``), a wrapped train state or raw params; its
+    vocab-sized leaves are adapted to ``padded_vocab_size``. A path that
+    does not exist raises. ``params``: a state dict of the port (e.g. from
+    ``convert_flax_params``), or the path of an ``.npz`` holding a
+    flattened flax tree (``/``-joined keys). With neither, the weights are
+    initialised from ``seed``. ``device``: where the model runs, the card
+    (``"cuda"``) by default; without one the constructor raises unless
+    ``device="cpu"`` is passed. A CUDA device runs the hand-written
+    kernels, the CPU their plain versions.
     """
 
-    def __init__(self, tokenizer_name: str = "microsoft/codebert-base",
+    def __init__(self, model_path: Optional[str] = None,
+                 tokenizer_name: str = "microsoft/codebert-base",
                  device: Union[str, torch.device] = "cuda",
                  use_gan: bool = True,
                  model_config: Optional[ModelConfig] = None,
@@ -49,6 +57,9 @@ class SmartContractAnalyzer:
                  tokenizer=None, batch_size: int = 8, verbose: bool = True,
                  line_fusion: bool = True, seed: int = 0):
         self._log = print if verbose else (lambda *a, **k: None)
+        if model_path is not None and not os.path.isdir(model_path):
+            raise FileNotFoundError(f"model_path {model_path!r}: no "
+                                    f"checkpoint directory there")
         # contract probability fused with the line heads (max over the
         # informative lines); False = head-only, reference parity
         self.line_fusion = line_fusion
@@ -62,6 +73,17 @@ class SmartContractAnalyzer:
             use_gan=use_gan)
         self.config = cfg
         self.max_length = cfg.max_length
+        if params is None and model_path is not None:
+            tree, meta = load_checkpoint(model_path)
+            # wrapped train state or raw params (inference.py:47-58)
+            flax = tree["params"] if "params" in tree else tree
+            params = convert_flax_params(
+                adapt_vocab_params(flax, cfg.padded_vocab_size), cfg)
+            self._log(f"Model loaded from {model_path}")
+            if meta:
+                self._log(f"Training epoch: {meta.get('epoch', 'Unknown')}")
+                self._log(f"Best validation loss: "
+                          f"{meta.get('val_loss', 'Unknown')}")
         if params is None:
             self.model = SmartContractTransformer(cfg, seed=seed)
             self._log("Initialized random parameters (no checkpoint)")

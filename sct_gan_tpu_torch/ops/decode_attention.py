@@ -11,6 +11,10 @@ the kernel reads no key past ``pos`` and the cache is never copied. That
 replaces the JAX loop's ``cache_chunk`` re-slicing, which exists only to
 bound reads under static shapes; the numbers are the same, because keys
 past ``pos`` are masked there.
+
+Head dims as in ``flash_attention``: instances for 64, 96 and 128; any
+other head dim up to 128 through a zero-padded copy of q, k and v (the
+whole cache, every call: the slow route); over 128 raises.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import torch
 
 from . import _build
 from .attention import mha_reference
-from .flash_attention import KERNEL_HEAD_DIM, _mask_arg, _strides, head_strides
+from .flash_attention import (KERNEL_HEAD_DIMS, _mask_arg, _strides,
+                              head_strides, kernel_head_dim, pad_head_dim)
 
 TILE_KEYS = 64      # keys a tile of the kernel
 MAX_SPLITS = 8      # blocks a (b, h): one portable thread block cluster
@@ -106,18 +111,18 @@ def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
 
 def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Check the shapes and layouts the kernel takes and return the (sb,
-    sh, ss) strides of q, k and v: one query, any S >= 1, the model's head
-    dim; k and v rows on 16-byte lines (the kernel's 16-byte copies), q on
-    4-byte lines. It reads only shapes, strides and base addresses, so it
-    holds for a tensor on any device."""
+    sh, ss) strides of q, k and v: one query, any S >= 1, a head dim with
+    a kernel instance; k and v rows on 16-byte lines (the kernel's 16-byte
+    copies), q on 4-byte lines. It reads only shapes, strides and base
+    addresses, so it holds for a tensor on any device."""
     b, h, sq, d = q.shape
     s = k.shape[2]
     if sq != 1 or k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if d != KERNEL_HEAD_DIM or s < 1:
-        raise ValueError(f"head dim {d} / keys {s} not supported (head dim "
-                         f"{KERNEL_HEAD_DIM}, at least one key)")
+    if d not in KERNEL_HEAD_DIMS or s < 1:
+        raise ValueError(f"head dim {d} / keys {s} not supported (head dims "
+                         f"{KERNEL_HEAD_DIMS}, at least one key)")
     return (head_strides(q, "q", 4), head_strides(k, "k", 16),
             head_strides(v, "v", 16))
 
@@ -130,7 +135,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, H, 1, dh); k, v: (B, H, S, dh), any (b, h, s) strides with rows
     on 16-byte lines; mask: (B, S) bool, True = attend, or None for all S
     keys visible. Returns (B, H, 1, dh) in q's dtype. A fully-masked row
-    gives zeros.
+    gives zeros. On CUDA, dh 64, 96 or 128 runs its kernel instance, any
+    other dh <= 128 a zero-padded copy, and dh > 128 raises.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, mask, sm_scale=sm_scale)
@@ -138,6 +144,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: expected a bf16 CUDA tensor, got "
                              f"{t.dtype} on {t.device}")
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    if dk != d:                       # the padded route
+        out = decode_attention(*(pad_head_dim(t, dk) for t in (q, k, v)),
+                               mask, sm_scale=sm_scale)
+        return out[..., :d]
     qs, ks, vs = decode_layout(q, k, v)
     b, h, _, d = q.shape
     s = k.shape[2]

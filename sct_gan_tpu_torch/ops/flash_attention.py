@@ -14,6 +14,13 @@ The dropout mask is the JAX package's hash stream over the flat
 (B, H, Sq, Sk) index (``ops/dropout.py``), the mask ``mha_reference``
 draws, so the kernels and the plain version agree entry for entry.
 
+The kernels have one instance each for head dims 64, 96 and 128
+(``KERNEL_HEAD_DIMS``). Any other head dim up to 128 takes the next larger
+instance through a zero-padded copy of q, k and v made here (a slow route:
+one copy of each per call); the scale stays that of the true head dim and
+the output is sliced back, so the result is the same. A head dim over 128
+raises.
+
 On a CPU tensor it runs the plain version, ``flash_attention_reference``,
 whose gradient is plain autograd through ``mha_reference``. The kernels'
 headers say what bounds them on an H100 and what their design does about it.
@@ -24,12 +31,31 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .attention import attention_lse, mha_reference
 from .dropout import keep_threshold
 
-KERNEL_HEAD_DIM = 96   # the model's d / H; the plain version takes any
+# head dims with a kernel instance; the plain version takes any
+KERNEL_HEAD_DIMS = (64, 96, 128)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instance a head dim ``d`` runs on: the smallest of
+    ``KERNEL_HEAD_DIMS`` that holds it. Raises over 128."""
+    for dk in KERNEL_HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(f"head dim {d}: the kernels take head dims up to "
+                     f"{KERNEL_HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(t: torch.Tensor, dk: int) -> torch.Tensor:
+    """A copy of ``t`` zero-padded on its last dim to ``dk``: zero columns
+    of q and k add nothing to a score, and zero columns of v give output
+    columns that are sliced away."""
+    return F.pad(t, (0, dk - t.shape[-1]))
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -126,9 +152,10 @@ def _check_shapes(q, k, v, rate: float):
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"head dim {d}: the kernels are built for "
-                         f"{KERNEL_HEAD_DIM}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels have instances for "
+                         f"{KERNEL_HEAD_DIMS} (flash_attention pads other "
+                         f"head dims up to 128)")
     # only the dropout hash takes the 32-bit flat (b, h, i, j) index
     if rate > 0.0 and b * h * sq * sk >= 2 ** 32:
         raise ValueError("with dropout, B*H*Sq*Sk must stay below 2^32 "
@@ -209,7 +236,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """dropout(softmax(Q Kᵀ·scale + mask [+ causal])) V over split heads.
 
     q: (B, H, Sq, dh); k, v: (B, H, Sk, dh); key_padding_mask: (B, Sk) bool,
-    True = attend. Any (b, h, s) strides are taken as they are.
+    True = attend. Any (b, h, s) strides are taken as they are. On CUDA, dh
+    64, 96 or 128 runs its kernel instance directly, any other dh <= 128
+    through a zero-padded copy, and dh > 128 raises.
     ``dropout_rate`` > 0 drops attention weights with the hash keep mask of
     ``seed``. Returns (B, H, Sq, dh) in q's dtype (on CUDA laid out as
     (B, Sq, H, dh), so merging the heads afterwards is a free view), and
@@ -223,14 +252,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q, k, v, key_padding_mask=key_padding_mask, causal=causal,
             sm_scale=sm_scale, dropout_rate=dropout_rate, seed=seed,
             return_lse=return_lse)
-    scale = (1.0 / q.shape[-1] ** 0.5) if sm_scale is None else float(sm_scale)
+    d = q.shape[-1]
+    scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
     rate = float(dropout_rate) if dropout_rate > 0.0 else 0.0
+    dk = kernel_head_dim(d)
+    if dk != d:   # the padded route: autograd slices the gradients back
+        q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v, key_padding_mask, causal,
                                          scale, rate, int(seed))
     else:
         out, lse = _forward(q, k, v, key_padding_mask, causal, scale, rate,
                             int(seed), return_lse)
+    if dk != d:
+        out = out[..., :d]
     return (out, lse) if return_lse else out
 
 

@@ -32,7 +32,7 @@ import torch
 
 from ..ops import _build
 from ..ops.decode_attention import decode_attention, decode_attention_reference
-from ..ops.flash_attention import KERNEL_HEAD_DIM, _mask_arg, _strides
+from ..ops.flash_attention import _mask_arg, _strides
 from ..utils.profiling import (bound_ms, card_line, chain_ms, cuda_ms,
                                require_card)
 from ._common import device_kind, mode_index, summary_line, timing_row
@@ -41,6 +41,7 @@ MODES = ("v1", "v2", "v3")
 PARITY_TOL = 2e-2               # the tool's gate: v2, v3 against v1, max abs
 MAX_KEYS = 8192                 # v2: one head's scores in shared memory
 MAX_SLAB_KEYS = 4096            # v3: 8 warps' score rows in shared memory
+HEAD_DIM = 96                   # v2, v3: the head dim their kernels take
 
 
 def decode_variants_reference(q, k, v, mask=None, *, sm_scale: float):
@@ -80,9 +81,9 @@ def decode_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     limit = MAX_SLAB_KEYS if mode == "v3" else MAX_KEYS
-    if d != KERNEL_HEAD_DIM or not 0 < s <= limit:
+    if d != HEAD_DIM or not 0 < s <= limit:
         raise ValueError(f"head dim {d} / keys {s} not supported (head dim "
-                         f"{KERNEL_HEAD_DIM}, 1..{limit} keys)")
+                         f"{HEAD_DIM}, 1..{limit} keys)")
     qs = _strides(q, "q", 4)
     ks, vs = _strides(k, "k", 4), _strides(v, "v", 4)
     if mode == "v3":

@@ -21,6 +21,12 @@ the coefficients, so a skipped step leaves parameters and moments bit for
 bit as they were. All of it stays on the device: no value is read back to
 the host during a step. The port updates the parameters and the moments in
 place (where JAX returns new trees), which saves a copy of each.
+
+``GradientTransform`` is the unfused chain the JAX package builds with
+optax (``build_gradient_transform`` then ``apply_group_lrs``, and the train
+step's skip keep-where), stage by stage over the whole gradient set: the
+trainer's ``fused_optimizer=False``. Both take and keep the same state
+layout, so a checkpoint of either resumes under the other.
 """
 from __future__ import annotations
 
@@ -227,4 +233,90 @@ class FusedOptimizer:
             pf = p.float()
             p.copy_(pf - lr_eff[m.group] * (u + self.wd * pf))
         opt_state["count"] = count
+        return norm, ok
+
+
+class GradientTransform:
+    """The optax chain of the JAX package in plain PyTorch, one stage at a
+    time (``build_gradient_transform`` + ``apply_group_lrs``):
+
+      fusion ±1 clamp → clip by global norm (max_grad_norm) → [GAN: the
+      discriminator set clipped to 0.3·max] → the vulnerability set clipped
+      to 2·max → Adam (β, ε; bias-corrected) → + weight_decay·p →
+      × −lr[group] → p + u;
+
+    then the skip: a non-finite loss or a gradient norm above 1000 (taken
+    after the clamp) keeps parameters, moments and count as they were.
+    Each clip recomputes its set's norm on the clipped values, as optax
+    does. Same constructor, state and ``update`` as ``FusedOptimizer``;
+    parameters and state are updated in place."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
+                 use_gan: bool, max_grad_norm: float = 1.0,
+                 adam_b1: float = 0.9, adam_b2: float = 0.98,
+                 adam_eps: float = 1e-9, weight_decay: float = 0.1):
+        named = list(named_params)
+        self.names: List[str] = [n for n, _ in named]
+        self.params: List[torch.Tensor] = [p for _, p in named]
+        self.meta = [leaf_meta(n, use_gan) for n in self.names]
+        self.use_gan = use_gan
+        self.max_norm = float(max_grad_norm)
+        self.b1, self.b2, self.eps = (float(adam_b1), float(adam_b2),
+                                      float(adam_eps))
+        self.wd = float(weight_decay)
+
+    def init(self) -> Dict:
+        device = self.params[0].device
+        zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,
+                                        device=p.device)
+                         for n, p in zip(self.names, self.params)}
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                "mu": zeros(), "nu": zeros()}
+
+    @staticmethod
+    def _clip(gs: List[torch.Tensor], chosen: List[bool], max_norm: float
+              ) -> torch.Tensor:
+        """optax.clip_by_global_norm over the chosen gradients, in place;
+        returns their norm before the clip."""
+        sel = [g for g, c in zip(gs, chosen) if c]
+        norm = torch.sqrt(sum((torch.sum(g * g) for g in sel),
+                              torch.zeros((), device=gs[0].device)))
+        for i, c in enumerate(chosen):
+            if c:
+                gs[i] = torch.where(norm < max_norm, gs[i],
+                                    gs[i] / norm * max_norm)
+        return norm
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], opt_state: Dict,
+               lrs: GroupLRs, total_loss: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Apply one step in place; returns (grad_norm, ok) as device
+        scalars, as ``FusedOptimizer.update`` does."""
+        gs = [g.float().clamp(-1.0, 1.0) if m.fusion else g.float()
+              for g, m in zip(grads, self.meta)]
+        every = [True] * len(gs)
+        norm = self._clip(gs, every, self.max_norm)
+        if self.use_gan:
+            self._clip(gs, [m.disc_clip for m in self.meta],
+                       0.3 * self.max_norm)
+        self._clip(gs, [m.vuln_clip for m in self.meta], 2.0 * self.max_norm)
+
+        ok = torch.isfinite(total_loss) & (norm <= 1000.0)
+        count = opt_state["count"] + 1
+        t = count.float()
+        bc1 = 1.0 - torch.pow(self.b1, t)
+        bc2 = 1.0 - torch.pow(self.b2, t)
+        lr = lrs.as_vector(gs[0].device)
+        for name, p, g, m in zip(self.names, self.params, gs, self.meta):
+            mu, nu = opt_state["mu"][name], opt_state["nu"][name]
+            mu2 = (1.0 - self.b1) * g + self.b1 * mu
+            nu2 = (1.0 - self.b2) * (g * g) + self.b2 * nu
+            u = (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + self.eps)
+            pf = p.float()
+            u = (u + self.wd * pf) * -lr[m.group]
+            p.copy_(torch.where(ok, pf + u, pf))
+            mu.copy_(torch.where(ok, mu2, mu))
+            nu.copy_(torch.where(ok, nu2, nu))
+        opt_state["count"] = torch.where(ok, count, opt_state["count"])
         return norm, ok

@@ -266,7 +266,8 @@ def _line_batch_metrics(line_logits, line_labels, row_mask=None):
 def make_train_step(model, fused_opt: FusedOptimizer,
                     tables: SyntaxLossTables, *, use_gan: bool,
                     use_augmentation: bool, fused_lm_ce: bool = False):
-    """Build the train step.
+    """Build the train step. ``fused_opt`` is a ``FusedOptimizer`` or, for
+    the unfused chain, a ``GradientTransform`` (the same interface).
 
     step(state, batch, scalars, lrs, generator) -> (state, metrics,
     next_scalars). ``state.params`` and ``state.opt_state`` are updated in

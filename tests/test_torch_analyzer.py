@@ -155,11 +155,12 @@ def test_entry_points_default_to_the_card(analyzers):
 
 def test_port_imports_no_jax():
     """In a fresh process the port imports every one of its modules, runs
-    the tiny detection and generation and two steps of the tiny training
-    (``SmartContractTrainer``, dropout on) from its own config, tokenizer
-    and corpus copies (the native tokenizer built from its own C++
-    source), and never imports jax, flax, orbax, optax or any module of
-    the JAX package."""
+    the tiny detection and generation, two steps of the tiny training
+    (``SmartContractTrainer``, dropout on) and one epoch of ``train`` with
+    augmentation, its checkpoint restored and served by the analyzer, from
+    its own config, tokenizer and corpus copies (the native tokenizer
+    built from its own C++ source), and never imports jax, flax, orbax,
+    optax or any module of the JAX package."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, tempfile
         import sct_gan_tpu_torch
@@ -202,7 +203,21 @@ def test_port_imports_no_jax():
                                    warmup_epochs=1), device="cpu",
                 verbose=False)
             out = trainer.train_epoch(0)
-        assert out["batches"] == 2 and trainer.state.step == 2, out
+            assert out["batches"] == 2 and trainer.state.step == 2, out
+            # the loop with augmentation, a checkpoint, its restore and
+            # the analyzer serving it
+            looped = SmartContractTrainer(
+                SmartContractTransformer(cfg, seed=0), train, val, tok,
+                config=TrainConfig(learning_rate=1e-5, use_gan=True,
+                                   use_augmentation=True, warmup_epochs=1),
+                device="cpu", verbose=False)
+            looped.train(1, checkpoint_dir=d + "/ck")
+            from sct_gan_tpu_torch.train.checkpoint import find_checkpoint
+            assert looped.restore(find_checkpoint(d + "/ck", "latest")) == 1
+            served = SmartContractAnalyzer(find_checkpoint(d + "/ck"),
+                                           model_config=cfg, tokenizer=tok,
+                                           device="cpu", verbose=False)
+            assert len(served.analyze_multiple_contracts(codes)) == 3
         banned = ("jax", "jaxlib", "flax", "orbax", "optax", "sct_gan_tpu")
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
         assert not loaded, loaded

@@ -117,14 +117,16 @@ def test_decode_layout_takes_any_key_count(s):
     assert decode_layout(q, cross, cross)[2] == (s * 768, 96, 768)
 
 
-@pytest.mark.parametrize("case", ["no_keys", "head_dim_64", "two_queries",
-                                  "rows_off_16_bytes"])
+@pytest.mark.parametrize("case", ["no_keys", "head_dim_64", "head_dim_80",
+                                  "two_queries", "rows_off_16_bytes"])
 def test_decode_layout_refuses_what_the_kernel_cannot_take(case):
     q, k = _meta(2, 8, 1), _meta(2, 8, 100)
     if case == "no_keys":
         k = _meta(2, 8, 0)
-    elif case == "head_dim_64":
-        q, k = _meta(2, 8, 1, 64), _meta(2, 8, 100, 64)
+    elif case == "head_dim_64":      # q's head dim 64 against k's 96
+        q = _meta(2, 8, 1, 64)
+    elif case == "head_dim_80":      # no instance: the wrapper pads it
+        q, k = _meta(2, 8, 1, 80), _meta(2, 8, 100, 80)
     elif case == "two_queries":
         q = _meta(2, 8, 2)
     else:                      # 200-byte rows: not whole 16-byte units

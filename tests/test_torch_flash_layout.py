@@ -39,7 +39,12 @@ def test_check_shapes_takes_dropout_below_the_limit():
 
 
 def test_check_shapes_refuses_another_head_dim():
-    q = _head_view(2, 64, d=64)
+    """The kernels have instances for head dims 64, 96 and 128 only; the
+    wrapper pads any other head dim before it reaches them."""
+    for d in (64, 128):
+        q = _head_view(2, 64, d=d)
+        assert _check_shapes(q, q, q, 0.0) == (2, 8, 64, 64, d)
+    q = _head_view(2, 64, d=80)
     with pytest.raises(ValueError, match="head dim"):
         _check_shapes(q, q, q, 0.0)
 

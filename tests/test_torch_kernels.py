@@ -277,6 +277,90 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, case):
         assert torch.equal(got.view(torch.int16), again.view(torch.int16))
 
 
+# head dims of the other kernel instances (64, 128) and of the padded route
+# (80 runs the 128 instances on a zero-padded copy), with their heads
+HEAD_DIM_CASES = [(64, 12), (80, 8), (128, 6)]
+
+
+def _head_view(g, device, b, s, h, d, scale=1.0):
+    """The model's (B, H, S, d) view of (B, S, H*d) bf16 projections."""
+    x = torch.randn(b, s, h * d, generator=g, device=device) * scale
+    return x.to(torch.bfloat16).view(b, s, h, d).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,h", HEAD_DIM_CASES)
+def test_flash_head_dims_match_plain_on_card(cuda_device, d, h, causal):
+    """K1 (dropout 0.3, LSE) and the backward pair at each head-dim
+    instance and on the padded route, Sq=200 against Sk=1000 keys under a
+    key mask (the tiles' edges): the bounds of the head-dim-96 tests above;
+    the scale is the true head dim's."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = _head_view(g, cuda_device, 2, 200, h, d, 2.0).requires_grad_()
+    k, v = (_head_view(g, cuda_device, 2, 1000, h, d).requires_grad_()
+            for _ in range(2))
+    mask = (torch.arange(1000, device=cuda_device)[None, :]
+            < torch.tensor([[993], [500]], device=cuda_device))
+    args = dict(key_padding_mask=mask, causal=causal, dropout_rate=0.3,
+                seed=7, return_lse=True)
+    got, lse = flash_attention(q, k, v, **args)
+    want, want_lse = flash_attention_reference(q, k, v, **args)
+    dout = torch.randn_like(got)
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    want_g = torch.autograd.grad(want, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, h, 200, d)
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -4
+    assert _rel_err(got, want) <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    for a, w in zip(grads, want_g):
+        assert a.shape == w.shape
+        assert (a.float() - w.float()).abs().max().item() <= 2 ** -3
+        assert _rel_err(a, w) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["self_pos64", "cross_src_mask",
+                                  "b64_cross"])
+@pytest.mark.parametrize("d,h", HEAD_DIM_CASES)
+def test_decode_head_dims_match_plain_on_card(cuda_device, d, h, case):
+    """K5 at each head-dim instance (64 and 128 store their tiles
+    swizzled) and on the padded route: the bounds of the head-dim-96
+    test."""
+    b, s, layout, kind = DECODE_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn(b, h, 1, d, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    if layout == "cache":
+        cache = torch.randn(2, b, h, 1024, d, generator=g, device=cuda_device,
+                            dtype=torch.bfloat16)
+        k, v = cache[0, :, :, :s], cache[1, :, :, :s]
+    else:
+        k, v = (_head_view(g, cuda_device, b, s, h, d) for _ in range(2))
+    mask = None
+    if kind is not None:
+        lens = (torch.tensor([s - 150, s - 274], device=cuda_device)
+                if b <= 2 else torch.randint(1, s + 1, (b,), generator=g,
+                                             device=cuda_device))
+        mask = torch.arange(s, device=cuda_device)[None, :] < lens[:, None]
+    got = decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
+    want = decode_attention_reference(q, k, v, mask, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, 1, d)
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_head_dim_over_128_raises_on_card(cuda_device):
+    q = torch.zeros(1, 2, 8, 160, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="128"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="128"):
+        decode_attention(q[:, :, :1], q, q, sm_scale=0.1)
+
+
 def _bf16_steps(want, steps=2) -> float:
     """``steps`` bf16 steps at the largest |value| of ``want``."""
     top = max(want.float().abs().max().item(), 2.0 ** -8)
