@@ -11,8 +11,9 @@ forward (with dropout and LSE) and backward, the single-query decode
 attention (split-K, at the edges of its tiles and splits) and the hash
 dropout; the backward's and the decode attention's two runs must give the
 same bits. The flash forward, the backward pair and the decode attention
-are held so at each head-dim instance (64, 96, 128) and on the padded
-route (head dim 80). It holds every mode of the kernel-timing tools'
+are held so at each head-dim instance (64, 96, 128), on the padded route
+(head dim 80) and on the wide-head route (192, 256, 384), also under
+``encode_concat``'s key mask with its hole. It holds every mode of the kernel-timing tools'
 kernels (K7-K10, ``sct_gan_tpu_torch/tools``) against its plain version at
 the tools' shapes, then runs the four tools' ``time_modes`` (their main
 path), counting launches. Then it drives the paths of the port at full
@@ -23,6 +24,14 @@ ran through its kernels:
   * serving (8 heads of 96, 6+6 layers): batched detection of 8 contracts
     and sampled generation of 2, cross-checked against the port on the CPU
     in f32;
+  * beam search (``beam``, the same model): ``generate_synthetic_contract(
+    use_beam_search=True, beam_size=3)`` over the full length, its best
+    hypothesis re-scored teacher-forced against the beam's own score;
+  * the analyzer (``analyzer``): the fallback tiers, the diagnostics,
+    ``debug_forward`` and ``generate_simple_contract``;
+  * evaluation (``evals``): ``evaluate_model_performance``,
+    ``collect_validation_results`` and ``compute_perplexity`` over 16
+    contracts, held to ``analyze_multiple_contracts``;
   * training (the same): ``SmartContractTrainer.train_step`` on the JAX
     bench's batch (B=8, L=1024, dropout 0.3, fused LM-head CE, fused
     optimizer), then ``train_epoch`` over a 16-contract corpus; the loss
@@ -32,14 +41,16 @@ ran through its kernels:
     latest checkpoints, a fresh trainer's ``restore`` of the latest held
     bit for bit, and ``SmartContractAnalyzer(model_path=best)`` held to
     detection on the trained weights;
-  * the other head dims (``heads``): ModelConfig(nhead=12) (head dim 64)
-    and ModelConfig(nhead=6) (head dim 128), depth cut to 2+2 layers: one
-    detection forward, one train step and 16 generation steps each.
+  * the other head dims (``heads``): ModelConfig(nhead=12) (head dim 64),
+    ModelConfig(nhead=6) (head dim 128), and on the wide-head route
+    ModelConfig(nhead=3) (256) and ModelConfig(nhead=2) (384), depth cut to
+    2+2 layers: one detection forward, one train step and 16 generation
+    steps each.
 
 It times the kernels (every head-dim instance), their plain versions, the
 PyTorch library call for the same function and each path with CUDA events
-or synchronised host clocks, and profiles detection, generation and one
-train step with ``torch.profiler`` (tables in
+or synchronised host clocks, and profiles detection, generation, 127 beam
+steps and one train step with ``torch.profiler`` (tables in
 ``profile_out/profile_*.txt``).
 
 Every phase prints a line; any failure raises (non-zero exit). The line
@@ -206,8 +217,10 @@ def phase_build():
 
 
 # the kernels whose ptxas report must show no spill (their designs' budgets
-# allow none): the flash forward, the backward pair, the decode attention
-NO_SPILL = ("flash_fwd_kernel", "flash_bwd_", "decode_splitk_kernel")
+# allow none): the flash forward, the backward pair, the decode attention,
+# each with its wide-head route
+NO_SPILL = ("flash_fwd_kernel", "flash_fwd_wide_kernel", "flash_bwd_",
+            "decode_splitk_kernel", "decode_wide_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -443,20 +456,47 @@ def phase_kernels():
 # head dim without an instance (the padded route to 128), held at 8 heads.
 HEAD_DIMS = {64: 12, 128: 6}
 PADDED_DIM = 80
+# Head dims over 128, each kernel's wide-head route, with their heads at
+# d=768: ModelConfig(nhead=4) (192, padded to 256), nhead=3 (256) and
+# nhead=2 (384). The kernels line's entry of a wide route carries the
+# 256 times at its top level (WIDE_TOP) and every head dim's beside them.
+WIDE_DIMS = {192: 4, 256: 3, 384: 2}
+WIDE_TOP = 256
+# the wide head dims the heads phase runs as models (192 is 256's route on
+# a padded copy)
+WIDE_MODELS = (256, 384)
 
 
 def instance(kernel: str, d: int) -> str:
     """The kernels line's name of ``kernel``'s head-dim-``d`` instance (96
-    keeps the bare name)."""
+    keeps the bare name; every head dim over 128 is the wide route)."""
+    if d in WIDE_DIMS:
+        return f"{kernel}_wide"
     return kernel if d == 96 else f"{kernel}_dh{d}"
 
 
+def concat_mask(dev, b: int = 8, s: int = 1024):
+    """The key mask ``encode_concat`` makes: the contract's first s/2
+    tokens, padded after its length, then the AST's, padded after its own:
+    a hole in the middle of each row whose contract is short."""
+    import torch
+    half = s // 2
+    lc = torch.tensor([512, 450, 350, 256, 150, 500, 32, 400][:b], device=dev)
+    la = torch.tensor([512, 300, 420, 100, 512, 60, 200, 450][:b], device=dev)
+    pos = torch.arange(half, device=dev)[None, :]
+    return torch.cat([pos < lc[:, None], pos < la[:, None]], dim=1)
+
+
 def phase_head_kernels():
-    """K1, the K2-K4 pair and K5 at head dims 64 and 128 (their instances)
-    and 80 (the padded route, which runs the 128 instances) against their
-    plain versions at full width: (8, H, 1024, d) for the flash kernels,
-    (2, H, 1024, d) and (64, H, 1024, d) for K5. Returns the worst errors
-    by instance name; the padded route's under ``<name>_dh128:padded80``."""
+    """K1, the K2-K4 pair and K5 at head dims 64 and 128 (their
+    instances), 80 (the padded route, which runs the 128 instances) and
+    192, 256, 384 (the wide-head route) against their plain versions at
+    full width, H * d = 768: (8, H, 1024, d) for the flash kernels, (2, H,
+    1024, d), (8, H, 1024, d) and (64, H, 1024, d) for K5; every head dim
+    also under ``encode_concat``'s mask with its hole. Returns the worst
+    errors by instance name; the padded route's under
+    ``<name>_dh128:padded80``, each wide head dim's under
+    ``<name>_wide:dh<d>`` besides the route's worst."""
     import torch
     from sct_gan_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
@@ -468,9 +508,18 @@ def phase_head_kernels():
     lens = torch.tensor([1024, 900, 700, 512, 300, 1000, 64, 801], device=dev)
     pad_mask = torch.arange(1024, device=dev)[None, :] < lens[:, None]
     ragged = torch.arange(1000, device=dev)[None, :] < lens[:, None]
+    hole = concat_mask(dev)
 
-    for d, h in [*HEAD_DIMS.items(), (PADDED_DIM, 8)]:
-        tag = f"_dh128:padded{d}" if d == PADDED_DIM else f"_dh{d}"
+    def check(kernel, d, tag, name, got, want, tol, what):
+        check_close(errs, kernel + tag, name, got, want, tol, what)
+        if d in WIDE_DIMS:          # the route's worst over its head dims
+            a, r = errs[kernel + tag]
+            wa, wr = errs.get(kernel + "_wide", (0.0, 0.0))
+            errs[kernel + "_wide"] = (max(a, wa), max(r, wr))
+
+    for d, h in [*HEAD_DIMS.items(), (PADDED_DIM, 8), *WIDE_DIMS.items()]:
+        tag = (f"_dh128:padded{d}" if d == PADDED_DIM
+               else f"_wide:dh{d}" if d in WIDE_DIMS else f"_dh{d}")
         scale = d ** -0.5
 
         def rnd(b, s, sd=1.0):
@@ -484,8 +533,8 @@ def phase_head_kernels():
             got, lse = flash_attention(q, k, v, **args)
             want, want_lse = flash_attention_reference(q, k, v, **args)
             torch.cuda.synchronize()
-            check_close(errs, "flash_attention_fwd" + tag, name, got, want,
-                        kernel_tol(want), f" q{tuple(q.shape)}")
+            check("flash_attention_fwd", d, tag, name, got, want,
+                  kernel_tol(want), f" q{tuple(q.shape)}")
             err = max_err(lse, want_lse)
             if not err <= LSE_TOL:
                 raise AssertionError(f"K1 d={d} {name} lse: {err}")
@@ -502,25 +551,29 @@ def phase_head_kernels():
                 flash_attention_reference(q, k, v, **args), (q, k, v), dout)
             torch.cuda.synchronize()
             for nm, gt, wt in zip(("dq", "dk", "dv"), got, want):
-                check_close(errs, "flash_attention_bwd" + tag, name, gt, wt,
-                            kernel_tol(wt, 4), f" {nm} q{tuple(q.shape)}")
+                check("flash_attention_bwd", d, tag, name, gt, wt,
+                      kernel_tol(wt, 4), f" {nm} q{tuple(q.shape)}")
 
         fwd("key mask, padded tails", 1024, 1024, False, pad_mask)
         fwd("causal", 1024, 1024, True, None)
         fwd("dropout 0.3, ragged causal", 1000, 1000, True, ragged, 0.3)
         fwd("Sq=200, Sk=1000, key mask", 200, 1000, False, ragged)
+        fwd("encode_concat mask (a hole), dropout 0.3", 1024, 1024, False,
+            hole, 0.3)
         bwd("key mask, padded tails", 1024, 1024, False, pad_mask)
         bwd("dropout 0.3, ragged causal", 1000, 1000, True, ragged, 0.3)
         bwd("Sq=200, Sk=1000, key mask, dropout 0.3", 200, 1000, False,
             ragged, 0.3)
+        bwd("encode_concat mask (a hole), dropout 0.3", 1024, 1024, False,
+            hole, 0.3)
 
         def dec(name, b, k, v, mask):
             q = rnd(b, 1, 2.0)
             got = decode_attention(q, k, v, mask, sm_scale=scale)
             want = decode_attention_reference(q, k, v, mask, sm_scale=scale)
             torch.cuda.synchronize()
-            check_close(errs, "decode_attention" + tag, name, got, want,
-                        kernel_tol(want), f" k{tuple(k.shape)}")
+            check("decode_attention", d, tag, name, got, want,
+                  kernel_tol(want), f" k{tuple(k.shape)}")
             return got
 
         src = torch.arange(1024, device=dev)[None, :] < lens[:2, None] - 150
@@ -538,6 +591,9 @@ def phase_head_kernels():
         lens64 = torch.randint(1, 1025, (64, 1), generator=g, device=dev)
         dec("B=64 (1 split), ragged src mask", 64, rnd(64, 1024),
             rnd(64, 1024), torch.arange(1024, device=dev)[None, :] < lens64)
+        dec("B=8, padded tails", 8, rnd(8, 1024), rnd(8, 1024), pad_mask)
+        dec("B=8, encode_concat mask (a hole)", 8, rnd(8, 1024),
+            rnd(8, 1024), hole)
     print("phase head kernels: worst max_abs_err / rel_err " + ", ".join(
         f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items()), flush=True)
     return errs
@@ -1056,11 +1112,240 @@ def phase_loop() -> dict:
     return {k: counts[k] + serve_counts[k] for k in counts}
 
 
+def flash_per_detect(cfg) -> int:
+    """K1 calls of a detection forward: the encoder's layers, the AST and
+    cross attentions, the two line-head attentions (10 at 6 layers)."""
+    return cfg.num_encoder_layers + 4
+
+
+def flash_per_forward(cfg) -> int:
+    """K1 calls of the full forward with targets: detection's, the
+    decoder's self and cross attentions, the discriminator (23 at 6+6)."""
+    return flash_per_detect(cfg) + 2 * cfg.num_decoder_layers + 1
+
+
+# the beam's own score of its best hypothesis against the same tokens
+# re-scored teacher-forced over encode_concat's memory: both are sums of
+# bf16-path log-probs (decode_step's through K5, teacher forcing's through
+# K1), each token's within a few bf16 steps of the logits (|logits| < 4:
+# steps of 2^-6); the sum over n tokens is held to n * 2^-5.
+BEAM_LOGP_TOL_PER_TOKEN = 2.0 ** -5
+
+
+def phase_beam(an, template: str) -> dict:
+    """Beam search at the reference width: ``generate_synthetic_contract(
+    use_beam_search=True, beam_size=3)`` over the full length, counting
+    its launches (K1 in ``encode_concat``, K5 at B*K = 3 rows a step); K5
+    at (3, 8, 1024, 96) under the concatenated mask against its plain
+    version; the best hypothesis re-scored teacher-forced against the
+    beam's own score (the reindex of tokens and caches, held on the
+    card). Returns the launches of the beam."""
+    import torch
+    from sct_gan_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    cfg = an.config
+    reset_counts()
+    t0 = time.perf_counter()
+    out = an.generate_synthetic_contract(template, num_contracts=2,
+                                         use_beam_search=True, beam_size=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = an.last_decode_steps
+    beam = an._beam_fns[3]
+    layers = cfg.num_decoder_layers
+    if (counts["flash_attention_fwd"] != cfg.num_encoder_layers
+            or counts["decode_attention"] != 2 * layers * steps
+            or len(out) != 2 or out[0] != out[1]):
+        raise AssertionError(f"beam: launches {counts} for {steps} steps, "
+                             f"outputs {len(out)}")
+    print(f"phase beam: K=3 over {steps} steps (of {cfg.max_length - 1}) in "
+          f"{wall:.2f} s = {wall / steps * 1e3:.2f} ms/step (first call); "
+          f"launches {counts} = {cfg.num_encoder_layers} flash in "
+          f"encode_concat, {2 * layers} decode a step at B*K = 3 rows",
+          flush=True)
+
+    # -- the reindex, held on the card: re-score the best hypothesis ---------
+    b = an._prepare_inputs([template])
+    with torch.inference_mode():
+        memory, src_mask = an.model.encode_concat(
+            b["input_ids"], b["attention_mask"], b["ast_input_ids"],
+            b["ast_attention_mask"])
+        tokens = beam.last_tokens[:, 0]      # the best, as decoded above
+        score = float(beam.last_scores[0, 0])
+        logits = an.model.decode_teacher_forced(tokens, memory, src_mask)
+        logp = torch.log_softmax(logits.float() / 0.8, dim=-1)[0, :-1]
+        picked = logp.gather(-1, tokens[0, 1:, None])[:, 0]
+        eos = (tokens[0, 1:] == 2).nonzero()
+        n = int(eos[0]) + 1 if len(eos) else picked.numel()
+        rescored = float(picked[:n].sum())
+    tol = n * BEAM_LOGP_TOL_PER_TOKEN
+    print(f"phase beam re-score: best hypothesis, {n} tokens: beam score "
+          f"{score:.4f}, teacher-forced {rescored:.4f} (|diff| "
+          f"{abs(score - rescored):.4f}, tol {tol:.4f} = n x 2^-5)",
+          flush=True)
+    if not abs(score - rescored) <= tol:
+        raise AssertionError("beam: the beam's score and the teacher-forced "
+                             "re-score disagree")
+
+    # -- K5 at the beam's rows under the concatenated mask --------------------
+    dev = an.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    errs = {}
+    rb = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = (_heads(rb(3, s_, 768)) for s_ in (1, 1024, 1024))
+    mask = concat_mask(dev, b=3)
+    got = decode_attention(q, k, v, mask, sm_scale=96 ** -0.5)
+    want = decode_attention_reference(q, k, v, mask, sm_scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    check_close(errs, "decode_attention", "beam rows (3, 8, 1024, 96), "
+                "encode_concat mask", got, want, kernel_tol(want))
+    return counts
+
+
+def phase_analyzer(an, codes) -> dict:
+    """The analyzer's tiers and diagnostics at the reference width: the
+    fallback chain and the contract-only tier on one contract (the full
+    tier's probabilities equal ``detect_vulnerabilities``'), the four
+    diagnostics, ``debug_forward`` and ``generate_simple_contract(256)``.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    reset_counts()
+    t0 = time.perf_counter()
+    full = an.detect_vulnerabilities_with_fallback(codes[1])
+    plain = an.detect_vulnerabilities(codes[1])
+    safe = an.detect_vulnerabilities_safe(codes[1])
+    head, _ = an._detect(an._prepare_inputs([codes[1]]))
+    torch.cuda.synchronize()
+    c_tiers = read_counts()
+    same = (full["contract_probabilities"] == plain["contract_probabilities"]
+            and full["line_probabilities"] == plain["line_probabilities"])
+    safe_cp = np.asarray(safe["contract_probabilities"][0])
+    per = flash_per_detect(an.config)
+    if not (same and np.array_equal(safe_cp, head[0].cpu().numpy())
+            and not np.asarray(safe["line_probabilities"]).any()
+            and c_tiers["flash_attention_fwd"] == 3 * per + per - 2):
+        raise AssertionError(f"analyzer tiers: full == detect {same}, "
+                             f"launches {c_tiers}")
+    print(f"phase analyzer tiers: the fallback chain's full tier equals "
+          f"detect_vulnerabilities bit for bit; the contract-only tier "
+          f"{[round(float(x), 4) for x in safe_cp]} with zero line "
+          f"probabilities; launches {c_tiers} ({per} flash a full forward, "
+          f"{per - 2} contract-only); {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    func = an.test_model_functionality()
+    diag = an.diagnose_generation_model()
+    dbg = an.debug_forward(codes[1])
+    simple = an.test_generation_simple()
+    text = an.generate_simple_contract(max_length=256)
+    simple_steps = an.last_decode_steps
+    torch.cuda.synchronize()
+    c_diag = read_counts()
+    stats_ok = set(dbg) == {"line_means", "line_extracted", "line_logits"} \
+        and all(math.isfinite(x) for s_ in dbg.values()
+                for k, x in s_.items() if k != "collapsed")
+    if not (func["success"] and simple["success"] and stats_ok
+            and math.isfinite(diag["output_weight_std"])
+            and len(diag["first_step_top_tokens"]) == 5
+            and isinstance(text, str) and 1 <= simple_steps <= 255):
+        raise AssertionError(f"analyzer diagnostics: {func}, {diag}, {dbg}, "
+                             f"{simple}, steps {simple_steps}")
+    print(f"phase analyzer diagnostics: test_model_functionality {func}; "
+          f"diagnose_generation_model top tokens "
+          f"{diag['first_step_top_tokens']}, weight std "
+          f"{diag['output_weight_std']:.4f}; debug_forward "
+          + ", ".join(f"{k} std {v['std']:.4f}" for k, v in dbg.items())
+          + f"; test_generation_simple length {simple['generated_length']}; "
+          f"generate_simple_contract(256) {simple_steps} steps, "
+          f"{len(text)} chars; launches {c_diag}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {k: c_tiers[k] + c_diag[k] for k in c_tiers}
+
+
+def phase_evals(an) -> dict:
+    """The eval modules at the reference width over 16 synthetic contracts
+    (``generate_corpus(n=16, seed=1)``, two batches of 8):
+    ``evaluate_model_performance(analyzer=...)``,
+    ``collect_validation_results(generate_contracts=False)`` and
+    ``compute_perplexity`` over the two batches. The harness's and the
+    validation's probabilities are held to ``analyze_multiple_contracts``'
+    on the same contracts. Returns the launches."""
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch.evals import (collect_validation_results,
+                                         compute_metrics_for_threshold,
+                                         compute_perplexity,
+                                         evaluate_model_performance)
+    from sct_gan_tpu_torch.evals.harness import _best_f1_sweep
+    loader = _loader(an.tokenizer, 16, 1, False)
+    data = loader.dataset.data
+    codes = [r["source_code"] for r in data]
+    out_dir = os.path.join(ROOT, "profile_out")
+    os.makedirs(out_dir, exist_ok=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = evaluate_model_performance(
+        val_dataloader=loader, analyzer=an, verbose=False,
+        output_file=os.path.join(out_dir, "evaluation_results.json"))
+    torch.cuda.synchronize()
+    harness_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    val = collect_validation_results(an, loader, generate_contracts=False)
+    val_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppl = compute_perplexity(an.model, loader, max_batches=2)
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    counts = read_counts()
+
+    direct = an.analyze_multiple_contracts(codes, threshold=0.0)
+    probs = np.stack([np.asarray(r["contract_probabilities"][0])
+                      for r in direct])
+    truth = np.stack([np.asarray(r["contract_vulnerabilities"])
+                      for r in data])
+    thr = res["model_info"]["contract_thresholds"]
+    pred = np.stack([[int(p[j] > thr[vt]) for j, vt in
+                      enumerate(an.vulnerability_types)] for p in probs])
+    want = dict(compute_metrics_for_threshold(truth, pred, probs),
+                best_f1=_best_f1_sweep(truth, probs))
+    got_val = np.stack(val["contract_level"]["predicted_probs"])
+    # detection (10 flash) on 2 batches of 8 in the harness and in the
+    # validation; the perplexity forward (23) on 2 batches
+    want_flash = (4 * flash_per_detect(an.config)
+                  + 2 * flash_per_forward(an.config))
+    ok = (res["contract_level"]["overall"] == want
+          and np.array_equal(got_val, probs)
+          and all(math.isfinite(ppl[k]) for k in ppl)
+          and counts["flash_attention_fwd"] == want_flash
+          and res["model_info"]["total_contracts"] == 16)
+    print(f"phase evals: 16 contracts; evaluate_model_performance "
+          f"{harness_s:.2f} s (contract PR-AUC "
+          f"{res['contract_level']['overall']['pr_auc']:.4f}, line PR-AUC "
+          f"{res['line_level']['overall']['pr_auc']:.4f}); "
+          f"collect_validation_results {val_s:.2f} s; compute_perplexity "
+          f"(2 batches of 8) {ppl_s:.2f} s, perplexity "
+          f"{ppl['perplexity']:.1f} over {ppl['tokens']:.0f} tokens; the "
+          f"harness's and the validation's probabilities equal "
+          f"analyze_multiple_contracts' {ok}; launches {counts} (expected "
+          f"{want_flash} flash)", flush=True)
+    if not ok:
+        raise AssertionError(f"evals: {res['contract_level']['overall']} vs "
+                             f"{want}, launches {counts}")
+    return counts
+
+
 def phase_heads() -> dict:
-    """ModelConfig(nhead=12) (head dim 64) and ModelConfig(nhead=6) (head
-    dim 128) at full width (d=768, L=1024, B=8), depth cut to 2+2 layers:
-    one detection forward, one train step and 16 generation steps each,
-    the counts read around each. Returns the launches by instance name."""
+    """ModelConfig(nhead=12) (head dim 64), ModelConfig(nhead=6) (head dim
+    128) and, on the wide-head route, ModelConfig(nhead=3) (256) and
+    ModelConfig(nhead=2) (384) at full width (d=768, L=1024, B=8), depth
+    cut to 2+2 layers: one detection forward, one train step and 16
+    generation steps each, the counts read around each. Returns the
+    launches by instance name (the wide route's summed over its two)."""
     import numpy as np
     import torch
     from sct_gan_tpu_torch import (SmartContractAnalyzer,
@@ -1071,7 +1356,8 @@ def phase_heads() -> dict:
     from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
     codes = [r["source_code"] for r in generate_corpus(n=8, seed=0)]
     launches = {}
-    for d, h in HEAD_DIMS.items():
+    models = [*HEAD_DIMS.items(), *((d, WIDE_DIMS[d]) for d in WIDE_MODELS)]
+    for d, h in models:
         cfg = ModelConfig(use_gan=True, max_length=1024, max_lines=1024,
                           nhead=h, num_encoder_layers=2,
                           num_decoder_layers=2)
@@ -1130,8 +1416,9 @@ def phase_heads() -> dict:
         if not ok:
             raise AssertionError(f"heads d={d}: launches or outputs wrong")
         for kernel in KERNELS:
-            launches[instance(kernel, d)] = (c_det[kernel] + c_train[kernel]
-                                             + c_gen[kernel])
+            name = instance(kernel, d)
+            launches[name] = launches.get(name, 0) + (
+                c_det[kernel] + c_train[kernel] + c_gen[kernel])
         del an, trainer, model, caches, cross
         torch.cuda.empty_cache()
     return launches
@@ -1288,7 +1575,8 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward, flash_attention_reference)
+        flash_attention, flash_attention_backward, flash_attention_reference,
+        kernel_head_dim, pad_head_dim)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     rb = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
@@ -1329,9 +1617,14 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
     out = out.detach()
     ref = flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
                                     sm_scale=sc)
+    # a head dim without an instance or a multiple of 128: the pair runs on
+    # the zero-padded copies autograd hands it (made outside the timing)
+    dk = kernel_head_dim(d)
+    bq, bk, bv, bo, bd = ((q, k, v, out, dout) if dk == d else
+                          (pad_head_dim(x, dk) for x in (q, k, v, out, dout)))
     t["bwd"] = (
         ring_ms(lambda _: flash_attention_backward(
-            q, k, v, out, lse, dout, mask, False, sc, 0.0, 0), [None], 10),
+            bq, bk, bv, bo, lse, bd, mask, False, sc, 0.0, 0), [None], 10),
         cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
                                             retain_graph=True), iters=10),
         sdpa_backward_ms(q, k, v, mask, dout, sc),
@@ -1339,7 +1632,7 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
         # written in full (zeros at masked keys); lse; the mask
         *bound_ms(flops["bwd"],
                   6 * qkv_bytes + 2 * kv_bytes + b * h * s * 4 + b * s))
-    del ref, qg, kg, vg
+    del ref, qg, kg, vg, bq, bk, bv, bo, bd
     named = {}
     for part, (ms, plain, libms, bnd, by) in t.items():
         name = instance(f"flash_attention_{part}", d)
@@ -1353,13 +1646,17 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
 
 
 def head_dim_times(card: str) -> dict:
-    """The 64 and 128 instances of K1, the pair and K5 at the issue's
-    shapes: the kernels line's (ms, plain, library, bound, bound by) by
-    instance name; K5's first row is (2, H, 1024, d)."""
+    """The 64 and 128 instances of K1, the pair and K5, and their wide
+    routes at 192, 256 and 384, at the shapes of ``flash_times`` and
+    ``decode_times``: the kernels line's (ms, plain, library, bound, bound
+    by) by instance name, a wide head dim's under ``<name>:dh<d>``; K5's
+    first row is (2, H, 1024, d)."""
     t = {}
-    for d, h in HEAD_DIMS.items():
-        t.update(flash_times(card, h, d))
-        t[instance("decode_attention", d)] = next(iter(
+    for d, h in [*HEAD_DIMS.items(), *WIDE_DIMS.items()]:
+        tag = f":dh{d}" if d in WIDE_DIMS else ""
+        for name, row in flash_times(card, h, d).items():
+            t[name + tag] = row
+        t[instance("decode_attention", d) + tag] = next(iter(
             decode_times(card, h, d).values()))
     return t
 
@@ -1518,6 +1815,9 @@ def main() -> int:
     card = card_line()
     variants = phase_variants(card)
     an, codes, template, serve_launches = phase_serve()
+    beam_launches = phase_beam(an, template)
+    analyzer_launches = phase_analyzer(an, codes)
+    eval_launches = phase_evals(an)
     trainer, batch, train_launches = phase_train()
     phase_train_check(trainer)
     loop_launches = phase_loop()
@@ -1541,19 +1841,35 @@ def main() -> int:
     def train1():
         step()
         return 1
+
+    def beam127():              # 127 beam steps (K=3) on the template
+        from sct_gan_tpu_torch.infer.generate import beam_search
+        b = an._prepare_inputs([template])
+        return beam_search(an.model, b["input_ids"], b["attention_mask"],
+                           b["ast_input_ids"], b["ast_attention_mask"],
+                           beam_size=3, max_length=128, temperature=0.8)[3]
+    t0 = time.perf_counter()
+    beam_steps = beam127()
+    torch.cuda.synchronize()
+    beam_ms = (time.perf_counter() - t0) * 1e3 / beam_steps
     profile_device(detect5, "detect", det_ms, card)
     profile_device(generate, "generate", gen_ms, card)
+    profile_device(beam127, "beam", beam_ms, card)
     profile_device(train1, "train", train_ms, card)
 
     kernels = []
     names = [(k, instance(k, d)) for k in KERNELS
-             for d in ((96, *HEAD_DIMS) if k != "dropout" else (96,))]
+             for d in ((96, *HEAD_DIMS, WIDE_TOP) if k != "dropout"
+                       else (96,))]
     for kernel, name in names:
         source, replaces = KERNELS[kernel]
-        ms, plain, libms, bnd, by = t[name]
+        ms, plain, libms, bnd, by = t[name + (f":dh{WIDE_TOP}"
+                                              if name.endswith("_wide")
+                                              else "")]
         if name == kernel:          # head dim 96: every path of the model
-            launches = (serve_launches[name] + train_launches[name]
-                        + loop_launches[name])
+            launches = sum(p[name] for p in (
+                serve_launches, beam_launches, analyzer_launches,
+                eval_launches, train_launches, loop_launches))
         else:
             launches = head_launches[name]
         if launches == 0:
@@ -1568,6 +1884,16 @@ def main() -> int:
         if padded is not None:      # the padded route runs this instance
             entry[f"padded_dh{PADDED_DIM}_max_abs_err"] = padded[0]
             entry[f"padded_dh{PADDED_DIM}_max_rel_err"] = padded[1]
+        if name.endswith("_wide"):  # the top level is head dim WIDE_TOP's
+            entry["head_dim"] = WIDE_TOP
+            entry["head_dims"] = {}
+            for d in WIDE_DIMS:
+                ms, plain, libms, bnd, by = t[f"{name}:dh{d}"]
+                a, r = errs[f"{name}:dh{d}"]
+                entry["head_dims"][str(d)] = {
+                    "ms": ms, "plain_ms": plain, "library_ms": libms,
+                    "bound_ms": bnd, "bound_by": by, "max_abs_err": a,
+                    "max_rel_err": r}
         kernels.append(entry)
     kernels += variants
     print(card)

@@ -1,12 +1,14 @@
 """sct_gan_tpu_torch — the PyTorch/CUDA port of ``sct_gan_tpu``.
 
-It covers serving (detection and KV-cached generation, from a checkpoint
-or random weights) and training (the GAN train step with the fused LM-head
-cross-entropy and the fused optimizer, the training loop with
-augmentation, checkpoints and their restore). The JAX package's TPU
-kernels are hand-written in CUDA C++ for Hopper (``csrc/``): the
-flash-attention forward and backward and the single-query decode
-attention (each with instances for head dims 64, 96 and 128), and the
+It covers serving (detection with its fallback tiers, KV-cached sampled
+generation and beam search, the diagnostics, from a checkpoint or random
+weights), evaluation (``evals``: detection quality, perplexity) and
+training (the GAN train step with the fused LM-head cross-entropy and the
+fused optimizer, the training loop with augmentation, checkpoints and
+their restore). The JAX package's TPU kernels are hand-written in CUDA C++
+for Hopper (``csrc/``): the flash-attention forward and backward and the
+single-query decode attention (each with instances for head dims 64, 96
+and 128 and a wide-head route for any multiple of 128 above), and the
 hash dropout. A tensor on the CPU
 runs the kernels' plain PyTorch versions; a CUDA tensor runs the kernels.
 This package imports neither JAX nor the JAX package; the JAX package stays

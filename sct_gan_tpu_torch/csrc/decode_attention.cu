@@ -38,7 +38,9 @@
 // * Head dims: one instance each for D = 64, 96 and 128 (DecodeShape
 //   below; the wrapper pads any other D <= 128 to the next one). A row is
 //   D / 8 16-byte units (8, 12 or 16); a block has 16 threads for each
-//   unit of a row: 128, 192 or 256 threads.
+//   unit of a row: 128, 192 or 256 threads. A head dim over 128, padded by
+//   the wrapper to a multiple of 128, runs the wide-head route at the end
+//   of this file (decode_wide_kernel).
 // * Scores: thread t takes key t % 64 of the tile and the part t / 64 of
 //   the head dim (4 units; that part of q, pre-scaled, in f32 registers);
 //   the D / 32 partial dots meet in shared memory. Bank conflicts: the 8
@@ -427,10 +429,287 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the wide-head route: D > 128, a multiple of 128 ----------------------
+//
+// The instances stage whole K and V rows; past D = 128 three stages of them
+// outgrow shared memory (384: 288 KB). This route cuts o's head dim into
+// 128-column chunks: grid (splits, H, B x nchunk), one cluster of `splits`
+// blocks per (b, h, chunk c), combined as above. Each block computes the
+// scores over the full row, one 128-column K slab at a time, and
+// accumulates only V's chunk c:
+//
+//   per live tile: s = sum over chunks cc of q[cc] . K[:, cc]   (nchunk items)
+//                  o[c] += softmax-weights . V[:, c]            (one item)
+//
+// Every item is one 64-key x 128-column slab (16 KB) through the same
+// 3-stage cp.async ring, stored swizzled as the 128 instance's tiles (unit u
+// of row j at u ^ (j % 8): a 256-byte row starts in bank group 0); 256
+// threads, the 128 instance's score and p V layouts. q, pre-scaled, lives
+// in shared memory (D f32) and each thread reads its part of the current
+// chunk. Any multiple of 128 runs with the same ring.
+//
+// Bound: the bytes, as the instances': each attended key's K and V rows
+// once. The route reads each K row once per chunk (nchunk times in all),
+// and V once: it is right and simple, not fast.
+constexpr int WIDE_COLS = 128;                          // a head-dim chunk
+constexpr int WIDE_UNITS = WIDE_COLS / 8;               // 16-byte units of a slab row
+constexpr int WIDE_PARTS = WIDE_UNITS / PART_UNITS;     // scores: parts of a chunk
+constexpr int WIDE_THREADS = TILE * WIDE_PARTS;         // 256
+constexpr int WIDE_SLOTS = WIDE_THREADS / WIDE_UNITS;   // p V: 16 key slots
+constexpr int WIDE_SLAB = TILE * WIDE_COLS;             // elements of a slab
+constexpr int WIDE_RING_BYTES = STAGES * WIDE_SLAB * 2;
+static_assert(WIDE_SLOTS * WIDE_COLS * 4 <= WIDE_RING_BYTES, "slots reuse the ring");
+static_assert(TILE * WIDE_UNITS == 4 * WIDE_THREADS, "4 copies a thread");
+
+// An item of a split's walk: chunk s < nchunk of K's rows of `tile` (a score
+// item), or, at s == nchunk, V's chunk c (the value item). tile == end: done.
+struct WideItem {
+  int tile, s;
+};
+
+// Start copying the slab of `item` into ring stage `st`, swizzled; rows
+// past S are zero-filled.
+__device__ __forceinline__ void load_wide_slab(__nv_bfloat16* st, const __nv_bfloat16* kb,
+                                               const __nv_bfloat16* vb, int k_ss, int v_ss,
+                                               WideItem item, int nchunk, int c, int S) {
+  const bool is_k = item.s < nchunk;
+  const __nv_bfloat16* src = (is_k ? kb : vb) + (is_k ? item.s : c) * WIDE_COLS;
+  const int ss = is_k ? k_ss : v_ss;
+#pragma unroll
+  for (int i = 0; i < TILE * WIDE_UNITS / WIDE_THREADS; ++i) {
+    const int idx = threadIdx.x + i * WIDE_THREADS;
+    const int row = idx / WIDE_UNITS, unit = idx % WIDE_UNITS;
+    const int key = item.tile * TILE + row;
+    const bool valid = key < S;
+    const size_t r = valid ? key : 0;
+    hopper::cp_async_16(st + row * WIDE_COLS + (unit ^ (row & 7)) * 8,
+                        src + r * ss + unit * 8, valid);
+  }
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+decode_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
+                   __nv_bfloat16* __restrict__ o, int S, int nchunk, int q_sb, int q_sh,
+                   int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
+                   int o_sh, int mask_sb, float scale_log2) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);   // [STAGES][TILE][128]
+  float* sq = reinterpret_cast<float*>(smem + WIDE_RING_BYTES);    // [D], pre-scaled q
+  __shared__ float part[WIDE_PARTS][TILE];
+  __shared__ float ps[TILE];
+  __shared__ float alpha_s;
+  __shared__ float split_o[WIDE_COLS];   // this split's unnormalised o chunk, m, l
+  __shared__ float split_ml[2];
+
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z / nchunk, c = blockIdx.z % nchunk;
+  const int D = nchunk * WIDE_COLS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const __nv_bfloat16* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
+  const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
+
+  const int tiles = (S + TILE - 1) / TILE;
+  const int t_begin = static_cast<int>((long long)split * tiles / nsplit);
+  const int t_end = static_cast<int>((long long)(split + 1) * tiles / nsplit);
+  LiveTiles live{mb, t_end, S, t_begin - 32, 0u};
+  auto advance = [&](WideItem it) -> WideItem {   // the item after `it`
+    if (it.tile >= t_end) return it;
+    if (it.s < nchunk) return {it.tile, it.s + 1};
+    return {live.next(it.tile + 1), 0};
+  };
+  auto issue = [&](WideItem it, int st) {
+    if (it.tile < t_end)
+      load_wide_slab(ring + st * WIDE_SLAB, kb, vb, k_ss, v_ss, it, nchunk, c, S);
+    hopper::cp_async_commit();
+  };
+  // the split's first two items start loading before anything else
+  WideItem cur{live.next(t_begin), 0};
+  WideItem nxt = advance(cur);
+  issue(cur, 0);
+  issue(nxt, 1);
+  WideItem ahead = advance(nxt);
+
+  for (int i = tid; i < D / 2; i += WIDE_THREADS) {
+    const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(qb)[i]);
+    sq[2 * i] = f.x * scale_log2;
+    sq[2 * i + 1] = f.y * scale_log2;
+  }
+  __syncthreads();
+  const int kj = tid % TILE, pi = tid / TILE;      // scores: key kj, part pi of a chunk
+  const int pu = tid % WIDE_UNITS, ks = tid / WIDE_UNITS;   // p V: unit pu, key slot ks
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;     // warp 0's
+  float s_acc = 0.f;                        // this thread's score, summed over chunks
+
+  for (int i = 0; cur.tile < t_end; ++i) {
+    hopper::cp_async_wait<STAGES - 2>();
+    __syncthreads();              // item i has landed; stage (i + 2) % 3 is free
+    issue(ahead, (i + 2) % STAGES);
+    const __nv_bfloat16* slab = ring + (i % STAGES) * WIDE_SLAB;
+    if (cur.s < nchunk) {         // a score item: K's chunk cur.s
+      const float* qc = sq + cur.s * WIDE_COLS;
+      const __nv_bfloat16* krow = slab + kj * WIDE_COLS;
+#pragma unroll
+      for (int u = 0; u < PART_UNITS; ++u) {
+        const int unit = pi * PART_UNITS + u;
+        const uint4 raw = *reinterpret_cast<const uint4*>(krow + (unit ^ (kj & 7)) * 8);
+        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(p2[e]);
+          s_acc = fmaf(qc[unit * 8 + 2 * e], f.x, s_acc);
+          s_acc = fmaf(qc[unit * 8 + 2 * e + 1], f.y, s_acc);
+        }
+      }
+      if (cur.s == nchunk - 1) {  // the tile's scores are whole
+        part[pi][kj] = s_acc;
+        s_acc = 0.f;
+        __syncthreads();
+        if (warp == 0) {          // the online softmax over this tile
+          const int j0 = cur.tile * TILE + lane, j1 = j0 + 32;
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int p = 0; p < WIDE_PARTS; ++p) {
+            s0 += part[p][lane];
+            s1 += part[p][lane + 32];
+          }
+          s0 = j0 < S && (mb == nullptr || mb[j0] != 0) ? s0 : -INFINITY;
+          s1 = j1 < S && (mb == nullptr || mb[j1] != 0) ? s1 : -INFINITY;
+          // finite: a live tile has an attended key
+          const float m_new = fmaxf(m_run, warp_max(fmaxf(s0, s1)));
+          const float a = exp2f(m_run - m_new);    // 0 on the first tile
+          const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
+          l_run = l_run * a + warp_sum(p0 + p1);
+          m_run = m_new;
+          ps[lane] = p0;
+          ps[lane + 32] = p1;
+          if (lane == 0) alpha_s = a;
+        }
+      }
+    } else {                      // the value item: V's chunk c
+      const float a = alpha_s;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] *= a;
+#pragma unroll
+      for (int r = 0; r < TILE / WIDE_SLOTS; ++r) {
+        const int j = ks + r * WIDE_SLOTS;
+        const float p = ps[j];
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(slab + j * WIDE_COLS + (pu ^ (j & 7)) * 8);
+        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(p2[e]);
+          acc[2 * e] = fmaf(p, f.x, acc[2 * e]);
+          acc[2 * e + 1] = fmaf(p, f.y, acc[2 * e + 1]);
+        }
+      }
+    }
+    cur = nxt;
+    nxt = ahead;
+    ahead = advance(ahead);
+  }
+
+  hopper::cp_async_wait<0>();
+  __syncthreads();                // the ring is free: the key slots meet there
+  float* slots = reinterpret_cast<float*>(smem);   // [WIDE_SLOTS][128]
+  float4* dst = reinterpret_cast<float4*>(slots + ks * WIDE_COLS + pu * 8);
+  dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  if (tid == 0) {
+    split_ml[0] = m_run;
+    split_ml[1] = l_run;
+  }
+  __syncthreads();
+  float od = 0.f;
+  if (tid < WIDE_COLS) {
+#pragma unroll
+    for (int r = 0; r < WIDE_SLOTS; ++r) od += slots[r * WIDE_COLS + tid];
+  }
+  __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh + c * WIDE_COLS;
+  if (nsplit == 1) {
+    if (tid < WIDE_COLS) {
+      const float l = split_ml[1];
+      ob[tid] = __float2bfloat16(l > 0.f ? od / l : 0.f);
+    }
+    return;
+  }
+  if (tid < WIDE_COLS) split_o[tid] = od;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                 // every split's (m, l, o) is in place
+  if (cluster.block_rank() == 0 && tid < WIDE_COLS) {
+    float mr[MAX_SPLITS], lr[MAX_SPLITS], orr[MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {
+      mr[r] = -INFINITY;
+      lr[r] = orr[r] = 0.f;
+      if (r < nsplit) {
+        const float* ml = cluster.map_shared_rank(split_ml, r);
+        mr[r] = ml[0];
+        lr[r] = ml[1];
+        orr[r] = cluster.map_shared_rank(split_o, r)[tid];
+      }
+    }
+    float m_max = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) m_max = fmaxf(m_max, mr[r]);
+    float l = 0.f, acc_o = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r) {      // in split order
+      const float w = mr[r] == -INFINITY ? 0.f : exp2f(mr[r] - m_max);
+      l = fmaf(lr[r], w, l);
+      acc_o = fmaf(orr[r], w, acc_o);
+    }
+    ob[tid] = __float2bfloat16(l > 0.f ? acc_o / l : 0.f);
+  }
+  cluster.sync();                 // block 0 has read the others' shared memory
+}
+
+int launch_wide(const void* q, const void* k, const void* v, const void* mask, void* o,
+                int B, int H, int S, int Dh, int q_sb, int q_sh, int k_sb, int k_sh,
+                int k_ss, int v_sb, int v_sh, int v_ss, int o_sb, int o_sh, int mask_sb,
+                int splits, float scale, cudaStream_t stream) {
+  const int nchunk = Dh / WIDE_COLS;
+  if ((long long)B * nchunk > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = WIDE_RING_BYTES + Dh * 4;
+  static int configured = 0;                // above 48 KB needs an opt-in
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, H, B * nchunk);
+  cfg.blockDim = dim3(WIDE_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_wide_kernel, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o), S, nchunk, q_sb,
+      q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, scale * LOG2E);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, o: bf16 (B, H, 1, Dh); k, v: bf16 (B, H, S, Dh), Dh 64, 96 or 128 (one
-// instance each); each with element strides (sb, sh, ss) and the last
+// instance each) or a multiple of 128 above (the wide-head route, B x Dh /
+// 128 at most 65535); each with element strides (sb, sh, ss) and the last
 // dimension contiguous (the q/o sequence strides are unused); q and o on
 // 4-byte lines, k and v rows on 16-byte lines. mask: (B, S) uint8 (nonzero
 // = attend) with row stride mask_sb, or null for "all S keys visible".
@@ -453,7 +732,11 @@ extern "C" int decode_attention_bf16(
     case 64: return launch<64>(DECODE_ARGS);
     case 96: return launch<96>(DECODE_ARGS);
     case 128: return launch<128>(DECODE_ARGS);
-    default: return static_cast<int>(cudaErrorInvalidValue);   // no instance
+    default:
+      if (Dh > 128 && Dh % WIDE_COLS == 0)   // the wide-head route
+        return launch_wide(q, k, v, mask, o, B, H, S, Dh, q_sb, q_sh, k_sb, k_sh, k_ss,
+                           v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, splits, scale, st);
+      return static_cast<int>(cudaErrorInvalidValue);   // no instance
   }
 #undef DECODE_ARGS
 }

@@ -63,7 +63,9 @@
 // registers. ptxas -v must show no spills in any instance.
 //
 // Head dims: one instance each for D = 64, 96 and 128 (BwdShape below;
-// the wrapper pads any other D <= 128 to the next one). Rows are padded to
+// the wrapper pads any other D <= 128 to the next one). A head dim over
+// 128, padded by the wrapper to a multiple of 128, runs the wide-head pair
+// at the end of this file (flash_bwd_dkv_wide_kernel, flash_bwd_dq_wide_kernel). Rows are padded to
 // D + 8 elements in shared memory (144, 208 or 272 bytes: an odd number of
 // 16-byte units, so eight rows of one unit fall in eight bank groups). D =
 // 64 keeps D = 96's block shapes. At D = 128, dK + dV alone take 128 f32 a
@@ -140,39 +142,6 @@ struct DqSmem {
   bf16 k[STAGES][BK * LD], v[STAGES][BK * LD];
   uint8_t valid[STAGES][BK];
 };
-
-// cp.async rows [r0, r0 + ROWS) x D of a strided (rows, D) bf16 matrix into
-// shared rows of D + 8, zero-filling rows >= n_rows. 16-byte chunks.
-template <int D, int ROWS, int NTHREADS>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int r0,
-                                        int n_rows, int row_stride) {
-  constexpr int CH = D / 8, LD = D + 8;
-  for (int c = threadIdx.x; c < ROWS * CH; c += NTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    const bool ok = r0 + r < n_rows;
-    cp_async_16(dst + r * LD + col, ok ? src + (size_t)(r0 + r) * row_stride + col : src, ok);
-  }
-}
-
-// ldmatrix.x4 addresses within a row-major tile of row stride LD, for this
-// lane, at tile origin (r, c):
-//   A operand (16 x 16, m x k), registers a0..a3 of mma.m16n8k16;
-template <int LD>
-__device__ __forceinline__ const bf16* a_addr(const bf16* base, int r, int c, int lane) {
-  return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
-}
-//   B operand of two n-tiles from rows n (16 x 16, n x k): b0, b1 of n-tile
-//   r / 8, then b0, b1 of the next;
-template <int LD>
-__device__ __forceinline__ const bf16* bn_addr(const bf16* base, int r, int c, int lane) {
-  return base + (r + (lane & 7) + (lane >> 4) * 8) * LD + c + ((lane >> 3) & 1) * 8;
-}
-//   B operand of two n-tiles read down columns (rows k, 16 x 16, k x n) with
-//   .trans: b0, b1 of n-tile c / 8, then b0, b1 of the next.
-template <int LD>
-__device__ __forceinline__ const bf16* bt_addr(const bf16* base, int r, int c, int lane) {
-  return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
-}
 
 template <int D>
 __global__ void __launch_bounds__(DKV_THREADS, DKV_MIN_BLOCKS)
@@ -466,11 +435,307 @@ int launch(const BwdArgs& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the wide-head route: D > 128, a multiple of 128 ----------------------
+//
+// Past D = 128 a thread cannot hold a whole head row of dK and dV (or dQ).
+// The route cuts the head dim into 128-column chunks, one block per (b, h,
+// tile, chunk c), each writing only its chunk of the gradients:
+//
+//   S = sum_cc Q[:, cc] K[:, cc]^T,   dP = sum_cc dO[:, cc] V[:, cc]^T
+//   dV[:, c] = (M o P / (1-r))^T dO[:, c],   dK[:, c] = dS^T Q[:, c] * scale
+//   dQ[:, c] = dS K[:, c] * scale
+//
+// with P and dS as above; D = rowsum(dO o O) covers the full head dim (it
+// comes from torch). Every chunk's block recomputes S and dP over the full
+// head dim, walking the chunks of the walked tile one 128-column item at a
+// time through a 2-stage cp.async ring; its own chunk comes last, so the
+// Q and dO (dKV) or K (dQ) columns of the final products are the last
+// item's. Each block holds only 128-column slabs, so any multiple of 128
+// runs with the same shared memory. 4 warps, 16 rows each: dKV 64 keys
+// walking 32-query tiles (dK and dV 128 f32 a thread), dQ 64 queries walking
+// 32-key tiles; rows padded to 136 elements, ldmatrix operands, mma.sync.
+// The route costs one recomputation of S and dP per chunk: nchunk times
+// their products. It is right and simple, not fast.
+constexpr int WIDE_COLS = 128;              // a head-dim chunk
+constexpr int WIDE_LD = WIDE_COLS + 8;      // shared row stride (bf16)
+constexpr int WIDE_THREADS = 128;           // 4 warps
+constexpr int WIDE_ROWS = 64;               // a block's own rows, 16 a warp
+constexpr int WIDE_WALK = 32;               // rows of a walked tile
+
+struct WideBwdStage {   // one chunk of each operand
+  bf16 own0[WIDE_ROWS * WIDE_LD], own1[WIDE_ROWS * WIDE_LD];   // K, V (dKV); Q, dO (dQ)
+  bf16 walk0[WIDE_WALK * WIDE_LD], walk1[WIDE_WALK * WIDE_LD]; // Q, dO (dKV); K, V (dQ)
+};
+constexpr int WIDE_SMEM = 2 * sizeof(WideBwdStage);
+
+// Start copying chunk `cc` of the block's own rows [r0, r0 + 64) of x0, x1
+// and of the walked rows [w0, w0 + 32) of y0, y1 into stage st.
+__device__ __forceinline__ void wide_issue(WideBwdStage& st, int cc, const bf16* x0,
+                                           const bf16* x1, int x0_ss, int x1_ss, int r0,
+                                           int n_rows, const bf16* y0, const bf16* y1,
+                                           int y0_ss, int y1_ss, int w0, int n_walk) {
+  const int col = cc * WIDE_COLS;
+  cp_tile<WIDE_COLS, WIDE_ROWS, WIDE_THREADS>(st.own0, x0 + col, r0, n_rows, x0_ss);
+  cp_tile<WIDE_COLS, WIDE_ROWS, WIDE_THREADS>(st.own1, x1 + col, r0, n_rows, x1_ss);
+  cp_tile<WIDE_COLS, WIDE_WALK, WIDE_THREADS>(st.walk0, y0 + col, w0, n_walk, y0_ss);
+  cp_tile<WIDE_COLS, WIDE_WALK, WIDE_THREADS>(st.walk1, y1 + col, w0, n_walk, y1_ss);
+}
+
+// acc0 += A0 B0^T and acc1 += A1 B1^T over one 128-column chunk: A from the
+// stage's own rows (this warp's 16), B from its walked rows (32).
+__device__ __forceinline__ void wide_scores(const WideBwdStage& st, int wr, int lane,
+                                            float (&acc0)[WIDE_WALK / 8][4],
+                                            float (&acc1)[WIDE_WALK / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < WIDE_COLS / 16; ++kk) {
+    uint32_t a0[4], a1[4];
+    ldsm_x4(a0, a_addr<WIDE_LD>(st.own0, wr, kk * 16, lane));
+    ldsm_x4(a1, a_addr<WIDE_LD>(st.own1, wr, kk * 16, lane));
+#pragma unroll
+    for (int np = 0; np < WIDE_WALK / 16; ++np) {
+      uint32_t b0[4], b1[4];
+      ldsm_x4(b0, bn_addr<WIDE_LD>(st.walk0, np * 16, kk * 16, lane));
+      ldsm_x4(b1, bn_addr<WIDE_LD>(st.walk1, np * 16, kk * 16, lane));
+      mma_16816(acc0[2 * np], a0, b0[0], b0[1]);
+      mma_16816(acc0[2 * np + 1], a0, b0[2], b0[3]);
+      mma_16816(acc1[2 * np], a1, b1[0], b1[1]);
+      mma_16816(acc1[2 * np + 1], a1, b1[2], b1[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+flash_bwd_dkv_wide_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideBwdStage* stage = reinterpret_cast<WideBwdStage*>(smem_raw);
+  const int nchunk = gridDim.z, c = blockIdx.z;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * WIDE_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const bf16* qb = a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh;
+  const bf16* dob = a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh;
+  const bf16* kb = a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh;
+  const bf16* vb = a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh;
+  const float* lse_b = a.lse + (size_t)bh * a.Sq;
+  const float* d_b = a.dvec + (size_t)bh * a.Sq;
+  const int nq = (a.Sq + WIDE_WALK - 1) / WIDE_WALK;
+  // causal: query tiles before the diagonal see no key of this block
+  const int qt0 = a.causal ? min(nq, k0 / WIDE_WALK) : 0;
+  const int n_items = (nq - qt0) * nchunk;  // item i: query tile qt0 + i / nchunk
+  auto issue = [&](int item) {              // its chunks end with this block's own
+    wide_issue(stage[item & 1], (c + 1 + item % nchunk) % nchunk, kb, vb, a.ks.ss,
+               a.vs.ss, k0, a.Sk, qb, dob, a.qs.ss, a.dos.ss,
+               (qt0 + item / nchunk) * WIDE_WALK, a.Sq);
+  };
+
+  const int key0 = k0 + wr + g, key1 = key0 + 8;   // this thread's key rows
+  const bool kv0 = key0 < a.Sk && (a.mask == nullptr || a.mask[(size_t)b * a.mask_sb + key0]);
+  const bool kv1 = key1 < a.Sk && (a.mask == nullptr || a.mask[(size_t)b * a.mask_sb + key1]);
+  float dk_acc[WIDE_COLS / 8][4], dv_acc[WIDE_COLS / 8][4];
+#pragma unroll
+  for (int i = 0; i < WIDE_COLS / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  float sc[WIDE_WALK / 8][4], dp[WIDE_WALK / 8][4];   // S^T and dP^T, 16 keys x 32 queries
+#pragma unroll
+  for (int nt = 0; nt < WIDE_WALK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+
+  if (n_items > 0) issue(0);
+  cp_async_commit();
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1);      // overlaps this item
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const WideBwdStage& st = stage[i & 1];
+    wide_scores(st, wr, lane, sc, dp);      // K Q^T and V dO^T
+    if (i % nchunk == nchunk - 1) {         // the tile's last chunk is c
+      const int q0 = (qt0 + i / nchunk) * WIDE_WALK;
+      uint32_t pa[WIDE_WALK / 16][4], da[WIDE_WALK / 16][4];
+#pragma unroll
+      for (int nt = 0; nt < WIDE_WALK / 8; ++nt) {
+        float pd[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + nt * 8 + 2 * t + (e & 1);
+          const int key = e < 2 ? key0 : key1;
+          const bool ok = (e < 2 ? kv0 : kv1) && qi < a.Sq && !(a.causal && key > qi);
+          const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - lse_b[qi] * LOG2E) : 0.f;
+          const float dq = qi < a.Sq ? d_b[qi] : 0.f;
+          const bool keep = !a.dropout ||
+              hash_keep(((uint32_t)bh * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk +
+                            (uint32_t)key, a.seed, a.threshold);
+          pd[e] = keep ? p * a.inv_keep : 0.f;
+          ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - dq);
+          sc[nt][e] = dp[nt][e] = 0.f;      // the next tile starts from 0
+        }
+        const int kk = nt >> 1, hi = (nt & 1) * 2;
+        pa[kk][hi] = pack_bf16(pd[0], pd[1]);
+        pa[kk][hi + 1] = pack_bf16(pd[2], pd[3]);
+        da[kk][hi] = pack_bf16(ds[0], ds[1]);
+        da[kk][hi + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dV += P_drop^T dO[:, c], dK += dS^T Q[:, c]: down the query columns
+#pragma unroll
+      for (int kk = 0; kk < WIDE_WALK / 16; ++kk) {
+#pragma unroll
+        for (int dp2 = 0; dp2 < WIDE_COLS / 16; ++dp2) {
+          uint32_t ob[4], qf[4];
+          ldsm_x4_trans(ob, bt_addr<WIDE_LD>(st.walk1, kk * 16, dp2 * 16, lane));
+          ldsm_x4_trans(qf, bt_addr<WIDE_LD>(st.walk0, kk * 16, dp2 * 16, lane));
+          mma_16816(dv_acc[2 * dp2], pa[kk], ob[0], ob[1]);
+          mma_16816(dv_acc[2 * dp2 + 1], pa[kk], ob[2], ob[3]);
+          mma_16816(dk_acc[2 * dp2], da[kk], qf[0], qf[1]);
+          mma_16816(dk_acc[2 * dp2 + 1], da[kk], qf[2], qf[3]);
+        }
+      }
+    }
+    __syncthreads();                        // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+  bf16* dkb = a.dk + (size_t)b * a.dks.sb + (size_t)h * a.dks.sh + c * WIDE_COLS;
+  bf16* dvb = a.dv + (size_t)b * a.dvs.sb + (size_t)h * a.dvs.sh + c * WIDE_COLS;
+#pragma unroll
+  for (int dt = 0; dt < WIDE_COLS / 8; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (key0 < a.Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key0 * a.dks.ss + col) =
+          __floats2bfloat162_rn(dk_acc[dt][0] * a.scale, dk_acc[dt][1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key0 * a.dvs.ss + col) =
+          __floats2bfloat162_rn(dv_acc[dt][0], dv_acc[dt][1]);
+    }
+    if (key1 < a.Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key1 * a.dks.ss + col) =
+          __floats2bfloat162_rn(dk_acc[dt][2] * a.scale, dk_acc[dt][3] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key1 * a.dvs.ss + col) =
+          __floats2bfloat162_rn(dv_acc[dt][2], dv_acc[dt][3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+flash_bwd_dq_wide_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideBwdStage* stage = reinterpret_cast<WideBwdStage*>(smem_raw);
+  const int nchunk = gridDim.z, c = blockIdx.z;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * WIDE_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const bf16* qb = a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh;
+  const bf16* dob = a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh;
+  const bf16* kb = a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh;
+  const bf16* vb = a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh;
+  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+  int n_tiles = (a.Sk + WIDE_WALK - 1) / WIDE_WALK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + WIDE_ROWS - 1) / WIDE_WALK + 1);
+  const int n_items = n_tiles * nchunk;     // item i: key tile i / nchunk
+  auto issue = [&](int item) {              // its chunks end with this block's own
+    wide_issue(stage[item & 1], (c + 1 + item % nchunk) % nchunk, qb, dob, a.qs.ss,
+               a.dos.ss, q0, a.Sq, kb, vb, a.ks.ss, a.vs.ss, (item / nchunk) * WIDE_WALK,
+               a.Sk);
+  };
+
+  const int row0 = q0 + wr + g, row1 = row0 + 8;
+  const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] * LOG2E : 0.f;
+  const float d0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
+  const float d1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
+  const uint32_t drop0 = ((uint32_t)bh * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
+  const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
+  float dq_acc[WIDE_COLS / 8][4];
+#pragma unroll
+  for (int i = 0; i < WIDE_COLS / 8; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
+  float sc[WIDE_WALK / 8][4], dp[WIDE_WALK / 8][4];   // S and dP, 16 queries x 32 keys
+#pragma unroll
+  for (int nt = 0; nt < WIDE_WALK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+
+  issue(0);
+  cp_async_commit();
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1);      // overlaps this item
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const WideBwdStage& st = stage[i & 1];
+    wide_scores(st, wr, lane, sc, dp);      // Q K^T and dO V^T
+    if (i % nchunk == nchunk - 1) {         // the tile's last chunk is c
+      const int k0 = (i / nchunk) * WIDE_WALK;
+      uint32_t da[WIDE_WALK / 16][4];       // dS as A operands (k = keys)
+#pragma unroll
+      for (int nt = 0; nt < WIDE_WALK / 8; ++nt) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          const bool ok = key < a.Sk && (mrow == nullptr || mrow[key]) && row < a.Sq &&
+                          !(a.causal && key > row);
+          const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
+          const bool keep = !a.dropout ||
+              hash_keep((e < 2 ? drop0 : drop1) + (uint32_t)key, a.seed, a.threshold);
+          ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - (e < 2 ? d0 : d1));
+          sc[nt][e] = dp[nt][e] = 0.f;      // the next tile starts from 0
+        }
+        const int kk = nt >> 1, hi = (nt & 1) * 2;
+        da[kk][hi] = pack_bf16(ds[0], ds[1]);
+        da[kk][hi + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dQ += dS K[:, c]: down the key columns
+#pragma unroll
+      for (int kk = 0; kk < WIDE_WALK / 16; ++kk) {
+#pragma unroll
+        for (int dp2 = 0; dp2 < WIDE_COLS / 16; ++dp2) {
+          uint32_t kf[4];
+          ldsm_x4_trans(kf, bt_addr<WIDE_LD>(st.walk0, kk * 16, dp2 * 16, lane));
+          mma_16816(dq_acc[2 * dp2], da[kk], kf[0], kf[1]);
+          mma_16816(dq_acc[2 * dp2 + 1], da[kk], kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();                        // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+  bf16* dqb = a.dq + (size_t)b * a.dqs.sb + (size_t)h * a.dqs.sh + c * WIDE_COLS;
+#pragma unroll
+  for (int dt = 0; dt < WIDE_COLS / 8; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (row0 < a.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row0 * a.dqs.ss + col) =
+          __floats2bfloat162_rn(dq_acc[dt][0] * a.scale, dq_acc[dt][1] * a.scale);
+    if (row1 < a.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row1 * a.dqs.ss + col) =
+          __floats2bfloat162_rn(dq_acc[dt][2] * a.scale, dq_acc[dt][3] * a.scale);
+  }
+}
+
+int launch_wide(const BwdArgs& a, int B, int nchunk, cudaStream_t stream) {
+  static bool dkv_ready = false, dq_ready = false;
+  cudaError_t err = allow_smem(flash_bwd_dkv_wide_kernel, WIDE_SMEM, dkv_ready);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_wide_kernel, WIDE_SMEM, dq_ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkv_wide_kernel<<<dim3((a.Sk + WIDE_ROWS - 1) / WIDE_ROWS, B * a.H, nchunk),
+                              WIDE_THREADS, WIDE_SMEM, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wide_kernel<<<dim3((a.Sq + WIDE_ROWS - 1) / WIDE_ROWS, B * a.H, nchunk),
+                             WIDE_THREADS, WIDE_SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: bf16 (B, H, S, Dh) with element strides
 // (sb, sh, ss) and the last dimension contiguous, Dh 64, 96 or 128 (one
-// instance each) (rows of q, k, v, dout on
+// instance each) or a multiple of 128 above (the wide-head route) (rows of
+// q, k, v, dout on
 // 16-byte lines); mask: (B, Sk) uint8 (nonzero = attend) with row stride
 // mask_sb, or null; lse (the forward's natural-log row LSE) and dvec
 // (D = rowsum(dO o O)): contiguous f32 (B, H, Sq). dropout != 0 regenerates
@@ -521,6 +786,9 @@ extern "C" int flash_attention_bwd_bf16(
     case 64: return launch<64>(a, B, st);
     case 96: return launch<96>(a, B, st);
     case 128: return launch<128>(a, B, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);   // no instance
+    default:
+      if (Dh > 128 && Dh % WIDE_COLS == 0)   // the wide-head route
+        return launch_wide(a, B, Dh / WIDE_COLS, st);
+      return static_cast<int>(cudaErrorInvalidValue);   // no instance
   }
 }

@@ -15,6 +15,9 @@
 //
 // Head dims: one instance each for D = 64, 96 and 128 (the template
 // parameter below); the wrapper pads any other D <= 128 to the next one.
+// A head dim over 128, padded by the wrapper to a multiple of 128 (as the
+// TPU kernel pads its lanes), runs the wide-head route at the end of this
+// file: flash_fwd_wide_kernel.
 //
 // Bound on an H100: the products Q K^T and P V over the attended keys,
 // 4*H*Sq*dh*sum_b(attended keys of row b) flops at 989 TFLOP/s, against Q and
@@ -306,11 +309,244 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the wide-head route: D > 128, a multiple of 128 ----------------------
+//
+// The instances above keep the O accumulator of a whole head row in
+// registers (D / 2 f32 a thread) and Q in shared memory; past D = 128 neither
+// fits. This route cuts the output's head dim into 128-column chunks, one
+// block per (b, h, 64-query tile, chunk c):
+//
+//   S = sum over chunks cc of Q[:, cc] K[:, cc]^T    (recomputed by every c)
+//   O[:, c] = softmax(S) V[:, c]
+//
+// The softmax statistics are the same in every chunk's block, so the LSE is
+// written by chunk 0 alone; the dropout keep mask depends only on (b, h,
+// query, key), so every chunk draws the same bits. Any multiple of 128 runs
+// with the same shared memory: only 128-column slabs are held.
+//
+// Per K/V tile of 64 keys the block walks nchunk score items (the Q and K
+// slabs of chunk cc) and one value item (the V slab of its own chunk),
+// through a 2-stage cp.async ring; the next item loads while this one is
+// used. 4 warps, 16 query rows each; mma.sync.m16n8k16, ldmatrix operands
+// from rows padded to 136 elements (272 bytes, 17 16-byte units: eight rows
+// of one unit fall in eight bank groups). A thread holds O's chunk (64 f32)
+// and the S tile (32 f32).
+//
+// Bound: as the instances' (the products over the attended keys), plus the
+// recomputation: the score product runs once per chunk, so the route does
+// (nchunk + 1) / 2 times the forward's products. It is right and simple,
+// not fast: the wgmma instances are the fast path.
+constexpr int WIDE_COLS = 128;              // a head-dim chunk
+constexpr int WIDE_LD = WIDE_COLS + 8;      // shared row stride (bf16)
+constexpr int WIDE_BQ = 64;                 // query rows a block, 16 a warp
+constexpr int WIDE_BK = 64;                 // keys a tile
+constexpr int WIDE_THREADS = 128;
+
+struct WideFwdStage {
+  __nv_bfloat16 a[WIDE_BQ * WIDE_LD];       // Q's chunk cc (score items)
+  __nv_bfloat16 b[WIDE_BK * WIDE_LD];       // K's chunk cc, or V's chunk c
+};
+constexpr int WIDE_SMEM = 2 * sizeof(WideFwdStage);
+
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+flash_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int H, int Sq, int Sk, int q_sb,
+                      int q_sh, int q_ss, int k_sb, int k_sh, int k_ss, int v_sb,
+                      int v_sh, int v_ss, int o_sb, int o_sh, int o_ss, int mask_sb,
+                      int causal, float scale_log2, int dropout, uint32_t seed,
+                      uint32_t threshold, float inv_keep) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideFwdStage* stage = reinterpret_cast<WideFwdStage*>(smem_raw);
+  const int nchunk = gridDim.z, c = blockIdx.z;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * WIDE_BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const __nv_bfloat16* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
+  const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
+  const uint8_t* mrow = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
+  int n_tiles = (Sk + WIDE_BK - 1) / WIDE_BK;
+  if (causal) n_tiles = min(n_tiles, (q0 + WIDE_BQ - 1) / WIDE_BK + 1);
+  const int per_tile = nchunk + 1;          // nchunk score items, then V's
+  const int n_items = n_tiles * per_tile;
+
+  auto issue = [&](int item, WideFwdStage& st) {
+    const int s = item % per_tile, k0 = (item / per_tile) * WIDE_BK;
+    if (s < nchunk) {
+      cp_tile<WIDE_COLS, WIDE_BQ, WIDE_THREADS>(st.a, qb + s * WIDE_COLS, q0, Sq, q_ss);
+      cp_tile<WIDE_COLS, WIDE_BK, WIDE_THREADS>(st.b, kb + s * WIDE_COLS, k0, Sk, k_ss);
+    } else {
+      cp_tile<WIDE_COLS, WIDE_BK, WIDE_THREADS>(st.b, vb + c * WIDE_COLS, k0, Sk, v_ss);
+    }
+  };
+
+  const int row0 = q0 + wr + g, row1 = row0 + 8;
+  const uint32_t drop0 = ((uint32_t)bh * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
+  const uint32_t drop1 = drop0 + 8u * (uint32_t)Sk;
+  float acc[WIDE_COLS / 8][4];              // O's chunk c, rows g and g + 8
+  float sc[WIDE_BK / 8][4];                 // S, 16 x 64 a warp
+#pragma unroll
+  for (int i = 0; i < WIDE_COLS / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WIDE_BK / 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // log2 domain
+  float l_run[2] = {0.f, 0.f};
+
+  issue(0, stage[0]);
+  cp_async_commit();
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1, stage[(i + 1) & 1]);   // overlaps this item
+    cp_async_commit();
+    cp_async_wait<1>();                     // this item landed
+    __syncthreads();
+    const WideFwdStage& st = stage[i & 1];
+    const int s = i % per_tile, k0 = (i / per_tile) * WIDE_BK;
+    if (s < nchunk) {                       // S += Q[:, s] K[:, s]^T
+#pragma unroll
+      for (int kk = 0; kk < WIDE_COLS / 16; ++kk) {
+        uint32_t qa[4];
+        ldsm_x4(qa, a_addr<WIDE_LD>(st.a, wr, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < WIDE_BK / 16; ++np) {
+          uint32_t kf[4];
+          ldsm_x4(kf, bn_addr<WIDE_LD>(st.b, np * 16, kk * 16, lane));
+          mma_16816(sc[2 * np], qa, kf[0], kf[1]);
+          mma_16816(sc[2 * np + 1], qa, kf[2], kf[3]);
+        }
+      }
+    } else {                                // the online softmax, then O += P V
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int nt = 0; nt < WIDE_BK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          const bool ok = key < Sk && (mrow == nullptr || mrow[key]) &&
+                          !(causal && key > (e < 2 ? row0 : row1));
+          const float x = ok ? sc[nt][e] * scale_log2 : -INFINITY;
+          sc[nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float base[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        base[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // all masked so far
+        alpha[r] = exp2f(m_run[r] - base[r]);
+        m_run[r] = mx[r];
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < WIDE_BK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] = exp2f(sc[nt][e] - base[e >> 1]);
+          rs[e >> 1] += sc[nt][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l_run[r] = l_run[r] * alpha[r] + rs[r];
+      }
+      if (dropout) {                        // after l: dropout acts on P only
+#pragma unroll
+        for (int nt = 0; nt < WIDE_BK / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t key = (uint32_t)(k0 + nt * 8 + 2 * t + (e & 1));
+            const bool keep = hash_keep((e < 2 ? drop0 : drop1) + key, seed, threshold);
+            sc[nt][e] = keep ? sc[nt][e] * inv_keep : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int dt = 0; dt < WIDE_COLS / 8; ++dt) {
+        acc[dt][0] *= alpha[0];
+        acc[dt][1] *= alpha[0];
+        acc[dt][2] *= alpha[1];
+        acc[dt][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < WIDE_BK / 16; ++kk) {   // 16 keys a step
+        const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                                pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                                pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp2 = 0; dp2 < WIDE_COLS / 16; ++dp2) {
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, bt_addr<WIDE_LD>(st.b, kk * 16, dp2 * 16, lane));
+          mma_16816(acc[2 * dp2], pa, vf[0], vf[1]);
+          mma_16816(acc[2 * dp2 + 1], pa, vf[2], vf[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < WIDE_BK / 8; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    }
+    __syncthreads();                        // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+  const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;   // masked row -> 0
+  const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
+  if (lse != nullptr && c == 0 && t == 0) { // chunk 0 writes the statistics
+    float* lb = lse + (size_t)bh * Sq;
+    if (row0 < Sq)
+      lb[row0] = l_run[0] > 0.f ? (m_run[0] + log2f(l_run[0])) * LN2 : -1e30f;
+    if (row1 < Sq)
+      lb[row1] = l_run[1] > 0.f ? (m_run[1] + log2f(l_run[1])) * LN2 : -1e30f;
+  }
+  __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh + c * WIDE_COLS;
+#pragma unroll
+  for (int dt = 0; dt < WIDE_COLS / 8; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * o_ss + col) =
+          __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * o_ss + col) =
+          __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v, const void* mask, void* o,
+                void* lse, int B, int H, int Sq, int Sk, int Dh, int q_sb, int q_sh,
+                int q_ss, int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
+                int o_sb, int o_sh, int o_ss, int mask_sb, int causal, float scale,
+                int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
+                cudaStream_t stream) {
+  static bool configured = false;           // above 48 KB needs an opt-in
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  dim3 grid((Sq + WIDE_BQ - 1) / WIDE_BQ, B * H, Dh / WIDE_COLS);
+  flash_fwd_wide_kernel<<<grid, WIDE_THREADS, WIDE_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Sq, Sk, q_sb, q_sh,
+      q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,
+      scale * LOG2E, dropout, seed, threshold, inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o: bf16 (B, H, S, Dh) with element strides (sb, sh, ss), the last
 // dimension contiguous, q/k/v 16-byte aligned with strides of whole 16-byte
-// units (the TMA maps' rule); Dh 64, 96 or 128 (one instance each); mask:
+// units (the TMA maps' rule); Dh 64, 96 or 128 (one instance each), or a
+// multiple of 128 above (the wide-head route, q, k, v rows on 16-byte
+// lines); mask:
 // (B, Sk) uint8 (nonzero = attend) with row stride mask_sb, or null; lse:
 // contiguous f32 (B, H, Sq), or null for none. dropout != 0 turns on
 // attention-weight dropout with the hash keep mask (seed, threshold) and the
@@ -330,7 +566,12 @@ extern "C" int flash_attention_fwd_bf16(
     case 64: return launch<64>(FWD_ARGS);
     case 96: return launch<96>(FWD_ARGS);
     case 128: return launch<128>(FWD_ARGS);
-    default: return static_cast<int>(cudaErrorInvalidValue);   // no instance
+    default:
+      if (Dh > 128 && Dh % WIDE_COLS == 0)   // the wide-head route
+        return launch_wide(q, k, v, mask, o, lse, B, H, Sq, Sk, Dh, q_sb, q_sh, q_ss,
+                           k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb,
+                           causal, scale, dropout, seed, threshold, inv_keep, st);
+      return static_cast<int>(cudaErrorInvalidValue);   // no instance
   }
 #undef FWD_ARGS
 }

@@ -129,6 +129,39 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// cp.async rows [r0, r0 + ROWS) x D of a strided (rows, D) __nv_bfloat16 matrix into
+// shared rows of D + 8, zero-filling rows >= n_rows. 16-byte chunks.
+template <int D, int ROWS, int NTHREADS>
+__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                        int n_rows, int row_stride) {
+  constexpr int CH = D / 8, LD = D + 8;
+  for (int c = threadIdx.x; c < ROWS * CH; c += NTHREADS) {
+    const int r = c / CH, col = (c % CH) * 8;
+    const bool ok = r0 + r < n_rows;
+    cp_async_16(dst + r * LD + col, ok ? src + (size_t)(r0 + r) * row_stride + col : src, ok);
+  }
+}
+
+// ldmatrix.x4 addresses within a row-major tile of row stride LD, for this
+// lane, at tile origin (r, c):
+//   A operand (16 x 16, m x k), registers a0..a3 of mma.m16n8k16;
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* a_addr(const __nv_bfloat16* base, int r, int c, int lane) {
+  return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
+}
+//   B operand of two n-tiles from rows n (16 x 16, n x k): b0, b1 of n-tile
+//   r / 8, then b0, b1 of the next;
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* bn_addr(const __nv_bfloat16* base, int r, int c, int lane) {
+  return base + (r + (lane & 7) + (lane >> 4) * 8) * LD + c + ((lane >> 3) & 1) * 8;
+}
+//   B operand of two n-tiles read down columns (rows k, 16 x 16, k x n) with
+//   .trans: b0, b1 of n-tile c / 8, then b0, b1 of the next.
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* bt_addr(const __nv_bfloat16* base, int r, int c, int lane) {
+  return base + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c + (lane >> 4) * 8;
+}
+
 // ---- wgmma ------------------------------------------------------------------
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units) and the 64-byte swizzle (layout type 2).

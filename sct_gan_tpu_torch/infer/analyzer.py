@@ -1,16 +1,20 @@
 """SmartContractAnalyzer — the serving engine of the port.
 
-Counterpart of ``sct_gan_tpu/infer/analyzer.py`` for the serving slice:
-loading a checkpoint written by the port's trainer (``model_path``),
-``detect_vulnerabilities``, batched ``analyze_multiple_contracts``,
-``get_vulnerability_summary``, ``generate_synthetic_contract`` (sampling
-mode) and ``generate_template_based_contract``. The three-tier
-``*_with_fallback`` / ``*_safe`` APIs, beam search and the diagnostics wait
-for a later slice.
+Counterpart of ``sct_gan_tpu/infer/analyzer.py``: loading a checkpoint
+written by the port's trainer (``model_path``), ``detect_vulnerabilities``
+with its fallback tiers (``detect_vulnerabilities_with_fallback``,
+``detect_vulnerabilities_safe``), batched ``analyze_multiple_contracts``,
+``get_vulnerability_summary``, ``generate_synthetic_contract`` (sampling or
+beam search), ``generate_template_based_contract``,
+``generate_simple_contract`` and the diagnostics
+(``test_model_functionality``, ``diagnose_generation_model``,
+``debug_forward``, ``test_generation_simple``).
 
-Errors propagate: the only fallback kept is the JAX analyzer's empty-decode
-one (a generated sequence that decodes to almost nothing is replaced by the
-template transform). A CUDA or kernel error is never swallowed.
+Errors propagate. A fallback tier catches only the ``ValueError`` the port
+raises for input it cannot take; an error from a kernel, its build or CUDA
+(``RuntimeError``, ``torch.OutOfMemoryError``) is never caught. Generation
+keeps the JAX analyzer's empty-decode fallback (a sequence that decodes to
+almost nothing is replaced by the template transform), not its catch-all.
 """
 from __future__ import annotations
 
@@ -24,13 +28,14 @@ import torch
 
 from ..config import VULNERABILITY_TYPES, ModelConfig
 from ..convert import convert_flax_params, flax_tree_from_npz
-from ..data.ast_parser import parse_solidity_to_ast, prepare_code2vec_input
+from ..data import ast_parser
 from ..data.dataset import build_token_to_line
 from ..data.tokenizer import get_tokenizer
 from ..models.sct_transformer import SmartContractTransformer
 from ..train.checkpoint import adapt_vocab_params, load_checkpoint
 from ..utils import resolve_device
-from .generate import make_generate_fn, syntax_boost_ids
+from .generate import (BOS_ID, make_beam_search_fn, make_generate_fn,
+                       syntax_boost_ids)
 
 
 class SmartContractAnalyzer:
@@ -97,12 +102,20 @@ class SmartContractAnalyzer:
         self.syntax_ids = syntax_boost_ids(self.tokenizer)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._generate_fn = make_generate_fn(self.model, self.syntax_ids)
+        self._beam_fns: Dict[int, Any] = {}   # one beam search per beam size
         self.last_decode_steps = 0   # decode steps of the last generation
+
+    # -- AST helpers -----------------------------------------------------------
+    def parse_solidity_to_ast(self, code: str):
+        return ast_parser.parse_solidity_to_ast(code)
+
+    def prepare_code2vec_input(self, ast):
+        return ast_parser.prepare_code2vec_input(ast)
 
     # -- input preparation ---------------------------------------------------
     def _prepare_inputs(self, codes: List[str]) -> Dict[str, torch.Tensor]:
-        asts = [parse_solidity_to_ast(c) for c in codes]
-        path_texts = [" ".join(prepare_code2vec_input(a)) if a else ""
+        asts = [self.parse_solidity_to_ast(c) for c in codes]
+        path_texts = [" ".join(self.prepare_code2vec_input(a)) if a else ""
                       for a in asts]
         enc = self.tokenizer(codes, max_length=self.max_length,
                              padding="max_length", truncation=True,
@@ -139,6 +152,15 @@ class SmartContractAnalyzer:
         contract_logits, _ = self.model.contract_head(memory)
         line_logits = self.model.line_head(memory, batch["token_to_line"])
         return torch.sigmoid(contract_logits), torch.sigmoid(line_logits)
+
+    @torch.inference_mode()
+    def _detect_contract(self, batch: Dict[str, torch.Tensor]):
+        """Contract probabilities alone: encode → contract head."""
+        memory = self.model.encode(batch["input_ids"],
+                                   batch["attention_mask"],
+                                   batch["ast_input_ids"],
+                                   batch["ast_attention_mask"])
+        return torch.sigmoid(self.model.contract_head(memory)[0])
 
     # -- detection API -------------------------------------------------------
     def detect_vulnerabilities(self, contract_code: str,
@@ -186,6 +208,36 @@ class SmartContractAnalyzer:
                                    if line_probs_full is not None
                                    else [line_probs.tolist()]),
         }
+
+    def detect_vulnerabilities_with_fallback(self, contract_code: str,
+                                             threshold: float = 0.5
+                                             ) -> Dict[str, Any]:
+        """Detection with the JAX analyzer's fallback chain: the full
+        forward, else contract-only with zero line probabilities. The JAX
+        chain's middle tier (the forward again without ``target_ids``,
+        decoder skipped, both heads kept) is the computation the port's
+        full tier already runs (``_detect``), so it is that tier here. A
+        tier falls through only on the port's ``ValueError``s."""
+        try:
+            return self.detect_vulnerabilities(contract_code, threshold)
+        except ValueError as e:
+            self._log(f"Full forward failed ({e}); using the contract-only "
+                      f"fallback pass")
+        return self._fallback_forward_pass(contract_code, threshold)
+
+    def _fallback_forward_pass(self, contract_code: str,
+                               threshold: float = 0.5) -> Dict[str, Any]:
+        """Contract-level detection with zero line probabilities."""
+        cp = self._detect_contract(self._prepare_inputs([contract_code]))
+        zeros = np.zeros((self.max_length, len(self.vulnerability_types)),
+                         np.float32)
+        return self._format_result(contract_code, cp.cpu().numpy()[0], zeros,
+                                   threshold)
+
+    def detect_vulnerabilities_safe(self, contract_code: str,
+                                    threshold: float = 0.5) -> Dict[str, Any]:
+        """Contract-only analysis, the line head skipped."""
+        return self._fallback_forward_pass(contract_code, threshold)
 
     def analyze_multiple_contracts(self, contract_codes: List[str],
                                    threshold: float = 0.5
@@ -253,22 +305,33 @@ class SmartContractAnalyzer:
                                     max_length: int = 1024,
                                     use_beam_search: bool = False,
                                     beam_size: int = 3) -> List[str]:
-        """Sample ``num_contracts`` contracts conditioned on a template, all
-        decoded as one batch. ``max_length`` and ``beam_size`` are accepted
-        for API parity: as in the JAX analyzer, sampling runs to the model's
-        ``max_length``."""
-        if use_beam_search:
-            raise NotImplementedError("beam search is not ported yet")
+        """Generate ``num_contracts`` contracts conditioned on a template.
+        Sampling decodes them all as one batch; beam search (one
+        ``make_beam_search_fn`` per ``beam_size``, kept) decodes the
+        template once, since its rows would be identical, and repeats the
+        sequence. ``max_length`` is accepted for API parity: as in the JAX
+        analyzer, both run to the model's ``max_length``."""
         batch = self._prepare_inputs([contract_template])
-        tile = {k: v.expand(num_contracts, -1) for k, v in batch.items()}
-        with torch.inference_mode():
-            memory = self.model.encode(tile["input_ids"],
-                                       tile["attention_mask"],
-                                       tile["ast_input_ids"],
-                                       tile["ast_attention_mask"])
-        tokens, self.last_decode_steps = self._generate_fn(
-            memory, tile["attention_mask"].bool(), self._generator,
-            temperature)
+        if use_beam_search:
+            if beam_size not in self._beam_fns:
+                self._beam_fns[beam_size] = make_beam_search_fn(
+                    self.model, beam_size=beam_size)
+            beam = self._beam_fns[beam_size]
+            out = beam(batch["input_ids"], batch["attention_mask"],
+                       batch["ast_input_ids"], batch["ast_attention_mask"],
+                       temperature)
+            tokens = out["generated_sequence"][:1].expand(num_contracts, -1)
+            self.last_decode_steps = beam.last_steps
+        else:
+            tile = {k: v.expand(num_contracts, -1) for k, v in batch.items()}
+            with torch.inference_mode():
+                memory = self.model.encode(tile["input_ids"],
+                                           tile["attention_mask"],
+                                           tile["ast_input_ids"],
+                                           tile["ast_attention_mask"])
+            tokens, self.last_decode_steps = self._generate_fn(
+                memory, tile["attention_mask"].bool(), self._generator,
+                temperature)
         generated: List[str] = []
         for seq in tokens.cpu().numpy():
             code = self.tokenizer.decode(seq, skip_special_tokens=True).strip()
@@ -311,3 +374,112 @@ class SmartContractAnalyzer:
         header = (f"// Generated contract based on template\n"
                   f"// Applied {n} transformations\n")
         return header + modified
+
+    # -- diagnostics -----------------------------------------------------------
+    def test_model_functionality(self) -> Dict[str, Any]:
+        """A detection forward on a random batch of one: its output shapes,
+        or the port's refusal of the input."""
+        rng = np.random.default_rng(0)
+        vocab = min(1000, self.config.vocab_size)
+        ones = np.ones((1, self.max_length), np.int64)
+        arrays = {
+            "input_ids": rng.integers(0, vocab, (1, self.max_length)),
+            "attention_mask": ones,
+            "ast_input_ids": rng.integers(0, vocab, (1, self.max_length)),
+            "ast_attention_mask": ones,
+            "token_to_line": np.zeros((1, self.max_length), np.int64),
+        }
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in arrays.items()}
+        try:
+            cp, lp = self._detect(batch)
+        except ValueError as e:
+            return {"success": False, "error": str(e)}
+        return {"success": True,
+                "contract_logits_shape": tuple(cp.shape),
+                "line_logits_shape": tuple(lp.shape)}
+
+    @torch.inference_mode()
+    def diagnose_generation_model(self) -> Dict[str, Any]:
+        """The output layer's weight spread and the first decode step's top
+        tokens on a tiny contract ("token-1 collapse": BOS predicted)."""
+        out = self.model.output_layer
+        weight, bias = out.weight.float(), out.bias.float()
+        report = {
+            "output_weight_std": float(weight.std(correction=0)),
+            "output_bias_std": float(bias.std(correction=0)),
+            "healthy_weights": bool(weight.std(correction=0) > 1e-4),
+        }
+        batch = self._prepare_inputs(
+            ["pragma solidity ^0.8.0;\ncontract T { uint x; }"])
+        memory = self.model.encode(batch["input_ids"],
+                                   batch["attention_mask"],
+                                   batch["ast_input_ids"],
+                                   batch["ast_attention_mask"])
+        logits = self.model.decode_step(
+            torch.full((1, 1), BOS_ID, dtype=torch.long, device=self.device),
+            0, self.model.init_decode_cache(1, self.device),
+            self.model.precompute_cross_kv(memory),
+            batch["attention_mask"].bool())
+        top = np.argsort(-logits[0].cpu().numpy())[:5]
+        report["first_step_top_tokens"] = top.tolist()
+        report["token_1_collapse"] = bool(top[0] == 1)
+        return report
+
+    @torch.inference_mode()
+    def debug_forward(self, contract_code: str) -> Dict[str, Any]:
+        """Mean, std, min and max of the line head's three stages
+        (``line_means``, ``line_extracted``, ``line_logits``) on one
+        contract, each flagged ``collapsed`` when its std is under 1e-6.
+        The statistics are recorded only when a dict is handed to
+        ``line_head``, which detection never does."""
+        batch = self._prepare_inputs([contract_code])
+        memory = self.model.encode(batch["input_ids"],
+                                   batch["attention_mask"],
+                                   batch["ast_input_ids"],
+                                   batch["ast_attention_mask"])
+        recorded: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.model.line_head(memory, batch["token_to_line"], stats=recorded)
+        stats = {name: {k: float(v) for k, v in s.items()}
+                 for name, s in recorded.items()}
+        for s in stats.values():
+            s["collapsed"] = bool(s["std"] < 1e-6)
+        return stats
+
+    def test_generation_simple(self, max_tokens: int = 64) -> Dict[str, Any]:
+        """One sampled contract from a tiny template: its length and a
+        preview, or the port's refusal of the input."""
+        code = "pragma solidity ^0.8.0;\ncontract T { uint x; }"
+        try:
+            outs = self.generate_synthetic_contract(code, num_contracts=1,
+                                                    temperature=0.8)
+        except ValueError as e:
+            return {"success": False, "error": str(e)}
+        return {"success": True, "generated_length": len(outs[0]),
+                "preview": outs[0][:200]}
+
+    def generate_simple_contract(self, prompt: str = "",
+                                 max_length: int = 256,
+                                 temperature: float = 0.8,
+                                 repetition_penalty: float = 1.0) -> str:
+        """The reference's diagnostic sampler: top-k 50, top-p 1.0, EOS/PAD
+        stop after 20 tokens, repetition tracking (noise after 3 repeats of
+        a token, a stop after 8); ``repetition_penalty`` != 1 also
+        penalises the previous token's logit (off by default, as in the
+        JAX analyzer)."""
+        batch = self._prepare_inputs([prompt or "pragma solidity ^0.8.0;"])
+        with torch.inference_mode():
+            memory = self.model.encode(batch["input_ids"],
+                                       batch["attention_mask"],
+                                       batch["ast_input_ids"],
+                                       batch["ast_attention_mask"])
+        gen = make_generate_fn(self.model, self.syntax_ids, top_k=50,
+                               top_p=1.0, min_length=20,
+                               max_length=min(max_length, self.max_length),
+                               repetition_penalty=repetition_penalty,
+                               track_repetition=True)
+        tokens, self.last_decode_steps = gen(
+            memory, batch["attention_mask"].bool(), self._generator,
+            temperature)
+        return self.tokenizer.decode(tokens[0].cpu().numpy(),
+                                     skip_special_tokens=True)

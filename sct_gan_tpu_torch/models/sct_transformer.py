@@ -4,8 +4,8 @@ One for one with ``sct_gan_tpu/models/sct_transformer.py`` (same submodule
 names, same numerics; see that file for the architecture and the
 reference behaviours it keeps): ``encode``, ``contract_head``,
 ``line_head``, ``discriminator_forward``, the teacher-forced decoder, the
-KV-cached ``decode_step``, and the full training/eval ``forward``.
-``encode_concat`` (beam search) waits for a later slice.
+KV-cached ``decode_step``, beam search's ``encode_concat``, and the full
+training/eval ``forward``.
 """
 from __future__ import annotations
 
@@ -35,6 +35,15 @@ from .layers import (
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _record(stats: Optional[dict], name: str, x: torch.Tensor) -> None:
+    """Per-stage statistics for ``debug_forward``: (population) std as the
+    JAX model's ``_debug_sow`` takes it; nothing when ``stats`` is None."""
+    if stats is not None:
+        x32 = x.float()
+        stats[name] = {"mean": x32.mean(), "std": x32.std(correction=0),
+                       "min": x32.min(), "max": x32.max()}
 
 
 class _VulnTypeProcessor(nn.Module):
@@ -208,6 +217,24 @@ class SmartContractTransformer(nn.Module):
             memory = memory + 0.1 * fused
         return memory
 
+    def encode_concat(self, input_ids, attention_mask, ast_input_ids,
+                      ast_attention_mask):
+        """Beam search's encode: the contract's and the AST's first
+        ``max_length // 2`` tokens, each embedded plainly (embed × √d + PE,
+        no norm, no dropout), concatenated and run through the encoder once.
+        Returns (memory, src_mask): (B, S, d) and (B, S) bool, where the
+        mask has a hole wherever the contract half is padded."""
+        half = self.config.max_length // 2
+        scale = math.sqrt(self.config.d_model)
+        pe = self._pe[:half]
+        src = torch.cat(
+            [self.embedding(input_ids[:, :half]) * scale + pe,
+             self.ast_embedding(ast_input_ids[:, :half]) * scale + pe],
+            dim=1).to(self.dtype)
+        src_mask = torch.cat([attention_mask[:, :half],
+                              ast_attention_mask[:, :half]], dim=1).bool()
+        return self.encoder(src, key_padding_mask=src_mask), src_mask
+
     # -- heads -----------------------------------------------------------------
     def contract_head(self, memory):
         """Contract logits (B, types) f32 and pooling weights (B, 1, S).
@@ -222,11 +249,18 @@ class SmartContractTransformer(nn.Module):
         feats = self.contract_feature_aggregation(rep)
         return self.contract_vulnerability_head(feats).float(), attn_weights
 
-    def line_head(self, memory, token_to_line):
-        """Line logits (B, max_lines, types) f32."""
+    def line_head(self, memory, token_to_line,
+                  stats: Optional[Dict[str, Dict[str, torch.Tensor]]] = None):
+        """Line logits (B, max_lines, types) f32.
+
+        ``stats``, a dict, receives the mean, std, min and max (f32 device
+        scalars) of three stages under the names the JAX model sows them:
+        ``line_means``, ``line_extracted``, ``line_logits``. Without it
+        nothing is recorded (the production path)."""
         cfg = self.config
         num_lines = cfg.max_lines
         means, counts = line_segment_mean(memory, token_to_line, num_lines)
+        _record(stats, "line_means", means)
         slot_ids = torch.arange(num_lines, device=memory.device)
         if cfg.per_sample_line_counts:
             row_max = token_to_line.amax(dim=-1, keepdim=True) + 1
@@ -249,6 +283,7 @@ class SmartContractTransformer(nn.Module):
         var_v = (((ext32 - mean_v) ** 2) * mask_f).sum() / denom
         feats = torch.where(torch.sqrt(var_v) < 1e-6, original * 0.1,
                             extracted)
+        _record(stats, "line_extracted", feats)
 
         valid_b = valid.expand(feats.shape[0], num_lines)
         attn1 = self.line_vuln_attention(feats, feats, feats,
@@ -266,7 +301,9 @@ class SmartContractTransformer(nn.Module):
             dim=-1)
         logits = main_out + 0.1 * type_specific
         # zero logits beyond the true line count
-        return torch.where(valid[..., None], logits, 0.0).float()
+        logits = torch.where(valid[..., None], logits, 0.0)
+        _record(stats, "line_logits", logits)
+        return logits.float()
 
     def discriminator_forward(self, features):
         if not self.config.use_gan:

@@ -14,7 +14,8 @@ past ``pos`` are masked there.
 
 Head dims as in ``flash_attention``: instances for 64, 96 and 128; any
 other head dim up to 128 through a zero-padded copy of q, k and v (the
-whole cache, every call: the slow route); over 128 raises.
+whole cache, every call: the slow route); over 128 the wide-head route at
+the next multiple of 128 (a padded copy unless the head dim is one).
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ import torch
 
 from . import _build
 from .attention import mha_reference
-from .flash_attention import (KERNEL_HEAD_DIMS, _mask_arg, _strides,
-                              head_strides, kernel_head_dim, pad_head_dim)
+from .flash_attention import (WIDE_CHUNK, _mask_arg, _strides, head_strides,
+                              kernel_head_dim, pad_head_dim, runs_on_kernel)
 
 TILE_KEYS = 64      # keys a tile of the kernel
 MAX_SPLITS = 8      # blocks a (b, h): one portable thread block cluster
@@ -112,17 +113,19 @@ def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
 def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Check the shapes and layouts the kernel takes and return the (sb,
     sh, ss) strides of q, k and v: one query, any S >= 1, a head dim with
-    a kernel instance; k and v rows on 16-byte lines (the kernel's 16-byte
-    copies), q on 4-byte lines. It reads only shapes, strides and base
-    addresses, so it holds for a tensor on any device."""
+    a kernel instance or a multiple of 128 over 128 (the wide-head route);
+    k and v rows on 16-byte lines (the kernel's 16-byte copies), q on
+    4-byte lines. It reads only shapes, strides and base addresses, so it
+    holds for a tensor on any device."""
     b, h, sq, d = q.shape
     s = k.shape[2]
     if sq != 1 or k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in KERNEL_HEAD_DIMS or s < 1:
+    if not runs_on_kernel(d) or s < 1:
         raise ValueError(f"head dim {d} / keys {s} not supported (head dims "
-                         f"{KERNEL_HEAD_DIMS}, at least one key)")
+                         f"64, 96, 128 and multiples of {WIDE_CHUNK} above, "
+                         f"at least one key)")
     return (head_strides(q, "q", 4), head_strides(k, "k", 16),
             head_strides(v, "v", 16))
 
@@ -136,7 +139,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on 16-byte lines; mask: (B, S) bool, True = attend, or None for all S
     keys visible. Returns (B, H, 1, dh) in q's dtype. A fully-masked row
     gives zeros. On CUDA, dh 64, 96 or 128 runs its kernel instance, any
-    other dh <= 128 a zero-padded copy, and dh > 128 raises.
+    other dh <= 128 a zero-padded copy, and dh > 128 the wide-head route
+    (one block per 128 columns of the output; a padded copy unless dh is a
+    multiple of 128).
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, mask, sm_scale=sm_scale)
@@ -146,7 +151,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{t.dtype} on {t.device}")
     d = q.shape[-1]
     dk = kernel_head_dim(d)
-    if dk != d:                       # the padded route
+    if dk != d:                       # padded
         out = decode_attention(*(pad_head_dim(t, dk) for t in (q, k, v)),
                                mask, sm_scale=sm_scale)
         return out[..., :d]
@@ -156,9 +161,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(b, h, 1, d, dtype=q.dtype, device=q.device)
     os_ = _strides(out, "out", 4)
     mptr, msb, _keep = _mask_arg(mask, b, s, q.device)
+    # the wide-head route runs a cluster of splits per 128-column chunk
+    chunks = d // WIDE_CHUNK if d > WIDE_CHUNK else 1
     err = _build.load().decode_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
-        b, h, s, d, *qs, *ks, *vs, *os_, msb, decode_splits(b, h, s),
+        b, h, s, d, *qs, *ks, *vs, *os_, msb, decode_splits(b * chunks, h, s),
         ctypes.c_float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_bf16")

@@ -19,7 +19,10 @@ The kernels have one instance each for head dims 64, 96 and 128
 instance through a zero-padded copy of q, k and v made here (a slow route:
 one copy of each per call); the scale stays that of the true head dim and
 the output is sliced back, so the result is the same. A head dim over 128
-raises.
+is padded so to the next multiple of 128 (``WIDE_CHUNK``), as the TPU
+kernels pad their lanes, and runs each kernel's wide-head route: one block
+per 128-column chunk of the output, the scores recomputed over the full
+head dim in every chunk's block.
 
 On a CPU tensor it runs the plain version, ``flash_attention_reference``,
 whose gradient is plain autograd through ``mha_reference``. The kernels'
@@ -39,16 +42,26 @@ from .dropout import keep_threshold
 
 # head dims with a kernel instance; the plain version takes any
 KERNEL_HEAD_DIMS = (64, 96, 128)
+# the column chunk of the wide-head route, which takes any multiple of it
+# over 128
+WIDE_CHUNK = 128
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instance a head dim ``d`` runs on: the smallest of
-    ``KERNEL_HEAD_DIMS`` that holds it. Raises over 128."""
+    """The head dim a head dim ``d`` runs at on the card: the smallest of
+    ``KERNEL_HEAD_DIMS`` that holds it, or over 128 the next multiple of
+    ``WIDE_CHUNK`` (the wide-head route)."""
     for dk in KERNEL_HEAD_DIMS:
         if d <= dk:
             return dk
-    raise ValueError(f"head dim {d}: the kernels take head dims up to "
-                     f"{KERNEL_HEAD_DIMS[-1]}")
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def runs_on_kernel(d: int) -> bool:
+    """Whether the kernels take head dim ``d`` as it is: an instance, or
+    a multiple of ``WIDE_CHUNK`` over 128."""
+    return d in KERNEL_HEAD_DIMS or (d > KERNEL_HEAD_DIMS[-1]
+                                     and d % WIDE_CHUNK == 0)
 
 
 def pad_head_dim(t: torch.Tensor, dk: int) -> torch.Tensor:
@@ -152,10 +165,10 @@ def _check_shapes(q, k, v, rate: float):
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in KERNEL_HEAD_DIMS:
+    if not runs_on_kernel(d):
         raise ValueError(f"head dim {d}: the kernels have instances for "
-                         f"{KERNEL_HEAD_DIMS} (flash_attention pads other "
-                         f"head dims up to 128)")
+                         f"{KERNEL_HEAD_DIMS} and multiples of {WIDE_CHUNK} "
+                         f"above (flash_attention pads other head dims)")
     # only the dropout hash takes the 32-bit flat (b, h, i, j) index
     if rate > 0.0 and b * h * sq * sk >= 2 ** 32:
         raise ValueError("with dropout, B*H*Sq*Sk must stay below 2^32 "
@@ -238,7 +251,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, H, Sq, dh); k, v: (B, H, Sk, dh); key_padding_mask: (B, Sk) bool,
     True = attend. Any (b, h, s) strides are taken as they are. On CUDA, dh
     64, 96 or 128 runs its kernel instance directly, any other dh <= 128
-    through a zero-padded copy, and dh > 128 raises.
+    through a zero-padded copy, and dh > 128 the wide-head route (through a
+    zero-padded copy unless dh is a multiple of 128).
     ``dropout_rate`` > 0 drops attention weights with the hash keep mask of
     ``seed``. Returns (B, H, Sq, dh) in q's dtype (on CUDA laid out as
     (B, Sq, H, dh), so merging the heads afterwards is a free view), and
@@ -256,7 +270,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
     rate = float(dropout_rate) if dropout_rate > 0.0 else 0.0
     dk = kernel_head_dim(d)
-    if dk != d:   # the padded route: autograd slices the gradients back
+    if dk != d:   # padded: autograd slices the gradients back
         q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v, key_padding_mask, causal,

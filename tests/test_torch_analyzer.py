@@ -133,8 +133,12 @@ def test_generate_synthetic_contract(analyzers, contracts):
         model_config=CFG, tokenizer=port.tokenizer,
         params=port.model.state_dict(), device="cpu", verbose=False)
     assert again.generate_synthetic_contract(contracts[0], 2) == out
-    with pytest.raises(NotImplementedError):
-        port.generate_synthetic_contract(contracts[0], use_beam_search=True)
+    # beam search decodes the template once: three copies of one sequence
+    beams = port.generate_synthetic_contract(contracts[0], num_contracts=3,
+                                             use_beam_search=True)
+    assert len(beams) == 3 and beams[0] == beams[1] == beams[2]
+    assert 1 <= port.last_decode_steps <= CFG.max_length - 1
+    assert list(port._beam_fns) == [3]
     assert port.generate_template_based_contract(contracts[0]).startswith(
         "// Generated contract based on template")
 
@@ -160,7 +164,9 @@ def test_port_imports_no_jax():
     augmentation, its checkpoint restored and served by the analyzer, from
     its own config, tokenizer and corpus copies (the native tokenizer
     built from its own C++ source), and never imports jax, flax, orbax,
-    optax or any module of the JAX package."""
+    optax, scikit-learn, matplotlib or any module of the JAX package. It
+    also runs a tiny beam search, ``debug_forward`` and
+    ``compute_perplexity``."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, tempfile
         import sct_gan_tpu_torch
@@ -193,6 +199,10 @@ def test_port_imports_no_jax():
             vocab_size=512).encode(codes[0])
         assert len(an.analyze_multiple_contracts(codes)) == 3
         assert len(an.generate_synthetic_contract(codes[0], 2)) == 2
+        assert len(an.generate_synthetic_contract(
+            codes[0], 2, use_beam_search=True, beam_size=2)) == 2
+        assert set(an.debug_forward(codes[0])) == {
+            "line_means", "line_extracted", "line_logits"}
         with tempfile.TemporaryDirectory() as d:
             write_corpus_csv(d + "/c.csv", n=10, seed=0)
             train, val = create_dataloaders(d + "/c.csv", tok, batch_size=4,
@@ -204,6 +214,9 @@ def test_port_imports_no_jax():
                 verbose=False)
             out = trainer.train_epoch(0)
             assert out["batches"] == 2 and trainer.state.step == 2, out
+            from sct_gan_tpu_torch.evals import compute_perplexity
+            ppl = compute_perplexity(an.model, val, max_batches=1)
+            assert ppl["tokens"] > 0 and ppl["perplexity"] > 1, ppl
             # the loop with augmentation, a checkpoint, its restore and
             # the analyzer serving it
             looped = SmartContractTrainer(
@@ -218,7 +231,8 @@ def test_port_imports_no_jax():
                                            model_config=cfg, tokenizer=tok,
                                            device="cpu", verbose=False)
             assert len(served.analyze_multiple_contracts(codes)) == 3
-        banned = ("jax", "jaxlib", "flax", "orbax", "optax", "sct_gan_tpu")
+        banned = ("jax", "jaxlib", "flax", "orbax", "optax", "sct_gan_tpu",
+                  "sklearn", "matplotlib")
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
         assert not loaded, loaded
         print("NO-JAX-OK")

@@ -92,8 +92,16 @@ def test_kernel_head_dim_picks_the_next_instance(d, want):
 
 
 def test_kernel_head_dim_over_128_raises():
-    with pytest.raises(ValueError, match="up to 128"):
-        kernel_head_dim(160)
+    """Over 128, ``kernel_head_dim`` once raised; it now gives the
+    wide-head route's head dim, the next multiple of 128. What still
+    raises is the kernels' own shape check on a head dim over 128 that is
+    not a multiple of 128: the wrappers pad such a head dim first."""
+    assert [kernel_head_dim(d) for d in (129, 160, 192, 256, 384, 400)] == [
+        256, 256, 256, 256, 384, 512]
+    q = torch.empty(2, 8, 1, 160, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(2, 8, 100, 160, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="128"):
+        decode_layout(q, k, k)
 
 
 @pytest.mark.parametrize("d", [48, 80, 112])

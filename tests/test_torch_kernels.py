@@ -277,9 +277,10 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, case):
         assert torch.equal(got.view(torch.int16), again.view(torch.int16))
 
 
-# head dims of the other kernel instances (64, 128) and of the padded route
-# (80 runs the 128 instances on a zero-padded copy), with their heads
-HEAD_DIM_CASES = [(64, 12), (80, 8), (128, 6)]
+# head dims of the other kernel instances (64, 128), of the padded route
+# (80 runs the 128 instances on a zero-padded copy) and of the wide-head
+# route (192 padded to 256, 256, 384), with their heads
+HEAD_DIM_CASES = [(64, 12), (80, 8), (128, 6), (192, 4), (256, 3), (384, 2)]
 
 
 def _head_view(g, device, b, s, h, d, scale=1.0):
@@ -354,11 +355,59 @@ def test_decode_head_dims_match_plain_on_card(cuda_device, d, h, case):
 
 @pytest.mark.cuda
 def test_head_dim_over_128_raises_on_card(cuda_device):
-    q = torch.zeros(1, 2, 8, 160, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="128"):
-        flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="128"):
-        decode_attention(q[:, :, :1], q, q, sm_scale=0.1)
+    """A head dim over 128 once raised on the card; it now runs the wide
+    route (160 on a copy padded to 256) and counts its launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn(1, 2, 8, 160, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    before = (flash_attention.launches, decode_attention.launches)
+    got = flash_attention(q, q, q)
+    dec = decode_attention(q[:, :, :1], q, q, sm_scale=0.1)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, decode_attention.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_reference(q, q, q)
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -5
+    want = decode_attention_reference(q[:, :, :1], q, q, sm_scale=0.1)
+    assert (dec.float() - want.float()).abs().max().item() <= 2 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h", [(192, 4), (256, 3), (384, 2)])
+def test_wide_routes_take_the_concat_mask_on_card(cuda_device, d, h):
+    """The wide routes of K1 (dropout 0.3, LSE), the backward pair and K5
+    under ``encode_concat``'s key mask, whose rows have a hole in the
+    middle (the contract's padding, then the AST's tokens): the bounds of
+    the head-dim tests above."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    s, half = 256, 128
+    pos = torch.arange(half, device=cuda_device)[None, :]
+    mask = torch.cat([pos < torch.tensor([[40], [128]], device=cuda_device),
+                      pos < torch.tensor([[100], [7]], device=cuda_device)],
+                     dim=1)
+    q = _head_view(g, cuda_device, 2, s, h, d, 2.0).requires_grad_()
+    k, v = (_head_view(g, cuda_device, 2, s, h, d).requires_grad_()
+            for _ in range(2))
+    args = dict(key_padding_mask=mask, dropout_rate=0.3, seed=3,
+                return_lse=True)
+    got, lse = flash_attention(q, k, v, **args)
+    want, want_lse = flash_attention_reference(q, k, v, **args)
+    dout = torch.randn_like(got)
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    want_g = torch.autograd.grad(want, (q, k, v), dout)
+    with torch.no_grad():
+        dec = decode_attention(q[:, :, :1], k, v, mask, sm_scale=d ** -0.5)
+        dec_want = decode_attention_reference(q[:, :, :1], k, v, mask,
+                                              sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -4
+    assert _rel_err(got, want) <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    for a, w in zip(grads, want_g):
+        assert (a.float() - w.float()).abs().max().item() <= 2 ** -3
+        assert _rel_err(a, w) <= 1e-2
+    assert (dec.float() - dec_want.float()).abs().max().item() <= 2 ** -5
+    assert _rel_err(dec, dec_want) <= 1e-2
 
 
 def _bf16_steps(want, steps=2) -> float:

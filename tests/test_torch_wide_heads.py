@@ -1,0 +1,140 @@
+"""Head dims over 128 (the kernels' wide-head route) on the CPU, against the
+JAX package.
+
+The wrappers' CPU routes (their plain versions) at head dims 192, 256 and
+384 against JAX's Pallas flash kernel, which pads any head dim to a
+multiple of 128 lanes, and its decode kernel, both in interpret mode, with
+the tolerance of ``test_torch_head_dims.py`` (1e-5 in f32: the same math
+summed in another order); the wrapper's head-dim dispatch; and a tiny
+model with one 256-wide head against JAX's detection (1e-4, the analyzer
+tests' bar).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from sct_gan_tpu.config import ModelConfig as JaxModelConfig
+from sct_gan_tpu.infer import SmartContractAnalyzer as JaxAnalyzer
+from sct_gan_tpu.ops.decode_attention import \
+    decode_attention as jax_decode_attention
+from sct_gan_tpu.ops.flash_attention import \
+    flash_attention as jax_flash_attention
+from sct_gan_tpu_torch import SmartContractAnalyzer, convert_flax_params
+from sct_gan_tpu_torch.config import ModelConfig
+from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+from sct_gan_tpu_torch.ops.decode_attention import (decode_attention,
+                                                    decode_layout)
+from sct_gan_tpu_torch.ops.flash_attention import (
+    WIDE_CHUNK, flash_attention, flash_attention_reference, kernel_head_dim,
+    pad_head_dim, runs_on_kernel)
+from test_torch_head_dims import TOL, _qkv
+from test_torch_model import flax_params
+
+WIDE_DIMS = [192, 256, 384]
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_flash_wide_head_dims_match_jax(d):
+    """Forward and dq, dk, dv of the CPU route, causal and under a key
+    mask, against the Pallas kernel in interpret mode."""
+    q, k, v, mask = _qkv(d, sq=24, sk=40)
+    dout = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
+    for causal in (False, True):
+        def jax_loss(q_, k_, v_):
+            out = jax_flash_attention(q_, k_, v_, causal=causal,
+                                      key_padding_mask=jnp.asarray(mask))
+            return jnp.sum(out * dout), out
+        with pltpu.force_tpu_interpret_mode():
+            (_, want), want_g = jax.value_and_grad(
+                jax_loss, argnums=(0, 1, 2), has_aux=True)(
+                    jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        got = flash_attention(tq, tk, tv, causal=causal,
+                              key_padding_mask=torch.from_numpy(mask))
+        got_g = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(dout))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
+        for name, g, w in zip(("dq", "dk", "dv"), got_g, want_g):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg=f"{name} causal={causal}",
+                                       **TOL)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_decode_wide_head_dims_match_jax(d):
+    rng = np.random.default_rng(d)
+    b, h, s = 3, 2, 70
+    q = rng.normal(size=(b, h, 1, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, h, s, d)).astype(np.float32)
+            for _ in range(2))
+    mask = rng.random((b, s)) < 0.6
+    mask[1] = False
+    got = decode_attention(*map(torch.from_numpy, (q, k, v)),
+                           torch.from_numpy(mask), sm_scale=d ** -0.5)
+    want = jax_decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jnp.asarray(mask),
+                                sm_scale=d ** -0.5, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.all(got.numpy()[1] == 0.0)
+
+
+@pytest.mark.parametrize("d,want", [(129, 256), (192, 256), (256, 256),
+                                    (320, 384), (384, 384), (768, 768)])
+def test_kernel_head_dim_takes_the_wide_route(d, want):
+    """No head dim raises: over 128 the wrappers pad to the next multiple
+    of 128, which the kernels' shape check takes."""
+    assert kernel_head_dim(d) == want and runs_on_kernel(want)
+    assert runs_on_kernel(d) == (d == want)
+    q = torch.empty(2, 3, 1, want, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(2, 3, 50, want, dtype=torch.bfloat16, device="meta")
+    assert decode_layout(q, k, k)[1] == (3 * 50 * want, 50 * want, want)
+
+
+@pytest.mark.parametrize("d", [192, 320])
+def test_wide_padded_route_gives_the_unpadded_result(d):
+    """A wide head dim that is not a multiple of 128 goes through a copy
+    padded with zero columns; with the true head dim's scale and the
+    output sliced back, the result and the gradients are the unpadded
+    ones."""
+    q, k, v, mask = _qkv(d, seed=4, sq=16, sk=24)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tmask = torch.from_numpy(mask)
+    want = flash_attention_reference(tq, tk, tv, key_padding_mask=tmask)
+    dk = kernel_head_dim(d)
+    assert dk % WIDE_CHUNK == 0 and dk > d
+    got = flash_attention_reference(
+        *(pad_head_dim(t, dk) for t in (tq, tk, tv)), key_padding_mask=tmask,
+        sm_scale=d ** -0.5)[..., :d]
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               **TOL)
+    dout = torch.randn(want.shape, generator=torch.Generator().manual_seed(1))
+    for a, b in zip(torch.autograd.grad(got, (tq, tk, tv), dout),
+                    torch.autograd.grad(want, (tq, tk, tv), dout)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+def test_model_with_a_256_wide_head_matches_jax_detection():
+    """d=256 with one head (head dim 256), 1+1 layers: the port's
+    detection equals the JAX analyzer's on the same weights."""
+    kw = dict(d_model=256, nhead=1, num_encoder_layers=1,
+              num_decoder_layers=1, dim_feedforward=64, dropout=0.0,
+              max_length=32, max_lines=32, vocab_size=256, use_gan=True,
+              compute_dtype="float32")
+    jcfg = JaxModelConfig(use_flash_attention=False, **kw)
+    cfg = ModelConfig(**kw)
+    tok = SolidityTokenizer(vocab_size=256)
+    params = flax_params(jcfg, seed=5)
+    jax_an = JaxAnalyzer(model_config=jcfg, tokenizer=tok, params=params,
+                         verbose=False)
+    port = SmartContractAnalyzer(model_config=cfg, tokenizer=tok,
+                                 params=convert_flax_params(params, cfg),
+                                 device="cpu", verbose=False)
+    assert port.model.encoder.layer_0.self_attn.head_dim == 256
+    code = "pragma solidity ^0.8.0;\ncontract A {\n  uint x;\n}\n"
+    got, want = (a.detect_vulnerabilities(code) for a in (port, jax_an))
+    for key in ("contract_probabilities", "line_probabilities"):
+        np.testing.assert_allclose(np.asarray(got[key]),
+                                   np.asarray(want[key]), rtol=0, atol=1e-4)
