@@ -45,7 +45,18 @@ ran through its kernels:
     ModelConfig(nhead=6) (head dim 128), and on the wide-head route
     ModelConfig(nhead=3) (256) and ModelConfig(nhead=2) (384), depth cut to
     2+2 layers: one detection forward, one train step and 16 generation
-    steps each.
+    steps each;
+  * the TASC variants (``tasc``) at ``TASCConfig()`` width (d=768, 8 heads
+    of 96, 6+6 layers, decoder vocab 50000, L=512; CodeBERT 12 layers of
+    12 heads of 64; bf16 compute), binary and multiclass, built by
+    ``build_variant`` / ``build_trainer``: ``train(2)`` over 16 training
+    and 8 validation records with a best checkpoint, a fresh trainer's
+    ``restore`` held bit for bit, ``validate``, 512-token
+    ``generate_vulnerable_code`` and (multiclass) ``detect_vulnerabilities``;
+    a deterministic B=2 step and the CodeBERT embedding cross-checked
+    against the CPU in f32; and one ``build_variant("model-v3")`` train
+    step on the bench's batch. K1, the pair and K5 are also held to their
+    plain versions at the TASC shapes.
 
 It times the kernels (every head-dim instance), their plain versions, the
 PyTorch library call for the same function and each path with CUDA events
@@ -1424,6 +1435,497 @@ def phase_heads() -> dict:
     return launches
 
 
+# -- the TASC variants (sct_gan_tpu_torch/variants) -----------------------------
+# card (bf16 CodeBERT and TASC, kernels) vs CPU (f32, plain versions), on
+# the same weights and batch, dropout off:
+# the four losses of a TASC step: BCEs of sigmoid scores near 0.7 and the
+# decoder's CE of ~10.8 over 50000 logits, each from bf16 activations with
+# ~3 significant digits: 1e-2 relative. A wrong kernel (a lost causal
+# mask, a wrong scale) moves the decoder loss by O(1).
+TASC_LOSS_RTOL = 1e-2
+# the detection scores (sigmoids, slope <= 1/4, of bf16 activations with
+# ~3 significant digits): 2e-2 absolute.
+TASC_SCORE_TOL = 2e-2
+# the CodeBERT embedding (12 post-norm layers, LayerNorm outputs of unit
+# scale): bf16 arithmetic alone lies further than 2e-2 (max abs) from f32
+# there (the CPU's plain path run in bf16 on the same weights and batch,
+# measured in the same run beside the card: ~3.5e-2 at 12 layers, 2.1e-2
+# after one), so the card is held to TASC_EMBED_FLOOR_X times that floor
+# or 2e-2, whichever is larger, and to 2e-2 norm-wise. A kernel fault (a
+# wrong mask bit, a lost tile) moves whole rows by O(1).
+TASC_EMBED_TOL = 2e-2
+TASC_EMBED_FLOOR_X = 1.5
+
+
+def tasc_per_path(cfg) -> dict:
+    """Kernel launches of each TASC path per unit, from the config: K1 of
+    one CodeBERT embedding (one stream, head dim 64), and per step or batch
+    the TASC model's K1 (head dim 96), the backward pair, K6 and K5."""
+    n = cfg.num_layers
+    return {"embed": cfg.codebert_num_layers,
+            # the encoder in training mode (K1 with dropout, 3 K6 sites a
+            # layer, forward only), the decoder loss's causal self and
+            # cross attentions forward and backward
+            "train_fwd": 3 * n, "train_bwd": 2 * n, "train_drop": 3 * n,
+            # the full forward of validation: encoder and decoder
+            "val_fwd": 3 * n,
+            "detect_fwd": n,
+            # a decode step: self (S = pos + 1) and cross (S = 1) a layer
+            "decode": 2 * n}
+
+
+def _forward_calls(module) -> list:
+    """[calls, handle]: a forward hook counting ``module``'s calls."""
+    box = [0, None]
+
+    def hook(mod, inp, out):
+        box[0] += 1
+    box[1] = module.register_forward_hook(hook)
+    return box
+
+
+def _tasc_loaders(tok, cfg, n_train=16, n_val=8, batch_size=4):
+    from sct_gan_tpu_torch.data import (TASCDataLoader, TASCDataset,
+                                        tasc_records_from_corpus)
+
+    def make(n, seed):
+        return TASCDataset(tasc_records_from_corpus(
+            n=n, seed=seed, multiclass=cfg.multiclass), tok,
+            max_length=cfg.max_length, multiclass=cfg.multiclass)
+    return (TASCDataLoader(make(n_train, 0), batch_size, shuffle=True),
+            TASCDataLoader(make(n_val, 1), batch_size))
+
+
+def _same_state(a, b) -> bool:
+    """Two trainers' ``state_tree()``s equal bit for bit."""
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch.convert import _flatten
+    fa, fb = dict(_flatten(a)), dict(_flatten(b))
+    if fa.keys() != fb.keys():
+        return False
+    return all(torch.equal(x, fb[k]) if torch.is_tensor(x)
+               else np.array_equal(np.asarray(x), np.asarray(fb[k]))
+               for k, x in fa.items())
+
+
+def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
+    """One TASC variant at ``TASCConfig()`` width through its entry points:
+    ``train(2)`` with a best checkpoint, a final state restored into a
+    fresh trainer bit for bit, ``validate``, 512-token
+    ``generate_vulnerable_code`` and, for multiclass,
+    ``detect_vulnerabilities``; the launches of each part held to the
+    config's counts; the multiclass variant is also timed. Returns the
+    launches by instance name."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.variants import (SmartContractVulnerabilityGAN,
+                                            build_trainer, build_variant,
+                                            generate_vulnerable_code)
+    t0 = time.perf_counter()
+    model, cfg = build_variant(name, overrides)
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    train, val = _tasc_loaders(tok, cfg)
+    trainer = build_trainer(name, model, cfg, train, val, tok, verbose=False,
+                            device=device)
+    per = tasc_per_path(cfg)
+    count = lambda m: sum(p.numel() for p in m.parameters()) / 1e6
+    print(f"phase tasc {name}: {count(model):.1f} M f32 parameters + "
+          f"CodeBERT {count(trainer.codebert):.1f} M (compute "
+          f"{cfg.compute_dtype}), {len(train.dataset)} train / "
+          f"{len(val.dataset)} val contracts at L={cfg.max_length}, batch "
+          f"{train.batch_size}; built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = dict.fromkeys(
+        ("flash_attention_fwd", "flash_attention_fwd_dh64",
+         "flash_attention_bwd", "dropout", "decode_attention"), 0)
+
+    def run(label, fn, want, tr=trainer):
+        """Run ``fn`` with the counts set to 0 and ``tr``'s CodeBERT calls
+        hooked; hold the launches to ``want`` (K1 of the TASC model, pair,
+        K6, K5) plus CodeBERT's K1 per call; add them by instance."""
+        calls = _forward_calls(tr.codebert)
+        reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = read_counts()
+        calls[1].remove()
+        dh64 = calls[0] * per["embed"]
+        expect = {"flash_attention_fwd": want[0] + dh64,
+                  "flash_attention_bwd": want[1], "dropout": want[2],
+                  "decode_attention": want[3]}
+        print(f"phase tasc {name} {label}: {secs:.2f} s, launches {counts} "
+              f"({calls[0]} CodeBERT calls: {dh64} of the K1 launches at "
+              f"head dim 64)", flush=True)
+        if counts != expect:
+            raise AssertionError(f"tasc {name} {label}: launches {counts}, "
+                                 f"expected {expect}")
+        launches["flash_attention_fwd_dh64"] += dh64
+        launches["flash_attention_fwd"] += counts["flash_attention_fwd"] - dh64
+        for k in ("flash_attention_bwd", "dropout", "decode_attention"):
+            launches[k] += counts[k]
+        return out, calls[0], secs
+
+    steps, vals = len(train), len(val)
+    ckdir = tempfile.mkdtemp(prefix="tasc_ckpt_", dir=ROOT)
+    try:
+        hist, cb_calls, train_s = run(
+            "train(2)", lambda: trainer.train(2, checkpoint_dir=ckdir),
+            (2 * steps * per["train_fwd"] + 2 * vals * per["val_fwd"],
+             2 * steps * per["train_bwd"], 2 * steps * per["train_drop"], 0))
+        finite = all(math.isfinite(x) for k in ("g_loss", "d_loss",
+                                                 "decoder_loss", "val_loss")
+                     for x in hist[k])
+        cls_on = all(x > 0 for x in hist["classifier_loss"])
+        if (cb_calls != 2 * 2 * (steps + vals) or not finite
+                or cls_on != cfg.multiclass
+                or not os.path.exists(os.path.join(ckdir, "tasc_best"))):
+            raise AssertionError(f"tasc {name} train(2): history {hist}, "
+                                 f"CodeBERT calls {cb_calls}, checkpoints "
+                                 f"{os.listdir(ckdir)}")
+        print(f"phase tasc {name} train(2): G {hist['g_loss']}, D "
+              f"{hist['d_loss']}, decoder {hist['decoder_loss']}, classifier "
+              f"{hist['classifier_loss']}, val {hist['val_loss']}; "
+              f"{2 * steps} steps, {train_s / (2 * steps):.3f} s a step with "
+              f"its share of validation, CodeBERT and the checkpoint",
+              flush=True)
+
+        # -- the final state, restored into a fresh trainer -----------------
+        t0 = time.perf_counter()
+        path = trainer.save(ckdir, "tasc_final")
+        save_s = time.perf_counter() - t0
+        fresh = build_trainer(
+            name, SmartContractVulnerabilityGAN(cfg, seed=1), cfg, _Empty(),
+            val, tok, verbose=False, device=device,
+            codebert_params=trainer.codebert.state_dict())
+        t0 = time.perf_counter()
+        epochs = fresh.restore(path)
+        load_s = time.perf_counter() - t0
+        same = {"state": _same_state(trainer.state_tree(),
+                                     fresh.state_tree()),
+                "history": fresh.training_history == trainer.training_history,
+                "best_val_loss": fresh.best_val_loss == trainer.best_val_loss,
+                "epochs": epochs == 2}
+        print(f"phase tasc {name}: restore(tasc_final) into a fresh trainer: "
+              f"bit for bit {same}; saved in {save_s:.1f} s, loaded in "
+              f"{load_s:.1f} s", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"tasc {name}: restore differs: {same}")
+        val_loss, _, _ = run("validate (restored)", fresh.validate,
+                             (vals * per["val_fwd"], 0, 0, 0), fresh)
+        if val_loss != trainer.validate():
+            raise AssertionError(f"tasc {name}: the restored trainer "
+                                 f"validates to {val_loss}")
+        del fresh
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        reset_counts()        # the steps, and so K5's count, show after
+        t0 = time.perf_counter()
+        out = generate_vulnerable_code(trainer.model, gen, num_samples=2,
+                                       tokenizer=tok,
+                                       max_length=cfg.max_gen_length)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = read_counts()
+        n_steps = out["decode_steps"]
+        tokens = out["tokens"]
+        ok = (tuple(tokens.shape) == (2, cfg.max_gen_length)
+              and bool((tokens[:, 0] == 0).all())
+              and counts == {"flash_attention_fwd": 0,
+                             "flash_attention_bwd": 0, "dropout": 0,
+                             "decode_attention": n_steps * per["decode"]}
+              and (n_steps == cfg.max_gen_length - 1
+                   or bool((tokens[:, 1:n_steps + 1] == 0).any(1).all())))
+        if cfg.multiclass:
+            ok &= bool(torch.isfinite(out["vulnerability_scores"]).all())
+        print(f"phase tasc {name} generate_vulnerable_code(num_samples=2, "
+              f"max_length={cfg.max_gen_length}): {n_steps} steps in "
+              f"{gen_s:.2f} s, launches {counts}; code[:60] "
+              f"{out['code'][:60]!r}", flush=True)
+        if not ok:
+            raise AssertionError(f"tasc {name}: generation {counts}, "
+                                 f"tokens {tuple(tokens.shape)}")
+        launches["decode_attention"] += counts["decode_attention"]
+
+        if cfg.multiclass:
+            batch = next(iter(val))
+
+            def detect():
+                with torch.inference_mode():
+                    return trainer.model.detect_vulnerabilities(
+                        trainer._embed(batch["input_ids"],
+                                       batch["attention_mask"]))
+            det, _, _ = run("detect_vulnerabilities", detect,
+                            (per["detect_fwd"], 0, 0, 0))
+            scores = det["vulnerability_scores"]
+            if (tuple(scores.shape) != (len(batch["label"]),
+                                        cfg.num_vulnerability_types)
+                    or not bool(torch.isfinite(scores).all())):
+                raise AssertionError(f"tasc {name}: detection {scores}")
+            print(f"phase tasc {name} detect_vulnerabilities: scores "
+                  f"{scores.float().cpu().numpy().round(4).tolist()}",
+                  flush=True)
+            _tasc_times(trainer, batch, detect, gen, tok, cfg, card)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tasc_times(trainer, batch, detect, gen, tok, cfg, card) -> None:
+    """The multiclass variant's times at B=4, L=512: the train step on
+    precomputed CodeBERT embeddings, one CodeBERT embedding (one stream),
+    detection (embedding + ``detect_vulnerabilities``) by CUDA events
+    around eager calls, so the host's dispatch is in them as a user meets
+    it; 512-token generation of 2 rows on the host clock after a
+    synchronise. Then the train step and the generation under
+    ``torch.profiler`` (``profile_out/profile_tasc_*.txt``)."""
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch.variants import generate_vulnerable_code
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    ce = trainer._embed(ids, mask)
+    pe = trainer._embed(batch["path_input_ids"], batch["path_attention_mask"])
+    labels, vuln, pattern = trainer._batch_labels(batch, np.asarray(ids))
+    tids = trainer._t(ids)
+    step_ms = cuda_ms(lambda: trainer._train_step(ce, pe, tids, labels, vuln,
+                                                  pattern), iters=6, warmup=2)
+    embed_ms = cuda_ms(lambda: trainer._embed(ids, mask), iters=10, warmup=2)
+    det_ms = cuda_ms(detect, iters=10, warmup=2)
+    t0 = time.perf_counter()
+    out = generate_vulnerable_code(trainer.model, gen, num_samples=2,
+                                   tokenizer=tok,
+                                   max_length=cfg.max_gen_length)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    steps = out["decode_steps"]
+    b = len(labels)
+    print(f"phase tasc times [{card}]: multiclass-tasc at B={b} "
+          f"L={cfg.max_length}: train step {step_ms:.2f} ms (CodeBERT "
+          f"embeddings precomputed; CUDA events over 6 steps after 2), "
+          f"CodeBERT embedding {embed_ms:.2f} ms a batch and stream, "
+          f"detection {det_ms:.2f} ms a batch (embedding + "
+          f"detect_vulnerabilities); generation 2 x {steps} steps in "
+          f"{gen_s:.2f} s = {2 * steps / gen_s:.1f} tokens/s "
+          f"({gen_s / steps * 1e3:.2f} ms/step); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB",
+          flush=True)
+
+    def train1():
+        trainer._train_step(ce, pe, tids, labels, vuln, pattern)
+        return 1
+
+    def generate():
+        return generate_vulnerable_code(
+            trainer.model, gen, num_samples=2,
+            max_length=cfg.max_gen_length)["decode_steps"]
+    profile_device(train1, "tasc_train", step_ms, card)
+    profile_device(generate, "tasc_generate", gen_s / steps * 1e3, card)
+
+
+def _tasc_cpu_check(overrides=None, device="cuda") -> None:
+    """A deterministic multiclass TASC step at B=2 (dropout 0) from the same
+    weights and batch on the card (bf16, kernels) and on the CPU (f32,
+    plain versions): the CodeBERT embedding of the batch, the detection
+    scores and the four losses."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch.config import (CodeBERTConfig,
+                                          multiclass_tasc_config)
+    from sct_gan_tpu_torch.data import (TASCDataLoader, TASCDataset,
+                                        tasc_records_from_corpus)
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.variants import (FlaxCodeBERT,
+                                            SmartContractVulnerabilityGAN,
+                                            VulnerabilityDetectionTrainer)
+    cfg = dataclasses.replace(multiclass_tasc_config(**(overrides or {})),
+                              dropout=0.0)
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    ds = TASCDataset(tasc_records_from_corpus(n=2, seed=2, multiclass=True),
+                     tok, max_length=cfg.max_length, multiclass=True)
+    batch = next(iter(TASCDataLoader(ds, batch_size=2)))
+    card = VulnerabilityDetectionTrainer(
+        SmartContractVulnerabilityGAN(cfg), _Empty(), _Empty(),
+        tokenizer=tok, verbose=False, device=device)
+    cpu_model = SmartContractVulnerabilityGAN(
+        dataclasses.replace(cfg, compute_dtype="float32"), seed=None)
+    cpu_model.load_state_dict(card.model.state_dict())
+    cpu = VulnerabilityDetectionTrainer(
+        cpu_model, _Empty(), _Empty(), tokenizer=tok, verbose=False,
+        device="cpu", codebert_params=card.codebert.state_dict())
+
+    def run(tr):
+        ids = np.asarray(batch["input_ids"])
+        ce = tr._embed(ids, batch["attention_mask"])
+        pe = tr._embed(batch["path_input_ids"], batch["path_attention_mask"])
+        with torch.no_grad():
+            det = tr.model.detect_vulnerabilities(ce)
+        scores = {"types": det["vulnerability_scores"],
+                  **det["pattern_scores"]}
+        labels, vuln, pattern = tr._batch_labels(batch, ids)
+        m = tr._train_step(ce, pe, tr._t(ids), labels, vuln, pattern)
+        return (ce.float().cpu(), {k: v.float().cpu() for k, v in
+                                   scores.items()},
+                {k: float(v) for k, v in m.items()})
+    t0 = time.perf_counter()
+    got = run(card)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = run(cpu)
+    cpu_s = time.perf_counter() - t0
+    # the floor: the CPU's plain path in bf16, same weights and batch
+    bf16_cb = FlaxCodeBERT.from_config(dataclasses.replace(
+        CodeBERTConfig.from_tasc(cfg), compute_dtype="bfloat16"), seed=None)
+    bf16_cb.load_state_dict(cpu.codebert.state_dict())
+    with torch.no_grad():
+        floor = bf16_cb(torch.as_tensor(batch["input_ids"]).long(),
+                        torch.as_tensor(batch["attention_mask"]).long())
+    floor_err = max_err(floor, want[0])
+    embed_tol = max(TASC_EMBED_TOL, TASC_EMBED_FLOOR_X * floor_err)
+    embed_err, embed_rel = max_err(got[0], want[0]), rel_err(got[0], want[0])
+    score_err = max(max_err(got[1][k], want[1][k]) for k in want[1])
+    rel = {k: abs(got[2][k] - want[2][k]) / abs(want[2][k]) for k in want[2]}
+    print(f"phase tasc card vs cpu: multiclass step at B=2 L="
+          f"{cfg.max_length}, dropout 0 (card {card_s:.1f} s, CPU f32 "
+          f"{cpu_s:.1f} s): CodeBERT embedding max_abs_err {embed_err:.3e} "
+          f"(tol {embed_tol:.3e}: the CPU's bf16 path is {floor_err:.3e} "
+          f"from f32, rel_err {rel_err(floor, want[0]):.3e}), rel_err "
+          f"{embed_rel:.3e} (tol {TASC_EMBED_TOL}); detection scores "
+          f"max_abs_err {score_err:.3e} (tol {TASC_SCORE_TOL}); losses card "
+          f"{got[2]} cpu {want[2]}, rel "
+          f"{ {k: float('%.3e' % v) for k, v in rel.items()} } (tol "
+          f"{TASC_LOSS_RTOL})", flush=True)
+    if not (embed_err <= embed_tol and embed_rel <= TASC_EMBED_TOL
+            and score_err <= TASC_SCORE_TOL
+            and all(v <= TASC_LOSS_RTOL for v in rel.values())):
+        raise AssertionError("tasc: the card disagrees with the CPU")
+    del card, cpu, bf16_cb
+    torch.cuda.empty_cache()
+
+
+def _model_v3_step(overrides=None, device="cuda") -> dict:
+    """One ``build_variant("model-v3")`` train step on the JAX bench's
+    batch (B=8, L=1024): ``use_gan=False``, so one flash call fewer a
+    forward than sct-gan (no discriminator). Returns its launches."""
+    import torch
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.variants import build_trainer, build_variant
+    model, cfg = build_variant("model-v3", overrides)
+    mc = cfg.model
+    tok = SolidityTokenizer(vocab_size=mc.vocab_size)
+    trainer = build_trainer("model-v3", model, cfg, _Empty(), _Empty(), tok,
+                            verbose=False, device=device)
+    batch = trainer.to_device(make_batch(8, mc.max_length, mc.vocab_size))
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.state, metrics, _ = trainer.train_step(
+        trainer.state, batch, trainer._scalars(1.0), trainer._group_lrs(),
+        trainer.generator)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    loss = float(metrics["total_loss"])
+    n = flash_per_forward(mc) - 1
+    print(f"phase tasc model-v3: one train step at B=8 L={mc.max_length} "
+          f"(use_gan {mc.use_gan}, augmentation "
+          f"{cfg.train.use_augmentation}) in {secs:.2f} s (first call), "
+          f"launches {counts}, total_loss {loss:.4f}", flush=True)
+    if (mc.use_gan or counts["flash_attention_fwd"] != n
+            or counts["flash_attention_bwd"] != n or counts["dropout"] == 0
+            or counts["decode_attention"] != 0 or not math.isfinite(loss)):
+        raise AssertionError(f"model-v3: launches {counts} (expected {n} "
+                             f"flash calls each way), loss {loss}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tasc_kernel_checks(errs: dict) -> None:
+    """K1, the pair and K5 against their plain versions at the shapes the
+    TASC path gives them: CodeBERT's (4, 12, 512, 64) under the key mask of
+    padded tails, the encoder's (4, 8, 512, 96) with dropout 0.1 and no
+    mask, the decoder's causal (4, 8, 512, 96) forward and backward, and
+    generation's cross attention against a one-key memory, no mask."""
+    import torch
+    from sct_gan_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    def qkv(h, d, grad=False):
+        return [_heads(rnd(4, 512, h * d, scale=2.0 if i == 0 else 1.0),
+                       h).requires_grad_(grad) for i in range(3)]
+
+    lens = torch.tensor([512, 204, 143, 77], device=dev)
+    mask = torch.arange(512, device=dev)[None, :] < lens[:, None]
+    for kernel, label, h, d, m, causal, rate in (
+            ("flash_attention_fwd_dh64", "CodeBERT, key mask", 12, 64, mask,
+             False, 0.0),
+            ("flash_attention_fwd", "TASC encoder, dropout 0.1", 8, 96, None,
+             False, 0.1),
+            ("flash_attention_fwd", "TASC decoder self, causal", 8, 96, None,
+             True, 0.0)):
+        q, k, v = qkv(h, d)
+        args = dict(key_padding_mask=m, causal=causal, sm_scale=d ** -0.5,
+                    dropout_rate=rate, seed=77)
+        got = flash_attention(q, k, v, **args)
+        want = flash_attention_reference(q, k, v, **args)
+        torch.cuda.synchronize()
+        check_close(errs, kernel, label, got, want, kernel_tol(want),
+                    f" q{tuple(q.shape)}")
+    q, k, v = qkv(8, 96, grad=True)
+    dout = _heads(rnd(4, 512, 768))
+    args = dict(causal=True, sm_scale=96 ** -0.5)
+    got = torch.autograd.grad(flash_attention(q, k, v, **args), (q, k, v),
+                              dout)
+    want = torch.autograd.grad(flash_attention_reference(q, k, v, **args),
+                               (q, k, v), dout)
+    torch.cuda.synchronize()
+    for nm, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        check_close(errs, "flash_attention_bwd", "TASC decoder self, causal",
+                    gt, wt, kernel_tol(wt, 4), f" {nm} q{tuple(q.shape)}")
+    q, k, v = (_heads(rnd(2, 1, 768, scale=2.0 if i == 0 else 1.0))
+               for i in range(3))
+    got = decode_attention(q, k, v, None, sm_scale=96 ** -0.5)
+    want = decode_attention_reference(q, k, v, None, sm_scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    check_close(errs, "decode_attention", "TASC generation cross, one key",
+                got, want, kernel_tol(want), f" q{tuple(q.shape)} "
+                f"k{tuple(k.shape)}")
+
+
+def phase_tasc(card: str, overrides=None, v3_overrides=None,
+               device="cuda"):
+    """The TASC variants at ``TASCConfig()`` width (binary and multiclass,
+    each through ``_tasc_variant``), the card against the CPU, and the
+    Model-v3 step. Returns the launches by instance name."""
+    launches = {}
+    for name in ("binary-tasc", "multiclass-tasc"):
+        for k, v in _tasc_variant(name, card, overrides, device).items():
+            launches[k] = launches.get(k, 0) + v
+    _tasc_cpu_check(overrides, device)
+    for k, v in _model_v3_step(v3_overrides, device).items():
+        launches[k] += v
+    print(f"phase tasc: launches over the TASC paths and the Model-v3 step "
+          f"{launches}", flush=True)
+    return launches
+
+
 def _loss_and_norms(model, batch, tables, device):
     """Deterministic compute_losses with its gradients: (total loss, the
     global grad norm, the grad norm of the q/k/v projections)."""
@@ -1812,6 +2314,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     errs.update(phase_head_kernels())
+    tasc_kernel_checks(errs)
     card = card_line()
     variants = phase_variants(card)
     an, codes, template, serve_launches = phase_serve()
@@ -1822,6 +2325,7 @@ def main() -> int:
     phase_train_check(trainer)
     loop_launches = phase_loop()
     head_launches = phase_heads()
+    tasc_launches = phase_tasc(card)
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
                                                     trainer, batch, card,
                                                     variants)
@@ -1872,6 +2376,8 @@ def main() -> int:
                 eval_launches, train_launches, loop_launches))
         else:
             launches = head_launches[name]
+        # the TASC paths: head dim 96, and CodeBERT's K1 at 64
+        launches += tasc_launches.get(name, 0)
         if launches == 0:
             raise AssertionError(f"{name}: no launch on its main path")
         entry = {

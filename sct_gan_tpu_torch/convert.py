@@ -15,17 +15,27 @@ differs, raises.
 ``flax_params_from_torch`` and ``flax_opt_state_from_torch`` go the other
 way, so that the port's checkpoints (``train/checkpoint.py``) hold flax
 trees, which ``flax_tree_from_npz`` and ``convert_flax_params`` read back.
+
+The configuration names the model: a ``ModelConfig`` is the
+``SmartContractTransformer``, a ``TASCConfig`` the
+``SmartContractVulnerabilityGAN`` and a ``CodeBERTConfig`` the frozen
+CodeBERT embedder (``FlaxCodeBERT``). ``convert_tasc_opt_states`` and
+``tasc_opt_states_from_torch`` carry the TASC trainer's per-submodule Adam
+states (``count``, ``mu``, ``nu``, the moments over that submodule only).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
-from .config import ModelConfig
+from .config import CodeBERTConfig, ModelConfig, TASCConfig
 from .models.layers import Dense, Embed, LayerNorm
 from .models.sct_transformer import SmartContractTransformer
+
+AnyConfig = Union[ModelConfig, TASCConfig, CodeBERTConfig]
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -50,10 +60,25 @@ def flax_tree_from_npz(path: str) -> Dict[str, Any]:
     return tree
 
 
-def convert_flax_params(tree: Mapping,
-                        config: ModelConfig) -> Dict[str, torch.Tensor]:
-    """flax parameter tree (numpy or jax leaves) → the port's state dict
-    (f32 CPU tensors) for ``SmartContractTransformer(config)``."""
+def _meta_model(config: AnyConfig) -> nn.Module:
+    """The port's model of ``config``, on the meta device (shapes only).
+    The configuration's class name picks the model, so the JAX package's
+    configurations, which have the same fields, are taken too."""
+    kind = type(config).__name__
+    with torch.device("meta"):
+        if kind == "ModelConfig":
+            return SmartContractTransformer(config, seed=None)
+        if kind == "TASCConfig":
+            from .variants.tasc import SmartContractVulnerabilityGAN
+            return SmartContractVulnerabilityGAN(config, seed=None)
+        if kind == "CodeBERTConfig":
+            from .variants.codebert import FlaxCodeBERT
+            return FlaxCodeBERT.from_config(config, seed=None)
+    raise TypeError(f"no port model for a {kind}")
+
+
+def _port_state(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax tree's leaves under the port's names (the rules above)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(tree):
         *mods, name = path
@@ -65,9 +90,19 @@ def convert_flax_params(tree: Mapping,
         elif name != "bias" and mods:
             raise ValueError(f"unknown flax leaf {'/'.join(path)}")
         sd[".".join([*mods, name])] = torch.tensor(arr)
+    return sd
 
-    with torch.device("meta"):
-        want = SmartContractTransformer(config, seed=None).state_dict()
+
+def convert_flax_params(tree: Mapping,
+                        config: AnyConfig) -> Dict[str, torch.Tensor]:
+    """flax parameter tree (numpy or jax leaves) → the port's state dict
+    (f32 CPU tensors) for the model of ``config``."""
+    return _checked(_port_state(tree), _meta_model(config).state_dict())
+
+
+def _checked(sd: Dict[str, torch.Tensor],
+             want: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``sd`` if it has exactly ``want``'s names and shapes, else raise."""
     extra, missing = sorted(sd.keys() - want.keys()), sorted(
         want.keys() - sd.keys())
     if extra or missing:
@@ -92,11 +127,11 @@ def convert_flax_opt_state(opt_state: Mapping, config: ModelConfig
             "nu": convert_flax_params(opt_state["nu"], config)}
 
 
-def _flax_leaves(config: ModelConfig) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+def _flax_leaves(config: AnyConfig
+                 ) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
     """Port parameter name → (flax leaf path, transposed?), by the type of
     the module that holds the parameter (the rules above, inverted)."""
-    with torch.device("meta"):
-        model = SmartContractTransformer(config, seed=None)
+    model = _meta_model(config)
     leaves = {}
     for mod_name, mod in model.named_modules():
         mods = tuple(mod_name.split(".")) if mod_name else ()
@@ -113,11 +148,15 @@ def _flax_leaves(config: ModelConfig) -> Dict[str, Tuple[Tuple[str, ...], bool]]
 
 
 def flax_params_from_torch(named: Mapping[str, Any],
-                           config: ModelConfig) -> Dict[str, Any]:
+                           config: AnyConfig, prefix: str = ""
+                           ) -> Dict[str, Any]:
     """The port's parameters by name (tensors or arrays) → the nested flax
     tree of ``config``'s JAX model. Leaves are views of the inputs (a Dense
-    weight transposed), not copies; every name of the port must be there."""
-    leaves = _flax_leaves(config)
+    weight transposed), not copies; every name of the port must be there.
+    With ``prefix`` (a submodule's name and a dot) only that submodule's
+    parameters are expected and converted."""
+    leaves = {k: v for k, v in _flax_leaves(config).items()
+              if k.startswith(prefix)}
     extra, missing = (sorted(named.keys() - leaves.keys()),
                       sorted(leaves.keys() - named.keys()))
     if extra or missing:
@@ -141,3 +180,34 @@ def flax_opt_state_from_torch(opt_state: Mapping[str, Any],
     return {"count": opt_state["count"],
             "mu": flax_params_from_torch(opt_state["mu"], config),
             "nu": flax_params_from_torch(opt_state["nu"], config)}
+
+
+def convert_tasc_opt_states(opt_states: Mapping[str, Mapping],
+                            config: TASCConfig) -> Dict[str, Dict[str, Any]]:
+    """The TASC trainer's Adam states in flax layout, ``{submodule:
+    {"count", "mu", "nu"}}`` with ``mu`` and ``nu`` that submodule's flax
+    subtree, → ``{submodule: {"count": int tensor, "mu": {name: tensor},
+    "nu": {name: tensor}}}`` under the port's full parameter names
+    (``generator.dense_0.weight``, ...). Each moment tree must cover its
+    submodule exactly."""
+    want = _meta_model(config).state_dict()
+    out = {}
+    for key, st in opt_states.items():
+        sub = {n: t for n, t in want.items() if n.startswith(key + ".")}
+        out[key] = {"count": torch.tensor(np.asarray(st["count"]),
+                                          dtype=torch.int32)}
+        for m in ("mu", "nu"):
+            out[key][m] = _checked(_port_state({key: st[m]}), sub)
+    return out
+
+
+def tasc_opt_states_from_torch(opt_states: Mapping[str, Mapping],
+                               config: TASCConfig) -> Dict[str, Any]:
+    """The inverse of ``convert_tasc_opt_states``: ``{submodule: {"count",
+    "mu", "nu"}}`` by port names → the flax layout, each moment the
+    submodule's subtree (views, not copies)."""
+    return {key: {"count": st["count"],
+                  **{m: flax_params_from_torch(st[m], config,
+                                               prefix=key + ".")[key]
+                     for m in ("mu", "nu")}}
+            for key, st in opt_states.items()}

@@ -3,7 +3,10 @@ from .ast_parser import parse_solidity_to_ast, prepare_code2vec_input
 from .augmentation import SmartContractAugmenter
 from .dataset import (SmartContractVulnerabilityDataset, build_token_to_line,
                       create_dataloaders, custom_collate_fn)
+from .pattern_matcher import PatternMatcher
 from .synthetic import generate_corpus, write_corpus_csv
+from .tasc_dataset import (TASCDataLoader, TASCDataset, load_hf_tasc_records,
+                           tasc_collate, tasc_records_from_corpus)
 from .tokenizer import SolidityTokenizer, get_tokenizer
 
 __all__ = [
@@ -18,4 +21,10 @@ __all__ = [
     "build_token_to_line",
     "generate_corpus",
     "write_corpus_csv",
+    "PatternMatcher",
+    "TASCDataset",
+    "TASCDataLoader",
+    "tasc_collate",
+    "tasc_records_from_corpus",
+    "load_hf_tasc_records",
 ]

@@ -166,7 +166,9 @@ def test_port_imports_no_jax():
     built from its own C++ source), and never imports jax, flax, orbax,
     optax, scikit-learn, matplotlib or any module of the JAX package. It
     also runs a tiny beam search, ``debug_forward`` and
-    ``compute_perplexity``."""
+    ``compute_perplexity``, and imports the TASC variants, the compat
+    shims and the TASC data to run one epoch of the tiny multiclass TASC
+    trainer and a TASC generation."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, tempfile
         import sct_gan_tpu_torch
@@ -231,6 +233,36 @@ def test_port_imports_no_jax():
                                            model_config=cfg, tokenizer=tok,
                                            device="cpu", verbose=False)
             assert len(served.analyze_multiple_contracts(codes)) == 3
+        # the TASC variants: one step of the tiny multiclass trainer (its
+        # weak labels from the port's PatternMatcher) and a generation
+        from sct_gan_tpu_torch.compat import binary_tasc, multiclass_tasc
+        from sct_gan_tpu_torch.config import CodeBERTConfig
+        from sct_gan_tpu_torch.data.tasc_dataset import (
+            TASCDataLoader, TASCDataset, tasc_records_from_corpus)
+        from sct_gan_tpu_torch.variants import (
+            FlaxCodeBERT, build_trainer, build_variant,
+            generate_vulnerable_code)
+        import torch
+        tm, tc = build_variant("multiclass-tasc", dict(
+            d_model=32, nhead=2, num_layers=1, dim_feedforward=64,
+            vocab_size=512, decoder_vocab_size=128, max_gen_length=16,
+            compute_dtype="float32", codebert_num_layers=1,
+            codebert_nhead=2, codebert_ffn=64, max_length=32))
+        ds = TASCDataset(tasc_records_from_corpus(n=3, seed=0,
+                                                  multiclass=True),
+                         tok, max_length=32, multiclass=True)
+        # CodeBERT's weights passed in: the default first tries a cached
+        # HF model through transformers, which imports scikit-learn
+        cb = FlaxCodeBERT.from_config(CodeBERTConfig.from_tasc(tc))
+        tt = build_trainer("multiclass-tasc", tm, tc, TASCDataLoader(ds, 3),
+                           TASCDataLoader(ds, 3), tok,
+                           codebert_params=cb.state_dict(), device="cpu",
+                           verbose=False)
+        losses = tt.train_epoch()
+        assert all(x == x for x in losses) and tt.validate() > 0, losses
+        gen = generate_vulnerable_code(tm, torch.Generator().manual_seed(0),
+                                       num_samples=2, tokenizer=tok)
+        assert gen["tokens"].shape == (2, 16)
         banned = ("jax", "jaxlib", "flax", "orbax", "optax", "sct_gan_tpu",
                   "sklearn", "matplotlib")
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
