@@ -56,7 +56,18 @@ ran through its kernels:
     a deterministic B=2 step and the CodeBERT embedding cross-checked
     against the CPU in f32; and one ``build_variant("model-v3")`` train
     step on the bench's batch. K1, the pair and K5 are also held to their
-    plain versions at the TASC shapes.
+    plain versions at the TASC shapes;
+  * the parallel paths (``parallel``, the serving and training width,
+    ``sct_gan_tpu_torch/parallel``): on an NCCL world of one, the 1 x 1
+    mesh's train step and ``analyze_multiple_contracts`` held bit for bit
+    to mesh=None's, ``sp_detect`` at S=16384 (16x the configured length,
+    B=2, a ragged key mask) and the gradient of ``sp_encode`` at S=8192
+    (the backward pair at Sk=8192); then two gloo ranks sharing the card
+    (``python3 chip_smoke.py --parallel-rank <dir>``, started by the
+    script): ``sp_encode`` and its gradient at sp=2, and a dp=2 and an mp=2
+    train step, each against the world of one. K1, the pair and K6 are
+    held to their plain versions at the meshes' index origins and at
+    Sk=16384 and 8192 first.
 
 It times the kernels (every head-dim instance), their plain versions, the
 PyTorch library call for the same function and each path with CUDA events
@@ -1977,6 +1988,539 @@ def phase_train_check(trainer):
         raise AssertionError("train cross-check: card and CPU disagree")
 
 
+# -- parallel: meshes of ranks (sct_gan_tpu_torch/parallel) -----------------
+
+# two-rank results against one rank's. The dp=2 step splits only the batch
+# rows: each rank's products are the one-rank products of its rows, and the
+# sums over the global batch change their order only (2e-7 on the loss, 8e-6
+# on the grad norm, H100): 1e-4 both, twelve times the larger reading.
+# mp=2 and sp=2 split the products themselves and round them in bf16
+# otherwise (1.4e-3 on mp=2's grad norm): the train check's bars, 1e-2 on
+# the loss and 5e-2 on gradient norms. The sequence-
+# parallel memory: each rank's projections run at half the rows, so cuBLAS
+# may pick other tilings and round bf16 otherwise; through 6+2 layers of
+# bf16 activations that moves the memory by ~1e-2 norm-wise: 2e-2.
+SP_REL_TOL = 2e-2
+DP_RTOL = 1e-4
+SP_SEQ, SP_GRAD_SEQ = 16384, 8192   # sp_detect's and sp_encode's gradient's
+
+
+def _sp_batch(cfg, s: int, seed: int = 0) -> dict:
+    """Two (s,)-token contracts of random ids, row 1 ragged (its last 3/16
+    of keys padded), lines of 16 tokens up to the configuration's line
+    slots."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mask = np.ones((2, s), np.int64)
+    mask[1, s - 3 * s // 16:] = 0
+    lines = np.minimum(np.arange(s) // 16, cfg.max_lines - 1)
+    return {"input_ids": rng.integers(4, cfg.vocab_size, (2, s)),
+            "attention_mask": mask,
+            "ast_input_ids": rng.integers(4, cfg.vocab_size, (2, s)),
+            "ast_attention_mask": np.ones((2, s), np.int64),
+            "token_to_line": np.tile(lines, (2, 1))}
+
+
+def parallel_kernel_checks(errs: dict) -> dict:
+    """K1, the pair and K6 against their plain versions at the shapes and
+    index origins the meshes give them: a shard of rows [4, 8) and heads
+    [4, 8) of a (8, 8, 1024, 96) dropout grid (the dp x mp train step); the
+    FFN hidden's dropout on batch rows [4, 8) and columns [1024, 2048) of
+    (8, 1024, 2048); K1 at sp_detect's (2, 8, 16384, 96) under a ragged key
+    mask (the first 256 query rows against the plain version) and the pair
+    at the sp_encode gradient's (2, 8, 8192, 96). Returns the long-key
+    timings for the kernels line."""
+    import torch
+    from sct_gan_tpu_torch.ops.dropout import dropout, dropout_reference
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    sc = 96 ** -0.5
+    lens = torch.tensor([1024, 700, 300, 1000], device=dev)
+    mask = torch.arange(1024, device=dev)[None, :] < lens[:, None]
+    shard = (4, 4, 8)
+    q = _heads(rnd(4, 1024, 384, scale=2.0), 4).requires_grad_()
+    k = _heads(rnd(4, 1024, 384), 4).requires_grad_()
+    v = _heads(rnd(4, 1024, 384), 4).requires_grad_()
+    dout = _heads(rnd(4, 1024, 384), 4)
+    args = dict(key_padding_mask=mask, sm_scale=sc, dropout_rate=0.3,
+                seed=321, drop_shard=shard)
+    got = flash_attention(q, k, v, **args)
+    want = flash_attention_reference(q, k, v, **args)
+    torch.cuda.synchronize()
+    check_close(errs, "flash_attention_fwd", "dp x mp shard (b0 4, h0 4 of "
+                "8), dropout 0.3", got, want, kernel_tol(want),
+                f" q{tuple(q.shape)}")
+    gots = torch.autograd.grad(got, (q, k, v), dout)
+    wants = torch.autograd.grad(want, (q, k, v), dout)
+    torch.cuda.synchronize()
+    for nm, gt, wt in zip(("dq", "dk", "dv"), gots, wants):
+        check_close(errs, "flash_attention_bwd", "dp x mp shard, dropout 0.3",
+                    gt, wt, kernel_tol(wt, 4), f" {nm} q{tuple(q.shape)}")
+    x = rnd(4, 1024, 1024).requires_grad_()
+    origin = 4 * 1024 * 2048 + 1024
+    got = dropout(x, 0.3, 4321, origin, 2048)
+    want = dropout_reference(x.detach(), 4321, 0.3, origin, 2048)
+    gy = rnd(4, 1024, 1024)
+    (gx,) = torch.autograd.grad(got, x, gy)
+    torch.cuda.synchronize()
+    check_close(errs, "dropout", "FFN hidden shard (rows 4-8, columns "
+                "1024-2048 of 2048)", got, want, 0.0)
+    check_close(errs, "dropout", "FFN hidden shard, backward", gx,
+                dropout_reference(gy, 4321, 0.3, origin, 2048), 0.0)
+    del q, k, v, dout, gots, wants, x, gx, gy
+
+    # K1 at sp_detect's shape: every query row against 16384 keys
+    s = SP_SEQ
+    keys = torch.arange(s, device=dev)[None, :] < torch.tensor(
+        [s, s - 3000], device=dev)[:, None]
+    q, k, v = (_heads(rnd(2, s, 768, scale=2.0 if i == 0 else 1.0))
+               for i in range(3))
+    got = flash_attention(q, k, v, key_padding_mask=keys, sm_scale=sc)
+    want = flash_attention_reference(q[:, :, :256], k, v,
+                                     key_padding_mask=keys, sm_scale=sc)
+    torch.cuda.synchronize()
+    check_close(errs, "flash_attention_fwd", f"sp_detect's Sk={s}, ragged "
+                "key mask (query rows 0-255)", got[:, :, :256], want,
+                kernel_tol(want), f" q{tuple(q.shape)}")
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, key_padding_mask=keys,
+                                             sm_scale=sc), iters=5)
+    attended = int(keys.sum())
+    fwd_flops = 4 * 8 * s * attended * 96
+    fwd = {"shape": [2, 8, s, 96], "ms": fwd_ms,
+           "plain_ms": "not measured (the plain version's (2, 8, 16384, "
+                       "16384) f32 scores take 17 GB)",
+           "library_ms": ring_ms(lambda _: torch.nn.functional.
+                                 scaled_dot_product_attention(
+                                     q, k, v, attn_mask=keys[:, None, None, :],
+                                     scale=sc), [None], 5),
+           "tflops": fwd_flops / fwd_ms / 1e9}
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        fwd_flops, 2 * 2 * 8 * s * 96 * 2 + 2 * 8 * attended * 96 * 2 * 2)
+    del q, k, v, got, want
+
+    # the pair at the sp_encode gradient's shape: K3/K4's role (Sk > 1024)
+    s = SP_GRAD_SEQ
+    keys = torch.arange(s, device=dev)[None, :] < torch.tensor(
+        [s, s - 3000], device=dev)[:, None]
+    q, k, v = (_heads(rnd(2, s, 768, scale=2.0 if i == 0 else 1.0)
+                      ).requires_grad_() for i in range(3))
+    dout = _heads(rnd(2, s, 768))
+    out, lse = flash_attention(q, k, v, key_padding_mask=keys, sm_scale=sc,
+                               return_lse=True)
+    out = out.detach()
+    gots = flash_attention_backward(q, k, v, out, lse, dout, keys, False, sc,
+                                    0.0, 0)
+    ref = flash_attention_reference(q, k, v, key_padding_mask=keys,
+                                    sm_scale=sc)
+    wants = torch.autograd.grad(ref, (q, k, v), dout, retain_graph=True)
+    torch.cuda.synchronize()
+    for nm, gt, wt in zip(("dq", "dk", "dv"), gots, wants):
+        check_close(errs, "flash_attention_bwd", f"sp_encode's Sk={s}, ragged "
+                    "key mask", gt, wt, kernel_tol(wt, 4),
+                    f" {nm} q{tuple(q.shape)}")
+    attended = int(keys.sum())
+    bwd_flops = 10 * 8 * s * attended * 96
+    qkv_bytes = 2 * 8 * s * 96 * 2
+    bwd = {"shape": [2, 8, s, 96],
+           "ms": cuda_ms(lambda: flash_attention_backward(
+               q, k, v, out, lse, dout, keys, False, sc, 0.0, 0), iters=5),
+           "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+               ref, (q, k, v), dout, retain_graph=True), iters=2, warmup=1),
+           "library_ms": sdpa_backward_ms(q, k, v, keys, dout, sc)}
+    bwd["tflops"] = bwd_flops / bwd["ms"] / 1e9
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+        bwd_flops, 6 * qkv_bytes + 2 * 8 * attended * 96 * 2
+        + 2 * 8 * s * 4 + 2 * s)
+    del q, k, v, dout, out, lse, gots, ref, wants
+    torch.cuda.empty_cache()
+    for name, t in (("flash_attention_fwd", fwd), ("flash_attention_bwd",
+                                                   bwd)):
+        print(f"  parallel kernel times: {name} at {tuple(t['shape'])} "
+              f"{t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s of the attended "
+              f"keys' products), library {t['library_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms ({t['bound_by']})", flush=True)
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
+
+
+def _events_ms(fn, device: str = "cuda"):
+    """(fn(), its ms by CUDA events (the host clock on the CPU), the ms of
+    its collectives, each bracketed by synchronisations when
+    ``stats.timed``, and their count)."""
+    import torch
+    from sct_gan_tpu_torch.parallel.collectives import stats
+    stats.reset()
+    if device == "cpu":
+        t0 = time.perf_counter()
+        out = fn()
+        return (out, (time.perf_counter() - t0) * 1e3, stats.seconds * 1e3,
+                stats.calls)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), stats.seconds * 1e3, stats.calls
+
+
+def _sp_grad_run(model, batch, mesh):
+    """sp_encode at SP_GRAD_SEQ and the gradient of mean(memory²); the
+    ranks' gradients summed over the sequence axis. Returns (the whole
+    memory, the loss, grad norms by parameter name)."""
+    import torch
+    from sct_gan_tpu_torch.parallel import sp_encode
+    from sct_gan_tpu_torch.parallel.collectives import all_reduce_
+    from sct_gan_tpu_torch.parallel.sequence import _whole_memory
+    sp = mesh.axis("sp")
+    mem = sp_encode(model, batch["input_ids"], batch["attention_mask"],
+                    batch["ast_input_ids"], batch["ast_attention_mask"], mesh)
+    n = mem.numel() * sp.size
+    loss = (mem.float() ** 2).sum() / n
+    named = [(k, p) for k, p in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True)
+    norms = {}
+    for (k, _), gr in zip(named, grads):
+        if gr is not None:
+            norms[k] = all_reduce_(gr, sp).float().norm().item()
+    total = all_reduce_(loss.detach().clone(), sp).item()
+    return _whole_memory(mem.detach(), mesh, "sp"), total, norms
+
+
+def _parallel_cfg(overrides=None):
+    from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
+    return (ModelConfig(**{"use_gan": True, "max_length": 1024,
+                           "max_lines": 1024, **(overrides or {})}),
+            TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1))
+
+
+def phase_parallel(card: str, overrides=None, device: str = "cuda") -> dict:
+    """The parallel paths at full width (d=768, 8 heads of 96, 6+6 layers,
+    FFN 2048, vocab 50265 padded to 50304, bf16 over f32 parameters,
+    dropout 0.3; random weights from seed 0, built here and handed to every
+    rank as a state dict).
+
+    NCCL, a world of one: the 1 x 1 mesh's train step (B=8, L=1024), its
+    ``train_epoch`` over 12 contracts (through ``prefetch_to_device``) and
+    ``analyze_multiple_contracts`` of 8 contracts, each bit for bit the
+    mesh=None run; ``sp_detect`` at S=16384, B=2 with a ragged key mask
+    against the unsharded encode and heads at that length; the gradient of
+    ``sp_encode`` at S=8192. Gloo, two ranks sharing the card
+    (``--parallel-rank``): ``sp_encode`` and its gradient at S=8192 at
+    sp=2, and one train step at dp=2 and at mp=2 (B=8), each against the
+    world of one. Returns the kernels' launches of the world of one's
+    paths.
+
+    It rehearses on the CPU: ``phase_parallel(card, tiny_overrides,
+    device="cpu")`` runs every part on gloo CPU ranks at a tiny width and
+    sequences of 16 and 8 times its ``max_length``; the CPU counts no
+    kernel launch, so the launch checks run on the card only."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from sct_gan_tpu_torch import (SmartContractAnalyzer,
+                                   SmartContractTrainer,
+                                   SmartContractTransformer)
+    from sct_gan_tpu_torch.data.synthetic import generate_corpus
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.models.layers import sinusoidal_position_encoding
+    from sct_gan_tpu_torch.parallel import (make_mesh, make_sp_mesh,
+                                            shard_batch, sp_detect)
+    from sct_gan_tpu_torch.parallel.collectives import SINGLE
+    from sct_gan_tpu_torch.parallel.launch import run_world
+
+    cfg, tcfg = _parallel_cfg(overrides)
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    state = SmartContractTransformer(cfg, seed=0).state_dict()
+    os.makedirs(os.path.join(ROOT, "profile_out"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="parallel_",
+                            dir=os.path.join(ROOT, "profile_out"))
+    with open(os.path.join(work, "setup.json"), "w") as f:
+        json.dump({"overrides": overrides or {}, "device": device}, f)
+    cuda = device == "cuda"
+    sp_seq, sp_grad_seq = 16 * cfg.max_length, 8 * cfg.max_length
+    if cuda:
+        torch.cuda.empty_cache()
+
+    def fresh():
+        m = SmartContractTransformer(cfg, seed=None)
+        m.load_state_dict(state)
+        return m
+
+    totals = {k: 0 for k in _counters()}
+    refs, report = {}, {}
+
+    def count(part, counts, want):
+        for k, v in counts.items():
+            totals[k] += v
+        bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+        if bad and cuda:
+            raise AssertionError(f"parallel {part}: launches {counts}, "
+                                 f"expected {want}")
+
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        init_method="file://" + os.path.join(work, "rdv_nccl"),
+        rank=0, world_size=1, timeout=__import__("datetime").timedelta(
+            seconds=120))
+    try:
+        mesh = make_mesh(dp=1, mp=1, devices=[device])
+        # -- a train step, mesh=None and 1 x 1 ------------------------------
+        batch = make_batch(8, cfg.max_length, cfg.vocab_size)
+        runs = {}
+        for name in ("plain", "mesh"):
+            tr = SmartContractTrainer(
+                fresh(), _Empty(), _Empty(), tok, config=tcfg, verbose=False,
+                device=device, mesh=mesh if name == "mesh" else None)
+            dev_batch = (shard_batch(batch, mesh) if name == "mesh"
+                         else tr.to_device(batch))
+            reset_counts()
+            (_, m, _), ms, coll_ms, calls = _events_ms(
+                lambda: tr.train_step(tr.state, dev_batch, tr._scalars(1.0),
+                                      tr._group_lrs(), tr.generator), device)
+            runs[name] = ({k: float(v) for k, v in m.items()},
+                          {k: p.detach().clone() for k, p in
+                           tr.model.named_parameters()}, read_counts(), ms,
+                          calls)
+            del tr
+        (pm, pp, pc, _, _), (mm, mp_, mc, ms, calls) = runs["plain"], runs[
+            "mesh"]
+        same = pm == mm and all(torch.equal(pp[k], mp_[k]) for k in pp)
+        if not same or calls:
+            raise AssertionError(f"parallel train step: the 1 x 1 mesh is not "
+                                 f"the mesh=None step bit for bit ({same}) "
+                                 f"or ran {calls} collectives")
+        count("train step 1x1", mc, pc)
+        refs["train"] = mm
+        report["train_1x1"] = {"ms": ms, "launches": mc, "collective_ms": 0.0,
+                               "total_loss": mm["total_loss"],
+                               "grad_norm": mm["grad_norm"]}
+        del runs, pp, mp_
+        # -- train_epoch over 12 contracts (8 + 4 padded): mesh=None, and
+        # 1 x 1 through prefetch_to_device's pinned copies on a side stream
+        from sct_gan_tpu_torch.data.dataset import (
+            ArrayDataLoader, SmartContractVulnerabilityDataset)
+        epochs = {}
+        for name in ("plain", "mesh"):
+            loader = ArrayDataLoader(SmartContractVulnerabilityDataset(
+                tokenizer=tok, max_length=cfg.max_length,
+                records=generate_corpus(n=12, seed=0)), 8, shuffle=True)
+            tr = SmartContractTrainer(
+                fresh(), loader, _Empty(), tok, config=tcfg, verbose=False,
+                device=device, mesh=mesh if name == "mesh" else None)
+            reset_counts()
+            out, ms, _, calls = _events_ms(lambda: tr.train_epoch(0), device)
+            epochs[name] = ({k: v for k, v in out.items() if k not in (
+                "tokens_per_sec", "step_time_ms")}, read_counts(), ms, calls)
+            del tr
+        if epochs["plain"][0] != epochs["mesh"][0] or epochs["mesh"][3]:
+            raise AssertionError(f"parallel train_epoch: the 1 x 1 mesh gave "
+                                 f"{epochs['mesh'][0]}, mesh=None "
+                                 f"{epochs['plain'][0]}")
+        count("train_epoch 1x1", epochs["mesh"][1], epochs["plain"][1])
+        report["train_epoch_1x1"] = {"ms": epochs["mesh"][2],
+                                     "launches": epochs["mesh"][1],
+                                     "batches": epochs["mesh"][0]["batches"]}
+        del epochs
+        # -- analyze_multiple_contracts of 8 ---------------------------------
+        codes = [r["source_code"] for r in generate_corpus(n=8, seed=3)]
+        res = {}
+        for name in ("plain", "mesh"):
+            an = SmartContractAnalyzer(
+                model_config=cfg, tokenizer=tok, params=state, verbose=False,
+                device=device, mesh=mesh if name == "mesh" else None)
+            reset_counts()
+            out, ms, _, calls = _events_ms(
+                lambda: an.analyze_multiple_contracts(codes), device)
+            res[name] = (out, read_counts(), ms)
+            del an
+        if res["plain"][0] != res["mesh"][0]:
+            raise AssertionError("parallel analyzer: the 1 x 1 mesh's results "
+                                 "differ from mesh=None's")
+        count("analyzer 1x1", res["mesh"][1], res["plain"][1])
+        report["analyze_1x1"] = {"ms": res["mesh"][2],
+                                 "launches": res["mesh"][1]}
+        del res
+
+        # -- sp_detect at S=16384, B=2 ---------------------------------------
+        model = fresh().to(device).eval()
+        sp_mesh = make_sp_mesh(sp=1, dp=1, devices=[device])
+        b16 = _sp_batch(cfg, sp_seq)
+        reset_counts()
+        (c, l), ms, _, calls = _events_ms(
+            lambda: sp_detect(model, b16, sp_mesh), device)
+        detect_counts = read_counts()
+        count("sp_detect", detect_counts, {
+            "flash_attention_fwd": flash_per_detect(cfg),
+            "flash_attention_bwd": 0, "dropout": 0, "decode_attention": 0})
+        pe = sinusoidal_position_encoding(sp_seq, cfg.d_model).to(device)
+        t = {k: torch.as_tensor(v).to(device) for k, v in b16.items()}
+        with torch.no_grad(), model.sequence_parallel(SINGLE, pe):
+            mem = model.encode(t["input_ids"], t["attention_mask"],
+                               t["ast_input_ids"], t["ast_attention_mask"])
+            c_ref, _ = model.contract_head(mem)
+            l_ref = model.line_head(mem, t["token_to_line"])
+        ok = (torch.equal(c, c_ref) and torch.equal(l, l_ref)
+              and bool(torch.isfinite(c).all()) and bool(
+                  torch.isfinite(l).all()))
+        if not ok or c.shape != (2, 8) or l.shape != (2, cfg.max_lines, 8):
+            raise AssertionError(f"parallel sp_detect: {tuple(c.shape)} "
+                                 f"{tuple(l.shape)}, equal to the unsharded "
+                                 f"encode and heads: {ok}")
+        report[f"sp_detect_{sp_seq}"] = {"ms": ms, "launches": detect_counts}
+        del mem, c_ref, l_ref, c, l, t
+        # -- the gradient of sp_encode at S=8192 ------------------------------
+        b8 = _sp_batch(cfg, sp_grad_seq, seed=1)
+        reset_counts()
+        (mem, loss, norms), ms, _, calls = _events_ms(
+            lambda: _sp_grad_run(model, b8, sp_mesh), device)
+        count("sp_encode gradient", read_counts(), {
+            "flash_attention_fwd": cfg.num_encoder_layers + 2,
+            "flash_attention_bwd": cfg.num_encoder_layers + 2,
+            "dropout": 0, "decode_attention": 0})
+        if not math.isfinite(loss) or not all(
+                math.isfinite(x) for x in norms.values()):
+            raise AssertionError("parallel sp_encode gradient: not finite")
+        refs["sp"] = {"mem": mem.cpu(), "loss": loss, "norms": norms}
+        report[f"sp_encode_grad_{sp_grad_seq}"] = {
+            "ms": ms, "launches": read_counts(), "loss": loss}
+        del model, mem
+    finally:
+        dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- gloo: two ranks on the card -------------------------------------------
+    torch.save(state, os.path.join(work, "state.pt"))
+    torch.save(refs, os.path.join(work, "refs.pt"))
+    t0 = time.perf_counter()
+    outs = run_world([os.path.abspath(__file__), "--parallel-rank", work], 2,
+                     os.path.join(work, "logs"), timeout_s=600)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads(o.rsplit("PARALLEL_RESULT ", 1)[1].splitlines()[0])
+             for o in outs]
+    for r, res in enumerate(ranks):
+        if not res["ok"]:
+            raise AssertionError(f"parallel gloo rank {r}: {res}")
+    report["gloo"] = ranks[0]["parts"]
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    for part, rec in report.items():
+        print(f"phase parallel [{card}]: {part} "
+              f"{json.dumps(rec, sort_keys=True)}", flush=True)
+    print(f"phase parallel: two gloo ranks ran in {wall:.1f} s; launches of "
+          f"the world-of-one paths {totals}", flush=True)
+    return totals
+
+
+def parallel_rank(work: str) -> int:
+    """One rank of phase_parallel's gloo world (two ranks on one card):
+    sp_encode and its gradient at sp=2, a dp=2 and an mp=2 train step;
+    each against the world of one's results in ``work``. Prints
+    ``PARALLEL_RESULT {json}``."""
+    import torch
+    import torch.distributed as dist
+    from sct_gan_tpu_torch import SmartContractTrainer, SmartContractTransformer
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.parallel import (make_mesh, make_sp_mesh,
+                                            shard_batch)
+    from sct_gan_tpu_torch.parallel.collectives import stats
+    from sct_gan_tpu_torch.parallel.launch import init_rank
+
+    rank = init_rank(os.path.join(work, "rdv_gloo"), "gloo", 300.0)
+    with open(os.path.join(work, "setup.json")) as f:
+        setup = json.load(f)
+    device = setup["device"]
+    cfg, tcfg = _parallel_cfg(setup["overrides"])
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    state = torch.load(os.path.join(work, "state.pt"))
+    refs = torch.load(os.path.join(work, "refs.pt"))
+    devices = [device] * 2
+    cuda = device == "cuda"
+    parts, failures = {}, []
+
+    def fresh():
+        m = SmartContractTransformer(cfg, seed=None)
+        m.load_state_dict(state)
+        return m
+
+    def close(what, got, want, rtol):
+        if not abs(got - want) <= rtol * abs(want):
+            failures.append(f"{what}: {got} vs one rank's {want} (rtol "
+                            f"{rtol})")
+
+    stats.timed = True
+    # -- sp_encode and its gradient at sp=2 -----------------------------------
+    mesh = make_sp_mesh(sp=2, devices=devices)
+    model = fresh().to(device)
+    sp_grad_seq = 8 * cfg.max_length
+    b8 = _sp_batch(cfg, sp_grad_seq, seed=1)
+    reset_counts()
+    (mem, loss, norms), ms, coll_ms, calls = _events_ms(
+        lambda: _sp_grad_run(model, b8, mesh), device)
+    ref = refs["sp"]
+    rel = rel_err(mem.cpu(), ref["mem"])
+    if not rel <= SP_REL_TOL:
+        failures.append(f"sp_encode memory rel_err {rel} > {SP_REL_TOL}")
+    close("sp_encode loss", loss, ref["loss"], LOSS_RTOL)
+    total = math.sqrt(sum(x * x for x in norms.values()))
+    close("sp_encode grad norm", total, math.sqrt(sum(
+        x * x for x in ref["norms"].values())), GNORM_RTOL)
+    last = cfg.num_encoder_layers - 1
+    for name in ("encoder.layer_0.self_attn.k_proj.weight",
+                 f"encoder.layer_{last}.ffn.linear1.weight",
+                 "embedding.weight", "cross_attention.v_proj.weight"):
+        close(f"sp_encode grad norm {name}", norms[name], ref["norms"][name],
+              GNORM_RTOL)
+    parts[f"sp_encode_grad_{sp_grad_seq}_sp2"] = {
+        "ms": ms, "collective_ms": coll_ms, "collectives": calls,
+        "collective_share": coll_ms / ms, "launches": read_counts(),
+        "memory_rel_err": rel, "loss": loss}
+    del model, mem
+    # -- dp=2 and mp=2 train steps at B=8 -----------------------------------
+    batch = make_batch(8, cfg.max_length, cfg.vocab_size)
+    for name, (dp, mp) in (("train_dp2", (2, 1)), ("train_mp2", (1, 2))):
+        mesh = make_mesh(dp=dp, mp=mp, devices=devices)
+        tr = SmartContractTrainer(fresh(), _Empty(), _Empty(), tok,
+                                  config=tcfg, verbose=False, mesh=mesh)
+        dev_batch = shard_batch(batch, mesh)
+        reset_counts()
+        (_, m, _), ms, coll_ms, calls = _events_ms(
+            lambda: tr.train_step(tr.state, dev_batch, tr._scalars(1.0),
+                                  tr._group_lrs(), tr.generator), device)
+        m = {k: float(v) for k, v in m.items()}
+        counts = read_counts()
+        per_forward = flash_per_forward(cfg)
+        if cuda and (counts["flash_attention_fwd"] != per_forward
+                     or counts["flash_attention_bwd"] != per_forward
+                     or counts["dropout"] == 0):
+            failures.append(f"{name}: launches {counts}")
+        close(f"{name} total_loss", m["total_loss"],
+              refs["train"]["total_loss"], DP_RTOL if mp == 1 else LOSS_RTOL)
+        close(f"{name} grad_norm", m["grad_norm"], refs["train"]["grad_norm"],
+              DP_RTOL if mp == 1 else GNORM_RTOL)
+        if m["skipped"] != 0.0:
+            failures.append(f"{name}: the step was skipped")
+        parts[name] = {"ms": ms, "collective_ms": coll_ms,
+                       "collectives": calls, "collective_share": coll_ms / ms,
+                       "launches": counts, "total_loss": m["total_loss"],
+                       "grad_norm": m["grad_norm"]}
+        del tr, dev_batch
+    print("PARALLEL_RESULT " + json.dumps(
+        {"rank": rank, "ok": not failures, "failures": failures,
+         "parts": parts}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def sdpa_backward_ms(q, k, v, mask, dout, scale: float) -> float:
     """SDPA's backward alone under the key mask ``mask`` (B, Sk), in device
     ms: its forward and backward captured together and replayed
@@ -2315,6 +2859,7 @@ def main() -> int:
     errs = phase_kernels()
     errs.update(phase_head_kernels())
     tasc_kernel_checks(errs)
+    long_keys = parallel_kernel_checks(errs)
     card = card_line()
     variants = phase_variants(card)
     an, codes, template, serve_launches = phase_serve()
@@ -2326,6 +2871,7 @@ def main() -> int:
     loop_launches = phase_loop()
     head_launches = phase_heads()
     tasc_launches = phase_tasc(card)
+    parallel_launches = phase_parallel(card)
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
                                                     trainer, batch, card,
                                                     variants)
@@ -2376,8 +2922,10 @@ def main() -> int:
                 eval_launches, train_launches, loop_launches))
         else:
             launches = head_launches[name]
-        # the TASC paths: head dim 96, and CodeBERT's K1 at 64
+        # the TASC paths: head dim 96, and CodeBERT's K1 at 64; the
+        # parallel paths (the world of one's)
         launches += tasc_launches.get(name, 0)
+        launches += parallel_launches.get(name, 0)
         if launches == 0:
             raise AssertionError(f"{name}: no launch on its main path")
         entry = {
@@ -2386,6 +2934,8 @@ def main() -> int:
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": libms}
+        if name in long_keys:       # sp_detect's / sp_encode's long keys
+            entry["long_keys"] = long_keys[name]
         padded = errs.get(f"{name}:padded{PADDED_DIM}")
         if padded is not None:      # the padded route runs this instance
             entry[f"padded_dh{PADDED_DIM}_max_abs_err"] = padded[0]
@@ -2411,4 +2961,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

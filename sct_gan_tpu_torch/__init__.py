@@ -13,9 +13,12 @@ The JAX package's TPU kernels are hand-written in CUDA C++ for Hopper
 single-query decode attention (each with instances for head dims 64, 96
 and 128 and a wide-head route for any multiple of 128 above), and the
 hash dropout. A tensor on the CPU runs the kernels' plain PyTorch
-versions; a CUDA tensor runs the kernels. This package imports neither
+versions; a CUDA tensor runs the kernels. ``parallel`` runs the trainer and
+the analyzer on dp × mp meshes of ranks and the encode sequence-parallel
+(``sp_encode`` / ``sp_detect``), on ``torch.distributed``. This package imports neither
 JAX nor the JAX package; the JAX package stays the reference.
 """
+from . import parallel
 from .convert import convert_flax_opt_state, convert_flax_params
 from .infer.analyzer import SmartContractAnalyzer
 from .models.sct_transformer import SmartContractTransformer
@@ -28,4 +31,4 @@ __all__ = ["SmartContractAnalyzer", "SmartContractTrainer",
            "SmartContractTransformer", "convert_flax_opt_state",
            "convert_flax_params", "SmartContractVulnerabilityGAN",
            "VulnerabilityDetectionTrainer", "build_variant", "build_trainer",
-           "generate_vulnerable_code"]
+           "generate_vulnerable_code", "parallel"]

@@ -125,6 +125,7 @@ struct BwdArgs {
   int dropout;
   uint32_t seed, threshold;
   float inv_keep;
+  DropShard ds;          // the dropout mask's place in the global (B, H) grid
 };
 
 template <int D>
@@ -234,7 +235,7 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
         const bool ok = (e < 2 ? kv0 : kv1) && qi < a.Sq && !(a.causal && key > qi);
         const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - s.lse[st][col] * LOG2E) : 0.f;
         const bool keep = !a.dropout ||
-            hash_keep(((uint32_t)bh * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk +
+            hash_keep((drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk +
                           (uint32_t)key, a.seed, a.threshold);
         pd[e] = keep ? p * a.inv_keep : 0.f;
         ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - s.d[st][col]);
@@ -324,7 +325,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
   const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] * LOG2E : 0.f;
   const float d0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
   const float d1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
-  const uint32_t drop0 = ((uint32_t)bh * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
+  const uint32_t drop0 = (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
 
   float dq_acc[NT_D][4];
@@ -566,7 +567,7 @@ flash_bwd_dkv_wide_kernel(const BwdArgs a) {
           const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - lse_b[qi] * LOG2E) : 0.f;
           const float dq = qi < a.Sq ? d_b[qi] : 0.f;
           const bool keep = !a.dropout ||
-              hash_keep(((uint32_t)bh * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk +
+              hash_keep((drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk +
                             (uint32_t)key, a.seed, a.threshold);
           pd[e] = keep ? p * a.inv_keep : 0.f;
           ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - dq);
@@ -645,7 +646,7 @@ flash_bwd_dq_wide_kernel(const BwdArgs a) {
   const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] * LOG2E : 0.f;
   const float d0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
   const float d1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
-  const uint32_t drop0 = ((uint32_t)bh * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
+  const uint32_t drop0 = (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
   float dq_acc[WIDE_COLS / 8][4];
 #pragma unroll
@@ -740,7 +741,8 @@ int launch_wide(const BwdArgs& a, int B, int nchunk, cudaStream_t stream) {
 // mask_sb, or null; lse (the forward's natural-log row LSE) and dvec
 // (D = rowsum(dO o O)): contiguous f32 (B, H, Sq). dropout != 0 regenerates
 // the forward's hash keep mask from (seed, threshold) and scales by
-// inv_keep = 1/(1-rate). Launches the dKV kernel, then the dQ kernel, on
+// inv_keep = 1/(1-rate), keyed as if (b, h) were (b + drop_b0, h + drop_h0) of
+// drop_hg global heads. Launches the dKV kernel, then the dQ kernel, on
 // `stream`; returns the first CUDA error.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
@@ -751,7 +753,7 @@ extern "C" int flash_attention_bwd_bf16(
     int dq_sb, int dq_sh, int dq_ss, int dk_sb, int dk_sh, int dk_ss,
     int dv_sb, int dv_sh, int dv_ss, int mask_sb, int causal, float scale,
     int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
-    void* stream) {
+    int drop_b0, int drop_h0, int drop_hg, void* stream) {
   BwdArgs a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -781,6 +783,7 @@ extern "C" int flash_attention_bwd_bf16(
   a.seed = seed;
   a.threshold = threshold;
   a.inv_keep = inv_keep;
+  a.ds = {(uint32_t)drop_b0, (uint32_t)drop_h0, (uint32_t)drop_hg};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 64: return launch<64>(a, B, st);

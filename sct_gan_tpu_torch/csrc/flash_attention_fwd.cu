@@ -111,7 +111,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Sk, int o_sb,
                  int o_sh, int o_ss, int mask_sb, int causal, float scale_log2,
-                 int dropout, uint32_t seed, uint32_t threshold, float inv_keep) {
+                 int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
+                 DropShard ds) {
   constexpr int NCHUNK = D / CHUNK_COLS;
   constexpr uint32_t TILE_BYTES = 2 * NCHUNK * KV_CHUNK;   // K + V of one stage
   extern __shared__ unsigned char smem_raw[];
@@ -168,7 +169,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int g = lane >> 2, t = lane & 3;    // accumulator group / thread-in-group
   const int row0 = q0 + wg * 64 + (warp % 4) * 16 + g, row1 = row0 + 8;
   // flat dropout index of (b, h, row, 0) over the true Sq, Sk
-  const uint32_t drop0 = ((uint32_t)bh * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
+  const uint32_t drop0 = (drop_head(b, h, ds) * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)Sk;
 
   float acc[D / 2];                         // O, D / 8 blocks of 8 columns
@@ -288,7 +289,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
            void* lse, int B, int H, int Sq, int Sk, int q_sb, int q_sh, int q_ss,
            int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
            int o_sh, int o_ss, int mask_sb, int causal, float scale, int dropout,
-           uint32_t seed, uint32_t threshold, float inv_keep, cudaStream_t stream) {
+           uint32_t seed, uint32_t threshold, float inv_keep, DropShard ds,
+           cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int err = make_head_map(&qm, q, B, H, Sq, D, q_sb, q_sh, q_ss, BQ);
   if (err == 0) err = make_head_map(&km, k, B, H, Sk, D, k_sb, k_sh, k_ss, BK);
@@ -305,7 +307,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   flash_fwd_kernel<D><<<grid, NTHREADS, smem_bytes<D>(), stream>>>(
       qm, km, vm, static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), H, Sq, Sk, o_sb, o_sh, o_ss, mask_sb, causal,
-      scale * LOG2E, dropout, seed, threshold, inv_keep);
+      scale * LOG2E, dropout, seed, threshold, inv_keep, ds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,7 +359,7 @@ flash_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q,
                       int q_sh, int q_ss, int k_sb, int k_sh, int k_ss, int v_sb,
                       int v_sh, int v_ss, int o_sb, int o_sh, int o_ss, int mask_sb,
                       int causal, float scale_log2, int dropout, uint32_t seed,
-                      uint32_t threshold, float inv_keep) {
+                      uint32_t threshold, float inv_keep, DropShard ds) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   WideFwdStage* stage = reinterpret_cast<WideFwdStage*>(smem_raw);
   const int nchunk = gridDim.z, c = blockIdx.z;
@@ -385,7 +387,7 @@ flash_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const uint32_t drop0 = ((uint32_t)bh * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
+  const uint32_t drop0 = (drop_head(b, h, ds) * (uint32_t)Sq + (uint32_t)row0) * (uint32_t)Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)Sk;
   float acc[WIDE_COLS / 8][4];              // O's chunk c, rows g and g + 8
   float sc[WIDE_BK / 8][4];                 // S, 16 x 64 a warp
@@ -522,7 +524,7 @@ int launch_wide(const void* q, const void* k, const void* v, const void* mask, v
                 int q_ss, int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
                 int o_sb, int o_sh, int o_ss, int mask_sb, int causal, float scale,
                 int dropout, uint32_t seed, uint32_t threshold, float inv_keep,
-                cudaStream_t stream) {
+                DropShard ds, cudaStream_t stream) {
   static bool configured = false;           // above 48 KB needs an opt-in
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -536,7 +538,7 @@ int launch_wide(const void* q, const void* k, const void* v, const void* mask, v
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Sq, Sk, q_sb, q_sh,
       q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal,
-      scale * LOG2E, dropout, seed, threshold, inv_keep);
+      scale * LOG2E, dropout, seed, threshold, inv_keep, ds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -550,18 +552,22 @@ int launch_wide(const void* q, const void* k, const void* v, const void* mask, v
 // (B, Sk) uint8 (nonzero = attend) with row stride mask_sb, or null; lse:
 // contiguous f32 (B, H, Sq), or null for none. dropout != 0 turns on
 // attention-weight dropout with the hash keep mask (seed, threshold) and the
-// scale inv_keep = 1/(1-rate). Returns the first error: a head dim without an
+// scale inv_keep = 1/(1-rate); the mask is keyed as if this call's (b, h) were
+// (b + drop_b0, h + drop_h0) of drop_hg global heads (hash_dropout.cuh:
+// DropShard). Returns the first error: a head dim without an
 // instance, a refused tensor map, or cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     void* lse, int B, int H, int Sq, int Sk, int Dh, int q_sb, int q_sh, int q_ss,
     int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
     int o_sh, int o_ss, int mask_sb, int causal, float scale, int dropout,
-    uint32_t seed, uint32_t threshold, float inv_keep, void* stream) {
+    uint32_t seed, uint32_t threshold, float inv_keep, int drop_b0, int drop_h0,
+    int drop_hg, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DropShard ds{(uint32_t)drop_b0, (uint32_t)drop_h0, (uint32_t)drop_hg};
 #define FWD_ARGS q, k, v, mask, o, lse, B, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh, \
     k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb, causal, scale, dropout, seed, \
-    threshold, inv_keep, st
+    threshold, inv_keep, ds, st
   switch (Dh) {
     case 64: return launch<64>(FWD_ARGS);
     case 96: return launch<96>(FWD_ARGS);
@@ -570,7 +576,7 @@ extern "C" int flash_attention_fwd_bf16(
       if (Dh > 128 && Dh % WIDE_COLS == 0)   // the wide-head route
         return launch_wide(q, k, v, mask, o, lse, B, H, Sq, Sk, Dh, q_sb, q_sh, q_ss,
                            k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, mask_sb,
-                           causal, scale, dropout, seed, threshold, inv_keep, st);
+                           causal, scale, dropout, seed, threshold, inv_keep, ds, st);
       return static_cast<int>(cudaErrorInvalidValue);   // no instance
   }
 #undef FWD_ARGS

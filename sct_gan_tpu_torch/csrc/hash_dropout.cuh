@@ -18,3 +18,15 @@ __device__ __forceinline__ bool hash_keep(uint32_t index, uint32_t seed,
                                           uint32_t threshold) {
   return hash_bits(index, seed) >= threshold;
 }
+
+// Where one (b, h) head of an attention shard sits in the global (B, H) grid
+// that keys its dropout mask: the shard's batch origin b0 and head origin h0
+// among hg global heads (0, 0, H for an unsharded call). The flat index of
+// weight (b, h, i, j) is then ((drop_head(b, h) * Sq + i) * Sk + j), mod 2^32.
+struct DropShard {
+  uint32_t b0, h0, hg;
+};
+
+__device__ __forceinline__ uint32_t drop_head(int b, int h, const DropShard& ds) {
+  return ((uint32_t)b + ds.b0) * ds.hg + (uint32_t)h + ds.h0;
+}

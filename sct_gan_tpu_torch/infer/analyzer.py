@@ -10,6 +10,14 @@ beam search), ``generate_template_based_contract``,
 (``test_model_functionality``, ``diagnose_generation_model``,
 ``debug_forward``, ``test_generation_simple``).
 
+With a ``mesh`` (``parallel.make_mesh``, one process per rank) the
+parameters are replicated and ``analyze_multiple_contracts`` carries
+``batch_size × dp`` contracts per dispatch: each rank forwards its rows (the
+line head's batch-wide statistics reduced over dp, as GSPMD reduces them
+over the dispatch), and the results are gathered, so every rank returns the
+list one card returns at ``batch_size × dp``. Every other entry point runs
+whole on each rank.
+
 Errors propagate. A fallback tier catches only the ``ValueError`` the port
 raises for input it cannot take; an error from a kernel, its build or CUDA
 (``RuntimeError``, ``torch.OutOfMemoryError``) is never caught. Generation
@@ -32,6 +40,8 @@ from ..data import ast_parser
 from ..data.dataset import build_token_to_line
 from ..data.tokenizer import get_tokenizer
 from ..models.sct_transformer import SmartContractTransformer
+from ..parallel.collectives import SINGLE, all_gather
+from ..parallel.mesh import local_slice
 from ..train.checkpoint import adapt_vocab_params, load_checkpoint
 from ..utils import resolve_device
 from .generate import (BOS_ID, make_beam_search_fn, make_generate_fn,
@@ -50,7 +60,8 @@ class SmartContractAnalyzer:
     initialised from ``seed``. ``device``: where the model runs, the card
     (``"cuda"``) by default; without one the constructor raises unless
     ``device="cpu"`` is passed. A CUDA device runs the hand-written
-    kernels, the CPU their plain versions.
+    kernels, the CPU their plain versions. ``mesh``: see the module's
+    docstring; its device is the rank's, and ``device`` is not read.
     """
 
     def __init__(self, model_path: Optional[str] = None,
@@ -60,7 +71,7 @@ class SmartContractAnalyzer:
                  model_config: Optional[ModelConfig] = None,
                  params: Optional[Union[str, Mapping[str, Any]]] = None,
                  tokenizer=None, batch_size: int = 8, verbose: bool = True,
-                 line_fusion: bool = True, seed: int = 0):
+                 line_fusion: bool = True, seed: int = 0, mesh=None):
         self._log = print if verbose else (lambda *a, **k: None)
         if model_path is not None and not os.path.isdir(model_path):
             raise FileNotFoundError(f"model_path {model_path!r}: no "
@@ -71,7 +82,9 @@ class SmartContractAnalyzer:
         self.tokenizer = tokenizer or get_tokenizer(tokenizer_name)
         self.vulnerability_types = list(VULNERABILITY_TYPES)
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._dp = SINGLE if mesh is None else mesh.axis("dp")
+        self.device = resolve_device(device) if mesh is None else mesh.device
 
         cfg = model_config or ModelConfig(
             dropout=0.1, vocab_size=int(self.tokenizer.vocab_size),
@@ -246,11 +259,19 @@ class SmartContractAnalyzer:
         repeating its final contract). One batch deep of pipelining: the
         next batch's host preparation overlaps this batch's device work."""
         results: List[Dict[str, Any]] = []
-        bs = self.batch_size
+        dp = self._dp
+        bs = self.batch_size * dp.size
 
         def dispatch(chunk):
             padded = chunk + [chunk[-1]] * (bs - len(chunk))
-            return self._detect(self._prepare_inputs(padded))
+            batch = self._prepare_inputs(padded)
+            rows = local_slice(bs, dp, "batch")     # all of them on one rank
+            self.model.shards.dp = dp
+            try:
+                probs = self._detect({k: v[rows] for k, v in batch.items()})
+            finally:
+                self.model.shards.dp = SINGLE
+            return tuple(all_gather(p, dp) for p in probs)
 
         def collect(start, chunk, handles):
             cp, lp = (h.cpu().numpy() for h in handles)

@@ -6,17 +6,26 @@ reference behaviours it keeps): ``encode``, ``contract_head``,
 ``line_head``, ``discriminator_forward``, the teacher-forced decoder, the
 KV-cached ``decode_step``, beam search's ``encode_concat``, and the full
 training/eval ``forward``.
+
+``parallelize_(mesh)`` puts the model on a ("dp", "mp") mesh of
+``parallel/``: each parameter becomes this rank's shard by the mp rules, the
+layers run Megatron-style, and the line head's batch-wide statistics are
+reduced over dp. ``sequence_parallel`` is the context that
+``parallel.sequence.sp_encode`` runs ``encode`` in.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
 from ..ops.segment_mean import line_segment_mean
+from ..parallel.collectives import SINGLE, Axis, all_gather, all_reduce_
 from .layers import (
     MLP,
     Dense,
@@ -25,8 +34,10 @@ from .layers import (
     LayerNorm,
     MultiheadAttention,
     ResidualLineFeatureExtractor,
+    FeedForward,
     TransformerDecoderStack,
     SeedSource,
+    Shards,
     TransformerEncoderStack,
     line_position_encoding,
     normal_init,
@@ -136,11 +147,16 @@ class SmartContractTransformer(nn.Module):
                                            dropout=cfg.dropout)
 
         # every dropout site draws its seed from the generator handed to
-        # forward, through this one source
+        # forward, through this one source, and keys its mask by where the
+        # rank's rows sit (one Shards)
         self.seeds = SeedSource()
+        self.shards = Shards()
         for m in self.modules():
             if isinstance(m, (Dropout, MultiheadAttention)):
-                m.seeds = self.seeds
+                m.seeds, m.shards = self.seeds, self.shards
+        self.mesh = None        # set by parallelize_
+        # the vocab axis of a column-parallel LM head (parallelize_)
+        self.lm_axis: Axis = SINGLE
 
         self.register_buffer(
             "_pe", sinusoidal_position_encoding(cfg.max_length, d),
@@ -167,6 +183,57 @@ class SmartContractTransformer(nn.Module):
                 m.to(self.dtype)
         return self
 
+    def parallelize_(self, mesh) -> "SmartContractTransformer":
+        """Run on ``mesh`` (``parallel.make_mesh``), in place: every
+        parameter becomes this rank's shard by the mp rules
+        (``parallel.mesh.param_shard_dims``) on the mesh's device, the
+        sharded layers run model-parallel, and the line head reduces its
+        batch-wide statistics over dp. Call it on whole weights; the same
+        mesh again is a no-op, another raises."""
+        if self.mesh is not None:
+            if self.mesh is mesh:
+                return self
+            raise RuntimeError("the model is already sharded over another "
+                               "mesh; build it anew from whole weights")
+        from ..parallel.mesh import param_shard, param_shard_dims
+        dims = param_shard_dims(self.config, mesh)
+        mp = mesh.axis("mp")
+        self.to(mesh.device)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if dims[name] is not None:
+                    p.data = param_shard(p.data, dims[name], mp).contiguous()
+        for name, m in self.named_modules():
+            pre = name + "." if name else ""
+            if isinstance(m, MultiheadAttention) and dims[
+                    pre + "q_proj.weight"] is not None:
+                m.shard_heads_(mp)
+            elif isinstance(m, FeedForward) and dims[
+                    pre + "linear1.weight"] is not None:
+                m.shard_hidden_(mp, self.config.dim_feedforward)
+            elif isinstance(m, Embed) and dims[pre + "weight"] is not None:
+                m.axis = mp
+        if dims["output_layer.weight"] is not None:
+            self.lm_axis = mp
+        self.shards.dp = mesh.axis("dp")
+        self.mesh = mesh
+        return self
+
+    @contextlib.contextmanager
+    def sequence_parallel(self, sp: Axis,
+                          pe: Optional[torch.Tensor] = None
+                          ) -> Iterator[None]:
+        """Run ``encode`` on this rank's shard of the sequence: attention
+        gathers K, V and the key mask over ``sp``, and the positional table
+        (``pe``, when the sequence outgrows the model's) is read at the
+        shard's offset."""
+        old = self.shards.sp, self.shards.pe
+        self.shards.sp, self.shards.pe = sp, pe
+        try:
+            yield
+        finally:
+            self.shards.sp, self.shards.pe = old
+
     @property
     def vuln_type_processors(self) -> List[_VulnTypeProcessor]:
         return [getattr(self, f"vuln_type_processor_{i}")
@@ -175,9 +242,13 @@ class SmartContractTransformer(nn.Module):
     # -- embedding pipelines -------------------------------------------------
     def _embed(self, ids, embed, norm, drop):
         """f32 embedding × √d → dropout → LayerNorm (compute dtype) → + PE in
-        f32 → compute dtype."""
+        f32 → compute dtype. A sequence shard's rows sit at global positions
+        [rank·s, (rank+1)·s)."""
         x = drop(embed(ids) * math.sqrt(self.config.d_model))
-        x = norm(x).float() + self._pe[: x.shape[1]]
+        pe = self._pe if self.shards.pe is None else self.shards.pe
+        s = x.shape[1]
+        offset = self.shards.sp.rank * s
+        x = norm(x).float() + pe[offset:offset + s]
         return x.to(self.dtype)
 
     def embed_target(self, target_ids):
@@ -262,12 +333,16 @@ class SmartContractTransformer(nn.Module):
         means, counts = line_segment_mean(memory, token_to_line, num_lines)
         _record(stats, "line_means", means)
         slot_ids = torch.arange(num_lines, device=memory.device)
+        dp = self.shards.dp
         if cfg.per_sample_line_counts:
             row_max = token_to_line.amax(dim=-1, keepdim=True) + 1
             valid = slot_ids[None, :] < row_max                 # (B, L)
         else:
-            # the line count is global across the batch (reference parity)
-            valid = slot_ids[None, :] < token_to_line.max() + 1  # (1, L)
+            # the line count is global across the batch (reference parity),
+            # the global batch under dp
+            top = all_reduce_(token_to_line.max(), dp,
+                              torch.distributed.ReduceOp.MAX)
+            valid = slot_ids[None, :] < top + 1                 # (1, L)
 
         line_pe = self._line_pe[None].to(means.dtype)
         feats = torch.where((counts > 0)[..., None], means,
@@ -277,10 +352,16 @@ class SmartContractTransformer(nn.Module):
         extracted = self.line_feature_extractor(feats)
         # collapse fallback: std < 1e-6 over the valid slots → 0.1 × original
         mask_f = valid[..., None].float()
-        ext32 = extracted.float()
-        denom = torch.clamp(mask_f.sum() * extracted.shape[-1], min=1.0)
-        mean_v = (ext32 * mask_f).sum() / denom
-        var_v = (((ext32 - mean_v) ** 2) * mask_f).sum() / denom
+        # (sums over the global batch under dp; the statistics only pick a
+        # branch, so no gradient flows through them)
+        ext32 = extracted.float().detach()
+        count = mask_f.sum()
+        if cfg.per_sample_line_counts:
+            count = all_reduce_(count, dp)
+        denom = torch.clamp(count * extracted.shape[-1], min=1.0)
+        mean_v = all_reduce_((ext32 * mask_f).sum(), dp) / denom
+        var_v = all_reduce_((((ext32 - mean_v) ** 2) * mask_f).sum(),
+                            dp) / denom
         feats = torch.where(torch.sqrt(var_v) < 1e-6, original * 0.1,
                             extracted)
         _record(stats, "line_extracted", feats)
@@ -330,7 +411,7 @@ class SmartContractTransformer(nn.Module):
         x = self.embed_target_token(token_ids, pos)
         x = self.decoder.step(x, caches, cross_kvs, pos,
                               memory_key_padding_mask=src_mask)
-        logits = self.output_layer(self.output_norm(x))
+        logits = self._lm_logits(self.output_norm(x))
         return logits[:, 0, :self.config.vocab_size].float()
 
     def decode_hidden(self, target_ids, memory, src_mask):
@@ -342,7 +423,20 @@ class SmartContractTransformer(nn.Module):
     def decode_teacher_forced(self, target_ids, memory, src_mask):
         """Teacher-forced decode → (B, S, vocab) logits, compute dtype."""
         out = self.decode_hidden(target_ids, memory, src_mask)
-        return self.output_layer(out)[..., :self.config.vocab_size]
+        return self._lm_logits(out)[..., :self.config.vocab_size]
+
+    def _lm_logits(self, hidden):
+        """The LM head's logits over the padded vocab. Column-parallel under
+        mp: each rank's columns (its rows of the weight, its slice of the
+        whole bias), gathered over mp; no gradient flows through the
+        gather (training takes the fused cross-entropy)."""
+        head, mp = self.output_layer, self.lm_axis
+        if mp.size == 1:
+            return head(hidden)
+        n, dt = head.weight.shape[0], head.dtype
+        local = F.linear(hidden.to(dt), head.weight.to(dt),
+                         head.bias[mp.rank * n:(mp.rank + 1) * n].to(dt))
+        return all_gather(local.movedim(-1, 0), mp).movedim(0, -1)
 
     # -- full forward ------------------------------------------------------------
     def forward(self, input_ids, attention_mask=None, ast_input_ids=None,
@@ -357,6 +451,8 @@ class SmartContractTransformer(nn.Module):
         "lm_hidden" instead of "logits". In training mode every dropout
         site draws its seed from ``generator`` (a CPU ``torch.Generator``).
         """
+        # the global row of this rank's first row keys its dropout masks
+        self.shards.batch_origin = self.shards.dp.rank * input_ids.shape[0]
         with self.seeds.using(generator):
             return self._forward(input_ids, attention_mask, ast_input_ids,
                                  ast_attention_mask, target_ids,

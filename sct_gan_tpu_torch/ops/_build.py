@@ -34,7 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
-_DROP = [_I, _U, _U, _F]                 # dropout seed threshold inv_keep
+# dropout seed threshold inv_keep, then the dropout index's batch origin,
+# head origin and global head count
+_DROP = [_I, _U, _U, _F, _I, _I, _I]
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
     "flash_attention_fwd_bf16": [_P, _P, _P, _P, _P, _P,     # q k v mask o lse
@@ -48,7 +50,8 @@ _SIGNATURES = {
                                  _I, _I, _F,                 # mask_sb causal scale
                                  *_DROP, _P],                # ... stream
     "hash_dropout": [_P, _P, _U, _I,                         # x y n is_bf16
-                     _U, _U, _F, _P],            # seed threshold scale stream
+                     _U, _U, _F,                 # seed threshold scale
+                     _U, _U, _U, _P],   # origin row_len row_stride stream
     "decode_attention_bf16": [_P, _P, _P, _P, _P,                # q k v mask o
                               _I, _I, _I, _I,                    # B H S D
                               _I, _I, _I, _I, _I, _I,            # q, k strides

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from .dropout import hash_keep
+from .dropout import hash_bits_at, hash_keep, keep_threshold
 
 _NEG_INF = -1e30  # finite -inf stand-in: keeps fully-masked rows NaN-free
 
@@ -42,13 +42,32 @@ def _masked_scores(q, k, key_padding_mask, causal, sm_scale):
     return scores, masked is not None
 
 
+def attention_keep(shape, seed: int, rate: float, drop_shard=None,
+                   device=None) -> torch.Tensor:
+    """The attention-weight keep mask of a (B, H, Sq, Sk) call: the hash
+    over the flat index. ``drop_shard`` = (b0, h0, hg) keys it as the shard
+    of a global (., hg, Sq, Sk) grid whose rows start at batch ``b0`` and
+    head ``h0`` (data- and model-parallel ranks); None is the whole call."""
+    b, h, sq, sk = shape
+    if drop_shard is None or tuple(drop_shard) == (0, 0, h):
+        return hash_keep(b * h * sq * sk, seed, rate, device).view(shape)
+    b0, h0, hg = drop_shard
+    bi = torch.arange(b, dtype=torch.int64, device=device)[:, None]
+    hi = torch.arange(h, dtype=torch.int64, device=device)[None, :]
+    head = ((bi + b0) * hg + hi + h0) * (sq * sk)             # (B, H)
+    index = head[:, :, None] + torch.arange(sq * sk, dtype=torch.int64,
+                                            device=device)
+    return (hash_bits_at(index, seed) >= keep_threshold(rate)).view(shape)
+
+
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   key_padding_mask: Optional[torch.Tensor] = None,
                   causal: bool = False,
                   dropout_rate: float = 0.0,
                   seed: int = 0,
                   return_weights: bool = False,
-                  sm_scale: Optional[float] = None):
+                  sm_scale: Optional[float] = None,
+                  drop_shard=None):
     """Scaled-dot-product attention over split heads.
 
     Args:
@@ -58,6 +77,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         dropout_rate, seed: attention-weight dropout on the softmax
             weights, with the hash keep mask over the flat (B, H, Sq, Sk)
             index (``sct_gan_tpu/ops/attention.py:90-101``); 0 = none.
+            ``drop_shard`` places the call in the global grid
+            (``attention_keep``).
         return_weights: also return head-averaged weights (B, Sq, Sk),
             taken before dropout.
         sm_scale: softmax scale (1/sqrt(dh) by default).
@@ -75,8 +96,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         weights = weights.masked_fill(all_masked, 0.0)
     dropped = weights
     if dropout_rate > 0.0:
-        keep = hash_keep(weights.numel(), seed, dropout_rate,
-                         weights.device).view(weights.shape)
+        keep = attention_keep(weights.shape, seed, dropout_rate, drop_shard,
+                              weights.device)
         dropped = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(dropped.to(v.dtype).float(), v.float()).to(v.dtype)
     if return_weights:
@@ -101,14 +122,18 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dropout_rate: float = 0.0,
                           seed: int = 0,
                           return_weights: bool = False,
-                          sm_scale: Optional[float] = None):
-    """Attention over split heads; CPU → plain, CUDA → flash kernel."""
+                          sm_scale: Optional[float] = None,
+                          drop_shard=None):
+    """Attention over split heads; CPU → plain, CUDA → flash kernel.
+    ``drop_shard`` (b0, h0, hg) keys the dropout mask of a data- or model-
+    parallel shard as the single-card call's (``attention_keep``)."""
     if return_weights:
         return mha_reference(q, k, v, key_padding_mask=key_padding_mask,
                              causal=causal, dropout_rate=dropout_rate,
                              seed=seed, return_weights=True,
-                             sm_scale=sm_scale)
+                             sm_scale=sm_scale, drop_shard=drop_shard)
     from .flash_attention import flash_attention
     return flash_attention(q, k, v, key_padding_mask=key_padding_mask,
                            causal=causal, sm_scale=sm_scale,
-                           dropout_rate=dropout_rate, seed=seed)
+                           dropout_rate=dropout_rate, seed=seed,
+                           drop_shard=drop_shard)

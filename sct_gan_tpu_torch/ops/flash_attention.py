@@ -12,7 +12,9 @@ Counterpart of ``sct_gan_tpu/ops/flash_attention.py``. On a CUDA tensor,
 
 The dropout mask is the JAX package's hash stream over the flat
 (B, H, Sq, Sk) index (``ops/dropout.py``), the mask ``mha_reference``
-draws, so the kernels and the plain version agree entry for entry.
+draws, so the kernels and the plain version agree entry for entry. Under a
+mesh, ``drop_shard`` = (b0, h0, hg) keys a shard's mask at its place in the
+global (B, hg, Sq, Sk) grid, where the single-card call would draw it.
 
 The kernels have one instance each for head dims 64, 96 and 128
 (``KERNEL_HEAD_DIMS``). Any other head dim up to 128 takes the next larger
@@ -77,12 +79,13 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = False,
                               sm_scale: Optional[float] = None,
                               dropout_rate: float = 0.0, seed: int = 0,
-                              return_lse: bool = False):
+                              return_lse: bool = False, drop_shard=None):
     """Plain PyTorch version of the kernels: same arguments, same result;
     its gradient is autograd through ``mha_reference``."""
     out = mha_reference(q, k, v, key_padding_mask=key_padding_mask,
                         causal=causal, sm_scale=sm_scale,
-                        dropout_rate=dropout_rate, seed=seed)
+                        dropout_rate=dropout_rate, seed=seed,
+                        drop_shard=drop_shard)
     if return_lse:
         return out, attention_lse(q, k, key_padding_mask=key_padding_mask,
                                   causal=causal, sm_scale=sm_scale)
@@ -153,13 +156,16 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _dropout_args(rate: float, seed: int):
+def _dropout_args(rate: float, seed: int, shard):
+    """The kernels' dropout arguments: on, seed, threshold, 1/(1-rate) and
+    the shard's (b0, h0, hg)."""
     if rate <= 0.0:
-        return 0, 0, 0, ctypes.c_float(1.0)
-    return 1, seed, keep_threshold(rate), ctypes.c_float(1.0 / (1.0 - rate))
+        return 0, 0, 0, ctypes.c_float(1.0), 0, 0, 0
+    return (1, seed, keep_threshold(rate), ctypes.c_float(1.0 / (1.0 - rate)),
+            *shard)
 
 
-def _check_shapes(q, k, v, rate: float):
+def _check_shapes(q, k, v, rate: float, shard=None):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
@@ -169,16 +175,18 @@ def _check_shapes(q, k, v, rate: float):
         raise ValueError(f"head dim {d}: the kernels have instances for "
                          f"{KERNEL_HEAD_DIMS} and multiples of {WIDE_CHUNK} "
                          f"above (flash_attention pads other head dims)")
-    # only the dropout hash takes the 32-bit flat (b, h, i, j) index
-    if rate > 0.0 and b * h * sq * sk >= 2 ** 32:
+    # only the dropout hash takes the 32-bit flat (b, h, i, j) index, of the
+    # global grid the shard sits in
+    b0, h0, hg = shard or (0, 0, h)
+    if rate > 0.0 and ((b0 + b - 1) * hg + h0 + h) * sq * sk >= 2 ** 32:
         raise ValueError("with dropout, B*H*Sq*Sk must stay below 2^32 "
                          "(the dropout index)")
     return b, h, sq, sk, d
 
 
-def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse):
+def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse, shard):
     """Launch the forward kernel; (out, lse or None)."""
-    b, h, sq, sk, d = _check_shapes(q, k, v, rate)
+    b, h, sq, sk, d = _check_shapes(q, k, v, rate, shard)
     qs, ks, vs = (_strides(q, "q", 16), _strides(k, "k", 16),
                   _strides(v, "v", 16))
     out = _heads_like(q, sq)
@@ -189,7 +197,7 @@ def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, h, sq, sk, d, *qs, *ks,
         *vs, *_strides(out, "out", 4), msb, int(causal), ctypes.c_float(scale),
-        *_dropout_args(rate, seed),
+        *_dropout_args(rate, seed, shard),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fwd_bf16")
     flash_attention.launches += 1
@@ -197,11 +205,12 @@ def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse):
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
-                             rate, seed):
+                             rate, seed, shard=None):
     """Launch the backward kernel pair; (dq, dk, dv) in q's dtype, laid out
     like the forward's output. dout is read through its strides when it can
     be, else copied contiguous."""
-    b, h, sq, sk, d = _check_shapes(q, k, v, rate)
+    shard = shard or (0, 0, q.shape[1])
+    b, h, sq, sk, d = _check_shapes(q, k, v, rate, shard)
     dout = _kernel_operand(dout.to(q.dtype))
     # D = rowsum(dO ∘ O) in f32, from the bf16 dO and O (flash_attention.py:
     # 470-475 of the JAX package)
@@ -216,7 +225,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mptr,
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, sq, sk, d, *(x for s in strides for x in s),
-        msb, int(causal), ctypes.c_float(scale), *_dropout_args(rate, seed),
+        msb, int(causal), ctypes.c_float(scale),
+        *_dropout_args(rate, seed, shard),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd_bf16")
     flash_attention_backward.launches += 1
@@ -225,10 +235,11 @@ def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, causal, scale, rate, seed):
-        out, lse = _forward(q, k, v, mask, causal, scale, rate, seed, True)
+    def forward(ctx, q, k, v, mask, causal, scale, rate, seed, shard):
+        out, lse = _forward(q, k, v, mask, causal, scale, rate, seed, True,
+                            shard)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask, ctx.args = mask, (causal, scale, rate, seed)
+        ctx.mask, ctx.args = mask, (causal, scale, rate, seed, shard)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -237,7 +248,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
                                               ctx.mask, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -245,7 +256,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False,
                     sm_scale: Optional[float] = None,
                     dropout_rate: float = 0.0, seed: int = 0,
-                    return_lse: bool = False):
+                    return_lse: bool = False, drop_shard=None):
     """dropout(softmax(Q Kᵀ·scale + mask [+ causal])) V over split heads.
 
     q: (B, H, Sq, dh); k, v: (B, H, Sk, dh); key_padding_mask: (B, Sk) bool,
@@ -254,7 +265,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through a zero-padded copy, and dh > 128 the wide-head route (through a
     zero-padded copy unless dh is a multiple of 128).
     ``dropout_rate`` > 0 drops attention weights with the hash keep mask of
-    ``seed``. Returns (B, H, Sq, dh) in q's dtype (on CUDA laid out as
+    ``seed``, at ``drop_shard`` = (b0, h0, hg) in the global grid (None: the
+    call is the whole grid). Returns (B, H, Sq, dh) in q's dtype (on CUDA laid out as
     (B, Sq, H, dh), so merging the heads afterwards is a free view), and
     with ``return_lse`` also the f32 (B, H, Sq) row log-sum-exp.
     Differentiable in q, k and v on both devices.
@@ -265,19 +277,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_reference(
             q, k, v, key_padding_mask=key_padding_mask, causal=causal,
             sm_scale=sm_scale, dropout_rate=dropout_rate, seed=seed,
-            return_lse=return_lse)
+            return_lse=return_lse, drop_shard=drop_shard)
     d = q.shape[-1]
     scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
     rate = float(dropout_rate) if dropout_rate > 0.0 else 0.0
+    shard = tuple(int(x) for x in (drop_shard or (0, 0, q.shape[1])))
     dk = kernel_head_dim(d)
     if dk != d:   # padded: autograd slices the gradients back
         q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v, key_padding_mask, causal,
-                                         scale, rate, int(seed))
+                                         scale, rate, int(seed), shard)
     else:
         out, lse = _forward(q, k, v, key_padding_mask, causal, scale, rate,
-                            int(seed), return_lse)
+                            int(seed), return_lse, shard)
     if dk != d:
         out = out[..., :d]
     return (out, lse) if return_lse else out

@@ -22,6 +22,12 @@ bit as they were. All of it stays on the device: no value is read back to
 the host during a step. The port updates the parameters and the moments in
 place (where JAX returns new trees), which saves a copy of each.
 
+Under mp (``mp`` and ``sharded``, the names of the parameters this rank
+holds a shard of) each clip set's norm is taken over the whole parameters:
+the squared norms of the sharded leaves are summed over mp, the replicated
+leaves, whole and alike on every rank, counted once. Adam and the weight
+decay are elementwise and run on the shards as they are.
+
 ``GradientTransform`` is the unfused chain the JAX package builds with
 optax (``build_gradient_transform`` then ``apply_group_lrs``, and the train
 step's skip keep-where), stage by stage over the whole gradient set: the
@@ -33,6 +39,8 @@ from __future__ import annotations
 from typing import Dict, Iterable, List, NamedTuple, Tuple
 
 import torch
+
+from ..parallel.collectives import SINGLE, Axis, all_reduce_
 
 GROUPS = ("base", "contract", "line", "disc")
 
@@ -134,6 +142,13 @@ class ReduceLROnPlateau:
         self.num_bad = d.get("num_bad", 0)
 
 
+def _whole_sq(sq: torch.Tensor, sharded: torch.Tensor, mp: Axis
+              ) -> torch.Tensor:
+    """Per-leaf squared norms of the whole parameters: the sharded leaves'
+    (0/1 ``sharded``) summed over ``mp``, the others as they are."""
+    return torch.where(sharded > 0, all_reduce_(sq.clone(), mp), sq)
+
+
 class FusedOptimizer:
     """Clip, Adam, weight decay, group LRs and the skip gate in one pass
     over the parameters (``FusedOptimizer`` of the JAX package).
@@ -147,7 +162,8 @@ class FusedOptimizer:
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
                  use_gan: bool, max_grad_norm: float = 1.0,
                  adam_b1: float = 0.9, adam_b2: float = 0.98,
-                 adam_eps: float = 1e-9, weight_decay: float = 0.1):
+                 adam_eps: float = 1e-9, weight_decay: float = 0.1,
+                 mp: Axis = SINGLE, sharded: Iterable[str] = ()):
         self.names: List[str] = []
         self.params: List[torch.Tensor] = []
         for name, p in named_params:
@@ -155,6 +171,10 @@ class FusedOptimizer:
             self.params.append(p)
         self.meta = [leaf_meta(n, use_gan) for n in self.names]
         device = self.params[0].device
+        self.mp = mp
+        sharded = set(sharded)
+        self._sharded = torch.tensor([n in sharded for n in self.names],
+                                     dtype=torch.float32, device=device)
         # 0/1 masks of the two clip sets, over the leaves
         self._vuln = torch.tensor([m.vuln_clip for m in self.meta],
                                   dtype=torch.float32, device=device)
@@ -189,8 +209,8 @@ class FusedOptimizer:
                  for g, m in zip(g_all, self.meta)]
 
         # one reduce per leaf feeds every norm: global, vuln set, disc set
-        sq = torch.stack([torch.dot(g.reshape(-1), g.reshape(-1))
-                          for g in g_all])
+        sq = _whole_sq(torch.stack([torch.dot(g.reshape(-1), g.reshape(-1))
+                                    for g in g_all]), self._sharded, self.mp)
         device = sq.device
         total_sq = sq.sum()
         vuln_sq = (sq * self._vuln).sum()
@@ -254,11 +274,17 @@ class GradientTransform:
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
                  use_gan: bool, max_grad_norm: float = 1.0,
                  adam_b1: float = 0.9, adam_b2: float = 0.98,
-                 adam_eps: float = 1e-9, weight_decay: float = 0.1):
+                 adam_eps: float = 1e-9, weight_decay: float = 0.1,
+                 mp: Axis = SINGLE, sharded: Iterable[str] = ()):
         named = list(named_params)
         self.names: List[str] = [n for n, _ in named]
         self.params: List[torch.Tensor] = [p for _, p in named]
         self.meta = [leaf_meta(n, use_gan) for n in self.names]
+        self.mp = mp
+        sharded = set(sharded)
+        self._sharded = torch.tensor([n in sharded for n in self.names],
+                                     dtype=torch.float32,
+                                     device=self.params[0].device)
         self.use_gan = use_gan
         self.max_norm = float(max_grad_norm)
         self.b1, self.b2, self.eps = (float(adam_b1), float(adam_b2),
@@ -273,14 +299,14 @@ class GradientTransform:
         return {"count": torch.zeros((), dtype=torch.int32, device=device),
                 "mu": zeros(), "nu": zeros()}
 
-    @staticmethod
-    def _clip(gs: List[torch.Tensor], chosen: List[bool], max_norm: float
-              ) -> torch.Tensor:
+    def _clip(self, gs: List[torch.Tensor], chosen: List[bool],
+              max_norm: float) -> torch.Tensor:
         """optax.clip_by_global_norm over the chosen gradients, in place;
         returns their norm before the clip."""
-        sel = [g for g, c in zip(gs, chosen) if c]
-        norm = torch.sqrt(sum((torch.sum(g * g) for g in sel),
-                              torch.zeros((), device=gs[0].device)))
+        sq = _whole_sq(torch.stack([torch.sum(g * g) for g in gs]),
+                       self._sharded, self.mp)
+        norm = torch.sqrt((sq * torch.tensor(
+            chosen, dtype=sq.dtype, device=sq.device)).sum())
         for i, c in enumerate(chosen):
             if c:
                 gs[i] = torch.where(norm < max_norm, gs[i],

@@ -21,6 +21,17 @@ Dropout: in a training step every dropout site draws its seed from the
 ``torch.Generator`` handed to the step. Flax derives a key per site from the
 step's rng instead, so a step with dropout on draws other masks than the
 JAX step does; with dropout off (``deterministic=True``) the two agree.
+
+Under a mesh (``model.mesh``, set by ``parallelize_``) every mean the JAX
+step takes over the global batch stays global: each rank forwards its dp
+rows, the small per-row outputs (contract, line and discriminator logits)
+and labels are gathered over dp (``gather_rows``: each rank's gradient is
+its share), so every loss, quantile and metric is computed on the global
+batch, identically on every rank; the LM cross-entropy is this rank's
+summed NLL over the global count, all-reduced for its value. The parameter
+gradients are then summed over dp. Every generator of the ranks must be
+seeded alike: they draw the same seeds, and each rank's masks are its slice
+of the single-card masks.
 """
 from __future__ import annotations
 
@@ -34,6 +45,8 @@ from ..losses.focal import (binary_cross_entropy_with_logits,
 from ..losses.syntax import (SyntaxLossTables, solidity_syntax_loss,
                              syntax_penalty)
 from ..ops.fused_ce import fused_linear_cross_entropy
+from ..parallel.collectives import (SINGLE, all_gather, all_reduce_,
+                                    gather_rows)
 from .optimizer import FusedOptimizer, GroupLRs
 
 
@@ -83,6 +96,11 @@ def compute_losses(model, batch: Dict[str, torch.Tensor],
     target_ids = (batch["target_ids"] if use_augmentation
                   and "target_ids" in batch else batch["input_ids"])
     row_mask = batch.get("row_valid")
+    mesh = model.mesh
+    dp = SINGLE if mesh is None else mesh.axis("dp")
+    if mesh is not None and not fused_lm_ce:
+        raise ValueError("a mesh runs the LM cross-entropy fused "
+                         "(fused_lm_ce=True)")
     model.train(not deterministic)
     outputs = model(
         input_ids=batch["input_ids"],
@@ -94,13 +112,30 @@ def compute_losses(model, batch: Dict[str, torch.Tensor],
         return_lm_hidden=fused_lm_ce,
         generator=None if deterministic else generator)
 
+    # the global batch's per-row outputs and labels on every rank (the
+    # gathers are identities on one rank)
+    local_rows = row_mask
+    outputs = dict(outputs, **{
+        k: gather_rows(outputs[k], dp) for k in (
+            "contract_vulnerability_logits",
+            "line_vulnerability_logits", "discriminator_logits")
+        if outputs[k] is not None})
+    batch = dict(batch, **{k: all_gather(batch[k], dp) for k in (
+        "contract_vulnerabilities", "vulnerable_lines", "token_to_line",
+        "row_valid") if k in batch})
+    row_mask = batch.get("row_valid")
+
     if fused_lm_ce:
         head = model.output_layer
-        ce = fused_linear_cross_entropy(
+        # this rank's share of the global mean, its value all-reduced
+        ce_local = fused_linear_cross_entropy(
             outputs["lm_hidden"], head.weight, head.bias,
-            outputs["target_ids"], row_mask, int(model.config.vocab_size))
-        syntax_pen = syntax_penalty(outputs["target_ids"], tables,
-                                    row_mask=row_mask)
+            outputs["target_ids"], local_rows,
+            int(model.config.vocab_size), model.lm_axis, dp)
+        ce_all = all_reduce_(ce_local.detach().clone(), dp)
+        ce = ce_local + (ce_all - ce_local.detach())
+        targets = all_gather(outputs["target_ids"], dp)
+        syntax_pen = syntax_penalty(targets, tables, row_mask=row_mask)
         gen_loss = ce + 0.5 * syntax_pen     # syntax_weight (train.py:314)
     else:
         gen_loss, ce, syntax_pen = solidity_syntax_loss(
@@ -276,6 +311,7 @@ def make_train_step(model, fused_opt: FusedOptimizer,
     depend on whether this batch had line vulnerabilities.
     """
     params = list(fused_opt.params)
+    dp = SINGLE if model.mesh is None else model.mesh.axis("dp")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              scalars: DynamicScalars, lrs: GroupLRs,
@@ -288,6 +324,13 @@ def make_train_step(model, fused_opt: FusedOptimizer,
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
+        # the ranks' shares summed into the global gradient (skipped on one
+        # rank, where the flat copy would be a pass over every gradient)
+        if dp.size > 1:
+            flat = all_reduce_(torch.cat([g.reshape(-1).float()
+                                          for g in grads]), dp)
+            grads = [f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
         metrics.update(_line_batch_metrics(line_logits.detach(),
                                            line_labels, row_mask))
         # clip norms, Adam, wd, group LRs and the NaN/explosion skip in one

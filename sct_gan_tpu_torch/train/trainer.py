@@ -28,9 +28,20 @@ Differences from the JAX trainer:
     unseeded), so one seed gives one run; the trainer's own draws (variant
     counts, bank and pair sampling) come from a second
     ``random.Random(seed)`` in the JAX trainer's order;
-  * there is no OOM valve: the JAX loader's ``on_oom`` hook, which drops
-    queued snapshots (``AsyncSaver.drop_pending``), waits for the port's
-    multi-card loader.
+  * there is no OOM valve: the JAX loader's ``on_oom`` hook drops queued
+    snapshots (``AsyncSaver.drop_pending``); here a snapshot dropped on
+    rank 0 alone would part the ranks' checkpoint decisions, which gather
+    over mp on every rank. ``parallel.prefetch_to_device`` takes the hook
+    for a caller that wants it.
+
+``mesh`` (``parallel.make_mesh``, one process per rank) runs the JAX
+trainer's dp × mp layout: the model is sharded by the mp rules
+(``SmartContractTransformer.parallelize_``), each batch is padded to a
+multiple of dp and each rank takes its rows (``prefetch_to_device``), the
+metrics are global (``train_step``), rank 0 writes the checkpoints with the
+mp shards gathered, in the single-card format, and ``restore`` cuts a
+checkpoint of any layout to this rank's shards. Every rank must see the
+same loaders, in the same order, and pass the same seed.
 """
 from __future__ import annotations
 
@@ -52,6 +63,9 @@ from ..convert import (convert_flax_opt_state, convert_flax_params,
 from ..data.augmentation import SmartContractAugmenter
 from ..losses.syntax import SyntaxLossTables
 from ..models.sct_transformer import SmartContractTransformer
+from ..parallel.collectives import SINGLE, all_gather, all_reduce_
+from ..parallel.mesh import (param_shard, param_shard_dims,
+                             prefetch_to_device)
 from ..utils import resolve_device
 from .checkpoint import (AsyncSaver, adapt_vocab_params, checkpoint_suffix,
                          load_checkpoint, save_checkpoint)
@@ -80,10 +94,11 @@ def _fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 class SmartContractTrainer:
     """Train the SmartContractTransformer with the reference's GAN recipe.
 
-    The constructor takes the JAX trainer's arguments, with ``device`` in
-    place of its mesh: the card (``"cuda"``) by default; without one it
-    raises unless ``device="cpu"`` is passed. The model's f32 parameters
-    move to the device and are trained in place.
+    The constructor takes the JAX trainer's arguments and ``device``: the
+    card (``"cuda"``) by default; without one it raises unless
+    ``device="cpu"`` is passed. With ``mesh`` the mesh's device is the
+    rank's and ``device`` is not read. The model's f32 parameters move to
+    the device (this rank's shards of them) and are trained in place.
 
     Train, resume and serve::
 
@@ -91,6 +106,10 @@ class SmartContractTrainer:
         trainer.restore("ckpt/latest_model_gan")     # a fresh trainer
         SmartContractAnalyzer("ckpt/best_model_gan_epoch_3")
     """
+
+    # one card unless the constructor is given a mesh
+    mesh = None
+    _dp = _mp = SINGLE
 
     def __init__(
         self,
@@ -107,20 +126,37 @@ class SmartContractTrainer:
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
         verbose: bool = True,
+        mesh=None,
     ):
         cfg = config or TrainConfig(
             learning_rate=learning_rate, weight_decay=weight_decay,
             max_grad_norm=max_grad_norm, use_augmentation=use_augmentation,
             use_gan=use_gan)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.mesh = mesh
+        self._dp = SINGLE if mesh is None else mesh.axis("dp")
+        self._mp = SINGLE if mesh is None else mesh.axis("mp")
+        # parameter name -> its dim split over mp (None: whole)
+        self._shard_dims: Dict[str, Optional[int]] = {}
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.model = model.to(self.device)
+        else:
+            if not cfg.fused_lm_ce:
+                raise ValueError("a mesh runs the LM cross-entropy fused "
+                                 "(fused_lm_ce=True)")
+            self.device = mesh.device
+            self.model = model.parallelize_(mesh)
+            self._shard_dims = param_shard_dims(model.config, mesh)
+        self._rank0 = mesh is None or (self._dp.rank == 0
+                                       and self._mp.rank == 0)
         self.tokenizer = tokenizer
         self.train_dataloader = train_dataloader
         self.val_dataloader = val_dataloader
         self.use_augmentation = cfg.use_augmentation
         self.use_gan = cfg.use_gan
-        self._log = print if verbose else (lambda *a, **k: None)
+        self._log = (print if verbose and self._rank0
+                     else (lambda *a, **k: None))
         # the seeds of every dropout site are drawn from this, on the host
         self.generator = torch.Generator().manual_seed(seed)
         self._py_rng = random.Random(seed)
@@ -135,7 +171,9 @@ class SmartContractTrainer:
         self.optimizer = opt_cls(
             named, use_gan=self.use_gan, max_grad_norm=cfg.max_grad_norm,
             adam_b1=cfg.adam_b1, adam_b2=cfg.adam_b2, adam_eps=cfg.adam_eps,
-            weight_decay=cfg.weight_decay)
+            weight_decay=cfg.weight_decay, mp=self._mp,
+            sharded=[n for n, d in self._shard_dims.items()
+                     if d is not None])
         self.state = TrainState(dict(named), self.optimizer.init(), 0)
         self.syntax_tables = SyntaxLossTables.from_tokenizer(tokenizer)
         self.train_step = make_train_step(
@@ -205,16 +243,35 @@ class SmartContractTrainer:
         self._dimension_smoke_test(model.config.max_length)
 
     # ------------------------------------------------------------------
+    def _whole(self, named: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """Parameter-shaped tensors by name, each sharded one gathered
+        over mp (every rank must call it); the others as they are."""
+        out = {}
+        for name, t in named.items():
+            d = self._shard_dims.get(name)
+            if d is not None:
+                t = all_gather(t.transpose(0, d), self._mp).transpose(0, d)
+            out[name] = t
+        return out
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole parameter-shaped ``t``."""
+        return param_shard(t, self._shard_dims.get(name), self._mp)
+
     def state_tree(self, params_only: bool = False) -> Dict:
         """The train state in flax naming, as a checkpoint holds it: views
-        of the live tensors (no copy), ``opt_state`` unless
-        ``params_only``."""
+        of the live tensors (no copy; under mp the sharded ones gathered,
+        on every rank), ``opt_state`` unless ``params_only``."""
         cfg = self.model.config
-        tree = {"params": flax_params_from_torch(self.state.params, cfg),
+        tree = {"params": flax_params_from_torch(
+                    self._whole(self.state.params), cfg),
                 "step": np.asarray(self.state.step, np.int32)}
         if not params_only:
+            opt = self.state.opt_state
             tree["opt_state"] = flax_opt_state_from_torch(
-                self.state.opt_state, cfg)
+                {"count": opt["count"], "mu": self._whole(opt["mu"]),
+                 "nu": self._whole(opt["nu"])}, cfg)
         return tree
 
     def _load_state(self, tree: Dict, fresh_opt: bool) -> None:
@@ -224,7 +281,7 @@ class SmartContractTrainer:
         sd = convert_flax_params(tree["params"], cfg)
         with torch.no_grad():
             for name, p in self.state.params.items():
-                p.copy_(sd[name])
+                p.copy_(self._local(name, sd[name]))
         if fresh_opt:
             opt_state = self.optimizer.init()
         else:
@@ -233,7 +290,7 @@ class SmartContractTrainer:
             opt_state["count"] = src["count"].to(self.device)
             for key in ("mu", "nu"):
                 for name, t in opt_state[key].items():
-                    t.copy_(src[key][name])
+                    t.copy_(self._local(name, src[key][name]))
         self.state = TrainState(self.state.params, opt_state,
                                 int(tree["step"]))
 
@@ -473,10 +530,11 @@ class SmartContractTrainer:
         Padding rows repeat the last real row but carry ``row_valid=0``, so
         the loss and metric masking of ``compute_losses`` gives them zero
         weight: a padded tail batch yields the loss, gradients and metrics
-        of the unpadded batch. The port runs on one card, so the data-
-        parallel multiple of the JAX trainer is 1."""
+        of the unpadded batch. The size is a multiple of dp, so that each
+        rank takes an equal share of the rows."""
+        dp = self._dp.size
         b = batch["input_ids"].shape[0]
-        target = max(self._static_batch, b)
+        target = max(self._static_batch, dp * math.ceil(b / dp))
         self._static_batch = target
         if b == target and "row_valid" not in batch:
             return batch        # full batch: masked and plain means agree
@@ -503,6 +561,21 @@ class SmartContractTrainer:
                     a.astype(np.int64) if a.dtype.kind in "iu" else a
                 ).to(self.device)
         return out
+
+    def _prepare(self, batch: Dict) -> Dict:
+        """A loader's batch, augmented and padded, on the host."""
+        if self.use_augmentation:
+            batch = self._create_augmented_batch(batch)
+        return self._pad_to_dp(batch)
+
+    def _device_batches(self, loader):
+        """The loader's batches as the step takes them: on one card each
+        copied in turn; on a mesh this rank's rows, prefetched."""
+        if self.mesh is None:
+            return (self.to_device(self._prepare(b)) for b in loader)
+        # no OOM valve here: a snapshot dropped on rank 0 alone would part
+        # the ranks' checkpoint decisions, which gather collectively
+        return prefetch_to_device(loader, self.mesh, prepare=self._prepare)
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -574,13 +647,11 @@ class SmartContractTrainer:
         # Batch 0 is read at once: its metrics drive the oscillation check,
         # which must apply from batch 1 on (train.py:1015-1041).
         pending = None
-        for batch_idx, batch in enumerate(self.train_dataloader):
-            if self.use_augmentation:
-                batch = self._create_augmented_batch(batch)
-            device_batch = self.to_device(self._pad_to_dp(batch))
+        for batch_idx, device_batch in enumerate(self._device_batches(
+                self.train_dataloader)):
             self.state, metrics, scalars = self.train_step(
                 self.state, device_batch, scalars, lrs, self.generator)
-            ntokens = device_batch["input_ids"].numel()
+            ntokens = device_batch["input_ids"].numel() * self._dp.size
             if batch_idx == 0:
                 process(0, metrics, ntokens)
             else:
@@ -638,10 +709,7 @@ class SmartContractTrainer:
                 sums[k] = sums.get(k, 0.0) + m[k]
             batch_count += 1
 
-        for batch in self.val_dataloader:
-            if self.use_augmentation:
-                batch = self._create_augmented_batch(batch)
-            device_batch = self.to_device(self._pad_to_dp(batch))
+        for device_batch in self._device_batches(self.val_dataloader):
             pending.append(self.eval_step(device_batch, scalars))
             if len(pending) > 2:
                 _fetch_one()
@@ -733,7 +801,7 @@ class SmartContractTrainer:
                               f"{self.best_val_loss:.4f}")
 
                 # best checkpoints are for evaluation: params only
-                self._saver.submit(
+                self._submit(
                     checkpoint_dir, f"best_model{suffix}_epoch_{epoch + 1}",
                     self.state_tree(params_only=True),
                     dict(meta, params_only=True),
@@ -752,22 +820,40 @@ class SmartContractTrainer:
                 break
 
             if (epoch + 1) % max(self.cfg.latest_every, 1) == 0:
-                self._saver.submit(checkpoint_dir, f"latest_model{suffix}",
-                                   self.state_tree(), meta)
+                self._submit(checkpoint_dir, f"latest_model{suffix}",
+                             self.state_tree(), meta)
         # the written checkpoints complete before returning
         self._saver.wait()
         # at least one best checkpoint exists (every submit of the run may
         # have been dropped)
-        if not glob.glob(os.path.join(checkpoint_dir, "best_model*")):
-            save_checkpoint(checkpoint_dir,
-                            f"best_model{suffix}_epoch_{self.current_epoch + 1}",
-                            self.state_tree(params_only=True),
-                            {"epoch": self.current_epoch + 1,
-                             "training_history": self.training_history,
-                             "use_augmentation": self.use_augmentation,
-                             "use_gan": self.use_gan,
-                             "params_only": True})
+        if self._rank0_says(not glob.glob(os.path.join(checkpoint_dir,
+                                                        "best_model*"))):
+            tree = self.state_tree(params_only=True)
+            if self._rank0:
+                save_checkpoint(
+                    checkpoint_dir,
+                    f"best_model{suffix}_epoch_{self.current_epoch + 1}",
+                    tree, {"epoch": self.current_epoch + 1,
+                           "training_history": self.training_history,
+                           "use_augmentation": self.use_augmentation,
+                           "use_gan": self.use_gan, "params_only": True})
         return self.training_history
+
+    def _submit(self, checkpoint_dir: str, name: str, tree: Dict,
+                meta: Dict, **callbacks) -> None:
+        """Queue a checkpoint write: rank 0 writes, the tree having been
+        gathered on every rank (``state_tree``)."""
+        if self._rank0:
+            self._saver.submit(checkpoint_dir, name, tree, meta, **callbacks)
+
+    def _rank0_says(self, flag: bool) -> bool:
+        """Rank 0's ``flag``, on every rank of the mesh."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag and self._rank0)], device=self.device)
+        all_reduce_(t, self._dp, torch.distributed.ReduceOp.MAX)
+        all_reduce_(t, self._mp, torch.distributed.ReduceOp.MAX)
+        return bool(t.item())
 
     # ------------------------------------------------------------------
     def _epoch_interventions(self, epoch: int, train_metrics: Dict,

@@ -204,6 +204,42 @@ def test_dropout_kernel_matches_plain_on_card(cuda_device, dtype):
     assert torch.equal(dx, dropout_reference(gy, 12345, 0.3))
 
 
+@pytest.mark.cuda
+def test_shard_origins_match_plain_on_card(cuda_device):
+    """A mesh rank's kernels draw the one-card masks at its shard: K6 on
+    rows [2, 4) and columns [40, 77) of a (4, 1001, 77) tensor (exact,
+    forward and backward), and K1 and the pair on batch rows [2, 4) and
+    heads [4, 8) of 8 with dropout 0.3, within the bounds of
+    ``test_flash_dropout_and_lse_match_plain_on_card`` and
+    ``test_flash_backward_matches_autograd_on_card``."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, 1001, 37, generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    origin = 2 * 1001 * 77 + 40
+    y = dropout(x, 0.3, 12345, origin, 77)
+    gy = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, gy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, dropout_reference(x.detach(), 12345, 0.3, origin,
+                                            77))
+    assert torch.equal(dx, dropout_reference(gy, 12345, 0.3, origin, 77))
+    q, k, v = (torch.randn(2, 4, 256, 96, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    args = dict(dropout_rate=0.3, seed=7, drop_shard=(2, 4, 8))
+    got = flash_attention(q, k, v, **args)
+    want = flash_attention_reference(q, k, v, **args)
+    dout = torch.randn_like(got)
+    gots = torch.autograd.grad(got, (q, k, v), dout)
+    wants = torch.autograd.grad(want, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -4
+    assert _rel_err(got, want) <= 1e-2
+    for a, w in zip(gots, wants):
+        assert (a.float() - w.float()).abs().max().item() <= 2 ** -3
+        assert _rel_err(a, w) <= 1e-2
+
+
 DECODE_CASES = {
     # name: (B, S, layout, mask kind); layout "cache" is the contiguous
     # (B, 8, S_max, 96) self cache cut to S keys (a strided view), "heads"
