@@ -11,9 +11,11 @@ forward (with dropout and LSE) and backward, the single-query decode
 attention (split-K, at the edges of its tiles and splits) and the hash
 dropout; the backward's and the decode attention's two runs must give the
 same bits. The flash forward, the backward pair and the decode attention
-are held so at each head-dim instance (64, 96, 128), on the padded route
-(head dim 80) and on the wide-head route (192, 256, 384), also under
-``encode_concat``'s key mask with its hole. It holds every mode of the kernel-timing tools'
+are held so at each head-dim instance (64, 96, 128; the flash kernels'
+192 and 256), on the padded route (head dim 80) and over 128 (the flash
+kernels' chunked route at 384 and 320, the decode attention's wide-head
+route at 192, 256, 384 and 320), also under ``encode_concat``'s key mask
+with its hole. It holds every mode of the kernel-timing tools'
 kernels (K7-K10, ``sct_gan_tpu_torch/tools``) against its plain version at
 the tools' shapes, then runs the four tools' ``time_modes`` (their main
 path), counting launches. Then it drives the paths of the port at full
@@ -42,7 +44,7 @@ ran through its kernels:
     bit for bit, and ``SmartContractAnalyzer(model_path=best)`` held to
     detection on the trained weights;
   * the other head dims (``heads``): ModelConfig(nhead=12) (head dim 64),
-    ModelConfig(nhead=6) (head dim 128), and on the wide-head route
+    ModelConfig(nhead=6) (128), ModelConfig(nhead=4) (192),
     ModelConfig(nhead=3) (256) and ModelConfig(nhead=2) (384), depth cut to
     2+2 layers: one detection forward, one train step and 16 generation
     steps each;
@@ -239,10 +241,11 @@ def phase_build():
 
 
 # the kernels whose ptxas report must show no spill (their designs' budgets
-# allow none): the flash forward, the backward pair, the decode attention,
-# each with its wide-head route
-NO_SPILL = ("flash_fwd_kernel", "flash_fwd_wide_kernel", "flash_bwd_",
-            "decode_splitk_kernel", "decode_wide_kernel")
+# allow none): the flash forward (every instance, chunked too), the backward
+# pair (its mma.sync and wgmma instances), the decode attention with its
+# wide-head route
+NO_SPILL = ("flash_fwd_kernel", "flash_bwd_", "decode_splitk_kernel",
+            "decode_wide_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -478,23 +481,42 @@ def phase_kernels():
 # head dim without an instance (the padded route to 128), held at 8 heads.
 HEAD_DIMS = {64: 12, 128: 6}
 PADDED_DIM = 80
-# Head dims over 128, each kernel's wide-head route, with their heads at
-# d=768: ModelConfig(nhead=4) (192, padded to 256), nhead=3 (256) and
-# nhead=2 (384). The kernels line's entry of a wide route carries the
-# 256 times at its top level (WIDE_TOP) and every head dim's beside them.
+# Head dims over 128, with their heads at d=768: ModelConfig(nhead=4)
+# (192), nhead=3 (256) and nhead=2 (384). K1 and the pair run 192 and 256
+# on instances of their own and 384 in two chunks of the 192 instance (the
+# chunked route, ``<name>_wide``); K5 runs all three on its wide-head route.
+# A ``_wide`` entry of the kernels line carries one head dim's times at its
+# top level (``wide_top``) and every head dim's beside them.
 WIDE_DIMS = {192: 4, 256: 3, 384: 2}
-WIDE_TOP = 256
-# the wide head dims the heads phase runs as models (192 is 256's route on
-# a padded copy)
-WIDE_MODELS = (256, 384)
+# a head dim the chunked route takes on a padded copy (320 runs as 384)
+CHUNK_PADDED_DIM = 320
+# the wide head dims the heads phase runs as models
+WIDE_MODELS = (192, 256, 384)
 
 
 def instance(kernel: str, d: int) -> str:
     """The kernels line's name of ``kernel``'s head-dim-``d`` instance (96
-    keeps the bare name; every head dim over 128 is the wide route)."""
-    if d in WIDE_DIMS:
+    keeps the bare name). Over 128 K5's is its wide route; K1's and the
+    pair's are 192 and 256, and over 256 their chunked route."""
+    if d > 128 and (kernel == "decode_attention" or d > 256):
         return f"{kernel}_wide"
     return kernel if d == 96 else f"{kernel}_dh{d}"
+
+
+def wide_top(kernel: str) -> int:
+    """The head dim whose times stand at the top of ``kernel``'s ``_wide``
+    entry: 256 for K5, 384 (the chunked route) for K1 and the pair."""
+    return 256 if kernel == "decode_attention" else 384
+
+
+def err_key(kernel: str, d: int) -> str:
+    """Where ``phase_head_kernels`` keeps the worst errors of ``kernel`` at
+    head dim ``d``: the instance's name, ``<name>_dh128:padded80`` for the
+    padded route and ``<name>_wide:dh<d>`` on a wide route."""
+    if d == PADDED_DIM:
+        return f"{kernel}_dh128:padded{d}"
+    name = instance(kernel, d)
+    return f"{name}:dh{d}" if name.endswith("_wide") else name
 
 
 def concat_mask(dev, b: int = 8, s: int = 1024):
@@ -511,14 +533,15 @@ def concat_mask(dev, b: int = 8, s: int = 1024):
 
 def phase_head_kernels():
     """K1, the K2-K4 pair and K5 at head dims 64 and 128 (their
-    instances), 80 (the padded route, which runs the 128 instances) and
-    192, 256, 384 (the wide-head route) against their plain versions at
-    full width, H * d = 768: (8, H, 1024, d) for the flash kernels, (2, H,
-    1024, d), (8, H, 1024, d) and (64, H, 1024, d) for K5; every head dim
-    also under ``encode_concat``'s mask with its hole. Returns the worst
-    errors by instance name; the padded route's under
-    ``<name>_dh128:padded80``, each wide head dim's under
-    ``<name>_wide:dh<d>`` besides the route's worst."""
+    instances), 80 (the padded route, which runs the 128 instances), 192
+    and 256 (K1's and the pair's instances, K5's wide route) and 384 and
+    320 (their chunked route, 320 on a copy padded to 384) against their
+    plain versions at full width, H * d = 768 (640 at 320): (8, H, 1024, d)
+    for the flash kernels, (2, H, 1024, d), (8, H, 1024, d) and (64, H,
+    1024, d) for K5; every head dim also under ``encode_concat``'s mask
+    with its hole, and over 128 K1 and the pair also at Sk = 2048 under a
+    shard origin of the dropout grid. Returns the worst errors by
+    ``err_key``, and each wide route's worst under its name."""
     import torch
     from sct_gan_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
@@ -532,48 +555,49 @@ def phase_head_kernels():
     ragged = torch.arange(1000, device=dev)[None, :] < lens[:, None]
     hole = concat_mask(dev)
 
-    def check(kernel, d, tag, name, got, want, tol, what):
-        check_close(errs, kernel + tag, name, got, want, tol, what)
-        if d in WIDE_DIMS:          # the route's worst over its head dims
-            a, r = errs[kernel + tag]
-            wa, wr = errs.get(kernel + "_wide", (0.0, 0.0))
-            errs[kernel + "_wide"] = (max(a, wa), max(r, wr))
+    def check(kernel, d, name, got, want, tol, what):
+        key = err_key(kernel, d)
+        check_close(errs, key, name, got, want, tol, what)
+        if key.endswith(f"_wide:dh{d}"):   # the route's worst over its dims
+            a, r = errs[key]
+            wa, wr = errs.get(instance(kernel, d), (0.0, 0.0))
+            errs[instance(kernel, d)] = (max(a, wa), max(r, wr))
 
-    for d, h in [*HEAD_DIMS.items(), (PADDED_DIM, 8), *WIDE_DIMS.items()]:
-        tag = (f"_dh128:padded{d}" if d == PADDED_DIM
-               else f"_wide:dh{d}" if d in WIDE_DIMS else f"_dh{d}")
+    for d, h in [*HEAD_DIMS.items(), (PADDED_DIM, 8), *WIDE_DIMS.items(),
+                 (CHUNK_PADDED_DIM, 2)]:
         scale = d ** -0.5
 
         def rnd(b, s, sd=1.0):
             x = torch.randn(b, s, h * d, generator=g, device=dev) * sd
             return _heads(x.to(torch.bfloat16), h)
 
-        def fwd(name, sq, sk, causal, mask, rate=0.0):
-            q, k, v = rnd(8, sq, 2.0), rnd(8, sk), rnd(8, sk)
+        def fwd(name, sq, sk, causal, mask, rate=0.0, shard=None, b=8):
+            q, k, v = rnd(b, sq, 2.0), rnd(b, sk), rnd(b, sk)
             args = dict(key_padding_mask=mask, causal=causal, sm_scale=scale,
-                        dropout_rate=rate, seed=1234, return_lse=True)
+                        dropout_rate=rate, seed=1234, return_lse=True,
+                        drop_shard=shard)
             got, lse = flash_attention(q, k, v, **args)
             want, want_lse = flash_attention_reference(q, k, v, **args)
             torch.cuda.synchronize()
-            check("flash_attention_fwd", d, tag, name, got, want,
+            check("flash_attention_fwd", d, name, got, want,
                   kernel_tol(want), f" q{tuple(q.shape)}")
             err = max_err(lse, want_lse)
             if not err <= LSE_TOL:
                 raise AssertionError(f"K1 d={d} {name} lse: {err}")
 
-        def bwd(name, sq, sk, causal, mask, rate=0.0):
-            q, k, v = (rnd(8, s_, sd).requires_grad_()
+        def bwd(name, sq, sk, causal, mask, rate=0.0, shard=None, b=8):
+            q, k, v = (rnd(b, s_, sd).requires_grad_()
                        for s_, sd in ((sq, 2.0), (sk, 1.0), (sk, 1.0)))
-            dout = rnd(8, sq)
+            dout = rnd(b, sq)
             args = dict(key_padding_mask=mask, causal=causal, sm_scale=scale,
-                        dropout_rate=rate, seed=99)
+                        dropout_rate=rate, seed=99, drop_shard=shard)
             got = torch.autograd.grad(flash_attention(q, k, v, **args),
                                       (q, k, v), dout)
             want = torch.autograd.grad(
                 flash_attention_reference(q, k, v, **args), (q, k, v), dout)
             torch.cuda.synchronize()
             for nm, gt, wt in zip(("dq", "dk", "dv"), got, want):
-                check("flash_attention_bwd", d, tag, name, gt, wt,
+                check("flash_attention_bwd", d, name, gt, wt,
                       kernel_tol(wt, 4), f" {nm} q{tuple(q.shape)}")
 
         fwd("key mask, padded tails", 1024, 1024, False, pad_mask)
@@ -588,13 +612,20 @@ def phase_head_kernels():
             ragged, 0.3)
         bwd("encode_concat mask (a hole), dropout 0.3", 1024, 1024, False,
             hole, 0.3)
+        if d > 128:                 # the wgmma pair and the chunked route
+            bwd("causal", 1024, 1024, True, None)
+            long = torch.arange(2048, device=dev)[None, :] < 2 * lens[:4, None]
+            long[3] = False         # a fully masked row
+            for run in (fwd, bwd):
+                run("Sk=2048, key mask, shard origin (1, 1, H+2), dropout 0.3",
+                    300, 2048, False, long, 0.3, (1, 1, h + 2), 4)
 
         def dec(name, b, k, v, mask):
             q = rnd(b, 1, 2.0)
             got = decode_attention(q, k, v, mask, sm_scale=scale)
             want = decode_attention_reference(q, k, v, mask, sm_scale=scale)
             torch.cuda.synchronize()
-            check("decode_attention", d, tag, name, got, want,
+            check("decode_attention", d, name, got, want,
                   kernel_tol(want), f" k{tuple(k.shape)}")
             return got
 
@@ -1363,11 +1394,12 @@ def phase_evals(an) -> dict:
 
 def phase_heads() -> dict:
     """ModelConfig(nhead=12) (head dim 64), ModelConfig(nhead=6) (head dim
-    128) and, on the wide-head route, ModelConfig(nhead=3) (256) and
-    ModelConfig(nhead=2) (384) at full width (d=768, L=1024, B=8), depth
+    128), ModelConfig(nhead=4) (192) and ModelConfig(nhead=3) (256) (K1's
+    and the pair's instances, K5's wide route) and ModelConfig(nhead=2)
+    (384: their chunked route) at full width (d=768, L=1024, B=8), depth
     cut to 2+2 layers: one detection forward, one train step and 16
     generation steps each, the counts read around each. Returns the
-    launches by instance name (the wide route's summed over its two)."""
+    launches by instance name (K5's wide route summed over its three)."""
     import numpy as np
     import torch
     from sct_gan_tpu_torch import (SmartContractAnalyzer,
@@ -2692,18 +2724,19 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
 
 
 def head_dim_times(card: str) -> dict:
-    """The 64 and 128 instances of K1, the pair and K5, and their wide
-    routes at 192, 256 and 384, at the shapes of ``flash_times`` and
+    """The 64, 128, 192 and 256 instances of K1 and the pair, their
+    chunked route at 384, and K5's 64 and 128 instances and wide route at
+    192, 256 and 384, at the shapes of ``flash_times`` and
     ``decode_times``: the kernels line's (ms, plain, library, bound, bound
-    by) by instance name, a wide head dim's under ``<name>:dh<d>``; K5's
-    first row is (2, H, 1024, d)."""
+    by) by instance name, a wide route's under ``<name>:dh<d>``; K5's first
+    row is (2, H, 1024, d)."""
     t = {}
     for d, h in [*HEAD_DIMS.items(), *WIDE_DIMS.items()]:
-        tag = f":dh{d}" if d in WIDE_DIMS else ""
-        for name, row in flash_times(card, h, d).items():
-            t[name + tag] = row
-        t[instance("decode_attention", d) + tag] = next(iter(
+        rows = flash_times(card, h, d)
+        rows[instance("decode_attention", d)] = next(iter(
             decode_times(card, h, d).values()))
+        for name, row in rows.items():
+            t[name + (f":dh{d}" if name.endswith("_wide") else "")] = row
     return t
 
 
@@ -2908,12 +2941,12 @@ def main() -> int:
     profile_device(train1, "train", train_ms, card)
 
     kernels = []
-    names = [(k, instance(k, d)) for k in KERNELS
-             for d in ((96, *HEAD_DIMS, WIDE_TOP) if k != "dropout"
-                       else (96,))]
+    names = list(dict.fromkeys(
+        (k, instance(k, d)) for k in KERNELS
+        for d in ((96, *HEAD_DIMS, *WIDE_DIMS) if k != "dropout" else (96,))))
     for kernel, name in names:
         source, replaces = KERNELS[kernel]
-        ms, plain, libms, bnd, by = t[name + (f":dh{WIDE_TOP}"
+        ms, plain, libms, bnd, by = t[name + (f":dh{wide_top(kernel)}"
                                               if name.endswith("_wide")
                                               else "")]
         if name == kernel:          # head dim 96: every path of the model
@@ -2940,16 +2973,19 @@ def main() -> int:
         if padded is not None:      # the padded route runs this instance
             entry[f"padded_dh{PADDED_DIM}_max_abs_err"] = padded[0]
             entry[f"padded_dh{PADDED_DIM}_max_rel_err"] = padded[1]
-        if name.endswith("_wide"):  # the top level is head dim WIDE_TOP's
-            entry["head_dim"] = WIDE_TOP
+        if name.endswith("_wide"):  # the top level is wide_top's head dim
+            entry["head_dim"] = wide_top(kernel)
             entry["head_dims"] = {}
-            for d in WIDE_DIMS:
-                ms, plain, libms, bnd, by = t[f"{name}:dh{d}"]
+            for d in (*WIDE_DIMS, CHUNK_PADDED_DIM):
+                if f"{name}:dh{d}" not in errs:
+                    continue
                 a, r = errs[f"{name}:dh{d}"]
-                entry["head_dims"][str(d)] = {
-                    "ms": ms, "plain_ms": plain, "library_ms": libms,
-                    "bound_ms": bnd, "bound_by": by, "max_abs_err": a,
-                    "max_rel_err": r}
+                row = entry["head_dims"][str(d)] = {
+                    "max_abs_err": a, "max_rel_err": r}
+                if f"{name}:dh{d}" in t:      # 320 is held, not timed
+                    ms, plain, libms, bnd, by = t[f"{name}:dh{d}"]
+                    row.update(ms=ms, plain_ms=plain, library_ms=libms,
+                               bound_ms=bnd, bound_by=by)
         kernels.append(entry)
     kernels += variants
     print(card)

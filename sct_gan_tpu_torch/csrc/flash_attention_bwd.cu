@@ -62,10 +62,11 @@
 // KB each): 78 KB, two blocks an SM; dQ 48 f32, S + dP 32 f32, under 128
 // registers. ptxas -v must show no spills in any instance.
 //
-// Head dims: one instance each for D = 64, 96 and 128 (BwdShape below;
-// the wrapper pads any other D <= 128 to the next one). A head dim over
-// 128, padded by the wrapper to a multiple of 128, runs the wide-head pair
-// at the end of this file (flash_bwd_dkv_wide_kernel, flash_bwd_dq_wide_kernel). Rows are padded to
+// Head dims: one mma.sync instance each for D = 64, 96 and 128 (BwdShape
+// below), and one TMA + wgmma instance each for 192 and 256 (the end of
+// this file: flash_bwd_dkv_wgmma_kernel, flash_bwd_dq_wgmma_kernel), which
+// also run head dims over 256 in chunks of 192 or 256 columns; the wrapper
+// pads any other head dim to the next of these. In the mma.sync instances rows are padded to
 // D + 8 elements in shared memory (144, 208 or 272 bytes: an odd number of
 // 16-byte units, so eight rows of one unit fall in eight bank groups). D =
 // 64 keeps D = 96's block shapes. At D = 128, dK + dV alone take 128 f32 a
@@ -436,308 +437,444 @@ int launch(const BwdArgs& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the wide-head route: D > 128, a multiple of 128 ----------------------
+// ---- head dims 192 and 256, and the chunked route over 256: TMA + wgmma ----
 //
-// Past D = 128 a thread cannot hold a whole head row of dK and dV (or dQ).
-// The route cuts the head dim into 128-column chunks, one block per (b, h,
-// tile, chunk c), each writing only its chunk of the gradients:
+// The instances above keep a whole head row of their gradients in the
+// registers of one warp's 16 rows; past 128 columns that does not fit, and
+// mma.sync feeds every warp its own fragments. These kernels are built as
+// K1 is (flash_attention_fwd.cu): the walked tiles stream through a ring of
+// shared-memory stages by TMA (rank-4 maps from the caller's strides, the
+// 64-byte swizzle of hopper_tile.cuh, rows past S read as zeros) with
+// full/empty mbarriers, and consumer warpgroups run every product on
+// wgmma: the score products S = Q K^T and dP = dO V^T (and their
+// transposes) as m64n64k16 from shared memory, the gradient products as
+// m64nNk16 with the 64 x 64 P or dS operand from registers (the score
+// accumulator's layout is the A register layout) and the walked tile read
+// MN-major through the transpose bit.
 //
-//   S = sum_cc Q[:, cc] K[:, cc]^T,   dP = sum_cc dO[:, cc] V[:, cc]^T
-//   dV[:, c] = (M o P / (1-r))^T dO[:, c],   dK[:, c] = dS^T Q[:, c] * scale
-//   dQ[:, c] = dS K[:, c] * scale
+//   dKV: a block owns 64 keys (K and V stay in shared memory) and walks the
+//        64-query tiles of Q, dO and their lse and D (from the diagonal on,
+//        when causal). Warpgroup 0 computes S^T = K Q^T, turns it into P^T,
+//        hands P^T to warpgroup 1 through shared memory (f32, the sign
+//        bit carrying the dropout keep bit) and accumulates dV += P_drop^T
+//        dO; warpgroup 1 computes dP^T = V dO^T, forms dS^T = P^T o (M o
+//        dP^T / (1-r) - D) and accumulates dK += dS^T Q. Each holds its
+//        gradient's whole head row: W / 2 f32 a thread. Warp 0 issues the
+//        loads (as K1's from 192): a producer warp would put three warps
+//        on one of the SM's four register files and cap every thread at
+//        168 registers.
+//   dQ:  a block owns 64 queries (Q and dO stay in shared memory) and walks
+//        the 64-key tiles of K, V and the key mask (up to the diagonal,
+//        when causal); one warpgroup computes S and dP, forms dS and
+//        accumulates dQ += dS K; a producer warp loads (160 threads: up to
+//        255 registers a thread).
+// Five products a tile, the math's; the mma.sync instances above run seven.
 //
-// with P and dS as above; D = rowsum(dO o O) covers the full head dim (it
-// comes from torch). Every chunk's block recomputes S and dP over the full
-// head dim, walking the chunks of the walked tile one 128-column item at a
-// time through a 2-stage cp.async ring; its own chunk comes last, so the
-// Q and dO (dKV) or K (dQ) columns of the final products are the last
-// item's. Each block holds only 128-column slabs, so any multiple of 128
-// runs with the same shared memory. 4 warps, 16 rows each: dKV 64 keys
-// walking 32-query tiles (dK and dV 128 f32 a thread), dQ 64 queries walking
-// 32-key tiles; rows padded to 136 elements, ldmatrix operands, mma.sync.
-// The route costs one recomputation of S and dP per chunk: nchunk times
-// their products. It is right and simple, not fast.
-constexpr int WIDE_COLS = 128;              // a head-dim chunk
-constexpr int WIDE_LD = WIDE_COLS + 8;      // shared row stride (bf16)
-constexpr int WIDE_THREADS = 128;           // 4 warps
-constexpr int WIDE_ROWS = 64;               // a block's own rows, 16 a warp
-constexpr int WIDE_WALK = 32;               // rows of a walked tile
+// Over 256 (CHUNKED) the head dim is padded by the wrapper to a multiple of
+// 256 or of 192 and cut into chunks of that width W. A block writes the
+// gradients of one column chunk; S and dP cover the full head dim, so per
+// walked tile the block walks every chunk's Q, K, V and dO columns through
+// the ring, its own chunk last (so the last item's stage holds the columns
+// of its gradient products), and every chunk's block recomputes S and dP.
+//
+// Budget: shared memory as deep a ring as the 227 KB allow, at most 3
+// stages (Wide below): dKV at 192 K + V 48 KB, 3 stages of Q + dO 48 KB,
+// P^T 16 KB: 210 KB; at 256 64 + 2 x 64 + 16 = 208 KB; dQ 192 and 192 KB.
+// Registers: dKV's dV or dK row (96 or 128 f32) and a score tile (32 f32),
+// dQ's row (96 or 128) with S and dP (64), under the 255 a thread of 256
+// or 160 threads may have. ptxas -v must show no spills.
+constexpr int BR = 64;                      // a block's own rows, and a walked tile's
+constexpr int TILE = BR * CHUNK_BYTES_ROW;  // one 32-column swizzled box of BR rows
+constexpr int SMEM_LIMIT = 232448;          // bytes of shared memory a block may use
 
-struct WideBwdStage {   // one chunk of each operand
-  bf16 own0[WIDE_ROWS * WIDE_LD], own1[WIDE_ROWS * WIDE_LD];   // K, V (dKV); Q, dO (dQ)
-  bf16 walk0[WIDE_WALK * WIDE_LD], walk1[WIDE_WALK * WIDE_LD]; // Q, dO (dKV); K, V (dQ)
+// The shape of a wgmma instance: W is the head dim, or with CHUNKED the
+// column chunk of a head dim over 256; DKV picks the dKV kernel (else dQ).
+template <int W, bool CHUNKED, bool DKV>
+struct Wide {
+  static constexpr int NCHUNK = W / CHUNK_COLS, SLAB = NCHUNK * TILE;   // BR rows x W
+  static constexpr int RESIDENT = CHUNKED ? 0 : 2 * SLAB;   // the block's own rows
+  static constexpr int STAGE_BYTES = (CHUNKED ? 4 : 2) * SLAB + 2 * BR * 4;
+  static constexpr int P_BYTES = DKV ? 32 * 128 * 4 : 0;
+  static constexpr int FREE = SMEM_LIMIT - 2048 - RESIDENT - P_BYTES;
+  static constexpr int STAGES = FREE / STAGE_BYTES < 3 ? FREE / STAGE_BYTES : 3;
+  static constexpr int WARPS = DKV ? 8 : 4;               // consumer warps
+  // dKV: warp 0 loads (256 threads); dQ: a producer warp (160 threads)
+  static constexpr int NTHREADS = WARPS * 32 + (DKV ? 0 : 32);
+  static_assert(STAGES >= 1, "no ring stage fits");
 };
-constexpr int WIDE_SMEM = 2 * sizeof(WideBwdStage);
 
-// Start copying chunk `cc` of the block's own rows [r0, r0 + 64) of x0, x1
-// and of the walked rows [w0, w0 + 32) of y0, y1 into stage st.
-__device__ __forceinline__ void wide_issue(WideBwdStage& st, int cc, const bf16* x0,
-                                           const bf16* x1, int x0_ss, int x1_ss, int r0,
-                                           int n_rows, const bf16* y0, const bf16* y1,
-                                           int y0_ss, int y1_ss, int w0, int n_walk) {
-  const int col = cc * WIDE_COLS;
-  cp_tile<WIDE_COLS, WIDE_ROWS, WIDE_THREADS>(st.own0, x0 + col, r0, n_rows, x0_ss);
-  cp_tile<WIDE_COLS, WIDE_ROWS, WIDE_THREADS>(st.own1, x1 + col, r0, n_rows, x1_ss);
-  cp_tile<WIDE_COLS, WIDE_WALK, WIDE_THREADS>(st.walk0, y0 + col, w0, n_walk, y0_ss);
-  cp_tile<WIDE_COLS, WIDE_WALK, WIDE_THREADS>(st.walk1, y1 + col, w0, n_walk, y1_ss);
+template <int W, bool CHUNKED, bool DKV>
+struct WideSmem {
+  using C = Wide<W, CHUNKED, DKV>;
+  static constexpr int OWN = CHUNKED ? C::STAGES : 1;
+  alignas(1024) unsigned char own0[OWN][C::NCHUNK][TILE];          // K (dKV), Q (dQ)
+  alignas(1024) unsigned char own1[OWN][C::NCHUNK][TILE];          // V, dO
+  alignas(1024) unsigned char walk0[C::STAGES][C::NCHUNK][TILE];   // Q, K
+  alignas(1024) unsigned char walk1[C::STAGES][C::NCHUNK][TILE];   // dO, V
+  // dKV: the walked queries' lse * log2(e) and D; dQ: the walked keys' bias
+  float rowa[C::STAGES][BR], rowb[C::STAGES][BR];
+  float p[DKV ? 32 : 1][128];       // dKV: P^T, element i of thread t at [i][t]
+  uint64_t own_full, full[C::STAGES], empty[C::STAGES];
+};
+template <int W, bool CHUNKED, bool DKV>
+constexpr int wide_smem_bytes() { return sizeof(WideSmem<W, CHUNKED, DKV>) + 1024; }
+
+template <typename T>
+__device__ __forceinline__ T& aligned_smem(unsigned char* raw) {   // 1024-byte aligned
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(raw + pad);
 }
 
-// acc0 += A0 B0^T and acc1 += A1 B1^T over one 128-column chunk: A from the
-// stage's own rows (this warp's 16), B from its walked rows (32).
-__device__ __forceinline__ void wide_scores(const WideBwdStage& st, int wr, int lane,
-                                            float (&acc0)[WIDE_WALK / 8][4],
-                                            float (&acc1)[WIDE_WALK / 8][4]) {
+template <int W, bool CHUNKED, bool DKV>
+__device__ __forceinline__ void wide_init(WideSmem<W, CHUNKED, DKV>& s) {
+  if (threadIdx.x == 0) {
+    mbar_init(&s.own_full, 1);
 #pragma unroll
-  for (int kk = 0; kk < WIDE_COLS / 16; ++kk) {
-    uint32_t a0[4], a1[4];
-    ldsm_x4(a0, a_addr<WIDE_LD>(st.own0, wr, kk * 16, lane));
-    ldsm_x4(a1, a_addr<WIDE_LD>(st.own1, wr, kk * 16, lane));
-#pragma unroll
-    for (int np = 0; np < WIDE_WALK / 16; ++np) {
-      uint32_t b0[4], b1[4];
-      ldsm_x4(b0, bn_addr<WIDE_LD>(st.walk0, np * 16, kk * 16, lane));
-      ldsm_x4(b1, bn_addr<WIDE_LD>(st.walk1, np * 16, kk * 16, lane));
-      mma_16816(acc0[2 * np], a0, b0[0], b0[1]);
-      mma_16816(acc0[2 * np + 1], a0, b0[2], b0[3]);
-      mma_16816(acc1[2 * np], a1, b1[0], b1[1]);
-      mma_16816(acc1[2 * np + 1], a1, b1[2], b1[3]);
+    for (int i = 0; i < Wide<W, CHUNKED, DKV>::STAGES; ++i) {
+      mbar_init(&s.full[i], 32);                            // the producer warp's lanes
+      mbar_init(&s.empty[i], Wide<W, CHUNKED, DKV>::WARPS); // one lane a consumer warp
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// The block's own rows [r0, r0 + 64) of own0 and own1 (native: once, for
+// every walked tile).
+template <int W, bool CHUNKED, bool DKV>
+__device__ __forceinline__ void wide_own(WideSmem<W, CHUNKED, DKV>& s, const CUtensorMap* own0,
+                                         const CUtensorMap* own1, int r0, int h, int b) {
+  mbar_arrive_expect_tx(&s.own_full, 2 * Wide<W, CHUNKED, DKV>::SLAB);
+#pragma unroll
+  for (int ch = 0; ch < Wide<W, CHUNKED, DKV>::NCHUNK; ++ch) {
+    tma_load_4d(s.own0[0][ch], own0, &s.own_full, ch * CHUNK_COLS, r0, h, b);
+    tma_load_4d(s.own1[0][ch], own1, &s.own_full, ch * CHUNK_COLS, r0, h, b);
   }
 }
 
-__global__ void __launch_bounds__(WIDE_THREADS, 2)
-flash_bwd_dkv_wide_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  WideBwdStage* stage = reinterpret_cast<WideBwdStage*>(smem_raw);
-  const int nchunk = gridDim.z, c = blockIdx.z;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * WIDE_ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
-  const bf16* qb = a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh;
-  const bf16* dob = a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh;
-  const bf16* kb = a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh;
-  const bf16* vb = a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh;
-  const float* lse_b = a.lse + (size_t)bh * a.Sq;
-  const float* d_b = a.dvec + (size_t)bh * a.Sq;
-  const int nq = (a.Sq + WIDE_WALK - 1) / WIDE_WALK;
-  // causal: query tiles before the diagonal see no key of this block
-  const int qt0 = a.causal ? min(nq, k0 / WIDE_WALK) : 0;
-  const int n_items = (nq - qt0) * nchunk;  // item i: query tile qt0 + i / nchunk
-  auto issue = [&](int item) {              // its chunks end with this block's own
-    wide_issue(stage[item & 1], (c + 1 + item % nchunk) % nchunk, kb, vb, a.ks.ss,
-               a.vs.ss, k0, a.Sk, qb, dob, a.qs.ss, a.dos.ss,
-               (qt0 + item / nchunk) * WIDE_WALK, a.Sq);
-  };
+// Warp-wide: wait until the stage of ring item `item` is free, write the
+// walked rows' values (rowa, rowb), and (lane 0) start its loads. Item
+// item = i * nchunk + it is item `it` of walked tile t = t0 + i, rows
+// [64 t, 64 t + 64) of walk0 and walk1: native their whole rows; chunked
+// column chunk (cs + 1 + it) % nchunk of them and of the own rows, the
+// block's chunk cs last.
+template <int W, bool CHUNKED, bool DKV>
+__device__ __forceinline__ void wide_issue(WideSmem<W, CHUNKED, DKV>& s,
+                                           const CUtensorMap* own0, const CUtensorMap* own1,
+                                           const CUtensorMap* walk0, const CUtensorMap* walk1,
+                                           const BwdArgs& a, int b, int h, int r0, int t0,
+                                           int item, int nchunk, int cs, int lane) {
+  using C = Wide<W, CHUNKED, DKV>;
+  const int t = t0 + item / nchunk, st = item % C::STAGES;
+  const int col = ((cs + 1 + item % nchunk) % nchunk) * W;   // 0 when native
+  const size_t bh = (size_t)b * a.H + h;
+  float va[2], vb[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = t * BR + lane + 32 * e;
+    if (DKV) {                             // the walked queries' lse * log2(e) and D
+      const bool in = r < a.Sq;
+      va[e] = in ? a.lse[bh * a.Sq + r] * LOG2E : 0.f;
+      vb[e] = in ? a.dvec[bh * a.Sq + r] : 0.f;
+    } else {                               // the walked keys' bias
+      va[e] = r < a.Sk && (a.mask == nullptr || a.mask[(size_t)b * a.mask_sb + r])
+                  ? 0.f : -INFINITY;
+      vb[e] = 0.f;
+    }
+  }
+  mbar_wait(&s.empty[st], ((item / C::STAGES) & 1) ^ 1);   // the stage is free
+  s.rowa[st][lane] = va[0];
+  s.rowa[st][lane + 32] = va[1];
+  s.rowb[st][lane] = vb[0];
+  s.rowb[st][lane + 32] = vb[1];
+  if (lane == 0) {
+    mbar_arrive_expect_tx(&s.full[st], (CHUNKED ? 4 : 2) * C::SLAB);
+#pragma unroll
+    for (int ch = 0; ch < C::NCHUNK; ++ch) {
+      const int x = col + ch * CHUNK_COLS;
+      if constexpr (CHUNKED) {
+        tma_load_4d(s.own0[st][ch], own0, &s.full[st], x, r0, h, b);
+        tma_load_4d(s.own1[st][ch], own1, &s.full[st], x, r0, h, b);
+      }
+      tma_load_4d(s.walk0[st][ch], walk0, &s.full[st], x, t * BR, h, b);
+      tma_load_4d(s.walk1[st][ch], walk1, &s.full[st], x, t * BR, h, b);
+    }
+  } else {
+    mbar_arrive(&s.full[st]);
+  }
+}
 
-  const int key0 = k0 + wr + g, key1 = key0 + 8;   // this thread's key rows
+// acc {=, +=} A B^T over the W columns of one item: A the 64 own rows (K-major),
+// B the 64 walked rows (K-major); accumulate iff `more`.
+template <int W>
+__device__ __forceinline__ void wide_scores(float (&acc)[32], unsigned char (*a)[TILE],
+                                            unsigned char (*b)[TILE], bool more) {
+#pragma unroll
+  for (int ks = 0; ks < W / 16; ++ks) {
+    const int ch = ks / 2, off = (ks % 2) * 32;
+    wgmma_m64n64k16_ss(acc, desc_b64(&a[ch][off], 16, 512), desc_b64(&b[ch][off], 16, 512),
+                       more || ks > 0);
+  }
+}
+
+// acc += X B: X the 64 x 64 tile of `x` (the score layout) rounded to bf16,
+// B the 64 walked rows from column chunk `b` on, read MN-major.
+template <int N>
+__device__ __forceinline__ void wide_grad(float (&acc)[N], const float (&x)[32],
+                                          unsigned char (*b)[TILE]) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BR / 16; ++kk) {   // 16 walked rows a step
+    const uint32_t pa[4] = {pack_bf16(x[8 * kk], x[8 * kk + 1]),
+                            pack_bf16(x[8 * kk + 2], x[8 * kk + 3]),
+                            pack_bf16(x[8 * kk + 4], x[8 * kk + 5]),
+                            pack_bf16(x[8 * kk + 6], x[8 * kk + 7])};
+    wgmma_rs(acc, pa, desc_b64(&b[0][kk * 16 * CHUNK_BYTES_ROW], TILE, 512));
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(acc);
+}
+
+// Write a (64 x N) accumulator times `mul` to rows row0 / row0 + 8 (< n_rows) of out.
+template <int N>
+__device__ __forceinline__ void wide_store(const float (&acc)[N], bf16* out, int ss, int row0,
+                                           int n_rows, int t, float mul) {
+#pragma unroll
+  for (int dt = 0; dt < N / 4; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (row0 < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row0 * ss + col) =
+          __floats2bfloat162_rn(acc[dt * 4] * mul, acc[dt * 4 + 1] * mul);
+    if (row0 + 8 < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row0 + 8) * ss + col) =
+          __floats2bfloat162_rn(acc[dt * 4 + 2] * mul, acc[dt * 4 + 3] * mul);
+  }
+}
+
+template <int W, bool CHUNKED>
+__global__ void __launch_bounds__(Wide<W, CHUNKED, true>::NTHREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map, const BwdArgs a) {
+  using C = Wide<W, CHUNKED, true>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  auto& s = aligned_smem<WideSmem<W, CHUNKED, true>>(smem_raw);
+  const int nchunk = CHUNKED ? gridDim.z : 1, c = CHUNKED ? blockIdx.z : 0;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nq = (a.Sq + BR - 1) / BR;
+  // causal: query tiles before the diagonal see no key of this block
+  const int qt0 = a.causal ? min(nq, k0 / BR) : 0;
+  const int n_items = (nq - qt0) * nchunk;
+  wide_init(s);
+  // warp 0 loads: K and V, the first STAGES items, then each refill
+  auto issue = [&](int item) {
+    wide_issue(s, &k_map, &v_map, &q_map, &do_map, a, b, h, k0, qt0, item, nchunk, c, lane);
+  };
+  if (warp == 0) {
+    if (!CHUNKED && lane == 0) wide_own(s, &k_map, &v_map, k0, h, b);
+    for (int i = 0; i < min(n_items, STAGES); ++i) issue(i);
+  }
+
+  // ---- warpgroup 0: S^T, P^T, dV; warpgroup 1: dP^T, dS^T, dK ----
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + (warp % 4) * 16 + g, key1 = key0 + 8;   // this thread's key rows
   const bool kv0 = key0 < a.Sk && (a.mask == nullptr || a.mask[(size_t)b * a.mask_sb + key0]);
   const bool kv1 = key1 < a.Sk && (a.mask == nullptr || a.mask[(size_t)b * a.mask_sb + key1]);
-  float dk_acc[WIDE_COLS / 8][4], dv_acc[WIDE_COLS / 8][4];
+  const uint32_t dhead = drop_head(b, h, a.ds);
+  float acc[W / 2];                         // dV (warpgroup 0) or dK (1), chunk c
 #pragma unroll
-  for (int i = 0; i < WIDE_COLS / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-  float sc[WIDE_WALK / 8][4], dp[WIDE_WALK / 8][4];   // S^T and dP^T, 16 keys x 32 queries
-#pragma unroll
-  for (int nt = 0; nt < WIDE_WALK / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
 
-  if (n_items > 0) issue(0);
-  cp_async_commit();
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) issue(i + 1);      // overlaps this item
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const WideBwdStage& st = stage[i & 1];
-    wide_scores(st, wr, lane, sc, dp);      // K Q^T and V dO^T
-    if (i % nchunk == nchunk - 1) {         // the tile's last chunk is c
-      const int q0 = (qt0 + i / nchunk) * WIDE_WALK;
-      uint32_t pa[WIDE_WALK / 16][4], da[WIDE_WALK / 16][4];
+  if (!CHUNKED) mbar_wait(&s.own_full, 0);
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * BR;
+    float sc[32];                           // S^T (wg 0) or dP^T (wg 1): 64 keys x 64 queries
 #pragma unroll
-      for (int nt = 0; nt < WIDE_WALK / 8; ++nt) {
-        float pd[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = q0 + nt * 8 + 2 * t + (e & 1);
-          const int key = e < 2 ? key0 : key1;
-          const bool ok = (e < 2 ? kv0 : kv1) && qi < a.Sq && !(a.causal && key > qi);
-          const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - lse_b[qi] * LOG2E) : 0.f;
-          const float dq = qi < a.Sq ? d_b[qi] : 0.f;
-          const bool keep = !a.dropout ||
-              hash_keep((drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk +
-                            (uint32_t)key, a.seed, a.threshold);
-          pd[e] = keep ? p * a.inv_keep : 0.f;
-          ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - dq);
-          sc[nt][e] = dp[nt][e] = 0.f;      // the next tile starts from 0
-        }
-        const int kk = nt >> 1, hi = (nt & 1) * 2;
-        pa[kk][hi] = pack_bf16(pd[0], pd[1]);
-        pa[kk][hi + 1] = pack_bf16(pd[2], pd[3]);
-        da[kk][hi] = pack_bf16(ds[0], ds[1]);
-        da[kk][hi + 1] = pack_bf16(ds[2], ds[3]);
-      }
-      // dV += P_drop^T dO[:, c], dK += dS^T Q[:, c]: down the query columns
-#pragma unroll
-      for (int kk = 0; kk < WIDE_WALK / 16; ++kk) {
-#pragma unroll
-        for (int dp2 = 0; dp2 < WIDE_COLS / 16; ++dp2) {
-          uint32_t ob[4], qf[4];
-          ldsm_x4_trans(ob, bt_addr<WIDE_LD>(st.walk1, kk * 16, dp2 * 16, lane));
-          ldsm_x4_trans(qf, bt_addr<WIDE_LD>(st.walk0, kk * 16, dp2 * 16, lane));
-          mma_16816(dv_acc[2 * dp2], pa[kk], ob[0], ob[1]);
-          mma_16816(dv_acc[2 * dp2 + 1], pa[kk], ob[2], ob[3]);
-          mma_16816(dk_acc[2 * dp2], da[kk], qf[0], qf[1]);
-          mma_16816(dk_acc[2 * dp2 + 1], da[kk], qf[2], qf[3]);
-        }
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    int st = 0;
+    for (int it = 0; it < nchunk; ++it) {   // one score item per chunk (native: one)
+      const int item = (qt - qt0) * nchunk + it;
+      st = item % STAGES;
+      mbar_wait(&s.full[st], (item / STAGES) & 1);
+      const int os = CHUNKED ? st : 0;
+      fence_regs(sc);
+      wgmma_fence();
+      wide_scores<W>(sc, wg == 0 ? s.own0[os] : s.own1[os],     // K Q^T or V dO^T
+                     wg == 0 ? s.walk0[st] : s.walk1[st], it > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      if (it + 1 < nchunk) {                // a score item's stage is done
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&s.empty[st]);
+        if (warp == 0 && item + STAGES < n_items) issue(item + STAGES);
       }
     }
-    __syncthreads();                        // the stage may be refilled
-  }
-  cp_async_wait<0>();
 
-  bf16* dkb = a.dk + (size_t)b * a.dks.sb + (size_t)h * a.dks.sh + c * WIDE_COLS;
-  bf16* dvb = a.dv + (size_t)b * a.dvs.sb + (size_t)h * a.dvs.sh + c * WIDE_COLS;
+    // element i: key row (i >> 1) & 1 (key0, key1), query column q0 + col
+    if (wg == 0) {
+      if (qt > qt0) bar_sync(2, 256);       // warpgroup 1 has read the last P^T
 #pragma unroll
-  for (int dt = 0; dt < WIDE_COLS / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (key0 < a.Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key0 * a.dks.ss + col) =
-          __floats2bfloat162_rn(dk_acc[dt][0] * a.scale, dk_acc[dt][1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key0 * a.dvs.ss + col) =
-          __floats2bfloat162_rn(dv_acc[dt][0], dv_acc[dt][1]);
+      for (int i = 0; i < 32; ++i) {
+        const int col = (i >> 2) * 8 + 2 * t + (i & 1), qi = q0 + col;
+        const int key = (i >> 1) & 1 ? key1 : key0;
+        const bool ok = ((i >> 1) & 1 ? kv1 : kv0) && qi < a.Sq && !(a.causal && key > qi);
+        const float p = ok ? exp2f(sc[i] * a.scale_log2 - s.rowa[st][col]) : 0.f;
+        const bool keep = !a.dropout ||
+            hash_keep((dhead * (uint32_t)a.Sq + (uint32_t)qi) * (uint32_t)a.Sk + (uint32_t)key,
+                      a.seed, a.threshold);
+        s.p[i][tid] = keep ? p : -p;        // the sign bit carries the keep bit
+        sc[i] = keep ? p * a.inv_keep : 0.f;
+      }
+      bar_arrive(1, 256);
+    } else {
+      bar_sync(1, 256);                     // P^T is written
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = (i >> 2) * 8 + 2 * t + (i & 1);
+        const float x = s.p[i][tid];
+        const bool keep = !(__float_as_uint(x) >> 31);
+        sc[i] = fabsf(x) * ((keep ? sc[i] * a.inv_keep : 0.f) - s.rowb[st][col]);
+      }
+      if (qt + 1 < nq) bar_arrive(2, 256);
     }
-    if (key1 < a.Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key1 * a.dks.ss + col) =
-          __floats2bfloat162_rn(dk_acc[dt][2] * a.scale, dk_acc[dt][3] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key1 * a.dvs.ss + col) =
-          __floats2bfloat162_rn(dv_acc[dt][2], dv_acc[dt][3]);
-    }
+    wide_grad(acc, sc, wg == 0 ? s.walk1[st] : s.walk0[st]);   // dV += P_drop^T dO, dK += dS^T Q
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[st]);   // this warp is done with the stage
+    const int item = (qt - qt0 + 1) * nchunk - 1;
+    if (warp == 0 && item + STAGES < n_items) issue(item + STAGES);
   }
+
+  const bool dv = wg == 0;
+  const Strides& gs = dv ? a.dvs : a.dks;
+  bf16* out = (dv ? a.dv : a.dk) + (size_t)b * gs.sb + (size_t)h * gs.sh + c * W;
+  wide_store(acc, out, gs.ss, key0, a.Sk, t, dv ? 1.f : a.scale);
 }
 
-__global__ void __launch_bounds__(WIDE_THREADS, 2)
-flash_bwd_dq_wide_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  WideBwdStage* stage = reinterpret_cast<WideBwdStage*>(smem_raw);
-  const int nchunk = gridDim.z, c = blockIdx.z;
+template <int W, bool CHUNKED>
+__global__ void __launch_bounds__(Wide<W, CHUNKED, false>::NTHREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map, const BwdArgs a) {
+  using C = Wide<W, CHUNKED, false>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  auto& s = aligned_smem<WideSmem<W, CHUNKED, false>>(smem_raw);
+  const int nchunk = CHUNKED ? gridDim.z : 1, c = CHUNKED ? blockIdx.z : 0;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * WIDE_ROWS;
+  const int q0 = blockIdx.x * BR;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
-  const bf16* qb = a.q + (size_t)b * a.qs.sb + (size_t)h * a.qs.sh;
-  const bf16* dob = a.dout + (size_t)b * a.dos.sb + (size_t)h * a.dos.sh;
-  const bf16* kb = a.k + (size_t)b * a.ks.sb + (size_t)h * a.ks.sh;
-  const bf16* vb = a.v + (size_t)b * a.vs.sb + (size_t)h * a.vs.sh;
-  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
-  int n_tiles = (a.Sk + WIDE_WALK - 1) / WIDE_WALK;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + WIDE_ROWS - 1) / WIDE_WALK + 1);
-  const int n_items = n_tiles * nchunk;     // item i: key tile i / nchunk
-  auto issue = [&](int item) {              // its chunks end with this block's own
-    wide_issue(stage[item & 1], (c + 1 + item % nchunk) % nchunk, qb, dob, a.qs.ss,
-               a.dos.ss, q0, a.Sq, kb, vb, a.ks.ss, a.vs.ss, (item / nchunk) * WIDE_WALK,
-               a.Sk);
-  };
+  int n_tiles = (a.Sk + BR - 1) / BR;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + BR - 1) / BR + 1);
+  wide_init(s);
+  if (warp == C::WARPS) {                   // ---- producer warp ----
+    if (!CHUNKED && lane == 0) wide_own(s, &q_map, &do_map, q0, h, b);
+    for (int item = 0; item < n_tiles * nchunk; ++item)
+      wide_issue(s, &q_map, &do_map, &k_map, &v_map, a, b, h, q0, 0, item, nchunk, c, lane);
+    return;
+  }
 
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
+  // ---- the consumer warpgroup: S, dP, dS, dQ ----
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] * LOG2E : 0.f;
   const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] * LOG2E : 0.f;
   const float d0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
   const float d1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
   const uint32_t drop0 = (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
-  float dq_acc[WIDE_COLS / 8][4];
+  float acc[W / 2];                         // dQ, chunk c
 #pragma unroll
-  for (int i = 0; i < WIDE_COLS / 8; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
-  float sc[WIDE_WALK / 8][4], dp[WIDE_WALK / 8][4];   // S and dP, 16 queries x 32 keys
-#pragma unroll
-  for (int nt = 0; nt < WIDE_WALK / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
 
-  issue(0);
-  cp_async_commit();
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) issue(i + 1);      // overlaps this item
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const WideBwdStage& st = stage[i & 1];
-    wide_scores(st, wr, lane, sc, dp);      // Q K^T and dO V^T
-    if (i % nchunk == nchunk - 1) {         // the tile's last chunk is c
-      const int k0 = (i / nchunk) * WIDE_WALK;
-      uint32_t da[WIDE_WALK / 16][4];       // dS as A operands (k = keys)
+  if (!CHUNKED) mbar_wait(&s.own_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BR;
+    float sc[32], dp[32];                   // S and dP: 64 queries x 64 keys
 #pragma unroll
-      for (int nt = 0; nt < WIDE_WALK / 8; ++nt) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + nt * 8 + 2 * t + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          const bool ok = key < a.Sk && (mrow == nullptr || mrow[key]) && row < a.Sq &&
-                          !(a.causal && key > row);
-          const float p = ok ? exp2f(sc[nt][e] * a.scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
-          const bool keep = !a.dropout ||
-              hash_keep((e < 2 ? drop0 : drop1) + (uint32_t)key, a.seed, a.threshold);
-          ds[e] = p * ((keep ? dp[nt][e] * a.inv_keep : 0.f) - (e < 2 ? d0 : d1));
-          sc[nt][e] = dp[nt][e] = 0.f;      // the next tile starts from 0
-        }
-        const int kk = nt >> 1, hi = (nt & 1) * 2;
-        da[kk][hi] = pack_bf16(ds[0], ds[1]);
-        da[kk][hi + 1] = pack_bf16(ds[2], ds[3]);
-      }
-      // dQ += dS K[:, c]: down the key columns
-#pragma unroll
-      for (int kk = 0; kk < WIDE_WALK / 16; ++kk) {
-#pragma unroll
-        for (int dp2 = 0; dp2 < WIDE_COLS / 16; ++dp2) {
-          uint32_t kf[4];
-          ldsm_x4_trans(kf, bt_addr<WIDE_LD>(st.walk0, kk * 16, dp2 * 16, lane));
-          mma_16816(dq_acc[2 * dp2], da[kk], kf[0], kf[1]);
-          mma_16816(dq_acc[2 * dp2 + 1], da[kk], kf[2], kf[3]);
-        }
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    int st = 0;
+    for (int it = 0; it < nchunk; ++it) {
+      const int item = j * nchunk + it;
+      st = item % STAGES;
+      mbar_wait(&s.full[st], (item / STAGES) & 1);
+      const int os = CHUNKED ? st : 0;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      wide_scores<W>(sc, s.own0[os], s.walk0[st], it > 0);     // Q K^T
+      wide_scores<W>(dp, s.own1[os], s.walk1[st], it > 0);     // dO V^T
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (it + 1 < nchunk) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&s.empty[st]);
       }
     }
-    __syncthreads();                        // the stage may be refilled
-  }
-  cp_async_wait<0>();
-
-  bf16* dqb = a.dq + (size_t)b * a.dqs.sb + (size_t)h * a.dqs.sh + c * WIDE_COLS;
 #pragma unroll
-  for (int dt = 0; dt < WIDE_COLS / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row0 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row0 * a.dqs.ss + col) =
-          __floats2bfloat162_rn(dq_acc[dt][0] * a.scale, dq_acc[dt][1] * a.scale);
-    if (row1 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row1 * a.dqs.ss + col) =
-          __floats2bfloat162_rn(dq_acc[dt][2] * a.scale, dq_acc[dt][3] * a.scale);
+    for (int i = 0; i < 32; ++i) {          // dS, in place of S
+      const int col = (i >> 2) * 8 + 2 * t + (i & 1), key = k0 + col;
+      const bool hi = (i >> 1) & 1;
+      const float p = a.causal && key > (hi ? row1 : row0)
+                          ? 0.f
+                          : exp2f(sc[i] * a.scale_log2 + s.rowa[st][col] - (hi ? lse1 : lse0));
+      const bool keep = !a.dropout ||
+          hash_keep((hi ? drop1 : drop0) + (uint32_t)key, a.seed, a.threshold);
+      sc[i] = p * ((keep ? dp[i] * a.inv_keep : 0.f) - (hi ? d1 : d0));
+    }
+    wide_grad(acc, sc, s.walk0[st]);      // dQ += dS K
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[st]);
   }
+  wide_store(acc, a.dq + (size_t)b * a.dqs.sb + (size_t)h * a.dqs.sh + c * W, a.dqs.ss, row0,
+             a.Sq, t, a.scale);
 }
 
-int launch_wide(const BwdArgs& a, int B, int nchunk, cudaStream_t stream) {
+// Dh is the full head dim: W itself, or nchunk * W when CHUNKED.
+template <int W, bool CHUNKED>
+int launch_wgmma(const BwdArgs& a, int B, int Dh, cudaStream_t stream) {
+  constexpr int dkv_bytes = wide_smem_bytes<W, CHUNKED, true>();
+  constexpr int dq_bytes = wide_smem_bytes<W, CHUNKED, false>();
+  static_assert(dkv_bytes <= SMEM_LIMIT && dq_bytes <= SMEM_LIMIT, "shared memory over the limit");
+  CUtensorMap qm, km, vm, dom;
+  int err = make_head_map(&qm, a.q, B, a.H, a.Sq, Dh, a.qs.sb, a.qs.sh, a.qs.ss, BR);
+  if (err == 0) err = make_head_map(&km, a.k, B, a.H, a.Sk, Dh, a.ks.sb, a.ks.sh, a.ks.ss, BR);
+  if (err == 0) err = make_head_map(&vm, a.v, B, a.H, a.Sk, Dh, a.vs.sb, a.vs.sh, a.vs.ss, BR);
+  if (err == 0)
+    err = make_head_map(&dom, a.dout, B, a.H, a.Sq, Dh, a.dos.sb, a.dos.sh, a.dos.ss, BR);
+  if (err != 0) return err;
   static bool dkv_ready = false, dq_ready = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_wide_kernel, WIDE_SMEM, dkv_ready);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_wide_kernel, WIDE_SMEM, dq_ready);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_wide_kernel<<<dim3((a.Sk + WIDE_ROWS - 1) / WIDE_ROWS, B * a.H, nchunk),
-                              WIDE_THREADS, WIDE_SMEM, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_wide_kernel<<<dim3((a.Sq + WIDE_ROWS - 1) / WIDE_ROWS, B * a.H, nchunk),
-                             WIDE_THREADS, WIDE_SMEM, stream>>>(a);
+  cudaError_t e = allow_smem(flash_bwd_dkv_wgmma_kernel<W, CHUNKED>, dkv_bytes, dkv_ready);
+  if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_wgmma_kernel<W, CHUNKED>, dq_bytes, dq_ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkv_wgmma_kernel<W, CHUNKED>
+      <<<dim3((a.Sk + BR - 1) / BR, B * a.H, Dh / W), Wide<W, CHUNKED, true>::NTHREADS,
+         dkv_bytes, stream>>>(qm, km, vm, dom, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_wgmma_kernel<W, CHUNKED>
+      <<<dim3((a.Sq + BR - 1) / BR, B * a.H, Dh / W),
+         Wide<W, CHUNKED, false>::NTHREADS, dq_bytes, stream>>>(qm, km, vm, dom, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: bf16 (B, H, S, Dh) with element strides
-// (sb, sh, ss) and the last dimension contiguous, Dh 64, 96 or 128 (one
-// instance each) or a multiple of 128 above (the wide-head route) (rows of
-// q, k, v, dout on
-// 16-byte lines); mask: (B, Sk) uint8 (nonzero = attend) with row stride
+// (sb, sh, ss) and the last dimension contiguous, Dh 64, 96, 128, 192 or
+// 256 (one instance each) or over 256 a multiple of 256 or of 192 (the
+// chunked route) (rows of q, k, v, dout on 16-byte lines, their bases
+// 16-byte aligned: 192 and up read them by TMA); mask: (B, Sk) uint8 (nonzero = attend) with row stride
 // mask_sb, or null; lse (the forward's natural-log row LSE) and dvec
 // (D = rowsum(dO o O)): contiguous f32 (B, H, Sq). dropout != 0 regenerates
 // the forward's hash keep mask from (seed, threshold) and scales by
@@ -789,9 +926,11 @@ extern "C" int flash_attention_bwd_bf16(
     case 64: return launch<64>(a, B, st);
     case 96: return launch<96>(a, B, st);
     case 128: return launch<128>(a, B, st);
+    case 192: return launch_wgmma<192, false>(a, B, Dh, st);
+    case 256: return launch_wgmma<256, false>(a, B, Dh, st);
     default:
-      if (Dh > 128 && Dh % WIDE_COLS == 0)   // the wide-head route
-        return launch_wide(a, B, Dh / WIDE_COLS, st);
-      return static_cast<int>(cudaErrorInvalidValue);   // no instance
+      if (Dh > 256 && Dh % 256 == 0) return launch_wgmma<256, true>(a, B, Dh, st);
+      if (Dh > 256 && Dh % 192 == 0) return launch_wgmma<192, true>(a, B, Dh, st);
+      return static_cast<int>(cudaErrorInvalidValue);   // no route takes it
   }
 }

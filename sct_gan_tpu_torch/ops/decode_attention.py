@@ -12,10 +12,12 @@ replaces the JAX loop's ``cache_chunk`` re-slicing, which exists only to
 bound reads under static shapes; the numbers are the same, because keys
 past ``pos`` are masked there.
 
-Head dims as in ``flash_attention``: instances for 64, 96 and 128; any
-other head dim up to 128 through a zero-padded copy of q, k and v (the
-whole cache, every call: the slow route); over 128 the wide-head route at
-the next multiple of 128 (a padded copy unless the head dim is one).
+Head dims: instances for 64, 96 and 128 (``DECODE_HEAD_DIMS``); any other
+head dim up to 128 through a zero-padded copy of q, k and v (the whole
+cache, every call: the slow route); over 128 the wide-head route at the
+next multiple of 128 (``WIDE_CHUNK``; a padded copy unless the head dim is
+one). The flash kernels route head dims their own way
+(``flash_attention.kernel_route``).
 """
 from __future__ import annotations
 
@@ -27,12 +29,33 @@ import torch
 
 from . import _build
 from .attention import mha_reference
-from .flash_attention import (WIDE_CHUNK, _mask_arg, _strides, head_strides,
-                              kernel_head_dim, pad_head_dim, runs_on_kernel)
+from .flash_attention import _mask_arg, _strides, head_strides, pad_head_dim
 
+# head dims with a kernel instance; the plain version takes any
+DECODE_HEAD_DIMS = (64, 96, 128)
+# the column chunk of the wide-head route, which takes any multiple of it
+# over 128
+WIDE_CHUNK = 128
 TILE_KEYS = 64      # keys a tile of the kernel
 MAX_SPLITS = 8      # blocks a (b, h): one portable thread block cluster
 CARD_SMS = 132      # streaming multiprocessors of an H100 SXM
+
+
+def decode_head_dim(d: int) -> int:
+    """The head dim a head dim ``d`` runs at on the card: the smallest of
+    ``DECODE_HEAD_DIMS`` that holds it, or over 128 the next multiple of
+    ``WIDE_CHUNK`` (the wide-head route)."""
+    for dk in DECODE_HEAD_DIMS:
+        if d <= dk:
+            return dk
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def decode_runs_on_kernel(d: int) -> bool:
+    """Whether the kernel takes head dim ``d`` as it is: an instance, or
+    a multiple of ``WIDE_CHUNK`` over 128."""
+    return d in DECODE_HEAD_DIMS or (d > DECODE_HEAD_DIMS[-1]
+                                     and d % WIDE_CHUNK == 0)
 
 
 def decode_splits(b: int, h: int, s: int) -> int:
@@ -122,7 +145,7 @@ def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if sq != 1 or k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if not runs_on_kernel(d) or s < 1:
+    if not decode_runs_on_kernel(d) or s < 1:
         raise ValueError(f"head dim {d} / keys {s} not supported (head dims "
                          f"64, 96, 128 and multiples of {WIDE_CHUNK} above, "
                          f"at least one key)")
@@ -150,7 +173,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: expected a bf16 CUDA tensor, got "
                              f"{t.dtype} on {t.device}")
     d = q.shape[-1]
-    dk = kernel_head_dim(d)
+    dk = decode_head_dim(d)
     if dk != d:                       # padded
         out = decode_attention(*(pad_head_dim(t, dk) for t in (q, k, v)),
                                mask, sm_scale=sm_scale)

@@ -16,15 +16,15 @@ draws, so the kernels and the plain version agree entry for entry. Under a
 mesh, ``drop_shard`` = (b0, h0, hg) keys a shard's mask at its place in the
 global (B, hg, Sq, Sk) grid, where the single-card call would draw it.
 
-The kernels have one instance each for head dims 64, 96 and 128
-(``KERNEL_HEAD_DIMS``). Any other head dim up to 128 takes the next larger
+The kernels have one instance each for head dims 64, 96, 128, 192 and 256
+(``KERNEL_HEAD_DIMS``). Any other head dim up to 256 takes the next larger
 instance through a zero-padded copy of q, k and v made here (a slow route:
 one copy of each per call); the scale stays that of the true head dim and
-the output is sliced back, so the result is the same. A head dim over 128
-is padded so to the next multiple of 128 (``WIDE_CHUNK``), as the TPU
-kernels pad their lanes, and runs each kernel's wide-head route: one block
-per 128-column chunk of the output, the scores recomputed over the full
-head dim in every chunk's block.
+the output is sliced back, so the result is the same. A head dim over 256
+is padded so to the smallest multiple of 256 or of 192 that holds it (256
+where both do: ``CHUNK_WIDTHS``) and runs in chunks of that instance: one
+block per column chunk of the output, the scores recomputed over the full
+head dim in every chunk's block (``kernel_route``).
 
 On a CPU tensor it runs the plain version, ``flash_attention_reference``,
 whose gradient is plain autograd through ``mha_reference``. The kernels'
@@ -43,27 +43,35 @@ from .attention import attention_lse, mha_reference
 from .dropout import keep_threshold
 
 # head dims with a kernel instance; the plain version takes any
-KERNEL_HEAD_DIMS = (64, 96, 128)
-# the column chunk of the wide-head route, which takes any multiple of it
-# over 128
-WIDE_CHUNK = 128
+KERNEL_HEAD_DIMS = (64, 96, 128, 192, 256)
+# the chunk widths of the route over 256, the preferred first
+CHUNK_WIDTHS = (256, 192)
+
+
+def kernel_route(d: int):
+    """(instance, chunks) that head dim ``d`` runs as on the card: the
+    smallest of ``KERNEL_HEAD_DIMS`` that holds it, in one chunk; over 256
+    the smallest multiple of 256 or of 192 that holds it, 256 where both
+    do, in chunks of that instance. 160 -> (192, 1), 320 and 384 -> (192,
+    2), 512 -> (256, 2), 768 -> (256, 3)."""
+    for dk in KERNEL_HEAD_DIMS:
+        if d <= dk:
+            return dk, 1
+    padded, width = min((-(-d // w) * w, -w) for w in CHUNK_WIDTHS)
+    return -width, padded // -width
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim a head dim ``d`` runs at on the card: the smallest of
-    ``KERNEL_HEAD_DIMS`` that holds it, or over 128 the next multiple of
-    ``WIDE_CHUNK`` (the wide-head route)."""
-    for dk in KERNEL_HEAD_DIMS:
-        if d <= dk:
-            return dk
-    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+    """The head dim a head dim ``d`` runs at on the card: ``d`` padded to
+    its ``kernel_route``."""
+    width, chunks = kernel_route(d)
+    return width * chunks
 
 
 def runs_on_kernel(d: int) -> bool:
-    """Whether the kernels take head dim ``d`` as it is: an instance, or
-    a multiple of ``WIDE_CHUNK`` over 128."""
-    return d in KERNEL_HEAD_DIMS or (d > KERNEL_HEAD_DIMS[-1]
-                                     and d % WIDE_CHUNK == 0)
+    """Whether the kernels take head dim ``d`` as it is, with no padded
+    copy: an instance, or over 256 a multiple of 256 or of 192."""
+    return kernel_head_dim(d) == d
 
 
 def pad_head_dim(t: torch.Tensor, dk: int) -> torch.Tensor:
@@ -173,8 +181,9 @@ def _check_shapes(q, k, v, rate: float, shard=None):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if not runs_on_kernel(d):
         raise ValueError(f"head dim {d}: the kernels have instances for "
-                         f"{KERNEL_HEAD_DIMS} and multiples of {WIDE_CHUNK} "
-                         f"above (flash_attention pads other head dims)")
+                         f"{KERNEL_HEAD_DIMS} and, over 256, multiples of "
+                         f"{' or '.join(map(str, CHUNK_WIDTHS))} "
+                         f"(flash_attention pads other head dims)")
     # only the dropout hash takes the 32-bit flat (b, h, i, j) index, of the
     # global grid the shard sits in
     b0, h0, hg = shard or (0, 0, h)
@@ -261,9 +270,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, H, Sq, dh); k, v: (B, H, Sk, dh); key_padding_mask: (B, Sk) bool,
     True = attend. Any (b, h, s) strides are taken as they are. On CUDA, dh
-    64, 96 or 128 runs its kernel instance directly, any other dh <= 128
-    through a zero-padded copy, and dh > 128 the wide-head route (through a
-    zero-padded copy unless dh is a multiple of 128).
+    64, 96, 128, 192 or 256 runs its kernel instance directly, any other dh
+    <= 256 through a zero-padded copy, and dh > 256 in chunks of the 256 or
+    192 instance (through a zero-padded copy unless dh is a multiple of
+    one: ``kernel_route``).
     ``dropout_rate`` > 0 drops attention weights with the hash keep mask of
     ``seed``, at ``drop_shard`` = (b0, h0, hg) in the global grid (None: the
     call is the whole grid). Returns (B, H, Sq, dh) in q's dtype (on CUDA laid out as

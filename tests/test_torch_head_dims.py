@@ -88,16 +88,17 @@ def test_decode_head_dims_match_jax(d):
                                     (100, 128), (128, 128)])
 def test_kernel_head_dim_picks_the_next_instance(d, want):
     assert kernel_head_dim(d) == want
-    assert KERNEL_HEAD_DIMS == (64, 96, 128)
+    assert KERNEL_HEAD_DIMS == (64, 96, 128, 192, 256)
 
 
 def test_kernel_head_dim_over_128_raises():
-    """Over 128, ``kernel_head_dim`` once raised; it now gives the
-    wide-head route's head dim, the next multiple of 128. What still
-    raises is the kernels' own shape check on a head dim over 128 that is
-    not a multiple of 128: the wrappers pad such a head dim first."""
+    """Over 128, ``kernel_head_dim`` once raised; it now gives the flash
+    kernels' head dim: the 192 or 256 instance, over 256 the smallest
+    multiple of 256 or 192 (the chunked route). What still raises is K5's
+    own shape check on a head dim over 128 that is not a multiple of 128:
+    the wrappers pad such a head dim first."""
     assert [kernel_head_dim(d) for d in (129, 160, 192, 256, 384, 400)] == [
-        256, 256, 256, 256, 384, 512]
+        192, 192, 192, 256, 384, 512]
     q = torch.empty(2, 8, 1, 160, dtype=torch.bfloat16, device="meta")
     k = torch.empty(2, 8, 100, 160, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="128"):

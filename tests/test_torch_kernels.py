@@ -17,7 +17,8 @@ from sct_gan_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
 from sct_gan_tpu_torch.ops.dropout import dropout, dropout_reference
 from sct_gan_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_backward, flash_attention_reference)
+    _forward, flash_attention, flash_attention_backward,
+    flash_attention_reference)
 from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
 from sct_gan_tpu_torch.tools import time_dropout_kernel as k10
 from sct_gan_tpu_torch.tools import time_flash_parts as k7
@@ -313,10 +314,13 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, case):
         assert torch.equal(got.view(torch.int16), again.view(torch.int16))
 
 
-# head dims of the other kernel instances (64, 128), of the padded route
-# (80 runs the 128 instances on a zero-padded copy) and of the wide-head
-# route (192 padded to 256, 256, 384), with their heads
-HEAD_DIM_CASES = [(64, 12), (80, 8), (128, 6), (192, 4), (256, 3), (384, 2)]
+# head dims of the other kernel instances (64, 128, 192, 256), of the
+# padded route (80 runs the 128 instances on a zero-padded copy), and over
+# 256 of the flash kernels' chunked route (320 padded to 384, 384: two
+# chunks of the 192 instance), with their heads; K5 runs 192 to 384 on its
+# wide-head route
+HEAD_DIM_CASES = [(64, 12), (80, 8), (128, 6), (192, 4), (256, 3), (320, 2),
+                  (384, 2)]
 
 
 def _head_view(g, device, b, s, h, d, scale=1.0):
@@ -391,8 +395,9 @@ def test_decode_head_dims_match_plain_on_card(cuda_device, d, h, case):
 
 @pytest.mark.cuda
 def test_head_dim_over_128_raises_on_card(cuda_device):
-    """A head dim over 128 once raised on the card; it now runs the wide
-    route (160 on a copy padded to 256) and counts its launches."""
+    """A head dim over 128 once raised on the card; it now runs K1's 192
+    instance and K5's wide route on copies padded to 192 and 256, and
+    counts their launches."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn(1, 2, 8, 160, generator=g, device=cuda_device,
                     dtype=torch.bfloat16)
@@ -409,12 +414,13 @@ def test_head_dim_over_128_raises_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,h", [(192, 4), (256, 3), (384, 2)])
+@pytest.mark.parametrize("d,h", [(192, 4), (256, 3), (320, 2), (384, 2)])
 def test_wide_routes_take_the_concat_mask_on_card(cuda_device, d, h):
-    """The wide routes of K1 (dropout 0.3, LSE), the backward pair and K5
-    under ``encode_concat``'s key mask, whose rows have a hole in the
-    middle (the contract's padding, then the AST's tokens): the bounds of
-    the head-dim tests above."""
+    """K1 (dropout 0.3, LSE) and the backward pair at their 192 and 256
+    instances and chunked over 256, and K5's wide route, under
+    ``encode_concat``'s key mask, whose rows have a hole in the middle (the
+    contract's padding, then the AST's tokens): the bounds of the head-dim
+    tests above."""
     g = torch.Generator(device=cuda_device).manual_seed(d)
     s, half = 256, 128
     pos = torch.arange(half, device=cuda_device)[None, :]
@@ -444,6 +450,57 @@ def test_wide_routes_take_the_concat_mask_on_card(cuda_device, d, h):
         assert _rel_err(a, w) <= 1e-2
     assert (dec.float() - dec_want.float()).abs().max().item() <= 2 ** -5
     assert _rel_err(dec, dec_want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h", [(192, 4), (256, 3), (320, 2), (384, 2)])
+def test_wide_instances_take_shard_origins_and_long_keys_on_card(
+        cuda_device, d, h):
+    """K1 (dropout 0.3, LSE) and the backward pair at 192, 256 and chunked
+    over 256: at a shard origin (b0, h0, hg) = (1, 2, h + 3) of the
+    dropout grid, and at Sk = 2048 (the pair's K3/K4 role: several key
+    tiles a query row) under a key mask with an empty row; the bounds of
+    the head-dim tests above."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + 1)
+    cases = [(dict(drop_shard=(1, 2, h + 3), dropout_rate=0.3), 256, 384,
+              [[384], [200]]),
+             (dict(dropout_rate=0.0), 300, 2048, [[2041], [0]])]
+    for extra, sq, sk, lens in cases:
+        q = _head_view(g, cuda_device, 2, sq, h, d, 2.0).requires_grad_()
+        k, v = (_head_view(g, cuda_device, 2, sk, h, d).requires_grad_()
+                for _ in range(2))
+        mask = (torch.arange(sk, device=cuda_device)[None, :]
+                < torch.tensor(lens, device=cuda_device))
+        args = dict(key_padding_mask=mask, seed=5, return_lse=True, **extra)
+        got, lse = flash_attention(q, k, v, **args)
+        want, want_lse = flash_attention_reference(q, k, v, **args)
+        dout = torch.randn_like(got)
+        grads = torch.autograd.grad(got, (q, k, v), dout)
+        want_g = torch.autograd.grad(want, (q, k, v), dout)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= 2 ** -4
+        assert _rel_err(got, want) <= 1e-2
+        assert (lse - want_lse).abs().max().item() <= 1e-3
+        for a, w in zip(grads, want_g):
+            assert (a.float() - w.float()).abs().max().item() <= 2 ** -3
+            assert _rel_err(a, w) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [200, 320])
+def test_flash_refuses_a_head_dim_no_route_takes_on_card(cuda_device, d):
+    """Called directly, the kernels' wrappers raise on a head dim that is
+    neither an instance nor a multiple of 256 or 192 over 256 (the public
+    function pads it first), and nothing is launched."""
+    q = torch.zeros(1, 2, 64, d, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda_device)
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_backward(q, q, q, q, lse, q, None, False, 0.1, 0.0, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        _forward(q, q, q, None, False, 0.1, 0.0, 0, True, (0, 0, 2))
+    assert (flash_attention.launches,
+            flash_attention_backward.launches) == before
 
 
 def _bf16_steps(want, steps=2) -> float:

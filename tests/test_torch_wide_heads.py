@@ -1,13 +1,13 @@
-"""Head dims over 128 (the kernels' wide-head route) on the CPU, against the
-JAX package.
+"""Head dims over 128 on the CPU, against the JAX package.
 
 The wrappers' CPU routes (their plain versions) at head dims 192, 256 and
 384 against JAX's Pallas flash kernel, which pads any head dim to a
 multiple of 128 lanes, and its decode kernel, both in interpret mode, with
 the tolerance of ``test_torch_head_dims.py`` (1e-5 in f32: the same math
-summed in another order); the wrapper's head-dim dispatch; and a tiny
-model with one 256-wide head against JAX's detection (1e-4, the analyzer
-tests' bar).
+summed in another order); the wrappers' head-dim routing (the flash
+kernels' 192 and 256 instances and chunks of them over 256, K5's wide-head
+route in 128-column chunks); and a tiny model with one 256-wide head
+against JAX's detection (1e-4, the analyzer tests' bar).
 """
 import jax
 import jax.numpy as jnp
@@ -25,11 +25,12 @@ from sct_gan_tpu.ops.flash_attention import \
 from sct_gan_tpu_torch import SmartContractAnalyzer, convert_flax_params
 from sct_gan_tpu_torch.config import ModelConfig
 from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
-from sct_gan_tpu_torch.ops.decode_attention import (decode_attention,
-                                                    decode_layout)
+from sct_gan_tpu_torch.ops.decode_attention import (
+    WIDE_CHUNK, decode_attention, decode_head_dim, decode_layout,
+    decode_runs_on_kernel)
 from sct_gan_tpu_torch.ops.flash_attention import (
-    WIDE_CHUNK, flash_attention, flash_attention_reference, kernel_head_dim,
-    pad_head_dim, runs_on_kernel)
+    _check_shapes, flash_attention, flash_attention_reference,
+    kernel_head_dim, kernel_route, pad_head_dim, runs_on_kernel)
 from test_torch_head_dims import TOL, _qkv
 from test_torch_model import flax_params
 
@@ -81,30 +82,68 @@ def test_decode_wide_head_dims_match_jax(d):
     assert np.all(got.numpy()[1] == 0.0)
 
 
-@pytest.mark.parametrize("d,want", [(129, 256), (192, 256), (256, 256),
+@pytest.mark.parametrize("d,want", [(129, 192), (192, 192), (256, 256),
                                     (320, 384), (384, 384), (768, 768)])
 def test_kernel_head_dim_takes_the_wide_route(d, want):
-    """No head dim raises: over 128 the wrappers pad to the next multiple
-    of 128, which the kernels' shape check takes."""
+    """No head dim raises: the wrappers pad to the flash kernels' head dim
+    (an instance up to 256, a multiple of 256 or 192 above), which their
+    shape check takes, and K5 to its own (the next multiple of 128 over
+    128), which its shape check takes."""
     assert kernel_head_dim(d) == want and runs_on_kernel(want)
     assert runs_on_kernel(d) == (d == want)
     q = torch.empty(2, 3, 1, want, dtype=torch.bfloat16, device="meta")
     k = torch.empty(2, 3, 50, want, dtype=torch.bfloat16, device="meta")
-    assert decode_layout(q, k, k)[1] == (3 * 50 * want, 50 * want, want)
+    assert _check_shapes(q, k, k, 0.0)[4] == want
+    dw = decode_head_dim(d)
+    q = torch.empty(2, 3, 1, dw, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(2, 3, 50, dw, dtype=torch.bfloat16, device="meta")
+    assert decode_layout(q, k, k)[1] == (3 * 50 * dw, 50 * dw, dw)
 
 
-@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("d,route", [(160, (192, 1)), (192, (192, 1)),
+                                     (224, (256, 1)), (256, (256, 1)),
+                                     (320, (192, 2)), (384, (192, 2)),
+                                     (512, (256, 2))])
+def test_flash_routes_wide_head_dims_to_instances_and_chunks(d, route):
+    """Up to 256 the next instance in one chunk; over 256 the smallest
+    multiple of 256 or 192 that holds the head dim, 256 where both do."""
+    assert kernel_route(d) == route
+    assert kernel_head_dim(d) == route[0] * route[1]
+
+
+@pytest.mark.parametrize("d,want", [(160, 256), (192, 256), (224, 256),
+                                    (256, 256), (320, 384), (384, 384),
+                                    (512, 512)])
+def test_decode_keeps_its_128_column_route(d, want):
+    """K5 routes as before the flash kernels' 192 and 256 instances: the
+    next multiple of 128, run in 128-column chunks."""
+    assert decode_head_dim(d) == want and want % WIDE_CHUNK == 0
+    assert decode_runs_on_kernel(want) and decode_runs_on_kernel(d) == (
+        d == want)
+
+
+@pytest.mark.parametrize("d", [200, 320, 448])
+def test_a_head_dim_no_route_takes_raises(d):
+    """The kernels' shape check refuses a head dim that is neither an
+    instance nor a multiple of 256 or 192 over 256; nothing falls back."""
+    q = torch.empty(2, 3, 8, d, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="head dim"):
+        _check_shapes(q, q, q, 0.0)
+
+
+@pytest.mark.parametrize("d", [160, 192, 224, 320])
 def test_wide_padded_route_gives_the_unpadded_result(d):
-    """A wide head dim that is not a multiple of 128 goes through a copy
-    padded with zero columns; with the true head dim's scale and the
-    output sliced back, the result and the gradients are the unpadded
-    ones."""
+    """A wide head dim that is neither an instance nor a multiple of 256
+    or 192 goes through a copy padded with zero columns (192 is its own
+    instance, so its copy adds none); with the true head dim's scale and
+    the output sliced back, the result and the gradients are the
+    unpadded ones."""
     q, k, v, mask = _qkv(d, seed=4, sq=16, sk=24)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     tmask = torch.from_numpy(mask)
     want = flash_attention_reference(tq, tk, tv, key_padding_mask=tmask)
     dk = kernel_head_dim(d)
-    assert dk % WIDE_CHUNK == 0 and dk > d
+    assert dk == {160: 192, 192: 192, 224: 256, 320: 384}[d]
     got = flash_attention_reference(
         *(pad_head_dim(t, dk) for t in (tq, tk, tv)), key_padding_mask=tmask,
         sm_scale=d ** -0.5)[..., :d]
