@@ -11,11 +11,14 @@ forward (with dropout and LSE) and backward, the single-query decode
 attention (split-K, at the edges of its tiles and splits) and the hash
 dropout; the backward's and the decode attention's two runs must give the
 same bits. The flash forward, the backward pair and the decode attention
-are held so at each head-dim instance (64, 96, 128; the flash kernels'
-192 and 256), on the padded route (head dim 80) and over 128 (the flash
-kernels' chunked route at 384 and 320, the decode attention's wide-head
-route at 192, 256, 384 and 320), also under ``encode_concat``'s key mask
-with its hole. It holds every mode of the kernel-timing tools'
+are held so at each head-dim instance (64, 96, 128, 192, and 256 for the
+flash kernels), at head dims between them (the flash kernels' padded
+route at 80; the decode attention in place on a wider instance at 80 and
+160, with no padded copy) and over them (the flash kernels' chunked route
+at 384 and 320; the decode attention's wide-head route, in place, at 224,
+256, 320 and 384), also under
+``encode_concat``'s key mask with its hole. It holds every mode of the
+kernel-timing tools'
 kernels (K7-K10, ``sct_gan_tpu_torch/tools``) against its plain version at
 the tools' shapes, then runs the four tools' ``time_modes`` (their main
 path), counting launches. Then it drives the paths of the port at full
@@ -46,8 +49,10 @@ ran through its kernels:
   * the other head dims (``heads``): ModelConfig(nhead=12) (head dim 64),
     ModelConfig(nhead=6) (128), ModelConfig(nhead=4) (192),
     ModelConfig(nhead=3) (256) and ModelConfig(nhead=2) (384), depth cut to
-    2+2 layers: one detection forward, one train step and 16 generation
-    steps each;
+    2+2 layers (nhead=4: 2+6, so that generation launches the decode
+    attention's 192 instance 12 times a step): one detection forward, one
+    train step and 16 generation steps each, with no padded copy in the
+    decode attention;
   * the TASC variants (``tasc``) at ``TASCConfig()`` width (d=768, 8 heads
     of 96, 6+6 layers, decoder vocab 50000, L=512; CodeBERT 12 layers of
     12 heads of 64; bf16 compute), binary and multiclass, built by
@@ -242,10 +247,11 @@ def phase_build():
 
 # the kernels whose ptxas report must show no spill (their designs' budgets
 # allow none): the flash forward (every instance, chunked too), the backward
-# pair (its mma.sync and wgmma instances), the decode attention with its
-# wide-head route
+# pair (its mma.sync and wgmma instances), the decode attention (every
+# instance; the 192 one, by its mangled name, must be in the report) with
+# its wide-head route
 NO_SPILL = ("flash_fwd_kernel", "flash_bwd_", "decode_splitk_kernel",
-            "decode_wide_kernel")
+            "decode_splitk_kernelILi192E", "decode_wide_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -478,41 +484,54 @@ def phase_kernels():
 
 # The head dims of the kernels' other instances, each with the heads that
 # make it at d=768 (ModelConfig(nhead=12) and ModelConfig(nhead=6)), and a
-# head dim without an instance (the padded route to 128), held at 8 heads.
+# head dim without an instance (the flash kernels' padded route to 128; K5
+# runs it in place on its 96 instance), held at 8 heads.
 HEAD_DIMS = {64: 12, 128: 6}
 PADDED_DIM = 80
 # Head dims over 128, with their heads at d=768: ModelConfig(nhead=4)
 # (192), nhead=3 (256) and nhead=2 (384). K1 and the pair run 192 and 256
-# on instances of their own and 384 in two chunks of the 192 instance (the
-# chunked route, ``<name>_wide``); K5 runs all three on its wide-head route.
-# A ``_wide`` entry of the kernels line carries one head dim's times at its
-# top level (``wide_top``) and every head dim's beside them.
+# on instances of their own and over 256 chunks of their 192 instance (the
+# chunked route); K5 runs 192 on its instance and over 192 its wide-head
+# route. Both routes are named ``<name>_wide``. A ``_wide`` entry of the
+# kernels line carries 384's times at its top level (``WIDE_TOP``) and
+# every head dim's beside them.
 WIDE_DIMS = {192: 4, 256: 3, 384: 2}
-# a head dim the chunked route takes on a padded copy (320 runs as 384)
+WIDE_TOP = 384
+# a head dim the flash kernels' chunked route takes on a padded copy (320
+# runs as 384); K5's wide-head route takes it in place
 CHUNK_PADDED_DIM = 320
 # the wide head dims the heads phase runs as models
 WIDE_MODELS = (192, 256, 384)
+# head dims K5 runs in place where its route is wider (80 on 96, 160 on
+# 192, 224 in two chunks of the wide-head route), with their heads; the
+# kernels line gives their errors beside the route's, as ``tail_dh<d>``
+# on an instance and under ``head_dims`` on the wide-head route
+DECODE_TAILS = {80: 8, 160: 4, 224: 3}
+# the widest head dim K5 runs on an instance of its own
+DECODE_TOP = 192
+# the heads phase runs ModelConfig(nhead=4)'s decoder at the reference's
+# depth, so its 16 decode steps launch K5's 192 instance 12 times a step
+FULL_DECODER_DIM = 192
 
 
 def instance(kernel: str, d: int) -> str:
     """The kernels line's name of ``kernel``'s head-dim-``d`` instance (96
-    keeps the bare name). Over 128 K5's is its wide route; K1's and the
-    pair's are 192 and 256, and over 256 their chunked route."""
-    if d > 128 and (kernel == "decode_attention" or d > 256):
+    keeps the bare name); over 256 (K5: over 192) the route in chunks,
+    ``<kernel>_wide``."""
+    if d > (DECODE_TOP if kernel == "decode_attention" else 256):
         return f"{kernel}_wide"
     return kernel if d == 96 else f"{kernel}_dh{d}"
-
-
-def wide_top(kernel: str) -> int:
-    """The head dim whose times stand at the top of ``kernel``'s ``_wide``
-    entry: 256 for K5, 384 (the chunked route) for K1 and the pair."""
-    return 256 if kernel == "decode_attention" else 384
 
 
 def err_key(kernel: str, d: int) -> str:
     """Where ``phase_head_kernels`` keeps the worst errors of ``kernel`` at
     head dim ``d``: the instance's name, ``<name>_dh128:padded80`` for the
-    padded route and ``<name>_wide:dh<d>`` on a wide route."""
+    flash kernels' padded route, ``<instance>:tail<d>`` for K5 in place on
+    a wider instance and ``<name>_wide:dh<d>`` on a route in chunks."""
+    from sct_gan_tpu_torch.ops.decode_attention import decode_route
+    if (kernel == "decode_attention" and d in DECODE_TAILS
+            and d <= DECODE_TOP):
+        return f"{instance(kernel, decode_route(d)[0])}:tail{d}"
     if d == PADDED_DIM:
         return f"{kernel}_dh128:padded{d}"
     name = instance(kernel, d)
@@ -532,16 +551,24 @@ def concat_mask(dev, b: int = 8, s: int = 1024):
 
 
 def phase_head_kernels():
-    """K1, the K2-K4 pair and K5 at head dims 64 and 128 (their
-    instances), 80 (the padded route, which runs the 128 instances), 192
-    and 256 (K1's and the pair's instances, K5's wide route) and 384 and
-    320 (their chunked route, 320 on a copy padded to 384) against their
-    plain versions at full width, H * d = 768 (640 at 320): (8, H, 1024, d)
-    for the flash kernels, (2, H, 1024, d), (8, H, 1024, d) and (64, H,
-    1024, d) for K5; every head dim also under ``encode_concat``'s mask
-    with its hole, and over 128 K1 and the pair also at Sk = 2048 under a
-    shard origin of the dropout grid. Returns the worst errors by
-    ``err_key``, and each wide route's worst under its name."""
+    """K1, the K2-K4 pair and K5 against their plain versions at full
+    width, H * d = 768 (640 or 672 where d does not divide 768): the flash
+    kernels at (8, H, 1024, d), K5 at (2, H, 1024, d), (8, H, 1024, d) and
+    (64, H, 1024, d), every head dim also under ``encode_concat``'s mask
+    with its hole.
+
+    * K1 and the pair at head dims 64, 128, 192 and 256 (their instances),
+      80 (their padded route, which runs the 128 instances) and 384 and 320
+      (their chunked route, 320 on a copy padded to 384); over 128 also at
+      Sk = 2048 under a shard origin of the dropout grid.
+    * K5 at its instances 64, 128 and 192, in place on a wider instance
+      at 80 and 160, and in place on its wide-head route at 224, 256, 384
+      and 320. At 192 two runs must give the same bits, and at every head
+      dim the call at B=64 must allocate nothing on the card but its
+      output: no padded copy.
+
+    Returns the worst errors by ``err_key``, and each wide route's worst
+    under its name."""
     import torch
     from sct_gan_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
@@ -563,13 +590,16 @@ def phase_head_kernels():
             wa, wr = errs.get(instance(kernel, d), (0.0, 0.0))
             errs[instance(kernel, d)] = (max(a, wa), max(r, wr))
 
-    for d, h in [*HEAD_DIMS.items(), (PADDED_DIM, 8), *WIDE_DIMS.items(),
-                 (CHUNK_PADDED_DIM, 2)]:
-        scale = d ** -0.5
-
+    def heads_rnd(h, d):
         def rnd(b, s, sd=1.0):
             x = torch.randn(b, s, h * d, generator=g, device=dev) * sd
             return _heads(x.to(torch.bfloat16), h)
+        return rnd
+
+    for d, h in [*HEAD_DIMS.items(), (PADDED_DIM, 8), *WIDE_DIMS.items(),
+                 (CHUNK_PADDED_DIM, 2)]:
+        scale = d ** -0.5
+        rnd = heads_rnd(h, d)
 
         def fwd(name, sq, sk, causal, mask, rate=0.0, shard=None, b=8):
             q, k, v = rnd(b, sq, 2.0), rnd(b, sk), rnd(b, sk)
@@ -620,6 +650,11 @@ def phase_head_kernels():
                 run("Sk=2048, key mask, shard origin (1, 1, H+2), dropout 0.3",
                     300, 2048, False, long, 0.3, (1, 1, h + 2), 4)
 
+    for d, h in [*HEAD_DIMS.items(), *DECODE_TAILS.items(),
+                 *WIDE_DIMS.items(), (CHUNK_PADDED_DIM, 2)]:
+        scale = d ** -0.5
+        rnd = heads_rnd(h, d)
+
         def dec(name, b, k, v, mask):
             q = rnd(b, 1, 2.0)
             got = decode_attention(q, k, v, mask, sm_scale=scale)
@@ -642,11 +677,40 @@ def phase_head_kernels():
             dec(f"self step pos={pos}", 2, cache[0, :, :, :pos + 1],
                 cache[1, :, :, :pos + 1], None)
         lens64 = torch.randint(1, 1025, (64, 1), generator=g, device=dev)
-        dec("B=64 (1 split), ragged src mask", 64, rnd(64, 1024),
-            rnd(64, 1024), torch.arange(1024, device=dev)[None, :] < lens64)
+        k64, v64 = rnd(64, 1024), rnd(64, 1024)
+        dec("B=64 (1 split), ragged src mask", 64, k64, v64,
+            torch.arange(1024, device=dev)[None, :] < lens64)
         dec("B=8, padded tails", 8, rnd(8, 1024), rnd(8, 1024), pad_mask)
         dec("B=8, encode_concat mask (a hole)", 8, rnd(8, 1024),
             rnd(8, 1024), hole)
+        if d == 192:                # the split-order combine, bit for bit
+            q = rnd(2, 1, 2.0)
+            runs = [decode_attention(q, mk, mv, src, sm_scale=scale)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            same = torch.equal(runs[0].view(torch.int16),
+                               runs[1].view(torch.int16))
+            print(f"  decode_attention_dh192 determinism, two runs of the "
+                  f"cross case: bit-identical {same}", flush=True)
+            if not same:
+                raise AssertionError("K5 d=192: two runs differ")
+        # no padded copy at any head dim: only o is new
+        q, every = rnd(64, 1, 2.0), torch.ones(64, 1024, dtype=torch.bool,
+                                               device=dev)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = decode_attention(q, k64, v64, every, sm_scale=scale)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - before
+        out_bytes = -(-got.numel() * got.element_size() // 512) * 512
+        print(f"  decode_attention d={d} at {tuple(k64.shape)}: the "
+              f"call allocated {grown} bytes, its output {out_bytes}",
+              flush=True)
+        if grown > out_bytes:
+            raise AssertionError(f"K5 d={d}: {grown} bytes allocated, "
+                                 f"more than the output's {out_bytes}")
+        del cache, k64, v64
     print("phase head kernels: worst max_abs_err / rel_err " + ", ".join(
         f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items()), flush=True)
     return errs
@@ -1394,12 +1458,16 @@ def phase_evals(an) -> dict:
 
 def phase_heads() -> dict:
     """ModelConfig(nhead=12) (head dim 64), ModelConfig(nhead=6) (head dim
-    128), ModelConfig(nhead=4) (192) and ModelConfig(nhead=3) (256) (K1's
-    and the pair's instances, K5's wide route) and ModelConfig(nhead=2)
-    (384: their chunked route) at full width (d=768, L=1024, B=8), depth
-    cut to 2+2 layers: one detection forward, one train step and 16
-    generation steps each, the counts read around each. Returns the
-    launches by instance name (K5's wide route summed over its three)."""
+    128), ModelConfig(nhead=4) (192) and ModelConfig(nhead=3) (256) (every
+    kernel's instances, but K5 runs 256 on its wide-head route) and
+    ModelConfig(nhead=2) (384: the flash kernels' chunked route, K5's
+    wide-head route) at full width (d=768, L=1024,
+    B=8), depth cut to 2+2 layers (nhead=4: 2+6, the reference's decoder,
+    so that its 16 decode steps launch K5's 192 instance 12 times a
+    step): one detection forward, one train step and 16 generation steps
+    each, the counts read around each. The decode steps must make no
+    padded copy (``pad_head_dim`` is counted around them). Returns the
+    launches by instance name."""
     import numpy as np
     import torch
     from sct_gan_tpu_torch import (SmartContractAnalyzer,
@@ -1408,13 +1476,16 @@ def phase_heads() -> dict:
     from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
     from sct_gan_tpu_torch.data.synthetic import generate_corpus
     from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.ops import decode_attention as k5
     codes = [r["source_code"] for r in generate_corpus(n=8, seed=0)]
     launches = {}
     models = [*HEAD_DIMS.items(), *((d, WIDE_DIMS[d]) for d in WIDE_MODELS)]
+    enc = 2
     for d, h in models:
+        dec = 6 if d == FULL_DECODER_DIM else 2
         cfg = ModelConfig(use_gan=True, max_length=1024, max_lines=1024,
-                          nhead=h, num_encoder_layers=2,
-                          num_decoder_layers=2)
+                          nhead=h, num_encoder_layers=enc,
+                          num_decoder_layers=dec)
         tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
         an = SmartContractAnalyzer(model_config=cfg, tokenizer=tok, seed=0,
                                    verbose=False)
@@ -1446,27 +1517,40 @@ def phase_heads() -> dict:
             caches = model.init_decode_cache(2)
             cross = model.precompute_cross_kv(memory)
             tokens = b["input_ids"][:, :16]
-            reset_counts()
-            for pos in range(16):
-                logits = model.decode_step(tokens[:, pos:pos + 1], pos,
-                                           caches, cross, src)
-            torch.cuda.synchronize()
-            c_gen = read_counts()
-        # 2+2 layers: detection 2 encoder + AST/cross 2 + line heads 2 = 6
-        # flash forwards; a train step 2 + 4 decoder + 2 + 2 + 1 = 11
-        # forward and backward; 16 steps x 2 layers x (self + cross) = 64
-        # decode calls
-        ok = (c_det["flash_attention_fwd"] == 6
-              and c_train["flash_attention_fwd"] == 11
-              and c_train["flash_attention_bwd"] == 11
-              and c_train["dropout"] > 0 and c_gen["decode_attention"] == 64
+            copies, pad = [], k5.pad_head_dim
+
+            def counted(t, dk):     # the wrapper's padded copy, counted
+                copies.append(dk)
+                return pad(t, dk)
+            k5.pad_head_dim = counted
+            try:
+                reset_counts()
+                for pos in range(16):
+                    logits = model.decode_step(tokens[:, pos:pos + 1], pos,
+                                               caches, cross, src)
+                torch.cuda.synchronize()
+                c_gen = read_counts()
+            finally:
+                k5.pad_head_dim = pad
+        # detection: enc encoder + AST/cross 2 + line heads 2 flash
+        # forwards; a train step: enc + 2 x dec decoder (self + cross) + 2
+        # + 2 + 1 forward and backward; 16 steps x dec layers x (self +
+        # cross) decode calls, each on K5's decode_route(d) with no copy
+        ok = (c_det["flash_attention_fwd"] == enc + 4
+              and c_train["flash_attention_fwd"] == enc + 2 * dec + 5
+              and c_train["flash_attention_bwd"] == enc + 2 * dec + 5
+              and c_train["dropout"] > 0
+              and c_gen["decode_attention"] == 16 * 2 * dec and not copies
               and np.isfinite(cp).all() and math.isfinite(loss)
               and bool(torch.isfinite(logits).all()))
-        print(f"phase heads: ModelConfig(nhead={h}), head dim {d}, 2+2 "
-              f"layers at d=768 L=1024 B=8: detection launches {c_det}, "
-              f"contract probs [{cp.min():.4f}, {cp.max():.4f}]; train step "
-              f"launches {c_train}, total_loss {loss:.4f}; 16 decode steps "
-              f"at B=2 launches {c_gen}", flush=True)
+        print(f"phase heads: ModelConfig(nhead={h}), head dim {d}, "
+              f"{enc}+{dec} layers at d=768 L=1024 B=8: detection launches "
+              f"{c_det}, contract probs [{cp.min():.4f}, {cp.max():.4f}]; "
+              f"train step launches {c_train}, total_loss {loss:.4f}; 16 "
+              f"decode steps at B=2 launches {c_gen} "
+              f"({c_gen['decode_attention'] // 16} a step on K5's "
+              f"{k5.decode_route(d)}, padded copies {len(copies)})",
+              flush=True)
         if not ok:
             raise AssertionError(f"heads d={d}: launches or outputs wrong")
         for kernel in KERNELS:
@@ -2572,7 +2656,8 @@ def sdpa_backward_ms(q, k, v, mask, dout, scale: float) -> float:
 
 
 def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
-    """K5's ``h`` x ``d`` instance at the generation path's shapes, each
+    """K5 at head dim ``d`` with ``h`` heads (its instance, in place on a
+    wider one, or its wide-head route) at the generation path's shapes, each
     against its plain version, SDPA and its bound; prints a line each.
     Returns label -> (ms, plain ms, SDPA ms, bound ms, bound by); the first
     row is the kernels line's.
@@ -2617,7 +2702,7 @@ def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
                            (2 * h * keys * d + 2 * b * h * d) * bf
                            + (0 if mask is None else b * s))
         rows[label] = (ms, plain, lib, bnd, by)
-        print(f"phase times [{card}]: {instance('decode_attention', d)} "
+        print(f"phase times [{card}]: {err_key('decode_attention', d)} "
               f"{label}, {keys} attended (b, key) pairs: {ms:.4f} ms "
               f"({ms / bnd:.2f}x the bound) vs plain {plain:.4f} ms, library "
               f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
@@ -2724,17 +2809,19 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
 
 
 def head_dim_times(card: str) -> dict:
-    """The 64, 128, 192 and 256 instances of K1 and the pair, their
-    chunked route at 384, and K5's 64 and 128 instances and wide route at
-    192, 256 and 384, at the shapes of ``flash_times`` and
-    ``decode_times``: the kernels line's (ms, plain, library, bound, bound
-    by) by instance name, a wide route's under ``<name>:dh<d>``; K5's first
-    row is (2, H, 1024, d)."""
+    """The 64, 128, 192 and 256 head dims of every kernel (K5 runs 256 on
+    its wide-head route), the routes over 256 at 384 (K1's and the pair's
+    chunked route, K5's wide-head route), and K5 at 80 in place on its 96
+    instance, at the shapes of
+    ``flash_times`` and ``decode_times``: the kernels line's (ms, plain,
+    library, bound, bound by) by ``err_key``. K5's row is (2, H, 1024, d),
+    and its (64, H, 1024, d) row stands under ``<key>:b64``."""
     t = {}
-    for d, h in [*HEAD_DIMS.items(), *WIDE_DIMS.items()]:
-        rows = flash_times(card, h, d)
-        rows[instance("decode_attention", d)] = next(iter(
-            decode_times(card, h, d).values()))
+    for d, h in [*HEAD_DIMS.items(), *WIDE_DIMS.items(), (PADDED_DIM, 8)]:
+        rows = {} if d == PADDED_DIM else flash_times(card, h, d)
+        b2, b64 = list(decode_times(card, h, d).values())[:2]
+        rows[err_key("decode_attention", d)] = b2
+        rows[err_key("decode_attention", d) + ":b64"] = b64
         for name, row in rows.items():
             t[name + (f":dh{d}" if name.endswith("_wide") else "")] = row
     return t
@@ -2777,7 +2864,8 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
     print(f"phase times [{card}]: dropout {ms:.4f} ms vs plain {plain:.4f} "
           f"ms, library {libms:.4f} ms, bound {bnd:.4f} ms ({by})",
           flush=True)
-    t["decode_attention"] = next(iter(decode_times(card).values()))
+    t["decode_attention"], t["decode_attention:b64"] = list(
+        decode_times(card).values())[:2]
 
     # the backward at Sk = 2048, where the TPU runs its K3/K4 pair
     b2, s2 = 4, 2048
@@ -2946,9 +3034,8 @@ def main() -> int:
         for d in ((96, *HEAD_DIMS, *WIDE_DIMS) if k != "dropout" else (96,))))
     for kernel, name in names:
         source, replaces = KERNELS[kernel]
-        ms, plain, libms, bnd, by = t[name + (f":dh{wide_top(kernel)}"
-                                              if name.endswith("_wide")
-                                              else "")]
+        key = name + (f":dh{WIDE_TOP}" if name.endswith("_wide") else "")
+        ms, plain, libms, bnd, by = t[key]
         if name == kernel:          # head dim 96: every path of the model
             launches = sum(p[name] for p in (
                 serve_launches, beam_launches, analyzer_launches,
@@ -2973,19 +3060,33 @@ def main() -> int:
         if padded is not None:      # the padded route runs this instance
             entry[f"padded_dh{PADDED_DIM}_max_abs_err"] = padded[0]
             entry[f"padded_dh{PADDED_DIM}_max_rel_err"] = padded[1]
-        if name.endswith("_wide"):  # the top level is wide_top's head dim
-            entry["head_dim"] = wide_top(kernel)
+        def times(row):
+            ms, plain, libms, bnd, by = row
+            return dict(ms=ms, plain_ms=plain, library_ms=libms,
+                        bound_ms=bnd, bound_by=by)
+        if f"{key}:b64" in t:       # K5 at (64, H, 1024, d), every key
+            entry["b64"] = times(t[f"{key}:b64"])
+        for d in DECODE_TAILS:      # K5 in place on this instance
+            if f"{name}:tail{d}" in errs:
+                a, r = errs[f"{name}:tail{d}"]
+                tail = entry[f"tail_dh{d}"] = {"max_abs_err": a,
+                                               "max_rel_err": r}
+                if f"{name}:tail{d}" in t:
+                    tail.update(times(t[f"{name}:tail{d}"]))
+                    tail["b64"] = times(t[f"{name}:tail{d}:b64"])
+        if name.endswith("_wide"):  # the top level is WIDE_TOP's head dim
+            entry["head_dim"] = WIDE_TOP
             entry["head_dims"] = {}
-            for d in (*WIDE_DIMS, CHUNK_PADDED_DIM):
+            for d in sorted({*WIDE_DIMS, *DECODE_TAILS, CHUNK_PADDED_DIM}):
                 if f"{name}:dh{d}" not in errs:
                     continue
                 a, r = errs[f"{name}:dh{d}"]
                 row = entry["head_dims"][str(d)] = {
                     "max_abs_err": a, "max_rel_err": r}
-                if f"{name}:dh{d}" in t:      # 320 is held, not timed
-                    ms, plain, libms, bnd, by = t[f"{name}:dh{d}"]
-                    row.update(ms=ms, plain_ms=plain, library_ms=libms,
-                               bound_ms=bnd, bound_by=by)
+                if f"{name}:dh{d}" in t:      # 224 and 320 are held, not timed
+                    row.update(times(t[f"{name}:dh{d}"]))
+                if f"{name}:dh{d}:b64" in t:  # K5 at (64, H, 1024, d)
+                    row["b64"] = times(t[f"{name}:dh{d}:b64"])
         kernels.append(entry)
     kernels += variants
     print(card)

@@ -35,12 +35,19 @@
 //   (coalesced, one vote a half tile) and walks the live tiles only. All
 //   warps read the same bytes, so they agree without a barrier. A split with
 //   no attended key reads no K or V and leaves m = -inf, l = 0.
-// * Head dims: one instance each for D = 64, 96 and 128 (DecodeShape
-//   below; the wrapper pads any other D <= 128 to the next one). A row is
-//   D / 8 16-byte units (8, 12 or 16); a block has 16 threads for each
-//   unit of a row: 128, 192 or 256 threads. A head dim over 128, padded by
-//   the wrapper to a multiple of 128, runs the wide-head route at the end
-//   of this file (decode_wide_kernel).
+// * Head dims: one instance each for D = 64, 96, 128 and 192 (DecodeShape
+//   below). A row is D / 8 16-byte units (8, 12, 16 or 24); a block has 16
+//   threads for each unit of a row: 128 to 384 threads. Any head dim dh <=
+//   192 that is a multiple of 8 runs in place on the smallest instance
+//   that holds it (80 on 96, 160 on 192): the copies of units at or past
+//   dh / 8 are predicated off and zero-fill their place in the ring, q's
+//   tail is zero in sq, and o is written only for its dh columns. That is
+//   the arithmetic of a zero-padded copy without the copy. The tail is a
+//   template flag (TAIL), so an instance at its own head dim runs the code
+//   it ran before tails existed. A head dim over 192, any multiple of 8,
+//   runs the wide-head route at the end of this file (decode_wide_kernel),
+//   in place the same way (the wrapper pads a head dim that is not a
+//   multiple of 8).
 // * Scores: thread t takes key t % 64 of the tile and the part t / 64 of
 //   the head dim (4 units; that part of q, pre-scaled, in f32 registers);
 //   the D / 32 partial dots meet in shared memory. Bank conflicts: the 8
@@ -53,7 +60,9 @@
 //   starts in bank group 0 and a part has only 4 units, so no rotation can
 //   spread 8 rows: instead the tile itself is stored swizzled, unit u of
 //   row j at unit u ^ (j % 8) of that row (the copies write it so), and
-//   the 8 rows of a quarter warp read 8 distinct bank groups.
+//   the 8 rows of a quarter warp read 8 distinct bank groups. At D = 192
+//   (384-byte rows) the same holds, and the swizzle keeps a unit inside its
+//   group of 8, so it never leaves the row.
 // * Online softmax across the split's tiles (warp 0 keeps the running m
 //   and l in f32, base-2 exponents), then p V on the CUDA cores: thread t
 //   owns the 16-byte unit t % (D / 8) of the head dim for keys
@@ -79,6 +88,20 @@
 // chip_smoke.py fails on a spill). D = 64: 48 KB, 128 threads, 4 blocks
 // an SM; D = 128: 96 KB, 256 threads, 2 blocks an SM; both at most 128
 // registers.
+//
+// D = 192 keeps the design whole: one block holds its split's whole row,
+// so each split reads its K and V rows once. 144 KB dynamic (3 x 2 x 64 x
+// 384 bytes) and 3456 bytes static, 384 threads. One block fits an SM
+// (227 KB), so __launch_bounds__(384, 1) leaves ptxas up to 168 registers
+// a thread (it uses 106; 64 / 96 / 128: 108 / 96 / 96), no spill. Two
+// tiles of 48 KB are in flight while a third is computed, four times the
+// ~25 KB an SM needs in flight for its share of 3.35 TB/s. Two blocks an
+// SM would need a 2-stage ring (96 KB) and at most 80 registers a thread.
+// The split count keeps the rule of the other instances.
+//
+// No instance at D = 256: one measured on an H100 (512 threads, a 192 KB
+// ring, one block an SM) lost 7-12% to the wide-head route below, which
+// runs two 256-thread blocks an SM (PERF.md §6); 256 stays on that route.
 //
 // Semantics (the JAX kernel's): masked keys get -inf; a fully-masked row
 // gives zeros; any S >= 1.
@@ -109,7 +132,8 @@ struct DecodeShape {
   static constexpr int TILE_ELEMS = TILE * D;
   static constexpr int SMEM_BYTES = STAGES * 2 * TILE_ELEMS * 2;
   static constexpr bool SWIZZLE = UNITS % 8 == 0;       // see the header
-  static constexpr int MIN_BLOCKS = D == 64 ? 4 : D == 96 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = D == 64 ? 4 : D == 96 ? 3 : D == 128 ? 2 : 1;
+  static_assert(D <= 192, "past 192 the wide-head route");
   static_assert(PARTS * PART_UNITS == UNITS, "whole parts");
   static_assert(SLOTS * UNITS == NTHREADS && TILE % SLOTS == 0, "p V slots");
   static_assert(SLOTS * D * 4 <= SMEM_BYTES, "the slots' sums reuse the ring");
@@ -178,12 +202,13 @@ struct LiveTiles {
 };
 
 // Start copying the K and V rows of `tile` into ring stage `st` (K then V):
-// 16 bytes a copy, 4 of K and 4 of V a thread; rows past S are
-// zero-filled; unit u of a row lands at unit_at(row, u).
-template <int D>
+// 16 bytes a copy, 4 of K and 4 of V a thread; rows past S, and with TAIL
+// the units past the true head dim dh, are zero-filled; unit u of a row
+// lands at unit_at(row, u).
+template <int D, bool TAIL>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* st, const __nv_bfloat16* kb,
                                           const __nv_bfloat16* vb, int k_ss, int v_ss,
-                                          int tile, int S) {
+                                          int tile, int S, int dh) {
   using Shape = DecodeShape<D>;
   constexpr int UNITS = Shape::UNITS, NTHREADS = Shape::NTHREADS;
   static_assert(TILE * UNITS == 4 * NTHREADS, "4 copies a thread");
@@ -192,19 +217,22 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* st, const __nv_bfloat16
     const int c = threadIdx.x + i * NTHREADS;
     const int row = c / UNITS, unit = c % UNITS;
     const int key = tile * TILE + row;
-    const bool valid = key < S;
-    const size_t r = valid ? key : 0;
+    const bool valid = key < S && (!TAIL || unit < dh / 8);
+    const size_t r = valid ? key : 0;          // a zero-fill reads nothing:
+    const int u = TAIL && !valid ? 0 : unit;   // point it at a unit of row 0
     const int at = row * D + unit_at<D>(row, unit) * 8;
-    hopper::cp_async_16(st + at, kb + r * k_ss + unit * 8, valid);
-    hopper::cp_async_16(st + Shape::TILE_ELEMS + at, vb + r * v_ss + unit * 8, valid);
+    hopper::cp_async_16(st + at, kb + r * k_ss + u * 8, valid);
+    hopper::cp_async_16(st + Shape::TILE_ELEMS + at, vb + r * v_ss + u * 8, valid);
   }
 }
 
-template <int D>
+// TAIL: the true head dim dh is under D (a multiple of 8); without it dh
+// is D and every predicate on it folds away.
+template <int D, bool TAIL>
 __global__ void __launch_bounds__(DecodeShape<D>::NTHREADS, DecodeShape<D>::MIN_BLOCKS)
 decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                     __nv_bfloat16* __restrict__ o, int S, int q_sb, int q_sh,
+                     __nv_bfloat16* __restrict__ o, int S, int dh_arg, int q_sb, int q_sh,
                      int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
                      int o_sb, int o_sh, int mask_sb, float scale_log2) {
   using Shape = DecodeShape<D>;
@@ -222,6 +250,7 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dh = TAIL ? dh_arg : D;
   const __nv_bfloat16* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
   const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
   const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
@@ -234,15 +263,17 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   // the split's first two live tiles start loading before anything else
   LiveTiles live{mb, t_end, S, t_begin - 32, 0u};
   int cur = live.next(t_begin);
-  if (cur < t_end) load_tile<D>(ring, kb, vb, k_ss, v_ss, cur, S);
+  if (cur < t_end) load_tile<D, TAIL>(ring, kb, vb, k_ss, v_ss, cur, S, dh);
   hopper::cp_async_commit();
   int nxt = live.next(cur + 1);
-  if (nxt < t_end) load_tile<D>(ring + 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, nxt, S);
+  if (nxt < t_end) load_tile<D, TAIL>(ring + 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, nxt, S, dh);
   hopper::cp_async_commit();
   int ahead = live.next(nxt + 1);
 
-  if (tid < D / 2) {
-    const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(qb)[tid]);
+  if (tid < D / 2) {                        // q's tail past dh is zero
+    const float2 f = !TAIL || 2 * tid < dh
+        ? __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(qb)[tid])
+        : make_float2(0.f, 0.f);
     sq[2 * tid] = f.x * scale_log2;
     sq[2 * tid + 1] = f.y * scale_log2;
   }
@@ -268,7 +299,8 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     hopper::cp_async_wait<STAGES - 2>();
     __syncthreads();              // tile i has landed; stage (i + 2) % 3 is free
     if (ahead < t_end)
-      load_tile<D>(ring + ((i + 2) % STAGES) * 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, ahead, S);
+      load_tile<D, TAIL>(ring + ((i + 2) % STAGES) * 2 * TILE_ELEMS, kb, vb, k_ss, v_ss, ahead,
+                         S, dh);
     hopper::cp_async_commit();
     const __nv_bfloat16* kt = ring + (i % STAGES) * 2 * TILE_ELEMS;
     const __nv_bfloat16* vt = kt + TILE_ELEMS;
@@ -356,8 +388,8 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int r = 0; r < SLOTS; ++r) od += slots[r * D + tid];
   }
   __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh;
-  if (nsplit == 1) {
-    if (tid < D) {
+  if (nsplit == 1) {                // o is written for its dh columns only
+    if (tid < dh) {
       const float l = split_ml[1];
       ob[tid] = __float2bfloat16(l > 0.f ? od / l : 0.f);
     }
@@ -366,7 +398,7 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   if (tid < D) split_o[tid] = od;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                 // every split's (m, l, o) is in place
-  if (cluster.block_rank() == 0 && tid < D) {
+  if (cluster.block_rank() == 0 && tid < dh) {
     float mr[MAX_SPLITS], lr[MAX_SPLITS], orr[MAX_SPLITS];
 #pragma unroll
     for (int r = 0; r < MAX_SPLITS; ++r) {
@@ -396,17 +428,18 @@ decode_splitk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
-           int H, int S, int q_sb, int q_sh, int k_sb, int k_sh, int k_ss, int v_sb,
+           int H, int S, int dh, int q_sb, int q_sh, int k_sb, int k_sh, int k_ss, int v_sb,
            int v_sh, int v_ss, int o_sb, int o_sh, int mask_sb, int splits, float scale,
            cudaStream_t stream) {
   using Shape = DecodeShape<D>;
-  static bool configured = false;           // above 48 KB needs an opt-in
-  if (!configured) {
+  const bool tail = dh < D;
+  const auto kernel = tail ? decode_splitk_kernel<D, true> : decode_splitk_kernel<D, false>;
+  static bool configured[2] = {false, false};   // above 48 KB needs an opt-in
+  if (!configured[tail]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_splitk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Shape::SMEM_BYTES);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
+    configured[tail] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, H, B);
@@ -421,19 +454,20 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, decode_splitk_kernel<D>, static_cast<const __nv_bfloat16*>(q),
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o), S, q_sb, q_sh,
+      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o), S, dh, q_sb, q_sh,
       k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, scale * LOG2E);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the wide-head route: D > 128, a multiple of 128 ----------------------
+// ---- the wide-head route: D > 192, a multiple of 8 -------------------------
 //
-// The instances stage whole K and V rows; past D = 128 three stages of them
-// outgrow shared memory (384: 288 KB). This route cuts o's head dim into
-// 128-column chunks: grid (splits, H, B x nchunk), one cluster of `splits`
+// The instances stage whole K and V rows; past D = 256 three stages of them
+// outgrow shared memory (384: 288 KB), and at 256 one block an SM lost to
+// this route. It cuts o's head dim dh into nchunk = ceil(dh / 128) chunks
+// of 128 columns: grid (splits, H, B x nchunk), one cluster of `splits`
 // blocks per (b, h, chunk c), combined as above. Each block computes the
 // scores over the full row, one 128-column K slab at a time, and
 // accumulates only V's chunk c:
@@ -446,7 +480,10 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 // of row j at u ^ (j % 8): a 256-byte row starts in bank group 0); 256
 // threads, the 128 instance's score and p V layouts. q, pre-scaled, lives
 // in shared memory (D f32) and each thread reads its part of the current
-// chunk. Any multiple of 128 runs with the same ring.
+// chunk. Any multiple of 8 runs with the same ring: as in the instances
+// (and under the same TAIL flag, set when dh is not a multiple of 128),
+// the copies of units at or past dh / 8 zero-fill their place, q's tail is
+// zero in sq, and the last chunk writes only its columns under dh.
 //
 // Bound: the bytes, as the instances': each attended key's K and V rows
 // once. The route reads each K row once per chunk (nchunk times in all),
@@ -468,29 +505,35 @@ struct WideItem {
 };
 
 // Start copying the slab of `item` into ring stage `st`, swizzled; rows
-// past S are zero-filled.
+// past S, and with TAIL units past the head dim's `units`, are zero-filled.
+template <bool TAIL>
 __device__ __forceinline__ void load_wide_slab(__nv_bfloat16* st, const __nv_bfloat16* kb,
                                                const __nv_bfloat16* vb, int k_ss, int v_ss,
-                                               WideItem item, int nchunk, int c, int S) {
+                                               WideItem item, int nchunk, int c, int S,
+                                               int units) {
   const bool is_k = item.s < nchunk;
-  const __nv_bfloat16* src = (is_k ? kb : vb) + (is_k ? item.s : c) * WIDE_COLS;
+  const int chunk = is_k ? item.s : c;
+  const __nv_bfloat16* src = (is_k ? kb : vb) + chunk * WIDE_COLS;
   const int ss = is_k ? k_ss : v_ss;
 #pragma unroll
   for (int i = 0; i < TILE * WIDE_UNITS / WIDE_THREADS; ++i) {
     const int idx = threadIdx.x + i * WIDE_THREADS;
     const int row = idx / WIDE_UNITS, unit = idx % WIDE_UNITS;
     const int key = item.tile * TILE + row;
-    const bool valid = key < S;
-    const size_t r = valid ? key : 0;
+    const bool valid = key < S && (!TAIL || chunk * WIDE_UNITS + unit < units);
+    const size_t r = valid ? key : 0;          // a zero-fill reads nothing:
+    const int u = TAIL && !valid ? 0 : unit;   // point it at the chunk's row 0
     hopper::cp_async_16(st + row * WIDE_COLS + (unit ^ (row & 7)) * 8,
-                        src + r * ss + unit * 8, valid);
+                        src + r * ss + u * 8, valid);
   }
 }
 
+template <bool TAIL>
 __global__ void __launch_bounds__(WIDE_THREADS, 2)
 decode_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                   __nv_bfloat16* __restrict__ o, int S, int nchunk, int q_sb, int q_sh,
+                   __nv_bfloat16* __restrict__ o, int S, int dh_arg, int nchunk, int q_sb,
+                   int q_sh,
                    int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb,
                    int o_sh, int mask_sb, float scale_log2) {
   extern __shared__ __align__(128) uint8_t smem[];
@@ -505,6 +548,7 @@ decode_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int h = blockIdx.y, b = blockIdx.z / nchunk, c = blockIdx.z % nchunk;
   const int D = nchunk * WIDE_COLS;
+  const int dh = TAIL ? dh_arg : D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const __nv_bfloat16* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
   const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
@@ -522,7 +566,7 @@ decode_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   };
   auto issue = [&](WideItem it, int st) {
     if (it.tile < t_end)
-      load_wide_slab(ring + st * WIDE_SLAB, kb, vb, k_ss, v_ss, it, nchunk, c, S);
+      load_wide_slab<TAIL>(ring + st * WIDE_SLAB, kb, vb, k_ss, v_ss, it, nchunk, c, S, dh / 8);
     hopper::cp_async_commit();
   };
   // the split's first two items start loading before anything else
@@ -532,8 +576,10 @@ decode_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   issue(nxt, 1);
   WideItem ahead = advance(nxt);
 
-  for (int i = tid; i < D / 2; i += WIDE_THREADS) {
-    const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(qb)[i]);
+  for (int i = tid; i < D / 2; i += WIDE_THREADS) {   // q's tail past dh is zero
+    const float2 f = !TAIL || 2 * i < dh
+        ? __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(qb)[i])
+        : make_float2(0.f, 0.f);
     sq[2 * i] = f.x * scale_log2;
     sq[2 * i + 1] = f.y * scale_log2;
   }
@@ -632,8 +678,9 @@ decode_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     for (int r = 0; r < WIDE_SLOTS; ++r) od += slots[r * WIDE_COLS + tid];
   }
   __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh + c * WIDE_COLS;
+  const int cols = TAIL ? min(WIDE_COLS, dh - c * WIDE_COLS) : WIDE_COLS;   // o's, in chunk c
   if (nsplit == 1) {
-    if (tid < WIDE_COLS) {
+    if (tid < cols) {
       const float l = split_ml[1];
       ob[tid] = __float2bfloat16(l > 0.f ? od / l : 0.f);
     }
@@ -642,7 +689,7 @@ decode_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   if (tid < WIDE_COLS) split_o[tid] = od;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                 // every split's (m, l, o) is in place
-  if (cluster.block_rank() == 0 && tid < WIDE_COLS) {
+  if (cluster.block_rank() == 0 && tid < cols) {
     float mr[MAX_SPLITS], lr[MAX_SPLITS], orr[MAX_SPLITS];
 #pragma unroll
     for (int r = 0; r < MAX_SPLITS; ++r) {
@@ -674,15 +721,17 @@ int launch_wide(const void* q, const void* k, const void* v, const void* mask, v
                 int B, int H, int S, int Dh, int q_sb, int q_sh, int k_sb, int k_sh,
                 int k_ss, int v_sb, int v_sh, int v_ss, int o_sb, int o_sh, int mask_sb,
                 int splits, float scale, cudaStream_t stream) {
-  const int nchunk = Dh / WIDE_COLS;
+  const int nchunk = (Dh + WIDE_COLS - 1) / WIDE_COLS;
   if ((long long)B * nchunk > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = WIDE_RING_BYTES + Dh * 4;
-  static int configured = 0;                // above 48 KB needs an opt-in
-  if (smem > configured) {
+  const int smem = WIDE_RING_BYTES + nchunk * WIDE_COLS * 4;
+  const bool tail = Dh % WIDE_COLS != 0;
+  const auto kernel = tail ? decode_wide_kernel<true> : decode_wide_kernel<false>;
+  static int configured[2] = {0, 0};        // above 48 KB needs an opt-in
+  if (smem > configured[tail]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
+    configured[tail] = smem;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, H, B * nchunk);
@@ -697,19 +746,20 @@ int launch_wide(const void* q, const void* k, const void* v, const void* mask, v
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, decode_wide_kernel, static_cast<const __nv_bfloat16*>(q),
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o), S, nchunk, q_sb,
-      q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, scale * LOG2E);
+      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(o), S, Dh, nchunk,
+      q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, scale * LOG2E);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o: bf16 (B, H, 1, Dh); k, v: bf16 (B, H, S, Dh), Dh 64, 96 or 128 (one
-// instance each) or a multiple of 128 above (the wide-head route, B x Dh /
-// 128 at most 65535); each with element strides (sb, sh, ss) and the last
+// q, o: bf16 (B, H, 1, Dh); k, v: bf16 (B, H, S, Dh), Dh a multiple of 8.
+// Up to 192 it runs on the smallest instance of 64, 96, 128 and 192 that
+// holds it; above, the wide-head route (B x ceil(Dh / 128) at most
+// 65535). Each with element strides (sb, sh, ss) and the last
 // dimension contiguous (the q/o sequence strides are unused); q and o on
 // 4-byte lines, k and v rows on 16-byte lines. mask: (B, S) uint8 (nonzero
 // = attend) with row stride mask_sb, or null for "all S keys visible".
@@ -723,20 +773,16 @@ extern "C" int decode_attention_bf16(
   (void)q_ss;
   (void)o_ss;
   if (S < 1 || B < 1 || B > 65535 || H < 1 || H > 65535 || splits < 1 ||
-      splits > MAX_SPLITS || splits > (S + TILE - 1) / TILE)
+      splits > MAX_SPLITS || splits > (S + TILE - 1) / TILE || Dh < 8 || Dh % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DECODE_ARGS q, k, v, mask, o, B, H, S, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, \
+#define DECODE_ARGS q, k, v, mask, o, B, H, S, Dh, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, \
     v_ss, o_sb, o_sh, mask_sb, splits, scale, st
-  switch (Dh) {
-    case 64: return launch<64>(DECODE_ARGS);
-    case 96: return launch<96>(DECODE_ARGS);
-    case 128: return launch<128>(DECODE_ARGS);
-    default:
-      if (Dh > 128 && Dh % WIDE_COLS == 0)   // the wide-head route
-        return launch_wide(q, k, v, mask, o, B, H, S, Dh, q_sb, q_sh, k_sb, k_sh, k_ss,
-                           v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, splits, scale, st);
-      return static_cast<int>(cudaErrorInvalidValue);   // no instance
-  }
+  if (Dh <= 64) return launch<64>(DECODE_ARGS);
+  if (Dh <= 96) return launch<96>(DECODE_ARGS);
+  if (Dh <= 128) return launch<128>(DECODE_ARGS);
+  if (Dh <= 192) return launch<192>(DECODE_ARGS);
 #undef DECODE_ARGS
+  return launch_wide(q, k, v, mask, o, B, H, S, Dh, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh,
+                     v_ss, o_sb, o_sh, mask_sb, splits, scale, st);   // the wide-head route
 }

@@ -12,11 +12,15 @@ replaces the JAX loop's ``cache_chunk`` re-slicing, which exists only to
 bound reads under static shapes; the numbers are the same, because keys
 past ``pos`` are masked there.
 
-Head dims: instances for 64, 96 and 128 (``DECODE_HEAD_DIMS``); any other
-head dim up to 128 through a zero-padded copy of q, k and v (the whole
-cache, every call: the slow route); over 128 the wide-head route at the
-next multiple of 128 (``WIDE_CHUNK``; a padded copy unless the head dim is
-one). The flash kernels route head dims their own way
+Head dims (``decode_route``): instances for 64, 96, 128 and 192
+(``DECODE_HEAD_DIMS``); over 192 the wide-head route, in chunks of
+``WIDE_CHUNK`` columns. Any head dim that is a multiple of 8 runs in place:
+on the smallest instance that holds it (80 on 96, 160 on 192), or on the
+wide-head route's chunks (224, 256, 320 and 384 in 2 or 3 chunks, the last
+one part full). The kernel zero-fills the missing columns in shared memory
+and writes only the true ones. A head dim that is not a multiple of 8 goes
+through a copy zero-padded to its route's head dim, since its rows are not
+whole 16-byte units. The flash kernels route head dims their own way
 (``flash_attention.kernel_route``).
 """
 from __future__ import annotations
@@ -32,37 +36,53 @@ from .attention import mha_reference
 from .flash_attention import _mask_arg, _strides, head_strides, pad_head_dim
 
 # head dims with a kernel instance; the plain version takes any
-DECODE_HEAD_DIMS = (64, 96, 128)
-# the column chunk of the wide-head route, which takes any multiple of it
-# over 128
+DECODE_HEAD_DIMS = (64, 96, 128, 192)
+# the column chunk of the wide-head route, which takes any head dim over
+# 192 (a multiple of 8) in as many chunks as hold it
 WIDE_CHUNK = 128
+UNIT = 8            # bf16 elements of the kernel's 16-byte copies
 TILE_KEYS = 64      # keys a tile of the kernel
 MAX_SPLITS = 8      # blocks a (b, h): one portable thread block cluster
 CARD_SMS = 132      # streaming multiprocessors of an H100 SXM
 
 
-def decode_head_dim(d: int) -> int:
-    """The head dim a head dim ``d`` runs at on the card: the smallest of
-    ``DECODE_HEAD_DIMS`` that holds it, or over 128 the next multiple of
-    ``WIDE_CHUNK`` (the wide-head route)."""
+def decode_route(d: int) -> Tuple[int, int]:
+    """(instance, chunks) that head dim ``d`` runs as on the card: the
+    smallest of ``DECODE_HEAD_DIMS`` that holds it, in one chunk; over 192
+    the wide-head route, ``WIDE_CHUNK``-column chunks enough to hold it.
+    80 -> (96, 1), 160 -> (192, 1), 224 and 256 -> (128, 2), 320 and 384
+    -> (128, 3), 512 -> (128, 4)."""
     for dk in DECODE_HEAD_DIMS:
         if d <= dk:
-            return dk
-    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+            return dk, 1
+    return WIDE_CHUNK, -(-d // WIDE_CHUNK)
+
+
+def decode_head_dim(d: int) -> int:
+    """The head dim the kernel computes at for head dim ``d``: its
+    ``decode_route``'s instance times chunks."""
+    width, chunks = decode_route(d)
+    return width * chunks
 
 
 def decode_runs_on_kernel(d: int) -> bool:
-    """Whether the kernel takes head dim ``d`` as it is: an instance, or
-    a multiple of ``WIDE_CHUNK`` over 128."""
-    return d in DECODE_HEAD_DIMS or (d > DECODE_HEAD_DIMS[-1]
-                                     and d % WIDE_CHUNK == 0)
+    """Whether the kernel takes head dim ``d`` as it is, with no padded
+    copy: rows of whole 16-byte units (``d`` a multiple of 8), on an
+    instance or on the wide-head route's chunks."""
+    return d % UNIT == 0
 
 
 def decode_splits(b: int, h: int, s: int) -> int:
     """Blocks that share the keys of one (b, h): enough that B * H * splits
     fills one wave of the card's SMs, at most ``MAX_SPLITS`` (the cluster
     that combines them) and at most the 64-key tiles of S, so that no split
-    is empty. 8 at (2, 8, 1024), 1 from B * H = 132 up."""
+    is empty. 8 at (2, 8, 1024), 1 from B * H = 132 up.
+
+    One rule for every route. The 192 instance fits one block an SM where
+    the others fit 2 to 4, so a count past one wave waits for a whole
+    split; but at every shape timed on the card the most splits within one
+    wave is the same count as this rule's, and forcing 2 or 3 splits at
+    B = 64 was slower than 1."""
     tiles = -(-s // TILE_KEYS)
     return max(1, min(MAX_SPLITS, tiles, -(-CARD_SMS // (b * h))))
 
@@ -135,11 +155,12 @@ def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
 
 def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Check the shapes and layouts the kernel takes and return the (sb,
-    sh, ss) strides of q, k and v: one query, any S >= 1, a head dim with
-    a kernel instance or a multiple of 128 over 128 (the wide-head route);
-    k and v rows on 16-byte lines (the kernel's 16-byte copies), q on
-    4-byte lines. It reads only shapes, strides and base addresses, so it
-    holds for a tensor on any device."""
+    sh, ss) strides of q, k and v: one query, any S >= 1, a head dim the
+    kernel takes as it is (``decode_runs_on_kernel``: a multiple of 8; any
+    other head dim has rows that are not whole 16-byte units, and the
+    wrapper hands the kernel a padded copy); k and v rows on 16-byte lines (the kernel's 16-byte copies), q
+    on 4-byte lines. It reads only shapes, strides and base addresses, so
+    it holds for a tensor on any device."""
     b, h, sq, d = q.shape
     s = k.shape[2]
     if sq != 1 or k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
@@ -147,8 +168,7 @@ def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if not decode_runs_on_kernel(d) or s < 1:
         raise ValueError(f"head dim {d} / keys {s} not supported (head dims "
-                         f"64, 96, 128 and multiples of {WIDE_CHUNK} above, "
-                         f"at least one key)")
+                         f"that are multiples of {UNIT}, at least one key)")
     return (head_strides(q, "q", 4), head_strides(k, "k", 16),
             head_strides(v, "v", 16))
 
@@ -161,10 +181,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, H, 1, dh); k, v: (B, H, S, dh), any (b, h, s) strides with rows
     on 16-byte lines; mask: (B, S) bool, True = attend, or None for all S
     keys visible. Returns (B, H, 1, dh) in q's dtype. A fully-masked row
-    gives zeros. On CUDA, dh 64, 96 or 128 runs its kernel instance, any
-    other dh <= 128 a zero-padded copy, and dh > 128 the wide-head route
-    (one block per 128 columns of the output; a padded copy unless dh is a
-    multiple of 128).
+    gives zeros. On CUDA (``decode_route``), a dh up to 192 runs on the
+    smallest kernel instance that holds it, a dh over 192 on the wide-head
+    route (one block per 128 columns of the output); a multiple of 8 in
+    place, any other dh on a copy padded to its route's head dim.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, mask, sm_scale=sm_scale)
@@ -173,10 +193,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: expected a bf16 CUDA tensor, got "
                              f"{t.dtype} on {t.device}")
     d = q.shape[-1]
-    dk = decode_head_dim(d)
-    if dk != d:                       # padded
-        out = decode_attention(*(pad_head_dim(t, dk) for t in (q, k, v)),
-                               mask, sm_scale=sm_scale)
+    if not decode_runs_on_kernel(d):  # rows of part 16-byte units
+        out = decode_attention(
+            *(pad_head_dim(t, decode_head_dim(d)) for t in (q, k, v)), mask,
+            sm_scale=sm_scale)
         return out[..., :d]
     qs, ks, vs = decode_layout(q, k, v)
     b, h, _, d = q.shape
@@ -185,11 +205,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     os_ = _strides(out, "out", 4)
     mptr, msb, _keep = _mask_arg(mask, b, s, q.device)
     # the wide-head route runs a cluster of splits per 128-column chunk
-    chunks = d // WIDE_CHUNK if d > WIDE_CHUNK else 1
+    _, chunks = decode_route(d)
     err = _build.load().decode_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
-        b, h, s, d, *qs, *ks, *vs, *os_, msb, decode_splits(b * chunks, h, s),
-        ctypes.c_float(sm_scale),
+        b, h, s, d, *qs, *ks, *vs, *os_, msb,
+        decode_splits(b * chunks, h, s), ctypes.c_float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_bf16")
     decode_attention.launches += 1

@@ -23,6 +23,15 @@ def _nucleus_remove(sorted_logits: torch.Tensor, p: float) -> torch.Tensor:
     return remove
 
 
+def top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the k largest logits of each row (and any tied with the k-th),
+    set the rest to -1e30; k <= 0 or k >= the vocab keeps all."""
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits >= kth, logits, _NEG_INF)
+
+
 def top_p_filter(logits: torch.Tensor, p: float) -> torch.Tensor:
     """Nucleus filtering over the full vocab (tokens removed → -1e30)."""
     if p >= 1.0:
@@ -68,6 +77,23 @@ def sample_top_k_top_p(logits: torch.Tensor, top_k: int = 50,
     if idx is None:
         return choice[:, 0]
     return torch.gather(idx, -1, choice)[:, 0]
+
+
+def sample_categorical(logits: torch.Tensor, temperature: float = 1.0,
+                       top_k: int = 0, top_p: float = 1.0,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """One token per row of (..., V) logits: scaled by 1 / temperature,
+    filtered by ``top_k_top_p_filter``, then drawn from the softmax. The
+    JAX function takes its key first; here the ``torch.Generator`` comes
+    last, as in ``sample_top_k_top_p``, and draws other numbers than a JAX
+    key of the same seed. Returns int64 indices of shape (...)."""
+    if temperature != 1.0:
+        logits = logits / temperature
+    logits = top_k_top_p_filter(logits, top_k, top_p)
+    probs = torch.softmax(logits.float().reshape(-1, logits.shape[-1]), -1)
+    choice = torch.multinomial(probs, 1, generator=generator)
+    return choice.reshape(logits.shape[:-1])
 
 
 def penalize_repetition(logits: torch.Tensor, prev_token: torch.Tensor,

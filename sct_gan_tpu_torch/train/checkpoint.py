@@ -109,6 +109,11 @@ class AsyncSaver:
         self._inflight = False
         self._log = log or (lambda *a, **k: None)
 
+    def busy(self) -> bool:
+        """Whether a save is being written or waits to be."""
+        with self._cond:
+            return self._inflight or bool(self._pending)
+
     def _start_worker(self) -> None:
         # called with the lock held
         if self._thread is None or not self._thread.is_alive():

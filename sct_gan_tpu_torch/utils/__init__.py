@@ -5,6 +5,10 @@ from typing import Union
 
 import torch
 
+from .profiling import MetricsLogger, StepTimer, trace_context
+
+__all__ = ["MetricsLogger", "StepTimer", "resolve_device", "trace_context"]
+
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """The device an entry point runs on. The card is the default; a CUDA

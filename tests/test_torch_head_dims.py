@@ -94,14 +94,21 @@ def test_kernel_head_dim_picks_the_next_instance(d, want):
 def test_kernel_head_dim_over_128_raises():
     """Over 128, ``kernel_head_dim`` once raised; it now gives the flash
     kernels' head dim: the 192 or 256 instance, over 256 the smallest
-    multiple of 256 or 192 (the chunked route). What still raises is K5's
-    own shape check on a head dim over 128 that is not a multiple of 128:
-    the wrappers pad such a head dim first."""
+    multiple of 256 or 192 (the chunked route). K5's own shape check takes
+    160 (its 192 instance) and 320 (its wide-head route) in place; what it
+    still refuses is a head dim that is not a multiple of 8: the wrapper
+    pads such a head dim first."""
     assert [kernel_head_dim(d) for d in (129, 160, 192, 256, 384, 400)] == [
         192, 192, 192, 256, 384, 512]
     q = torch.empty(2, 8, 1, 160, dtype=torch.bfloat16, device="meta")
     k = torch.empty(2, 8, 100, 160, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="128"):
+    assert decode_layout(q, k, k)[1] == (8 * 100 * 160, 100 * 160, 160)
+    q = torch.empty(2, 8, 1, 320, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(2, 8, 100, 320, dtype=torch.bfloat16, device="meta")
+    assert decode_layout(q, k, k)[1] == (8 * 100 * 320, 100 * 320, 320)
+    q = torch.empty(2, 8, 1, 300, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(2, 8, 100, 300, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="multiples of 8"):
         decode_layout(q, k, k)
 
 

@@ -315,12 +315,13 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, case):
 
 
 # head dims of the other kernel instances (64, 128, 192, 256), of the
-# padded route (80 runs the 128 instances on a zero-padded copy), and over
-# 256 of the flash kernels' chunked route (320 padded to 384, 384: two
-# chunks of the 192 instance), with their heads; K5 runs 192 to 384 on its
-# wide-head route
-HEAD_DIM_CASES = [(64, 12), (80, 8), (128, 6), (192, 4), (256, 3), (320, 2),
-                  (384, 2)]
+# flash kernels' padded route (80 runs their 128 instances on a
+# zero-padded copy, 160 their 192 and 224 their 256), and over 256 of the
+# flash kernels' chunked route (320 padded to 384, 384: two chunks of the
+# 192 instance), with their heads. K5 runs 80 and 160 in place on its 96
+# and 192 instances, and 224 to 384 in place on its wide-head route
+HEAD_DIM_CASES = [(64, 12), (80, 8), (128, 6), (160, 4), (192, 4), (224, 3),
+                  (256, 3), (320, 2), (384, 2)]
 
 
 def _head_view(g, device, b, s, h, d, scale=1.0):
@@ -366,9 +367,10 @@ def test_flash_head_dims_match_plain_on_card(cuda_device, d, h, causal):
                                   "b64_cross"])
 @pytest.mark.parametrize("d,h", HEAD_DIM_CASES)
 def test_decode_head_dims_match_plain_on_card(cuda_device, d, h, case):
-    """K5 at each head-dim instance (64 and 128 store their tiles
-    swizzled) and on the padded route: the bounds of the head-dim-96
-    test."""
+    """K5 at each head-dim instance (64, 128 and 192 store their tiles
+    swizzled), at head dims it runs in place on a wider instance (80, 160)
+    and on its wide-head route (224 and 320 with a part chunk, 256, 384): the
+    bounds of the head-dim-96 test."""
     b, s, layout, kind = DECODE_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q = torch.randn(b, h, 1, d, generator=g, device=cuda_device,
@@ -395,8 +397,8 @@ def test_decode_head_dims_match_plain_on_card(cuda_device, d, h, case):
 
 @pytest.mark.cuda
 def test_head_dim_over_128_raises_on_card(cuda_device):
-    """A head dim over 128 once raised on the card; it now runs K1's 192
-    instance and K5's wide route on copies padded to 192 and 256, and
+    """A head dim over 128 once raised on the card; 160 now runs K1's 192
+    instance on a copy padded to 192 and K5's 192 instance in place, and
     counts their launches."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn(1, 2, 8, 160, generator=g, device=cuda_device,
@@ -413,11 +415,58 @@ def test_head_dim_over_128_raises_on_card(cuda_device):
     assert (dec.float() - want.float()).abs().max().item() <= 2 ** -6
 
 
+# K5's shapes with no padded copy: (B, H, S, d) at B=64, every key
+# attended; 192 is ModelConfig(nhead=4)'s decode batch
+IN_PLACE_CASES = [(64, 4, 1024, 192), (64, 8, 1024, 80), (64, 4, 1024, 160),
+                  (64, 3, 1024, 224), (64, 3, 1024, 256), (64, 2, 1024, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,d", IN_PLACE_CASES)
+def test_decode_makes_no_padded_copy_on_card(cuda_device, b, h, s, d):
+    """K5 on its 192 instance, in place on a wider instance at 80 and 160,
+    and on its wide-head route at 224, 256 and 320, allocates nothing on
+    the card but its output (the key mask is
+    read in place): no padded copy of q, K or V. It still matches the plain
+    version within the head-dim tests' bounds."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = _head_view(g, cuda_device, b, 1, h, d, 2.0)
+    k, v = (_head_view(g, cuda_device, b, s, h, d) for _ in range(2))
+    mask = torch.ones(b, s, dtype=torch.bool, device=cuda_device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    out_bytes = -(-got.numel() * got.element_size() // 512) * 512
+    assert grown <= out_bytes, (grown, out_bytes)
+    want = decode_attention_reference(q, k, v, mask, sm_scale=d ** -0.5)
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -6
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_decode_192_gives_the_same_bits_twice_on_card(cuda_device):
+    """K5's 192 instance at B=2 (8 splits, combined in split order in one
+    cluster) gives the same bits on two runs."""
+    g = torch.Generator(device=cuda_device).manual_seed(192)
+    mask = (torch.arange(1024, device=cuda_device)[None, :]
+            < torch.tensor([[874], [750]], device=cuda_device))
+    q = _head_view(g, cuda_device, 2, 1, 4, 192, 2.0)
+    k, v = (_head_view(g, cuda_device, 2, 1024, 4, 192) for _ in range(2))
+    runs = [decode_attention(q, k, v, mask, sm_scale=192 ** -0.5)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h", [(192, 4), (256, 3), (320, 2), (384, 2)])
 def test_wide_routes_take_the_concat_mask_on_card(cuda_device, d, h):
     """K1 (dropout 0.3, LSE) and the backward pair at their 192 and 256
-    instances and chunked over 256, and K5's wide route, under
+    instances and chunked over 256, and K5 at its 192 instance and on its
+    wide-head route, under
     ``encode_concat``'s key mask, whose rows have a hole in the middle (the
     contract's padding, then the AST's tokens): the bounds of the head-dim
     tests above."""

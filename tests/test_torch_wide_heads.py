@@ -5,8 +5,9 @@ The wrappers' CPU routes (their plain versions) at head dims 192, 256 and
 multiple of 128 lanes, and its decode kernel, both in interpret mode, with
 the tolerance of ``test_torch_head_dims.py`` (1e-5 in f32: the same math
 summed in another order); the wrappers' head-dim routing (the flash
-kernels' 192 and 256 instances and chunks of them over 256, K5's wide-head
-route in 128-column chunks); and a tiny model with one 256-wide head
+kernels' 192 and 256 instances and chunks of them over 256, K5's 192
+instance and its wide-head route in 128-column chunks over 192); and
+a tiny model with one 256-wide head
 against JAX's detection (1e-4, the analyzer tests' bar).
 """
 import jax
@@ -87,14 +88,16 @@ def test_decode_wide_head_dims_match_jax(d):
 def test_kernel_head_dim_takes_the_wide_route(d, want):
     """No head dim raises: the wrappers pad to the flash kernels' head dim
     (an instance up to 256, a multiple of 256 or 192 above), which their
-    shape check takes, and K5 to its own (the next multiple of 128 over
-    128), which its shape check takes."""
+    shape check takes. K5 computes at the same head dims here (its 192
+    instance, the next multiple of 128 over 192), and its shape check
+    takes them."""
     assert kernel_head_dim(d) == want and runs_on_kernel(want)
     assert runs_on_kernel(d) == (d == want)
     q = torch.empty(2, 3, 1, want, dtype=torch.bfloat16, device="meta")
     k = torch.empty(2, 3, 50, want, dtype=torch.bfloat16, device="meta")
     assert _check_shapes(q, k, k, 0.0)[4] == want
     dw = decode_head_dim(d)
+    assert dw == want
     q = torch.empty(2, 3, 1, dw, dtype=torch.bfloat16, device="meta")
     k = torch.empty(2, 3, 50, dw, dtype=torch.bfloat16, device="meta")
     assert decode_layout(q, k, k)[1] == (3 * 50 * dw, 50 * dw, dw)
@@ -111,15 +114,16 @@ def test_flash_routes_wide_head_dims_to_instances_and_chunks(d, route):
     assert kernel_head_dim(d) == route[0] * route[1]
 
 
-@pytest.mark.parametrize("d,want", [(160, 256), (192, 256), (224, 256),
+@pytest.mark.parametrize("d,want", [(160, 192), (192, 192), (224, 256),
                                     (256, 256), (320, 384), (384, 384),
                                     (512, 512)])
-def test_decode_keeps_its_128_column_route(d, want):
-    """K5 routes as before the flash kernels' 192 and 256 instances: the
-    next multiple of 128, run in 128-column chunks."""
-    assert decode_head_dim(d) == want and want % WIDE_CHUNK == 0
-    assert decode_runs_on_kernel(want) and decode_runs_on_kernel(d) == (
-        d == want)
+def test_decode_routes_to_its_instances_up_to_192_and_chunks_above(d, want):
+    """K5 computes a head dim up to 192 on the smallest of its instances
+    that holds it, and over 192 in 128-column chunks (224 and 320 with a
+    last chunk part full); a multiple of 8 runs in place, with no copy."""
+    assert decode_head_dim(d) == want
+    assert want <= 192 or want % WIDE_CHUNK == 0
+    assert decode_runs_on_kernel(want) and decode_runs_on_kernel(d)
 
 
 @pytest.mark.parametrize("d", [200, 320, 448])
