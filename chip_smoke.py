@@ -46,6 +46,13 @@ ran through its kernels:
     latest checkpoints, a fresh trainer's ``restore`` of the latest held
     bit for bit, and ``SmartContractAnalyzer(model_path=best)`` held to
     detection on the trained weights;
+  * the training and evaluation tools (``tools``, the same model;
+    ``sct_gan_tpu_torch/tools/run_corpus_v2.py``): ``train_synthetic
+    --corpus-v2`` over 16 family-0 contracts for 2 epochs with 8 test
+    contracts a family (the summary with the JAX tool's keys and a finite
+    fam0-fam2 matrix), ``eval_v2_infamily`` on its best checkpoint and on
+    an untrained model's, ``analyze_v2_errors`` on family 2, and
+    ``time_opt`` unfused and fused;
   * the other head dims (``heads``): ModelConfig(nhead=12) (head dim 64),
     ModelConfig(nhead=6) (128), ModelConfig(nhead=4) (192),
     ModelConfig(nhead=3) (256) and ModelConfig(nhead=2) (384), depth cut to
@@ -1227,6 +1234,97 @@ def phase_loop() -> dict:
     del trainer, direct, served_an
     torch.cuda.empty_cache()
     return {k: counts[k] + serve_counts[k] for k in counts}
+
+
+TOOLS_RUN = dict(epochs=2, contracts=16, eval_contracts=8, n_infamily=8,
+                 n_errors=8)
+# summary.json's keys: the JAX tool's (tools/train_synthetic.py:203-216)
+SUMMARY_KEYS = {"contracts", "train_family", "epochs_requested",
+                "epochs_run", "train_minutes", "final_train_loss",
+                "best_val_loss", "perplexity", "contract_overall",
+                "line_overall", "matrix", "checkpoint"}
+
+
+def phase_tools() -> dict:
+    """The training and evaluation entry points at the reference width
+    (``sct_gan_tpu_torch/tools``, through ``run_corpus_v2.run``, each
+    tool's ``main`` in turn): ``train_synthetic --corpus-v2`` over 16
+    family-0 contracts for 2 epochs (2 steps and 2 validation batches an
+    epoch) with 8 test contracts a family, ``eval_v2_infamily --n 8`` on its
+    best checkpoint and on an untrained model's, ``analyze_v2_errors
+    --family 2 --contracts 8``, and ``time_opt`` unfused and fused. The
+    summary must have the JAX tool's keys and a finite fam0-fam2 matrix.
+    Returns the launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sct_gan_tpu_torch.config import ModelConfig
+    from sct_gan_tpu_torch.tools import run_corpus_v2
+    out = tempfile.mkdtemp(prefix="tools_run_", dir=ROOT)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        secs = run_corpus_v2.run(out, **TOOLS_RUN)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = read_counts()
+
+        def load(name):
+            with open(os.path.join(out, name)) as f:
+                return json.load(f)
+        summary, infamily = load("summary.json"), load("summary_infamily.json")
+        floor = load(os.path.join("untrained", "summary_infamily.json"))
+        errors = load("errors_fam2.json")
+        opt = [load("time_opt.json"), load("time_opt_fused.json")]
+        timing = load("timing.json")
+        matrix = summary["matrix"] or {}
+        pr_aucs = [matrix[f][level]["pr_auc"] for f in matrix
+                   for level in ("contract_overall", "line_overall")]
+        pr_aucs += [s[level]["pr_auc"] for s in (infamily, floor)
+                    for level in ("contract_overall", "line_overall")]
+        # 2 epochs of 2 train steps (23 flash calls forward and backward,
+        # 69 dropout sites each way) and 2 validation forwards; a full
+        # forward in each of the three trainers' dimension tests
+        # (train_synthetic's, time_opt's two) and in perplexity's 2
+        # batches; a detection forward (10) a batch of 8 in the three
+        # family columns, the in-family, floor and error stages
+        cfg = ModelConfig(use_gan=True)
+        want_bwd = 2 * 2 * FLASH_PER_TRAIN_FORWARD
+        want_fwd = (want_bwd + (2 * 2 + 3 + 2) * flash_per_forward(cfg)
+                    + 6 * flash_per_detect(cfg))
+        want_drop = 2 * 2 * 2 * 69
+        ok = {
+            "summary keys": set(summary) == SUMMARY_KEYS,
+            "matrix": sorted(matrix) == ["fam0", "fam1", "fam2"],
+            "finite": all(math.isfinite(x) for x in pr_aucs)
+            and math.isfinite(summary["perplexity"]["perplexity"]),
+            "epochs": summary["epochs_run"] == 2 and len(timing["epochs"]) == 2,
+            "errors": errors["contracts"] == 8 and errors["family"] == 2,
+            "time_opt": all(o["ms"] > 0 and o["launches"] > 0 for o in opt),
+            "launches": counts == {
+                "flash_attention_fwd": want_fwd,
+                "flash_attention_bwd": want_bwd, "dropout": want_drop,
+                "decode_attention": 0}}
+        print(f"phase tools: run_corpus_v2 {TOOLS_RUN} in {total_s:.1f} s "
+              f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}); "
+              f"epochs {[round(e['train_s'], 2) for e in timing['epochs']]} "
+              f"s, {timing['step_ms']:.1f} ms a step; fam0/fam1/fam2 "
+              f"contract PR-AUC "
+              f"{[round(matrix[f]['contract_overall']['pr_auc'], 4) for f in sorted(matrix)]}"
+              f", in-family {infamily['contract_overall']['pr_auc']:.4f} "
+              f"(untrained {floor['contract_overall']['pr_auc']:.4f}); "
+              f"perplexity {summary['perplexity']['perplexity']:.1f}; "
+              f"time_opt {[(o['optimizer'], round(o['ms'], 3), o['launches']) for o in opt]}; "
+              f"launches {counts} (expected flash {want_fwd} forward, "
+              f"{want_bwd} backward, dropout {want_drop}); "
+              f"checks {ok}", flush=True)
+        if not all(ok.values()):
+            raise AssertionError(f"tools: failed checks {ok}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def flash_per_detect(cfg) -> int:
@@ -2990,6 +3088,7 @@ def main() -> int:
     trainer, batch, train_launches = phase_train()
     phase_train_check(trainer)
     loop_launches = phase_loop()
+    tools_launches = phase_tools()
     head_launches = phase_heads()
     tasc_launches = phase_tasc(card)
     parallel_launches = phase_parallel(card)
@@ -3039,7 +3138,8 @@ def main() -> int:
         if name == kernel:          # head dim 96: every path of the model
             launches = sum(p[name] for p in (
                 serve_launches, beam_launches, analyzer_launches,
-                eval_launches, train_launches, loop_launches))
+                eval_launches, train_launches, loop_launches,
+                tools_launches))
         else:
             launches = head_launches[name]
         # the TASC paths: head dim 96, and CodeBERT's K1 at 64; the

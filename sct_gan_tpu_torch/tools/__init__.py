@@ -1,5 +1,7 @@
-"""Kernel-timing entry points of the port: the JAX repo's ``tools/time_*``
-kernel decompositions, one hand-written CUDA kernel each (``csrc/``).
+"""Entry points of the port: the JAX repo's ``tools/`` scripts.
+
+Kernel timing, the JAX repo's ``tools/time_*`` kernel decompositions, one
+hand-written CUDA kernel each (``csrc/``):
 
   time_flash_parts            K7: flash forward, full vs noexp vs mmonly
   time_flash_variants         K8: single-pass softmax variants
@@ -8,9 +10,21 @@ kernel decompositions, one hand-written CUDA kernel each (``csrc/``).
 
 Each module holds its kernel's wrapper (a CPU tensor runs the plain
 PyTorch version, a CUDA tensor the kernel), the plain version,
-``time_modes()`` and ``main()``. Run one on the card with
+``time_modes()`` and ``main()``. They measure the card and raise without
+one.
 
-    python3 -m sct_gan_tpu_torch.tools.time_flash_parts
+Training and evaluation, with the JAX tools' flags plus ``--device``:
 
-The entry points measure the card and raise without one.
+  train_synthetic    train on the synthetic corpus (``--corpus-v2``: one
+                     template family), score the best checkpoint
+  eval_checkpoint    the eval tail of a CSV-mode run, on its own
+  eval_v2_infamily   a corpus-v2 checkpoint on fresh family-0 contracts
+  analyze_v2_errors  per-type TP/FP/FN, score separations, confusions
+  time_opt           the optimizer stage alone, unfused or ``--fused``
+  run_corpus_v2      the corpus-v2 Run B recipe through all five
+
+They run on the card by default and raise without one; ``--device cpu``
+runs the plain versions. Run any of them as
+
+    python3 -m sct_gan_tpu_torch.tools.<name>
 """

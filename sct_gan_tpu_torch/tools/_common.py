@@ -1,8 +1,12 @@
-"""What the kernel-timing tools share: mode lookup, the q = k = v attention
-launch of K7 and K8, and the one-line report of a ``time_modes`` result."""
+"""What the tools share. The kernel-timing tools: mode lookup, the q = k = v
+attention launch of K7 and K8, and the one-line report of a ``time_modes``
+result. The training and evaluation tools: the JAX tools' model
+configuration and tokenizer, the corpus-v2 loaders, the best checkpoint,
+the analyzer on it and the reference protocol's scoring."""
 from __future__ import annotations
 
 import ctypes
+import json
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -100,3 +104,120 @@ def summary_line(title: str, result: Dict[str, dict], card: str) -> str:
                      f"library {lib}, bound {r['bound_ms']:.4f} "
                      f"{r['bound_by']})")
     return f"{title} [{card}]: " + "; ".join(parts)
+
+
+# -- what the training and evaluation entry points share ----------------------
+
+def model_config(seq: int = 1024, d_model: int = 768, layers: int = 6):
+    """The JAX tools' ``ModelConfig``: the GAN model at L = ``seq`` with
+    ``seq`` line slots, FFN 2048 at the reference width (else 8/3 of
+    d_model) and ``layers`` encoder and decoder layers."""
+    from ..config import ModelConfig
+    return ModelConfig(use_gan=True, max_length=seq, max_lines=seq,
+                       d_model=d_model,
+                       dim_feedforward=(2048 if d_model == 768
+                                        else d_model * 8 // 3),
+                       num_encoder_layers=layers, num_decoder_layers=layers)
+
+
+def tokenizer_for(cfg):
+    """The tools' tokenizer: the C++ encode path where it builds (the same
+    ids either way)."""
+    from ..data.native_tokenizer import NativeSolidityTokenizer
+    return NativeSolidityTokenizer(vocab_size=cfg.vocab_size)
+
+
+def v2_loader(tok, n: int, seed: int, family: int, seq: int,
+              batch_size: int, shuffle: bool = False, loader_seed: int = 0):
+    """A loader over ``n`` corpus-v2 contracts of ``family`` (with the
+    near-miss distractors) drawn from ``seed``."""
+    from ..data.dataset import (ArrayDataLoader,
+                                SmartContractVulnerabilityDataset)
+    from ..data.synthetic import generate_corpus
+    recs = generate_corpus(n, seed=seed, family=family, distractors=True)
+    ds = SmartContractVulnerabilityDataset(records=recs, tokenizer=tok,
+                                           max_length=seq)
+    return ArrayDataLoader(ds, batch_size=batch_size, shuffle=shuffle,
+                           seed=loader_seed)
+
+
+def best_checkpoint(checkpoint_dir: str) -> str:
+    """The newest best checkpoint of a run (the latest where none was
+    written); raises when the directory holds neither."""
+    from ..train.checkpoint import find_checkpoint
+    ckpt = find_checkpoint(checkpoint_dir, "best")
+    if ckpt is None:
+        raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
+    return ckpt
+
+
+def load_analyzer(ckpt: str, cfg, tok, device: str, verbose: bool = False):
+    from ..infer.analyzer import SmartContractAnalyzer
+    return SmartContractAnalyzer(model_path=ckpt, use_gan=True, tokenizer=tok,
+                                 model_config=cfg, device=device,
+                                 verbose=verbose)
+
+
+def score(analyzer, ckpt: str, loader, output_file: str,
+          max_contracts: Optional[int] = None) -> Dict:
+    """The reference protocol on one loader: per-type thresholds of the
+    baseline run, the comprehensive evaluation written to
+    ``output_file``, its summary printed."""
+    from ..evals.harness import (BASELINE_CONTRACT_THRESHOLDS,
+                                 BASELINE_LINE_THRESHOLDS,
+                                 evaluate_model_performance,
+                                 print_evaluation_summary)
+    res = evaluate_model_performance(
+        model_path=ckpt, val_dataloader=loader,
+        contract_thresholds=BASELINE_CONTRACT_THRESHOLDS,
+        line_thresholds=BASELINE_LINE_THRESHOLDS,
+        max_contracts=max_contracts, output_file=output_file,
+        analyzer=analyzer)
+    print_evaluation_summary(res)
+    return res
+
+
+def matrix_column(res: Dict) -> Dict:
+    """One column of the corpus-v2 matrix: the overall contract and line
+    metrics and the PR-AUC of each type."""
+    per = lambda level: {vt: d.get("pr_auc") for vt, d in
+                         res[level].get("per_vulnerability", {}).items()}
+    return {"contract_overall": res["contract_level"]["overall"],
+            "line_overall": res["line_level"]["overall"],
+            "contract_per_type": per("contract_level"),
+            "line_per_type": per("line_level")}
+
+
+def write_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2, default=float)
+
+
+class _NoBatches:
+    """A loader of batch size ``batch_size`` with no batches."""
+
+    def __init__(self, batch_size: int):
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        return iter(())
+
+
+def bench_trainer(device: str, fused: bool, d_model: int = 768,
+                  layers: int = 6, seq: int = 1024, batch_size: int = 8):
+    """The JAX bench's trainer (``bench.build_trainer("bfloat16", True, 8,
+    1024)``): ``ModelConfig(use_gan=True)`` at L=1024, B=8, learning rate
+    1e-5, one warm-up epoch, no loaders; ``fused`` picks
+    ``FusedOptimizer`` or the unfused chain (``GradientTransform``).
+    ``d_model`` and ``layers`` shrink it for tests."""
+    from ..config import TrainConfig
+    from ..models.sct_transformer import SmartContractTransformer
+    from ..train.trainer import SmartContractTrainer
+    cfg = model_config(seq, d_model, layers)
+    tok = tokenizer_for(cfg)
+    return SmartContractTrainer(
+        SmartContractTransformer(cfg, seed=0), _NoBatches(batch_size),
+        _NoBatches(batch_size), tok,
+        config=TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1,
+                           fused_optimizer=fused),
+        device=device, verbose=False)

@@ -52,7 +52,7 @@ import math
 import os
 import random
 import time
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -724,10 +724,15 @@ class SmartContractTrainer:
     # ------------------------------------------------------------------
     def train(self, num_epochs: int, checkpoint_dir: str = "checkpoints",
               profile_dir: Optional[str] = None,
-              profile_epoch: int = 1) -> Dict[str, List[float]]:
+              profile_epoch: int = 1,
+              stop: Optional[Callable[[int], bool]] = None
+              ) -> Dict[str, List[float]]:
         """Run the training loop; returns the history. ``profile_dir``
         writes a ``torch.profiler`` trace of epoch ``profile_epoch``
-        (``utils.profiling.trace_context``)."""
+        (``utils.profiling.trace_context``). ``stop``, the port's own, is
+        called after each epoch's checkpoints with the number of epochs
+        run; True ends the loop there, as if ``num_epochs`` had been
+        that number (under a mesh it must answer alike on every rank)."""
         os.makedirs(checkpoint_dir, exist_ok=True)
         suffix = checkpoint_suffix(self.use_augmentation, self.use_gan)
 
@@ -822,6 +827,10 @@ class SmartContractTrainer:
             if (epoch + 1) % max(self.cfg.latest_every, 1) == 0:
                 self._submit(checkpoint_dir, f"latest_model{suffix}",
                              self.state_tree(), meta)
+            if stop is not None and stop(epoch + 1):
+                self._log(f"Stopping after epoch {epoch + 1}: the caller's "
+                          "stop")
+                break
         # the written checkpoints complete before returning
         self._saver.wait()
         # at least one best checkpoint exists (every submit of the run may
