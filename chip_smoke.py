@@ -110,6 +110,9 @@ sys.path.insert(0, ROOT)
 # the card's name and power limit, CUDA-event timing and the H100's peaks
 from sct_gan_tpu_torch.utils.profiling import (  # noqa: E402
     GRAPH_REPLAYS, bound_ms, card_line, cuda_ms, ring_inputs, ring_ms)
+# SDPA's backward, the backward pair's yardstick (timed, never called by
+# the port)
+from sct_gan_tpu_torch.tools._common import sdpa_backward_ms  # noqa: E402
 
 # Tolerances, with their reasons:
 # kernel vs plain, both bf16 outputs from the same bf16 inputs: each rounds
@@ -254,7 +257,8 @@ def phase_build():
 
 # the kernels whose ptxas report must show no spill (their designs' budgets
 # allow none): the flash forward (every instance, chunked too), the backward
-# pair (its mma.sync and wgmma instances), the decode attention (every
+# pair (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the
+# wgmma kernels above), the decode attention (every
 # instance; the 192 one, by its mangled name, must be in the report) with
 # its wide-head route
 NO_SPILL = ("flash_fwd_kernel", "flash_bwd_", "decode_splitk_kernel",
@@ -384,6 +388,8 @@ def phase_kernels():
         return got
 
     bwd_case("key mask, padded tails", 8, 1024, 1024, False, pad_mask)
+    bwd_case("whole masked key blocks and tiles", 8, 1024, 1024, False,
+             skip_mask(dev), 0.3)
     bwd_case("causal", 8, 1024, 1024, True, None)
     bwd_case("dropout 0.3", 8, 1024, 1024, False, pad_mask, 0.3)
     bwd_case("dropout 0.3, ragged causal", 8, 1000, 1000, True, ragged, 0.3)
@@ -557,6 +563,25 @@ def concat_mask(dev, b: int = 8, s: int = 1024):
     return torch.cat([pos < lc[:, None], pos < la[:, None]], dim=1)
 
 
+def skip_mask(dev, b: int = 8, s: int = 1024):
+    """A key mask whose rows hold whole masked 64-key tiles, which the
+    backward pair skips (a dKV block, a dQ walk step): 128-key spans whose
+    first or second half has no attended key, rows with one or two live
+    tiles, a fully masked row (row 2), every third tile, and every key
+    (row 7)."""
+    import torch
+    keys = torch.arange(s, device=dev)
+    rows = [(keys >= 64) & (keys < 128) | (keys >= s - 124),
+            keys < 10,
+            torch.zeros_like(keys, dtype=torch.bool),
+            (keys >= 192) & (keys < 256) | (keys >= 640) & (keys < 700),
+            (keys // 64) % 3 == 0,
+            keys % 128 >= 64,
+            keys % 128 < 64,
+            torch.ones_like(keys, dtype=torch.bool)]
+    return torch.stack(rows[:b])
+
+
 def phase_head_kernels():
     """K1, the K2-K4 pair and K5 against their plain versions at full
     width, H * d = 768 (640 or 672 where d does not divide 768): the flash
@@ -566,8 +591,10 @@ def phase_head_kernels():
 
     * K1 and the pair at head dims 64, 128, 192 and 256 (their instances),
       80 (their padded route, which runs the 128 instances) and 384 and 320
-      (their chunked route, 320 on a copy padded to 384); over 128 also at
-      Sk = 2048 under a shard origin of the dropout grid.
+      (their chunked route, 320 on a copy padded to 384); each also
+      causal and at Sk = 2048 under a shard origin of the dropout grid;
+      the pair at 64 and 128 also with dropout, whole masked tiles, a
+      fully masked row (dq = 0) and Sk = 8192 at B = 1.
     * K5 at its instances 64, 128 and 192, in place on a wider instance
       at 80 and 160, and in place on its wide-head route at 224, 256, 384
       and 320. At 192 two runs must give the same bits, and at every head
@@ -636,6 +663,7 @@ def phase_head_kernels():
             for nm, gt, wt in zip(("dq", "dk", "dv"), got, want):
                 check("flash_attention_bwd", d, name, gt, wt,
                       kernel_tol(wt, 4), f" {nm} q{tuple(q.shape)}")
+            return got
 
         fwd("key mask, padded tails", 1024, 1024, False, pad_mask)
         fwd("causal", 1024, 1024, True, None)
@@ -649,13 +677,24 @@ def phase_head_kernels():
             ragged, 0.3)
         bwd("encode_concat mask (a hole), dropout 0.3", 1024, 1024, False,
             hole, 0.3)
-        if d > 128:                 # the wgmma pair and the chunked route
-            bwd("causal", 1024, 1024, True, None)
-            long = torch.arange(2048, device=dev)[None, :] < 2 * lens[:4, None]
-            long[3] = False         # a fully masked row
-            for run in (fwd, bwd):
-                run("Sk=2048, key mask, shard origin (1, 1, H+2), dropout 0.3",
-                    300, 2048, False, long, 0.3, (1, 1, h + 2), 4)
+        bwd("causal", 1024, 1024, True, None)
+        long = torch.arange(2048, device=dev)[None, :] < 2 * lens[:4, None]
+        long[3] = False             # a fully masked row
+        for run in (fwd, bwd):
+            run("Sk=2048, key mask, shard origin (1, 1, H+2), dropout 0.3",
+                300, 2048, False, long, 0.3, (1, 1, h + 2), 4)
+        if d in HEAD_DIMS:          # the pair's other Hopper instances
+            bwd("dropout 0.3, key mask", 1024, 1024, False, pad_mask, 0.3)
+            bwd("whole masked key blocks and tiles, dropout 0.3", 1024, 1024,
+                False, skip_mask(dev), 0.3)
+            empty = pad_mask.clone()
+            empty[3] = False
+            dq = bwd("fully-masked row", 1024, 1024, False, empty)[0]
+            if dq[3].abs().max().item() != 0.0:
+                raise AssertionError(f"K2 d={d}: a fully-masked row must "
+                                     f"get dq = 0")
+            bwd("Sk=8192, B=1, ragged key mask", 8192, 8192, False,
+                torch.arange(8192, device=dev)[None, :] < 8192 - 3000, b=1)
 
     for d, h in [*HEAD_DIMS.items(), *DECODE_TAILS.items(),
                  *WIDE_DIMS.items(), (CHUNK_PADDED_DIM, 2)]:
@@ -1323,6 +1362,15 @@ def phase_tools() -> dict:
             raise AssertionError(f"tools: failed checks {ok}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # the block sweep of the backward pair (A11) at the model's head dim,
+    # after the launches above are read: its timing calls are no main path
+    from sct_gan_tpu_torch.tools import sweep_flash_blocks
+    t0 = time.perf_counter()
+    print(sweep_flash_blocks.table(sweep_flash_blocks.sweep(96), card_line()),
+          flush=True)
+    print(f"phase tools: sweep_flash_blocks at head dim 96 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     return counts
 
@@ -2735,24 +2783,6 @@ def parallel_rank(work: str) -> int:
     return 0
 
 
-def sdpa_backward_ms(q, k, v, mask, dout, scale: float) -> float:
-    """SDPA's backward alone under the key mask ``mask`` (B, Sk), in device
-    ms: its forward and backward captured together and replayed
-    (``ring_ms``), less its forward replayed alone. An eager loop of
-    ``autograd.grad`` times the host's dispatch, which moves from run to
-    run."""
-    import torch
-    import torch.nn.functional as F
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-
-    def fwd(_):
-        return F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask[:, None, None, :], scale=scale)
-    both = ring_ms(lambda _: torch.autograd.grad(fwd(_), (qs, ks, vs), dout),
-                   [None], 10)
-    return both - ring_ms(fwd, [None], 10)
-
-
 def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
     """K5 at head dim ``d`` with ``h`` heads (its instance, in place on a
     wider one, or its wide-head route) at the generation path's shapes, each
@@ -2827,7 +2857,8 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
     900, 700, 512, 300, 1000, 64, 801: 5301 of 8192 keys): kernel
     (``ring_ms``), plain version, SDPA (its backward less its forward) and
     the bound; prints a line each. Returns name -> (ms, plain ms, library
-    ms, bound ms, bound by).
+    ms, bound ms, bound by), and at d <= 128 the pair's kernels apart
+    (``pair_parts_ms``) under ``<name>:parts``.
 
     A bound counts the work this run's inputs need: under the key mask a
     masked key adds nothing to the output or to dQ and gets dK = dV = 0, so
@@ -2893,17 +2924,51 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
         # written in full (zeros at masked keys); lse; the mask
         *bound_ms(flops["bwd"],
                   6 * qkv_bytes + 2 * kv_bytes + b * h * s * 4 + b * s))
+    # the Hopper pair's D, dKV and dQ kernels apart: which one leads
+    split = pair_parts_ms(lambda: flash_attention_backward(
+        bq, bk, bv, bo, lse, bd, mask, False, sc, 0.0, 0)) if d <= 128 else None
     del ref, qg, kg, vg, bq, bk, bv, bo, bd
     named = {}
     for part, (ms, plain, libms, bnd, by) in t.items():
         name = instance(f"flash_attention_{part}", d)
         named[name] = t[part]
+        parts = ""
+        if part == "bwd" and split is not None:
+            named[f"{name}:parts"] = split
+            parts = (f" (D {split['dvec']:.4f} ms + dKV {split['dkv']:.4f} ms"
+                     f" + dQ {split['dq']:.4f} ms by torch.profiler)")
         print(f"phase times [{card}]: {name} at ({b}, {h}, {s}, {d}) "
-              f"{ms:.4f} ms ({flops[part] / ms / 1e9:.1f} TFLOP/s of the "
-              f"attended keys' products, {dense[part] / ms / 1e9:.1f} "
+              f"{ms:.4f} ms{parts} ({flops[part] / ms / 1e9:.1f} TFLOP/s of "
+              f"the attended keys' products, {dense[part] / ms / 1e9:.1f} "
               f"counting every key) vs plain {plain:.4f} ms, library "
               f"{libms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
     return named
+
+
+def pair_parts_ms(fn, n: int = 10) -> dict:
+    """Device ms a call of the backward's D, dKV and dQ kernels apart:
+    ``fn()`` (one launch of the pair) ``n`` times under ``torch.profiler``
+    after one warm-up call, each kernel's mean device time a launch. (A
+    process that ran the profiler before may see records dropped, so the
+    mean is taken over the launches recorded, not over ``n``.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = {"dvec": 0.0, "dkv": 0.0, "dq": 0.0}
+    count = dict.fromkeys(total, 0)
+    for e in prof.key_averages():
+        for part in total:
+            if (e.device_type == DeviceType.CUDA
+                    and f"flash_bwd_{part}_" in e.key):
+                total[part] += e.self_device_time_total
+                count[part] += e.count
+    return {part: total[part] / max(count[part], 1) / 1e3 for part in total}
 
 
 def head_dim_times(card: str) -> dict:
@@ -3156,6 +3221,9 @@ def main() -> int:
             "bound_ms": bnd, "bound_by": by, "library_ms": libms}
         if name in long_keys:       # sp_detect's / sp_encode's long keys
             entry["long_keys"] = long_keys[name]
+        if f"{key}:parts" in t:     # the pair's D, dKV and dQ kernels apart
+            for part, ms in t[f"{key}:parts"].items():
+                entry[f"{part}_ms"] = ms
         padded = errs.get(f"{name}:padded{PADDED_DIM}")
         if padded is not None:      # the padded route runs this instance
             entry[f"padded_dh{PADDED_DIM}_max_abs_err"] = padded[0]

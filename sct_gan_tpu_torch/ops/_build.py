@@ -10,6 +10,8 @@ under a name keyed by a hash of the sources and the flags, so an edited
 source rebuilds and an unchanged one loads at once. ``ptxas``'s ``-v``
 report (registers, stack, spills) is kept beside the library under the same
 key, so a loaded library's report can be checked as a fresh build's can.
+``build_library`` builds another library the same way from sources outside
+the main build (the block sweep's, ``csrc/sweep/``), with its own defines.
 
 A failed build raises with the compiler's stderr: there is no fallback.
 """
@@ -44,9 +46,9 @@ _SIGNATURES = {
                                  *[_I] * 12,                 # q k v o strides
                                  _I, _I, _F,                 # mask_sb causal scale
                                  *_DROP, _P],                # ... stream
-    "flash_attention_bwd_bf16": [*[_P] * 10,     # q k v dout mask lse D dq dk dv
+    "flash_attention_bwd_bf16": [*[_P] * 11,  # q k v dout o mask lse D dq dk dv
                                  _I, _I, _I, _I, _I,         # B H Sq Sk D
-                                 *[_I] * 21,                 # 7 tensors' strides
+                                 *[_I] * 24,                 # 8 tensors' strides
                                  _I, _I, _F,                 # mask_sb causal scale
                                  *_DROP, _P],                # ... stream
     "hash_dropout": [_P, _P, _U, _I,                         # x y n is_bf16
@@ -81,6 +83,10 @@ def _sources():
                   if f.endswith((".cu", ".cuh")))
 
 
+def _main_cu():
+    return [s for s in _sources() if s.endswith(".cu")]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -93,12 +99,17 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def library_path(cu=None, tag: str = "sct_kernels", defines=()) -> str:
+    """Where the library of the ``.cu`` files ``cu`` (default: the main
+    build's) built with ``defines`` lives: keyed by the flags and every
+    source it may include (all of ``csrc/``'s headers)."""
+    cu = _main_cu() if cu is None else list(cu)
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
+    headers = [s for s in _sources() if s.endswith(".cuh")]
+    for src in sorted(set(cu) | set(headers)):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libsct_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{tag}_{h.hexdigest()[:16]}.so")
 
 
 def report_path(lib_path: str) -> str:
@@ -106,27 +117,25 @@ def report_path(lib_path: str) -> str:
     return lib_path[:-len(".so")] + ".ptxas.txt"
 
 
-def build() -> str:
-    """Compile the kernels if no library for these sources exists: one
-    ``nvcc -c`` per source, all running at once, then one link. Sets
-    ``ptxas_log`` to the library's ``ptxas`` report, read back from its file
-    when the library was already built (a library without its report is
-    built again)."""
-    global build_seconds, ptxas_log
-    lib_path = library_path()
+def build_library(cu=None, tag: str = "sct_kernels", defines=()):
+    """(path, ``ptxas -v`` report, nvcc seconds or None when it was built
+    before) of the library of ``cu`` with ``defines``: one ``nvcc -c`` per
+    source, all running at once, then one link; a library without its
+    report is built again."""
+    cu = _main_cu() if cu is None else list(cu)
+    lib_path = library_path(cu, tag, defines)
     if os.path.exists(lib_path) and os.path.exists(report_path(lib_path)):
         with open(report_path(lib_path)) as f:
-            ptxas_log = f.read()
-        return lib_path
+            return lib_path, f.read(), None
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         procs = []
-        for src in (s for s in _sources() if s.endswith(".cu")):
+        for src in cu:
             obj = os.path.join(work, os.path.basename(src) + ".o")
             procs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", obj, src],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         logs, failed = [], []
         for src, _, proc in procs:
@@ -151,8 +160,17 @@ def build() -> str:
         # report, nor half written by concurrent builders
         os.replace(report, report_path(lib_path))
         os.replace(tmp, lib_path)
-    build_seconds = time.perf_counter() - t0
-    ptxas_log = "".join(logs)
+    return lib_path, "".join(logs), time.perf_counter() - t0
+
+
+def build() -> str:
+    """Build the main library if none exists for these sources, and set
+    ``ptxas_log`` to its report (``build_seconds`` to nvcc's wall time when
+    it ran)."""
+    global build_seconds, ptxas_log
+    lib_path, ptxas_log, seconds = build_library()
+    if seconds is not None:
+        build_seconds = seconds
     return lib_path
 
 

@@ -7,8 +7,11 @@ Counterpart of ``sct_gan_tpu/ops/flash_attention.py``. On a CUDA tensor,
     with the optional attention-weight dropout and the f32 per-row LSE;
   * backward: ``csrc/flash_attention_bwd.cu``, a dKV kernel and a dQ kernel
     (the TPU ``_fa_bwd_fused_kernel`` at nk == 1 and the ``_fa_dkv_kernel``
-    / ``_fa_dq_kernel`` pair at nk > 1). ``D = rowsum(dO ∘ O)`` is computed
-    here in f32, as the JAX package computes it in XLA outside its kernels.
+    / ``_fa_dq_kernel`` pair at nk > 1; at head dims 64, 96 and 128 the
+    templates of ``csrc/flash_bwd_hopper.cuh``), both reading q, k, v and dO
+    by TMA through the caller's strides and skipping key blocks and tiles
+    with no attended key. A first kernel computes ``D = rowsum(dO ∘ O)``
+    in f32, which the JAX package computes in XLA outside its kernels.
 
 The dropout mask is the JAX package's hash stream over the flat
 (B, H, Sq, Sk) index (``ops/dropout.py``), the mask ``mha_reference``
@@ -114,9 +117,9 @@ def head_strides(t: torch.Tensor, name: str, align: int):
     last dim is contiguous and whose base and rows start on ``align``-byte
     lines. The kernels read q, k, v and dO at ``align`` = 16: the forward
     through rank-4 (D, S, H, B) TMA maps built from these strides (a map
-    takes only byte strides of whole 16-byte units), the backward by
-    16-byte copies. The model's head views of (B, S, H*96) pass as they
-    are. It reads only the shape, the strides and the base address, so it
+    takes only byte strides of whole 16-byte units), the backward pair
+    through the same maps. The model's head views of (B, S, H*96) pass as
+    they are. It reads only the shape, the strides and the base address, so it
     holds for a tensor on any device."""
     if t.dim() != 4 or t.stride(3) != 1:
         raise ValueError(f"{name}: expected (B, H, S, D) with a contiguous "
@@ -213,33 +216,49 @@ def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse, shard):
     return out, lse
 
 
-def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
-                             rate, seed, shard=None):
-    """Launch the backward kernel pair; (dq, dk, dv) in q's dtype, laid out
-    like the forward's output. dout is read through its strides when it can
-    be, else copied contiguous."""
+def backward_call(q, k, v, out, lse, dout, mask, causal, scale, rate, seed,
+                  shard=None, dvec=None):
+    """The arguments of the backward's C entry point
+    (``flash_attention_bwd_bf16``) for the forward's ``out`` and dO =
+    ``dout``, both laid out as the kernels read them, with (dq, dk, dv)
+    allocated laid out like the forward's output and D = rowsum(dO ∘ O) the
+    entry point fills (or ``dvec``, D already computed, for an entry that
+    reads it): (arguments, (dq, dk, dv), tensors the call must keep
+    alive)."""
     shard = shard or (0, 0, q.shape[1])
     b, h, sq, sk, d = _check_shapes(q, k, v, rate, shard)
-    dout = _kernel_operand(dout.to(q.dtype))
-    # D = rowsum(dO ∘ O) in f32, from the bf16 dO and O (flash_attention.py:
-    # 470-475 of the JAX package)
-    dvec = (dout.float() * out.float()).sum(-1).contiguous()
     dq, dk, dv = _heads_like(q, sq), _heads_like(k, sk), _heads_like(v, sk)
-    mptr, msb, _keep = _mask_arg(mask, b, sk, q.device)
+    if dvec is None:
+        dvec = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    mptr, msb, keep = _mask_arg(mask, b, sk, q.device)
     strides = [_strides(t, n, 16) for t, n in ((q, "q"), (k, "k"), (v, "v"),
-                                               (dout, "dout"))]
+                                               (dout, "dout"), (out, "out"))]
     strides += [_strides(t, n, 4) for t, n in ((dq, "dq"), (dk, "dk"),
                                                (dv, "dv"))]
-    err = _build.load().flash_attention_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), mptr,
-        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, sq, sk, d, *(x for s in strides for x in s),
-        msb, int(causal), ctypes.c_float(scale),
-        *_dropout_args(rate, seed, shard),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            out.data_ptr(), mptr, lse.data_ptr(), dvec.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
+            *(x for st in strides for x in st), msb, int(causal),
+            ctypes.c_float(scale), *_dropout_args(rate, seed, shard),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return args, (dq, dk, dv), (keep, dvec)
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
+                             rate, seed, shard=None):
+    """Launch the backward kernels; (dq, dk, dv) in q's dtype, laid out like
+    the forward's output. dout and out are read through their strides when
+    they can be, else copied contiguous. D = rowsum(dO ∘ O), which the JAX
+    package computes in XLA before its kernels, is the first of them (f32,
+    from the bf16 dO and O)."""
+    dout = _kernel_operand(dout.to(q.dtype))
+    args, grads, _keep = backward_call(q, k, v, _kernel_operand(out), lse,
+                                       dout, mask, causal, scale, rate, seed,
+                                       shard)
+    err = _build.load().flash_attention_bwd_bf16(*args)
     _build.check(err, "flash_attention_bwd_bf16")
     flash_attention_backward.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):

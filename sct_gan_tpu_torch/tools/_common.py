@@ -86,6 +86,28 @@ def self_attention_library(kind: str, scale: float):
     raise ValueError(f"library call {kind!r}")
 
 
+def sdpa_backward_ms(q, k, v, mask, dout, scale: float,
+                     causal: bool = False) -> float:
+    """SDPA's backward alone, in device ms, under the key mask ``mask``
+    (B, Sk) or None, causal or not: its forward and backward captured
+    together and replayed (``ring_ms``), less its forward replayed alone.
+    An eager loop of ``autograd.grad`` times the host's dispatch, which
+    moves from run to run. The port never calls SDPA: it is the yardstick
+    of the backward pair."""
+    import torch.nn.functional as F
+
+    from ..utils.profiling import ring_ms
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    attn_mask = None if mask is None else mask[:, None, None, :]
+
+    def fwd(_):
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=attn_mask, is_causal=causal, scale=scale)
+    both = ring_ms(lambda _: torch.autograd.grad(fwd(_), (qs, ks, vs), dout),
+                   [None], 10)
+    return both - ring_ms(fwd, [None], 10)
+
+
 def timing_row(ms: float, plain_ms: float, library_ms: Optional[float],
                bound: tuple) -> Dict[str, object]:
     """One mode's times: the kernel, its plain version, the library call

@@ -10,7 +10,14 @@ import chip_smoke
 from sct_gan_tpu_torch.ops import _build
 
 FWD = "_ZN12_GLOBAL__N_116flash_fwd_kernelE14CUtensorMap_st"
-DKV = "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelENS_7BwdArgsE"
+DKV = ("_ZN12_GLOBAL__N_127flash_bwd_dkv_hopper_kernelINS_8DkvShapeILi96ELi2E"
+       "Li3ELi1EEEEEv14CUtensorMap_stS3_S3_S3_NS_7BwdArgsE")
+DQ = ("_ZN12_GLOBAL__N_126flash_bwd_dq_hopper_kernelINS_7DqShapeILi128ELi2E"
+      "Li2EEEEEv14CUtensorMap_stS3_S3_S3_NS_7BwdArgsE")
+DKV64 = ("_ZN12_GLOBAL__N_127flash_bwd_dkv_hopper_kernelINS_8DkvShapeILi64ELi2E"
+         "Li3ELi1EEEEEv14CUtensorMap_stS3_S3_S3_NS_7BwdArgsE")
+WIDE_DQ = ("_ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi192ELb0EEEv"
+           "14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE")
 DECODE = "_ZN12_GLOBAL__N_122decode_perbatch_kernelEPK13__nv_bfloat16"
 SPLITK = "_ZN12_GLOBAL__N_120decode_splitk_kernelEPK13__nv_bfloat16"
 
@@ -76,6 +83,11 @@ def test_report_path_sits_beside_the_library():
     # the split-K decode attention (K5) is held to no spill as well
     (_entry(SPLITK, 16, 12, 12, 112) + _entry(DECODE, 0, 0, 0, 40), [SPLITK]),
     (_entry(SPLITK, 0, 0, 0, 96), []),
+    # the backward pair's Hopper instances at 64-128, each by its own name
+    (_entry(DQ, 0, 0, 0, 168) + _entry(DKV64, 0, 0, 0, 200), []),
+    (_entry(DQ, 24, 20, 20, 200) + _entry(DKV, 0, 0, 0, 232), [DQ]),
+    (_entry(DKV64, 0, 0, 0, 190) + _entry(DKV, 16, 8, 12, 255), [DKV]),
+    (_entry(WIDE_DQ, 8, 4, 4, 255) + _entry(DQ, 0, 0, 0, 168), [WIDE_DQ]),
 ])
 def test_flash_spills_flags_only_the_flash_kernels_spills(log, flagged):
     got = chip_smoke.kernel_spills(log)

@@ -40,7 +40,15 @@ FLASH_CASES = {
     "causal_1000": (1000, 1000, True, None, (2, 8, "bhsd")),
     "head_view_1024": (1024, 1024, False, "tail", (2, 8, "heads")),
     "b4_h8_2048": (2048, 2048, False, "tail", (4, 8, "bhsd")),
+    # whole masked 64-key tiles and 128-key blocks, which the backward pair
+    # skips: a block whose first warpgroup's keys are all masked, one
+    # whose second's are, and a row with a single live tile
+    "skipped_tiles": (512, 512, False, "tiles", (4, 8, "heads")),
+    # the long walk on a small grid (the sp_encode gradient's role)
+    "b1_sk8192": (8192, 8192, False, "tail", (1, 8, "heads")),
 }
+# the head dims of the backward pair's Hopper instances
+PAIR_HEAD_DIMS = (64, 96, 128)
 
 
 @pytest.fixture
@@ -50,24 +58,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _qkv_mask(device, case):
-    """q, k, v (bf16, seed 0) and the key mask of a ``FLASH_CASES`` case."""
+def _qkv_mask(device, case, d=96):
+    """q, k, v (bf16, seed 0, head dim ``d``) and the key mask of a
+    ``FLASH_CASES`` case."""
     sq, sk, _, kind, (b, h, layout) = FLASH_CASES[case]
     g = torch.Generator(device=device).manual_seed(0)
 
     def make(s):
         if layout == "heads":
-            return torch.randn(b, s, h * 96, generator=g, device=device,
+            return torch.randn(b, s, h * d, generator=g, device=device,
                                dtype=torch.bfloat16).view(
-                                   b, s, h, 96).transpose(1, 2)
-        return torch.randn(b, h, s, 96, generator=g, device=device,
+                                   b, s, h, d).transpose(1, 2)
+        return torch.randn(b, h, s, d, generator=g, device=device,
                            dtype=torch.bfloat16)
     q, k, v = make(sq), make(sk), make(sk)
     mask = None
-    if kind is not None:
+    keys = torch.arange(sk, device=device)
+    if kind == "tiles":
+        mask = torch.stack([(keys >= 64) & (keys < 128) | (keys >= 448),
+                            keys % 128 < 64,
+                            (keys >= 256) & (keys < 320),
+                            keys % 128 >= 64][:b])
+    elif kind is not None:
         lens = torch.tensor([sk - 7, sk // 2, sk // 3, sk - 100][:b],
                             device=device)
-        mask = torch.arange(sk, device=device)[None, :] < lens[:, None]
+        mask = keys[None, :] < lens[:, None]
         if kind == "one_row_empty":
             mask[1] = False
     return q, k, v, mask
@@ -114,16 +129,18 @@ def test_flash_dropout_and_lse_match_plain_on_card(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", PAIR_HEAD_DIMS)
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_flash_backward_matches_autograd_on_card(cuda_device, case, rate):
+def test_flash_backward_matches_autograd_on_card(cuda_device, case, rate, d):
     """The backward kernel pair vs autograd through the plain version, same
-    dO: dq, dk, dv within 2^-3 absolute (dS is rounded to bf16 before the
-    dK and dQ products, as in the TPU kernels) and within 1e-2 norm-wise
-    relative (independent bf16 roundings of ~2^-9 each; the absolute bound
-    alone checks only the peak entries); a fully-masked row gets dq = 0."""
+    dO, at each head dim of its Hopper instances: dq, dk, dv within 2^-3
+    absolute (dS is rounded to bf16 before the dK and dQ products, as in
+    the TPU kernels) and within 1e-2 norm-wise relative (independent bf16
+    roundings of ~2^-9 each; the absolute bound alone checks only the peak
+    entries); a fully-masked row gets dq = 0."""
     causal, kind = FLASH_CASES[case][2:4]
-    q, k, v, mask = _qkv_mask(cuda_device, case)
+    q, k, v, mask = _qkv_mask(cuda_device, case, d)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     dout = torch.randn_like(q)
     args = dict(key_padding_mask=mask, causal=causal, dropout_rate=rate,
@@ -170,13 +187,15 @@ def test_flash_takes_2_32_scores_without_dropout_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["causal_1000", "b4_h8_2048"])
-def test_flash_backward_is_deterministic_on_card(cuda_device, case):
+@pytest.mark.parametrize("d", PAIR_HEAD_DIMS)
+@pytest.mark.parametrize("case", ["causal_1000", "b4_h8_2048",
+                                  "skipped_tiles"])
+def test_flash_backward_is_deterministic_on_card(cuda_device, case, d):
     """The backward pair uses no atomics: two runs on the same inputs, with
     dropout 0.3, give bit-identical dq, dk and dv."""
     causal = FLASH_CASES[case][2]
-    q, k, v, mask = _qkv_mask(cuda_device, case)
-    scale = 96 ** -0.5
+    q, k, v, mask = _qkv_mask(cuda_device, case, d)
+    scale = d ** -0.5
     out, lse = flash_attention(q, k, v, key_padding_mask=mask, causal=causal,
                                sm_scale=scale, dropout_rate=0.3, seed=5,
                                return_lse=True)
