@@ -81,7 +81,13 @@ ran through its kernels:
     script): ``sp_encode`` and its gradient at sp=2, and a dp=2 and an mp=2
     train step, each against the world of one. K1, the pair and K6 are
     held to their plain versions at the meshes' index origins and at
-    Sk=16384 and 8192 first.
+    Sk=16384 and 8192 first;
+  * the bench (``bench``, the training width; ``sct_gan_tpu_torch/tools/
+    bench.py``, the port of the JAX repo's ``bench.py``): its line at the
+    JAX bench's configuration and counts (the fused step, decode at B=64,
+    the f32 dense-attention naive leg), the launches of each leg held to
+    the config, then ``peak_matmul``, ``time_fwd``, ``time_decode`` and
+    ``time_fwd_modules --grad`` once each.
 
 It times the kernels (every head-dim instance), their plain versions, the
 PyTorch library call for the same function and each path with CUDA events
@@ -113,6 +119,8 @@ from sct_gan_tpu_torch.utils.profiling import (  # noqa: E402
 # SDPA's backward, the backward pair's yardstick (timed, never called by
 # the port)
 from sct_gan_tpu_torch.tools._common import sdpa_backward_ms  # noqa: E402
+# the JAX bench's training batch (bench.py:57-70), from the port's bench
+from sct_gan_tpu_torch.tools.bench import make_batch  # noqa: E402
 
 # Tolerances, with their reasons:
 # kernel vs plain, both bf16 outputs from the same bf16 inputs: each rounds
@@ -988,24 +996,6 @@ def phase_serve():
         raise AssertionError("decode_step disagrees with teacher forcing")
     launches = {k: detect[k] + gen[k] for k in detect}
     return an, codes, template, launches
-
-
-def make_batch(batch_size: int, seq: int, vocab: int):
-    """The JAX package's training benchmark batch (bench.py:57-70)."""
-    import numpy as np
-    rng = np.random.default_rng(0)
-    lines = np.minimum(np.arange(seq, dtype=np.int32) // 6, seq - 1)
-    return {
-        "input_ids": rng.integers(0, vocab, (batch_size, seq)).astype(np.int32),
-        "attention_mask": np.ones((batch_size, seq), np.int32),
-        "ast_input_ids": rng.integers(0, vocab, (batch_size, seq)).astype(np.int32),
-        "ast_attention_mask": np.ones((batch_size, seq), np.int32),
-        "token_to_line": np.tile(lines, (batch_size, 1)),
-        "vulnerable_lines": (rng.random((batch_size, 8, seq)) < 0.01
-                             ).astype(np.int32),
-        "contract_vulnerabilities": rng.integers(
-            0, 2, (batch_size, 8)).astype(np.int32),
-    }
 
 
 class _Empty:
@@ -2990,6 +2980,167 @@ def head_dim_times(card: str) -> dict:
     return t
 
 
+# the attribution tools' repeat counts in this run (the tools' defaults
+# are the JAX tools': 10 steps, 3 generation rounds, 4 and 44 calls)
+BENCH_TOOLS = (
+    ("peak_matmul", []),
+    ("time_fwd", ["--steps", "4"]),
+    ("time_decode", ["--rounds", "2"]),
+    ("time_fwd_modules", ["--grad", "--calls", "2", "10"]),
+)
+
+
+def _numbers(res: dict) -> list:
+    """(key, value) of every number in a tool's JSON (nested dicts and
+    lists included; bools and the launch counts, which may be 0, left
+    out)."""
+    out, stack = [], [("", res)]
+    while stack:
+        key, x = stack.pop()
+        if isinstance(x, dict):
+            stack += [(f"{key}.{k}", v) for k, v in x.items()
+                      if k != "launches"]
+        elif isinstance(x, list):
+            stack += [(f"{key}[{i}]", v) for i, v in enumerate(x)]
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            out.append((key, x))
+    return out
+
+
+def phase_bench(card: str, size=(), device: str = "cuda") -> dict:
+    """The port's bench (``sct_gan_tpu_torch/tools/bench.py``) at the JAX
+    bench's configuration (``size`` appends the tools' size options), its
+    counts (2 + 2 x 10 fused steps, 1 + 1 + 3 decode rounds at B=64, 2 + 2 x
+    4 naive steps), then ``peak_matmul``, ``time_fwd``, ``time_decode`` and
+    ``time_fwd_modules --grad`` once each with ``BENCH_TOOLS``' counts.
+    Every tool prints its lines; every number of every JSON must be finite
+    and positive. On the card the bench's launches are held to
+    ``read_counts()`` and to the config: per fused step ``flash_per_forward``
+    K1 and pair launches and some dropout; per naive step no K1 and no pair,
+    and the fused step's dropout; per decode step 2 x the decoder's layers
+    K5 launches and per round one encode's K1. On the card one naive step
+    is then profiled (``profile_naive_step``). Returns every launch of the
+    phase and the measured peaks (FLOP/s, bytes/s) of ``peak_matmul``.
+    Rehearse it on the CPU at a tiny size with ``device="cpu"`` (the
+    launch counts are checked on the card only)."""
+    import importlib
+    from sct_gan_tpu_torch.tools._common import model_config
+    out_dir = os.path.join(ROOT, "profile_out")
+    os.makedirs(out_dir, exist_ok=True)
+    size = ["--device", device, *size]
+    # peak_matmul takes no model size: on the CPU a small one of its own
+    matmul = ["--device", device] + (["--sizes", "64", "--copy-mb", "2"]
+                                     if device == "cpu" else [])
+    mod = lambda name: importlib.import_module(
+        f"sct_gan_tpu_torch.tools.{name}")
+
+    def run(name, argv):
+        path = os.path.join(out_dir, f"{name}.json")
+        t0 = time.perf_counter()
+        head = matmul if name == "peak_matmul" else size
+        if mod(name).main([*head, *argv, "--out", path]) != 0:
+            raise AssertionError(f"bench: {name} failed")
+        with open(path) as f:
+            res = json.load(f)
+        bad = [(k, v) for k, v in _numbers(res)
+               if not (math.isfinite(v) and v > 0)]
+        if bad:
+            raise AssertionError(f"bench: {name} printed {bad}")
+        return res, time.perf_counter() - t0
+
+    reset_counts()
+    res, secs = run("bench", [])
+    counts = read_counts()
+    legs = res["launches"]
+    step, naive, dec = legs["step"], legs["naive_step"], legs["decode"]
+    if device == "cuda":
+        args = dict(zip(size[::2], size[1::2]))
+        cfg = model_config(int(args.get("--seq", 1024)),
+                           int(args.get("--d-model", 768)),
+                           int(args.get("--layers", 6)))
+        fwd = flash_per_forward(cfg)
+        drop = step["dropout"] // step["steps"]
+        want = {
+            "step": {"flash_attention_fwd": fwd * step["steps"],
+                     "flash_attention_bwd": fwd * step["steps"],
+                     "dropout": drop * step["steps"], "decode_attention": 0},
+            "naive_step": {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                           "dropout": drop * naive["steps"],
+                           "decode_attention": 0},
+            "decode": {"flash_attention_fwd": (cfg.num_encoder_layers + 2)
+                       * dec["rounds"], "flash_attention_bwd": 0,
+                       "dropout": 0, "decode_attention":
+                       2 * cfg.num_decoder_layers * dec["steps"]}}
+        got = {leg: {k: legs[leg][k] for k in counts} for leg in want}
+        if counts != legs["total"] or got != want or drop == 0:
+            raise AssertionError(f"bench: launches {legs}, read_counts "
+                                 f"{counts}, expected {want}")
+    print(f"phase bench [{card}]: {res['value']:.1f} tokens/s/chip "
+          f"({res['step_ms']} ms a step by {res['timing']}, "
+          f"{res['step_host_ms']:.2f} by the host clock), vs_baseline "
+          f"{res['vs_baseline']:.3f} (naive {res['naive_step_ms']} ms, f32 "
+          f"dense attention, tf32 {res['tf32']}), decode at B="
+          f"{res['decode_batch']} {res['decode_contracts_per_sec']:.3f} "
+          f"contracts/s, {res['decode_tokens_per_sec']:.1f} tokens/s; "
+          f"launches per leg {legs} in {secs:.1f} s", flush=True)
+    if device == "cuda":
+        from sct_gan_tpu_torch.tools.bench import free_memory
+        profile_naive_step(card, res["naive_step_ms"])
+        free_memory()               # the naive trainer's f32 state
+    peaks = None
+    for name, argv in BENCH_TOOLS:
+        out, secs = run(name, argv)
+        print(f"phase bench: {name} {' '.join(argv)} in {secs:.1f} s",
+              flush=True)
+        if name == "peak_matmul":
+            peaks = (max(r["tflops_bf16"] for r in out["matmul"]) * 1e12,
+                     out["hbm"]["gb_per_s"] * 1e9)
+    return read_counts(), peaks
+
+
+def profile_naive_step(card: str, wall_ms: float) -> None:
+    """One step of the bench's naive leg (f32, dense attention) under
+    ``torch.profiler``, after one warm-up step: where its time goes
+    (``profile_out/profile_naive.txt``)."""
+    import torch
+    from sct_gan_tpu_torch.tools import bench
+    trainer = bench.build_trainer("float32", True)
+    batch = trainer.to_device(make_batch(8, 1024, trainer.model.config
+                                         .vocab_size))
+    box = {"state": trainer.state, "scalars": trainer._scalars(1.0)}
+    lrs = trainer._group_lrs()
+
+    def step():
+        box["state"], _, box["scalars"] = trainer.train_step(
+            box["state"], batch, box["scalars"], lrs, trainer.generator)
+        return 1
+    step()
+    torch.cuda.synchronize()
+    profile_device(step, "naive", wall_ms, card)
+
+
+def add_measured_bounds(entry, peaks, by=None) -> None:
+    """Beside every ``bound_ms`` in ``entry`` (a kernels-line entry, its
+    nested rows included), ``bound_measured_ms``: the same bound at the
+    card's measured peaks (``peak_matmul``: (FLOP/s, bytes/s)) in place of
+    the data sheet's, rescaling the term that bounds it (a nested row
+    without ``bound_by`` is bound as its parent)."""
+    from sct_gan_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_BYTES
+    if isinstance(entry, list):
+        for e in entry:
+            add_measured_bounds(e, peaks, by)
+        return
+    if not isinstance(entry, dict):
+        return
+    by = entry.get("bound_by", by)
+    for v in list(entry.values()):
+        add_measured_bounds(v, peaks, by)
+    if "bound_ms" in entry:
+        scale = (PEAK_BF16_FLOPS / peaks[0] if by == "operations"
+                 else PEAK_BYTES / peaks[1])
+        entry["bound_measured_ms"] = entry["bound_ms"] * scale
+
+
 def phase_times(an, codes, template, trainer, batch, card, variants):
     """Kernels vs their plain versions and the library call, by CUDA
     events; the detection, generation and train-step times. ``variants``
@@ -3157,6 +3308,7 @@ def main() -> int:
     head_launches = phase_heads()
     tasc_launches = phase_tasc(card)
     parallel_launches = phase_parallel(card)
+    bench_launches, peaks = phase_bench(card)
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
                                                     trainer, batch, card,
                                                     variants)
@@ -3204,7 +3356,7 @@ def main() -> int:
             launches = sum(p[name] for p in (
                 serve_launches, beam_launches, analyzer_launches,
                 eval_launches, train_launches, loop_launches,
-                tools_launches))
+                tools_launches, bench_launches))
         else:
             launches = head_launches[name]
         # the TASC paths: head dim 96, and CodeBERT's K1 at 64; the
@@ -3257,6 +3409,7 @@ def main() -> int:
                     row["b64"] = times(t[f"{name}:dh{d}:b64"])
         kernels.append(entry)
     kernels += variants
+    add_measured_bounds(kernels, peaks)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,20 @@ Training and evaluation, with the JAX tools' flags plus ``--device``:
   time_opt           the optimizer stage alone, unfused or ``--fused``
   run_corpus_v2      the corpus-v2 Run B recipe through all five
 
+The benchmark and step attribution, the JAX repo's root ``bench.py`` and
+its measurement tools, with the JAX tools' options plus ``--device`` and
+the model's size (``--d-model``, ``--layers``, ``--seq``, ``--batch``):
+
+  bench             the headline: fused train step tokens/s, vs_baseline
+                    against an in-run f32 dense-attention step, decode at
+                    B=64
+  quick_bench       the fused step and decode only
+  bench_decode      full-length KV-cached generation throughput
+  peak_matmul       the card's achievable bf16 TFLOP/s and HBM GB/s
+  time_fwd          the train step against the eval (forward-only) step
+  time_decode       one decode step alone against full-length generation
+  time_fwd_modules  forward (and ``--grad`` backward) ms of each stage
+
 They run on the card by default and raise without one; ``--device cpu``
 runs the plain versions. Run any of them as
 

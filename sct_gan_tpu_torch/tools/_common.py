@@ -130,16 +130,19 @@ def summary_line(title: str, result: Dict[str, dict], card: str) -> str:
 
 # -- what the training and evaluation entry points share ----------------------
 
-def model_config(seq: int = 1024, d_model: int = 768, layers: int = 6):
+def model_config(seq: int = 1024, d_model: int = 768, layers: int = 6,
+                 compute_dtype: str = "bfloat16"):
     """The JAX tools' ``ModelConfig``: the GAN model at L = ``seq`` with
     ``seq`` line slots, FFN 2048 at the reference width (else 8/3 of
-    d_model) and ``layers`` encoder and decoder layers."""
+    d_model), ``layers`` encoder and decoder layers, computing in
+    ``compute_dtype``."""
     from ..config import ModelConfig
     return ModelConfig(use_gan=True, max_length=seq, max_lines=seq,
                        d_model=d_model,
                        dim_feedforward=(2048 if d_model == 768
                                         else d_model * 8 // 3),
-                       num_encoder_layers=layers, num_decoder_layers=layers)
+                       num_encoder_layers=layers, num_decoder_layers=layers,
+                       compute_dtype=compute_dtype)
 
 
 def tokenizer_for(cfg):
@@ -226,7 +229,8 @@ class _NoBatches:
 
 
 def bench_trainer(device: str, fused: bool, d_model: int = 768,
-                  layers: int = 6, seq: int = 1024, batch_size: int = 8):
+                  layers: int = 6, seq: int = 1024, batch_size: int = 8,
+                  compute_dtype: str = "bfloat16"):
     """The JAX bench's trainer (``bench.build_trainer("bfloat16", True, 8,
     1024)``): ``ModelConfig(use_gan=True)`` at L=1024, B=8, learning rate
     1e-5, one warm-up epoch, no loaders; ``fused`` picks
@@ -235,7 +239,7 @@ def bench_trainer(device: str, fused: bool, d_model: int = 768,
     from ..config import TrainConfig
     from ..models.sct_transformer import SmartContractTransformer
     from ..train.trainer import SmartContractTrainer
-    cfg = model_config(seq, d_model, layers)
+    cfg = model_config(seq, d_model, layers, compute_dtype)
     tok = tokenizer_for(cfg)
     return SmartContractTrainer(
         SmartContractTransformer(cfg, seed=0), _NoBatches(batch_size),

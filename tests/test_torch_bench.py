@@ -1,0 +1,296 @@
+"""The port's bench and step-attribution tools (``sct_gan_tpu_torch/tools``:
+``bench``, ``quick_bench``, ``bench_decode``, ``peak_matmul``, ``time_fwd``,
+``time_decode``, ``time_fwd_modules``) on the CPU at a tiny width (d=32,
+1+1 layers, L=64, B=2), against the JAX repo's root ``bench.py``:
+
+  * ``make_batch`` equals the JAX bench's bit for bit;
+  * one step of the naive leg (f32, dense attention) equals one step of the
+    JAX trainer built as ``bench.build_trainer("float32", False, ...)``
+    builds it, from the same weights, dropout off on both sides (the two
+    frameworks draw different masks): ``total_loss`` within 1e-4 relative
+    (the bar of ``test_torch_train.py``'s whole step), ``grad_norm`` within
+    1e-3 (a norm over every gradient, summed in another order);
+  * the naive leg's dense route gives the plain flash route's step on the
+    CPU in f32 within 1e-5 (the swap changes the implementation, not the
+    math), and the rebinding is undone after the leg, also when it raises;
+  * ``time_decode`` runs every round to L - 1 steps and its rates are
+    B (L - 1) over a round's seconds;
+  * each tool's ``main`` prints the keys of its JAX counterpart's output.
+"""
+import dataclasses
+import importlib.util
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+
+from sct_gan_tpu.config import ModelConfig as JaxModelConfig
+from sct_gan_tpu.config import TrainConfig as JaxTrainConfig
+from sct_gan_tpu.data.tokenizer import SolidityTokenizer as JaxTokenizer
+from sct_gan_tpu.models import layers as jax_layers
+from sct_gan_tpu.models.sct_transformer import \
+    SmartContractTransformer as JaxModel
+from sct_gan_tpu.parallel.mesh import make_mesh, shard_batch
+from sct_gan_tpu.train.trainer import SmartContractTrainer as JaxTrainer
+from sct_gan_tpu_torch import convert_flax_params
+from sct_gan_tpu_torch.models import layers
+from sct_gan_tpu_torch.models.layers import Dropout, MultiheadAttention
+from sct_gan_tpu_torch.ops import attention, flash_attention
+from sct_gan_tpu_torch.tools import (bench, bench_decode, peak_matmul,
+                                     quick_bench, time_decode, time_fwd,
+                                     time_fwd_modules)
+from sct_gan_tpu_torch.tools._common import model_config, tokenizer_for
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+D, LAYERS, SEQ, B = 32, 1, 64, 2
+SIZE = dict(device="cpu", d_model=D, layers=LAYERS)
+TINY = ["--device", "cpu", "--d-model", str(D), "--layers", str(LAYERS),
+        "--seq", str(SEQ)]
+
+
+def _jax_bench():
+    """The JAX repo's root ``bench.py`` (numpy only at module level)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_root_bench", os.path.join(ROOT, "bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("b, s, vocab", [(2, 64, 50265), (8, 1024, 50265),
+                                         (3, 100, 512)])
+def test_make_batch_equals_the_jax_bench(b, s, vocab):
+    want = _jax_bench().make_batch(b, s, vocab)
+    got = bench.make_batch(b, s, vocab)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _no_dropout(trainer):
+    """Every dropout site of the port's model off: the Dropout modules
+    (the line heads' and the discriminator's fixed 0.1 included) and the
+    attention-weight dropout."""
+    for m in trainer.model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+        elif isinstance(m, MultiheadAttention):
+            m.dropout = 0.0
+    return trainer
+
+
+def _port_step(trainer, batch):
+    _, metrics, _ = trainer.train_step(
+        trainer.state, trainer.to_device(batch), trainer._scalars(1.0),
+        trainer._group_lrs(), trainer.generator)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def test_naive_step_matches_the_jax_naive_trainer(monkeypatch):
+    """The JAX trainer as ``bench.build_trainer("float32", False, B, L)``
+    builds it (a 1 x 1 mesh, learning rate 1e-5, one warm-up epoch, no
+    loaders), at the tiny width, against the port's naive leg on its
+    weights."""
+    cfg = model_config(SEQ, D, LAYERS, "float32")
+    jcfg = JaxModelConfig(**{**dataclasses.asdict(cfg), "dropout": 0.0,
+                             "use_flash_attention": False})
+    # the line heads' and the discriminator's fixed 0.1 (JAX side)
+    monkeypatch.setattr(jax_layers, "fast_dropout",
+                        lambda x, rate, rng, deterministic=False: x)
+
+    class _Empty:
+        def __iter__(self):
+            return iter(())
+
+    jt = JaxTrainer(JaxModel(jcfg), _Empty(), _Empty(),
+                    JaxTokenizer(vocab_size=jcfg.vocab_size),
+                    config=JaxTrainConfig(learning_rate=1e-5, use_gan=True,
+                                          warmup_epochs=1),
+                    mesh=make_mesh(dp=1, mp=1, devices=jax.devices()[:1]),
+                    verbose=False)
+    params = jax.device_get(jt.state.params)
+    batch = bench.make_batch(B, SEQ, cfg.vocab_size)
+    _, want, _ = jt.train_step(jt.state, shard_batch(batch, jt.mesh),
+                               jt._scalars(1.0), jt._group_lrs(),
+                               jax.random.PRNGKey(0))
+
+    naive = _no_dropout(bench.build_trainer("float32", True, B, SEQ, **SIZE))
+    naive.model.load_state_dict(convert_flax_params(params, cfg))
+    got = _port_step(naive, batch)
+    np.testing.assert_allclose(got["total_loss"], float(want["total_loss"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], float(want["grad_norm"]),
+                               rtol=1e-3)
+    assert got["skipped"] == 0.0 == float(want["skipped"])
+
+
+@pytest.fixture
+def flash_calls(monkeypatch):
+    """Counts the calls of the flash route (``ops.flash_attention``'s entry,
+    which ``dot_product_attention`` imports at each call)."""
+    box = [0]
+    real = flash_attention.flash_attention
+
+    def counted(*a, **k):
+        box[0] += 1
+        return real(*a, **k)
+    monkeypatch.setattr(flash_attention, "flash_attention", counted)
+    return box
+
+
+def test_dense_route_equals_the_plain_flash_route(flash_calls):
+    """The same f32 trainer (seed 0, dropout on) stepped once through the
+    package's attention and once through the naive leg's dense route: the
+    metrics agree within 1e-5, and the naive leg never reaches the flash
+    route."""
+    batch = bench.make_batch(B, SEQ, 50265)
+    flash = bench.build_trainer("float32", False, B, SEQ, **SIZE)
+    calls = flash_calls[0]
+    want = _port_step(flash, batch)
+    assert flash_calls[0] > calls
+    calls = flash_calls[0]
+    naive = bench.build_trainer("float32", True, B, SEQ, **SIZE)
+    got = _port_step(naive, batch)
+    assert flash_calls[0] == calls
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    for n, p in naive.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   flash.state.params[n].detach().numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=n)
+
+
+def test_the_rebinding_is_undone():
+    """``dense_attention`` holds the plain dense attention only inside it,
+    and the naive trainer only while it is built and steps: afterwards the
+    layers call the package's attention again, also after a raise."""
+    package = layers.dot_product_attention
+    assert package is attention.dot_product_attention
+    with bench.dense_attention():
+        assert layers.dot_product_attention is attention.mha_reference
+    assert layers.dot_product_attention is package
+    with pytest.raises(RuntimeError, match="inside"):
+        with bench.dense_attention():
+            raise RuntimeError("inside")
+    assert layers.dot_product_attention is package
+
+    naive = bench.build_trainer("float32", True, B, SEQ, **SIZE)
+    assert layers.dot_product_attention is package
+    broken = bench.make_batch(B, SEQ, 50265)
+    del broken["token_to_line"]
+    with pytest.raises(KeyError, match="token_to_line"):
+        _port_step(naive, broken)
+    assert layers.dot_product_attention is package
+
+
+def test_time_decode_runs_full_length_rounds(monkeypatch):
+    """Every round decodes L - 1 steps (``min_length=10**9``: no row stops
+    early) into (B, L) tokens starting at BOS; the rates are B (L - 1) and
+    B over a round's seconds."""
+    from sct_gan_tpu_torch.infer import generate as gen_mod
+    from sct_gan_tpu_torch.models.sct_transformer import \
+        SmartContractTransformer
+    seen = []
+    real = gen_mod.make_generate_fn
+
+    def spy(*a, **k):
+        assert k["min_length"] == 10 ** 9
+        fn = real(*a, **k)
+
+        def generate(*args):
+            tokens, steps = fn(*args)
+            seen.append((tuple(tokens.shape), steps,
+                         bool((tokens[:, 0] == gen_mod.BOS_ID).all())))
+            return tokens, steps
+        return generate
+    monkeypatch.setattr(gen_mod, "make_generate_fn", spy)
+    seq = 32
+    cfg = model_config(seq, D, LAYERS)
+    model = SmartContractTransformer(cfg, seed=0)
+    res = bench.time_decode(model, tokenizer_for(cfg), 3, n_large=2)
+    assert seen == [((3, seq), seq - 1, True)] * 4
+    assert res["rounds"] == 4 and res["steps"] == 4 * (seq - 1)
+    assert res["decode_tokens_per_sec"] == pytest.approx(
+        3 * (seq - 1) / res["seconds_per_batch"])
+    assert res["decode_contracts_per_sec"] == pytest.approx(
+        3 / res["seconds_per_batch"])
+    assert model.training       # handed back in its mode
+
+
+# What each JAX tool prints: the JSON keys of bench.py:204-211,
+# tools/quick_bench.py:40-50 and tools/bench_decode.py:79-86; the text
+# lines of the others (the port prints them too, then one JSON line whose
+# keys carry the same numbers).
+JAX_OUTPUT = {
+    "bench": ({"metric", "value", "unit", "vs_baseline",
+               "decode_contracts_per_sec", "decode_tokens_per_sec",
+               "decode_batch"}, ()),
+    "quick_bench": ({"step_ms", "tok_per_sec", "decode_contracts_per_sec",
+                     "decode_tokens_per_sec", "decode_batch"}, ()),
+    "bench_decode": ({"metric", "contracts_per_sec", "decode_tokens_per_sec",
+                      "batch", "seq", "seconds_per_batch"}, ()),
+    "peak_matmul": ({"matmul", "hbm"}, ("matmul 64^3 x16:",
+                                        "elementwise x8 over 2 MB:")),
+    "time_fwd": ({"step_ms", "fwd_ms", "bwd_opt_ms"},
+                 ("full step:", "eval (fwd-only) step:",
+                  "=> bwd+optimizer+train-extras:")),
+    "time_decode": ({"decode_step_ms", "seconds_per_batch",
+                     "contracts_per_sec", "decode_tokens_per_sec",
+                     "loop_step_ms"},
+                    ("decode_step alone:", "full generation:")),
+    "time_fwd_modules": ({"fwd", "fwd+bwd"},
+                         tuple(f"{m} {s:14s}:" for m in ("fwd", "fwd+bwd")
+                               for s in time_fwd_modules.STAGES)
+                         + ("fwd sum:", "fwd+bwd sum:")),
+}
+TOOLS = {
+    "bench": (bench, [*TINY, "--batch", "2", "--decode-batch", "2"]),
+    "quick_bench": (quick_bench, [*TINY, "--batch", "2", "--decode-batch",
+                                  "2"]),
+    "bench_decode": (bench_decode, ["2", *TINY]),
+    "peak_matmul": (peak_matmul, ["--device", "cpu", "--sizes", "64",
+                                  "--copy-mb", "2"]),
+    "time_fwd": (time_fwd, [*TINY, "--batch", "2", "--steps", "2"]),
+    "time_decode": (time_decode, [*TINY, "--batch", "2", "--rounds", "2"]),
+    "time_fwd_modules": (time_fwd_modules, [*TINY, "--batch", "2",
+                                            "--grad", "--calls", "1", "2"]),
+}
+
+
+def _numbers(x) -> list:
+    """Every number in a nest of lists and dicts (strings and bools
+    left out)."""
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, list):
+        return [v for item in x for v in _numbers(item)]
+    return [x] if isinstance(x, (int, float)) and not isinstance(x,
+                                                                  bool) else []
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_main_prints_the_jax_tools_output(name, capsys):
+    tool, argv = TOOLS[name]
+    assert tool.main(argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    res = json.loads(lines[-1])
+    keys, texts = JAX_OUTPUT[name]
+    assert keys <= set(res), keys - set(res)
+    for text in texts:
+        assert any(line.startswith(text) for line in lines[:-1]), text
+    nums = _numbers([res[k] for k in keys])
+    assert nums and all(np.isfinite(v) and v > 0 for v in nums), res
+    if name == "bench":
+        assert res["metric"] == "train_tokens_per_sec_per_chip"
+        assert res["device"] == "cpu" and res["tf32"] is False
+        assert res["launches"]["step"]["steps"] == 22
+        assert res["launches"]["naive_step"]["steps"] == 10
+    if name == "peak_matmul":
+        assert res["matmul"][0]["n"] == 64 and res["hbm"]["gb_per_s"] > 0
+    if name == "time_fwd_modules":
+        assert set(res["fwd"]) == {*time_fwd_modules.STAGES, "sum"}

@@ -658,3 +658,25 @@ def test_graph_timers_call_once_eagerly_and_n_times_captured(cuda_device,
     torch.cuda.synchronize()
     assert len(calls) == 1 + 5 and ms > 0.0
     assert outs[-1].max().item() == (2.0 ** 5 if timer == "chain" else 2.0)
+
+
+@pytest.mark.cuda
+def test_peak_matmul_and_bench_time_step_on_card(cuda_device):
+    """The bench tools' timing on the card at a small size: the matmul
+    chain and the HBM probe give positive rates; ``bench.time_step`` times
+    a 1+1-layer train step at head dim 96 (B=2, L=128) by CUDA events and
+    the host clock, each step launching 8 flash forwards (1 encoder, 2
+    decoder, AST, cross, 2 line heads, discriminator) and 8 backwards."""
+    from sct_gan_tpu_torch.tools import bench, peak_matmul
+    mm = peak_matmul.matmul_chain(1024, 4, cuda_device)
+    hbm = peak_matmul.hbm_probe(64, 2, cuda_device)
+    assert mm["ms"] > 0 and mm["tflops_bf16"] > 0 and hbm["gb_per_s"] > 0
+    trainer = bench.build_trainer("bfloat16", False, 2, 128, "cuda",
+                                  layers=1)
+    res = bench.time_step(trainer, bench.make_batch(2, 128, 50265),
+                          warmup=1, n_large=2, reps=1)
+    assert res["ms"] > 0 and res["host_ms"] > 0 and res["steps"] == 3
+    assert res["launches"]["flash_attention_fwd"] == 8 * 3
+    assert res["launches"]["flash_attention_bwd"] == 8 * 3
+    assert res["launches"]["dropout"] > 0
+    assert res["launches"]["decode_attention"] == 0

@@ -8,7 +8,8 @@ batch, the JAX package's loaders built as the JAX tool builds them. The
 eval tail's matrix on weights carried from a tiny JAX model equals the JAX
 harness's within the analyzer tests' 1e-4 absolute (the same weights and
 contracts through the two frameworks' forwards; ``test_torch_evals.py``),
-perplexity within 1e-4 relative.
+perplexity within 1e-4 relative. Asked for the card, every tool's
+``main`` (the bench and step-attribution tools' too) raises without one.
 """
 import json
 import math
@@ -33,9 +34,12 @@ from sct_gan_tpu.evals.harness import \
 from sct_gan_tpu.evals.perplexity import compute_perplexity as jax_perplexity
 from sct_gan_tpu.infer import SmartContractAnalyzer as JaxAnalyzer
 from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
-from sct_gan_tpu_torch.tools import (analyze_v2_errors, eval_checkpoint,
-                                     eval_v2_infamily, run_corpus_v2,
-                                     time_opt, train_synthetic)
+from sct_gan_tpu_torch.tools import (analyze_v2_errors, bench,
+                                     bench_decode, eval_checkpoint,
+                                     eval_v2_infamily, peak_matmul,
+                                     quick_bench, run_corpus_v2, time_decode,
+                                     time_fwd, time_fwd_modules, time_opt,
+                                     train_synthetic)
 from sct_gan_tpu_torch.tools._common import v2_loader
 from sct_gan_tpu_torch.train.checkpoint import (find_checkpoint,
                                                 save_checkpoint)
@@ -221,7 +225,9 @@ def test_evaluate_run_matches_the_jax_harness(tmp_path):
 
 @pytest.mark.parametrize("tool", [
     train_synthetic, eval_checkpoint, eval_v2_infamily, analyze_v2_errors,
-    time_opt, run_corpus_v2], ids=lambda m: m.__name__.rsplit(".", 1)[1])
+    time_opt, run_corpus_v2, bench, quick_bench, bench_decode, peak_matmul,
+    time_fwd, time_decode, time_fwd_modules],
+    ids=lambda m: m.__name__.rsplit(".", 1)[1])
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
 def test_main_on_cuda_raises_without_a_card(tool, tmp_path):
     argv = ["--device", "cuda"]
