@@ -87,7 +87,11 @@ ran through its kernels:
     JAX bench's configuration and counts (the fused step, decode at B=64,
     the f32 dense-attention naive leg), the launches of each leg held to
     the config, then ``peak_matmul``, ``time_fwd``, ``time_decode`` and
-    ``time_fwd_modules --grad`` once each.
+    ``time_fwd_modules --grad`` once each;
+  * the attribution tools (``attribution``, after the bench):
+    ``time_lmce``, ``time_lmce_parts``, ``time_flash_real``,
+    ``time_layer``, ``time_decode_parts`` and ``time_host_prep`` once each
+    at the JAX tools' shapes, each tool's launches held to the config.
 
 It times the kernels (every head-dim instance), their plain versions, the
 PyTorch library call for the same function and each path with CUDA events
@@ -3007,6 +3011,33 @@ def _numbers(res: dict) -> list:
     return out
 
 
+def bad_numbers(res: dict) -> list:
+    """The numbers of a tool's JSON that are not finite and positive
+    (a max error may be 0)."""
+    return [(k, v) for k, v in _numbers(res) if not math.isfinite(v)
+            or v < 0 or (v == 0 and not k.endswith("_err"))]
+
+
+def run_tool(name: str, argv: list) -> tuple:
+    """``sct_gan_tpu_torch.tools.<name>.main(argv)`` with its JSON written
+    to ``profile_out/<name>.json``: (the JSON, seconds). Raises if it fails
+    or prints a number that is not finite and positive."""
+    import importlib
+    out_dir = os.path.join(ROOT, "profile_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.json")
+    t0 = time.perf_counter()
+    tool = importlib.import_module(f"sct_gan_tpu_torch.tools.{name}")
+    if tool.main([*argv, "--out", path]) != 0:
+        raise AssertionError(f"{name} failed")
+    with open(path) as f:
+        res = json.load(f)
+    bad = bad_numbers(res)
+    if bad:
+        raise AssertionError(f"{name} printed {bad}")
+    return res, time.perf_counter() - t0
+
+
 def phase_bench(card: str, size=(), device: str = "cuda") -> dict:
     """The port's bench (``sct_gan_tpu_torch/tools/bench.py``) at the JAX
     bench's configuration (``size`` appends the tools' size options), its
@@ -3023,30 +3054,15 @@ def phase_bench(card: str, size=(), device: str = "cuda") -> dict:
     phase and the measured peaks (FLOP/s, bytes/s) of ``peak_matmul``.
     Rehearse it on the CPU at a tiny size with ``device="cpu"`` (the
     launch counts are checked on the card only)."""
-    import importlib
     from sct_gan_tpu_torch.tools._common import model_config
-    out_dir = os.path.join(ROOT, "profile_out")
-    os.makedirs(out_dir, exist_ok=True)
     size = ["--device", device, *size]
     # peak_matmul takes no model size: on the CPU a small one of its own
     matmul = ["--device", device] + (["--sizes", "64", "--copy-mb", "2"]
                                      if device == "cpu" else [])
-    mod = lambda name: importlib.import_module(
-        f"sct_gan_tpu_torch.tools.{name}")
 
     def run(name, argv):
-        path = os.path.join(out_dir, f"{name}.json")
-        t0 = time.perf_counter()
         head = matmul if name == "peak_matmul" else size
-        if mod(name).main([*head, *argv, "--out", path]) != 0:
-            raise AssertionError(f"bench: {name} failed")
-        with open(path) as f:
-            res = json.load(f)
-        bad = [(k, v) for k, v in _numbers(res)
-               if not (math.isfinite(v) and v > 0)]
-        if bad:
-            raise AssertionError(f"bench: {name} printed {bad}")
-        return res, time.perf_counter() - t0
+        return run_tool(name, [*head, *argv])
 
     reset_counts()
     res, secs = run("bench", [])
@@ -3096,6 +3112,115 @@ def phase_bench(card: str, size=(), device: str = "cuda") -> dict:
             peaks = (max(r["tflops_bf16"] for r in out["matmul"]) * 1e12,
                      out["hbm"]["gb_per_s"] * 1e9)
     return read_counts(), peaks
+
+
+# The last six attribution tools, after the bench: on the card at the JAX
+# tools' shapes with fewer repeats (time_flash_real 20 steps a chain, not
+# 100; time_decode_parts 64 steps a loop, not 256; time_host_prep one epoch
+# of 32 contracts, not 3 of 500); on the CPU, to rehearse, at a tiny size.
+ATTRIBUTION_CARD = (
+    ("time_lmce", ["--with-chunked"]),
+    ("time_lmce_parts", []),
+    ("time_flash_real", ["--steps", "20"]),
+    ("time_layer", []),
+    ("time_decode_parts", ["--steps", "64"]),
+    ("time_host_prep", ["--contracts", "32", "--epochs", "1"]),
+)
+ATTRIBUTION_CPU = (
+    ("time_lmce", ["--batch", "2", "--seq", "17", "--d-model", "32",
+                   "--vocab", "300", "--with-chunked", "--chunks", "3"]),
+    ("time_lmce_parts", ["--batch", "2", "--seq", "16", "--d-model", "32",
+                         "--vocab", "300"]),
+    ("time_flash_real", ["--batch", "1", "--heads", "2", "--seq", "64",
+                         "--dh", "32", "--steps", "2"]),
+    ("time_layer", ["--batch", "2", "--seq", "64", "--d-model", "32",
+                    "--heads", "4", "--ffn", "64", "--layers", "2"]),
+    ("time_decode_parts", ["--batch", "2", "--steps", "4", "--d-model", "32",
+                           "--seq", "64"]),
+    ("time_host_prep", ["--contracts", "24", "--epochs", "1", "--seq",
+                        "128"]),
+)
+# hash-dropout sites an encoder layer's forward runs (the two residual
+# sites and the FFN's); the backward runs each once more
+DROPOUT_SITES_PER_ENCODER_LAYER = 3
+
+
+def attribution_launch_errors(name: str, res: dict, total: dict,
+                              on_card: bool) -> list:
+    """Where a tool's launches (``total``, counted around its run, and
+    each row's in ``res``) leave the config: ``time_flash_real`` one K1 a
+    call and one pair call an ``fb`` call; ``time_layer`` a K1 and a pair
+    call a layer a step in its flash variants, none in the dense one and
+    the floor, the dropout sites' forward and backward only at 0.3;
+    ``time_decode_parts`` 2 L K5 a step in the layers-only loops, none in
+    the others, and one encode's K1 for each loop's model;
+    ``time_host_prep`` none over its epochs, and each trainer's start-up
+    forward's K1; ``time_lmce`` and ``time_lmce_parts`` none. On the CPU
+    every count is 0."""
+    from sct_gan_tpu_torch.tools.time_decode_parts import LAYERS
+    want = lambda **kw: {k: kw.get(k, 0) * int(on_card) for k in KERNELS}
+    errs, rows_total = [], dict.fromkeys(KERNELS, 0)
+
+    def row(label, got, expected):
+        if got != expected:
+            errs.append(f"{name} {label}: launches {got}, expected "
+                        f"{expected}")
+        for k in KERNELS:
+            rows_total[k] += got[k]
+
+    if name == "time_flash_real":
+        for label, r in res["rows"].items():
+            row(label, r["launches"], want(
+                flash_attention_fwd=r["calls"],
+                flash_attention_bwd=r["calls"] * label.startswith("fb")))
+    elif name == "time_layer":
+        nl = res["layers"]
+        for label, r in res["variants"].items():
+            flash = "flash" in label
+            drop = 2 * DROPOUT_SITES_PER_ENCODER_LAYER * label.startswith(
+                "drop0.3")
+            row(label, r["launches"], want(
+                flash_attention_fwd=nl * r["steps"] * flash,
+                flash_attention_bwd=nl * r["steps"] * flash,
+                dropout=nl * r["steps"] * drop))
+    elif name == "time_decode_parts":
+        for label, r in res["rows"].items():
+            layers = int(label[6:]) if label.startswith("layers") else 0
+            row(label, r["launches"]["total"],
+                want(decode_attention=2 * layers * r["steps"]))
+        rows_total["flash_attention_fwd"] += int(on_card) * len(LAYERS) * (
+            res["encoder_layers"] + 2)
+    elif name == "time_host_prep":      # each trainer's start-up forward
+        from sct_gan_tpu_torch.tools.time_host_prep import prep_config
+        for label, r in res["banks"].items():
+            row(label, r["launches"], want())
+        rows_total["flash_attention_fwd"] += int(on_card) * len(
+            res["banks"]) * flash_per_forward(prep_config(res["seq"]))
+    if total != rows_total:
+        errs.append(f"{name}: launches {total}, expected {rows_total}")
+    return errs
+
+
+def phase_attribution(card: str, tools=ATTRIBUTION_CARD,
+                      device: str = "cuda") -> dict:
+    """The last six attribution tools (``sct_gan_tpu_torch/tools``), once
+    each with ``tools``' options on ``device``: every number of every JSON
+    finite and positive (``run_tool``), each tool's launches held to the
+    config (``attribution_launch_errors``). Returns the phase's launches.
+    Rehearse it on the CPU with ``phase_attribution("cpu",
+    ATTRIBUTION_CPU, device="cpu")``."""
+    reset_counts()
+    for name, argv in tools:
+        before = read_counts()
+        res, secs = run_tool(name, ["--device", device, *argv])
+        total = {k: v - before[k] for k, v in read_counts().items()}
+        errs = attribution_launch_errors(name, res, total,
+                                         device == "cuda")
+        if errs:
+            raise AssertionError("; ".join(errs))
+        print(f"phase attribution [{card}]: {name} {' '.join(argv)} in "
+              f"{secs:.1f} s, launches {total}", flush=True)
+    return read_counts()
 
 
 def profile_naive_step(card: str, wall_ms: float) -> None:
@@ -3309,6 +3434,7 @@ def main() -> int:
     tasc_launches = phase_tasc(card)
     parallel_launches = phase_parallel(card)
     bench_launches, peaks = phase_bench(card)
+    attribution_launches = phase_attribution(card)
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
                                                     trainer, batch, card,
                                                     variants)
@@ -3356,7 +3482,7 @@ def main() -> int:
             launches = sum(p[name] for p in (
                 serve_launches, beam_launches, analyzer_launches,
                 eval_launches, train_launches, loop_launches,
-                tools_launches, bench_launches))
+                tools_launches, bench_launches, attribution_launches))
         else:
             launches = head_launches[name]
         # the TASC paths: head dim 96, and CodeBERT's K1 at 64; the

@@ -100,6 +100,13 @@ def convert_flax_params(tree: Mapping,
     return _checked(_port_state(tree), _meta_model(config).state_dict())
 
 
+def convert_flax_module_params(tree: Mapping, module: nn.Module
+                               ) -> Dict[str, torch.Tensor]:
+    """The flax tree of one of the port's building blocks (a layer stack,
+    say) → ``module``'s state dict, checked against its own."""
+    return _checked(_port_state(tree), module.state_dict())
+
+
 def _checked(sd: Dict[str, torch.Tensor],
              want: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``sd`` if it has exactly ``want``'s names and shapes, else raise."""

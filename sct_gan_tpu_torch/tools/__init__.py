@@ -36,9 +36,29 @@ the model's size (``--d-model``, ``--layers``, ``--seq``, ``--batch``):
   time_fwd          the train step against the eval (forward-only) step
   time_decode       one decode step alone against full-length generation
   time_fwd_modules  forward (and ``--grad`` backward) ms of each stage
+  time_lmce         the LM head + mean CE: dense, chunked, fused
+  time_lmce_parts   the fused CE's backward in pieces (products, dlogits)
+  time_flash_real   K1 and the backward pair at training shape, with and
+                    without dropout
+  time_layer        one encoder layer's forward + backward under variants
+                    and its matmul floor
+  time_decode_parts the decode loop's step: decoder layers, LM head and
+                    sampler, embedding; host ms and launches a step
+  time_host_prep    the trainer's host preparation per epoch, with and
+                    without the augmentation bank
 
 They run on the card by default and raise without one; ``--device cpu``
 runs the plain versions. Run any of them as
 
     python3 -m sct_gan_tpu_torch.tools.<name>
 """
+
+__all__ = [
+    "time_flash_parts", "time_flash_variants", "time_decode_kernel_variants",
+    "time_dropout_kernel",
+    "train_synthetic", "eval_checkpoint", "eval_v2_infamily",
+    "analyze_v2_errors", "time_opt", "run_corpus_v2", "sweep_flash_blocks",
+    "bench", "quick_bench", "bench_decode", "peak_matmul", "time_fwd",
+    "time_decode", "time_fwd_modules", "time_lmce", "time_lmce_parts",
+    "time_flash_real", "time_layer", "time_decode_parts", "time_host_prep",
+]

@@ -169,6 +169,27 @@ def timed_ms(run: Callable[[], object], device: torch.device
     return (start.elapsed_time(end) if cuda else None), host
 
 
+def device_ms(run: Callable[[], object], units: int,
+              device: torch.device) -> Optional[float]:
+    """Device ms a unit of ``run()``, which runs ``units`` units: the
+    summed device time of its kernels under ``torch.profiler`` (no host
+    gap counted), over one run; on the CPU the run is made, unprofiled,
+    and the result is None. Set beside a time by CUDA events, it gives
+    the card's busy share."""
+    if device.type != "cuda":
+        run()
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize(device)
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / units / 1e3
+
+
 def best_of(run: Callable[[], Tuple[Optional[float], float]], reps: int,
             n: int) -> Dict[str, object]:
     """The fastest of ``reps`` runs of ``n`` calls, per call: ``ms`` by

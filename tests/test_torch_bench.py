@@ -25,6 +25,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sct_gan_tpu.config import ModelConfig as JaxModelConfig
 from sct_gan_tpu.config import TrainConfig as JaxTrainConfig
@@ -48,6 +49,18 @@ D, LAYERS, SEQ, B = 32, 1, 64, 2
 SIZE = dict(device="cpu", d_model=D, layers=LAYERS)
 TINY = ["--device", "cpu", "--d-model", str(D), "--layers", str(LAYERS),
         "--seq", str(SEQ)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """torch on one intra-op thread while this file runs: the tools make
+    many tiny ops, and with every test worker's pool on the shared cores
+    each op waits for its threads (``bench``'s ``main`` took 558 s in a
+    six-worker run of the suite on 8 threads a process)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _jax_bench():
