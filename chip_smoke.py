@@ -82,6 +82,13 @@ ran through its kernels:
     train step, each against the world of one. K1, the pair and K6 are
     held to their plain versions at the meshes' index origins and at
     Sk=16384 and 8192 first;
+  * the driver entry points (``entry``; ``sct_gan_tpu_torch/entry.py``, the
+    port of the root ``__graft_entry__.py``): ``entry()``'s full-size
+    forward once, its probabilities against the CPU in f32, then
+    ``dryrun_multichip(1)`` over NCCL and ``dryrun_multichip(2)`` as two
+    gloo ranks sharing the card (a GAN train step on the dp x mp mesh and
+    the sp encode, at the JAX file's tiny config in bf16), the two losses
+    held to each other;
   * the bench (``bench``, the training width; ``sct_gan_tpu_torch/tools/
     bench.py``, the port of the JAX repo's ``bench.py``): its line at the
     JAX bench's configuration and counts (the fused step, decode at B=64,
@@ -2777,6 +2784,156 @@ def parallel_rank(work: str) -> int:
     return 0
 
 
+# dryrun_multichip's world of two against its world of one: the bound of
+# the dp losses in tests/test_torch_parallel_dp.py (f32 and bf16 alike:
+# dropout masks keyed by the global row, the loss means taken globally)
+DRYRUN_LOSS_RTOL = 2e-4
+
+
+def _by_instance(counts: dict, head_dim: int) -> dict:
+    """A model's launches by the kernels line's names: the flash kernels'
+    at the instance its head dim takes."""
+    from sct_gan_tpu_torch.ops.flash_attention import kernel_route
+    d = kernel_route(head_dim)[0]
+    return {(instance(k, d) if k.startswith("flash") else k): v
+            for k, v in counts.items()}
+
+
+def _dryrun_expected(cfg):
+    """(the launches of each leg of a dry-run rank at ``cfg`` with mp=1,
+    the world of one's loss on the CPU in f32): the step's K1 and pair
+    ``flash_per_forward`` times and K6 twice for each call of an active
+    dropout site, counted by hooks on the same step run on the CPU; the sp
+    encode's K1 once for each encoder, AST and cross attention."""
+    import dataclasses
+    from sct_gan_tpu_torch.entry import dryrun_trainer
+    trainer, batch = dryrun_trainer(
+        dataclasses.replace(cfg, compute_dtype="float32"), 1, device="cpu")
+    calls = _dropout_calls(trainer.model)
+    _, metrics, _ = trainer.train_step(
+        trainer.state, trainer.to_device(batch), trainer._scalars(1.0),
+        trainer._group_lrs(), trainer.generator)
+    for h in calls[1]:
+        h.remove()
+    fwd = flash_per_forward(cfg)
+    return ({"step": {"flash_attention_fwd": fwd, "flash_attention_bwd": fwd,
+                      "dropout": 2 * calls[0], "decode_attention": 0},
+             "sp_encode": {"flash_attention_fwd": cfg.num_encoder_layers + 2,
+                           "flash_attention_bwd": 0, "dropout": 0,
+                           "decode_attention": 0}},
+            float(metrics["total_loss"]))
+
+
+def phase_entry(card: str, cfg=None, device: str = "cuda") -> dict:
+    """The driver entry points (``sct_gan_tpu_torch/entry.py``, the port of
+    the root ``__graft_entry__.py``).
+
+    ``entry()`` (``cfg=None``: the full-size ``ModelConfig(use_gan=True)``,
+    B=2, L=1024): its ``fn`` once, counted: four finite outputs of the JAX
+    file's shapes, K1 ``flash_per_forward(cfg)`` times (23) and no other
+    kernel; the contract, line and discriminator probabilities within
+    ``DETECT_TOL`` of the same ``fn`` on the CPU in f32, on the same
+    weights and batch; then its ms over 5 more calls, by CUDA events and by
+    the host clock. ``dryrun_multichip(1)`` (NCCL, a world of one) and
+    ``dryrun_multichip(2)`` (two gloo ranks sharing the card), at the JAX
+    file's tiny config in bf16 (head dim 16, the flash kernels' padded
+    route to 64): each rank's launches in each leg held to
+    ``_dryrun_expected``, the world of two's loss within
+    ``DRYRUN_LOSS_RTOL`` of the world of one's, and that within
+    ``LOSS_RTOL`` of the same step on the CPU in f32. Returns the launches
+    by the kernels line's names.
+
+    It rehearses on the CPU: ``phase_entry(card, tiny_cfg,
+    device="cpu")``; the launch checks run on the card only."""
+    import dataclasses
+
+    import torch
+    from sct_gan_tpu_torch.config import ModelConfig
+    from sct_gan_tpu_torch.entry import dryrun_multichip, entry, tiny_config
+    from sct_gan_tpu_torch.tools.bench import timed_ms
+    cuda = device == "cuda"
+    cfg = cfg or ModelConfig(use_gan=True)
+    fn, (params, batch) = entry(cfg, device=device)
+    reset_counts()
+    out = fn(params, batch)
+    if cuda:
+        torch.cuda.synchronize()
+    counts = read_counts()
+    want = {"flash_attention_fwd": flash_per_forward(cfg),
+            "flash_attention_bwd": 0, "dropout": 0, "decode_attention": 0}
+    if cuda and counts != want:
+        raise AssertionError(f"entry: launches {counts}, expected {want}")
+    # the root entry()'s outputs at B=2: contract logits, line logits, the
+    # shifted LM logits, the discriminator's
+    t = cfg.num_vulnerability_types
+    want_shapes = [(2, t), (2, cfg.max_lines, t),
+                   (2, cfg.max_length - 1, cfg.vocab_size), (2, 1)]
+    shapes = [tuple(o.shape) for o in out]
+    if shapes != want_shapes or not all(
+            bool(torch.isfinite(o.float()).all()) for o in out):
+        raise AssertionError(f"entry: outputs {shapes}, expected "
+                             f"{want_shapes}, finite")
+    calls = 5
+    ev, host = timed_ms(lambda: [fn(params, batch) for _ in range(calls)],
+                        torch.device(device))
+    cpu_fn, _ = entry(dataclasses.replace(cfg, compute_dtype="float32"),
+                      device="cpu")
+    ref = cpu_fn({k: v.cpu() for k, v in params.items()},
+                 {k: v.cpu() for k, v in batch.items()})
+    diffs = {name: (torch.sigmoid(out[i].float().cpu())
+                    - torch.sigmoid(ref[i].float())).abs().max().item()
+             for i, name in ((0, "contract"), (1, "line"),
+                             (3, "discriminator"))}
+    if not all(d <= DETECT_TOL for d in diffs.values()):
+        raise AssertionError(f"entry: card vs CPU probabilities {diffs} "
+                             f"(tol {DETECT_TOL})")
+    timing = ("" if ev is None else f"{ev / calls:.3f} ms by CUDA events, ")
+    print(f"phase entry [{card}]: entry() forward at B=2, L="
+          f"{cfg.max_length}: {timing}{host / calls:.3f} ms by the host "
+          f"clock (mean of {calls} calls); launches {counts}; card vs CPU "
+          f"f32 probabilities max diff {json.dumps(diffs)} (tol "
+          f"{DETECT_TOL})", flush=True)
+    totals = _by_instance(counts, cfg.d_model // cfg.nhead)
+    del out, ref, cpu_fn, fn, params, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    tiny = tiny_config(device)
+    legs, cpu_loss = _dryrun_expected(tiny)
+    runs = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        res = dryrun_multichip(n, device=device)
+        secs = time.perf_counter() - t0
+        for r, got in enumerate(res["launches"]):
+            if cuda and got != legs:
+                raise AssertionError(f"entry: dryrun_multichip({n}) rank {r} "
+                                     f"launches {got}, expected {legs}")
+            for leg in got.values():
+                for k, v in _by_instance(leg, tiny.d_model // tiny.nhead
+                                         ).items():
+                    totals[k] = totals.get(k, 0) + v
+        shape = [2, tiny.max_length, tiny.d_model]
+        if (res["dp"], res["mp"], res["sp"]) != (n, 1, n) or res[
+                "memory_shape"] != shape:
+            raise AssertionError(f"entry: dryrun_multichip({n}) gave {res}")
+        runs[n] = res
+        print(f"phase entry [{card}]: dryrun_multichip({n}) in {secs:.1f} s, "
+              f"loss {res['loss']!r}, launches per rank {res['launches']}",
+              flush=True)
+    one, two = runs[1]["loss"], runs[2]["loss"]
+    if not abs(two - one) <= DRYRUN_LOSS_RTOL * abs(one):
+        raise AssertionError(f"entry: dryrun_multichip(2) loss {two} vs the "
+                             f"world of one's {one} (rtol "
+                             f"{DRYRUN_LOSS_RTOL})")
+    if not abs(one - cpu_loss) <= LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"entry: dryrun_multichip(1) loss {one} vs the "
+                             f"CPU's f32 {cpu_loss} (rtol {LOSS_RTOL})")
+    print(f"phase entry: dry-run losses {one!r} (one rank), {two!r} (two), "
+          f"CPU f32 {cpu_loss!r}; launches {totals}", flush=True)
+    return totals
+
+
 def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
     """K5 at head dim ``d`` with ``h`` heads (its instance, in place on a
     wider one, or its wide-head route) at the generation path's shapes, each
@@ -3433,6 +3590,7 @@ def main() -> int:
     head_launches = phase_heads()
     tasc_launches = phase_tasc(card)
     parallel_launches = phase_parallel(card)
+    entry_launches = phase_entry(card)
     bench_launches, peaks = phase_bench(card)
     attribution_launches = phase_attribution(card)
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
@@ -3486,9 +3644,11 @@ def main() -> int:
         else:
             launches = head_launches[name]
         # the TASC paths: head dim 96, and CodeBERT's K1 at 64; the
-        # parallel paths (the world of one's)
+        # parallel paths (the world of one's); the entry points (the
+        # full-size forward at 96, the dry runs' ranks at 64)
         launches += tasc_launches.get(name, 0)
         launches += parallel_launches.get(name, 0)
+        launches += entry_launches.get(name, 0)
         if launches == 0:
             raise AssertionError(f"{name}: no launch on its main path")
         entry = {

@@ -35,8 +35,10 @@ stays off (torch's default for f32 matmuls): the line says so.
 
 Decode: encode once, then 1023 cached sampling steps at temperature 0.7
 with the syntax boost and ``min_length=10**9`` (no row stops early), at
-B=64; per round, (T(3 rounds) - T(1 round)) / 2 after a warm-up round, by
-the host clock between synchronisations (the loop syncs every token).
+B=64; per round, (T(3 rounds) - T(1 round)) / 2 by the host clock between
+synchronisations (the loop syncs every token), after a warm-up run of
+each length, each T the fastest of 2 runs; a long run no longer than the
+short one is timed again and in the end raises (``time_decode``).
 
     python -m sct_gan_tpu_torch.tools.bench
 
@@ -65,6 +67,8 @@ WARMUP, STEPS, REPS = 2, 10, 2      # the JAX bench's step counts
 NAIVE_STEPS = 4                     # bench.py:200
 DECODE_ROUNDS = 3                   # the long run; the short run is 1
 TEMPERATURE = 0.7
+HOST_REPS = 5       # runs of each length of a slope timed on the CPU
+MORE_PAIRS = 10     # further pairs of runs while a slope is not positive
 
 
 def log(msg: str) -> None:
@@ -190,6 +194,36 @@ def device_ms(run: Callable[[], object], units: int,
     return us / units / 1e3
 
 
+def slope_ms(run_ms: Callable[[int], float], n_small: int, n_large: int,
+             device: torch.device, what: str) -> float:
+    """ms a unit by the slope of two run lengths, (T(n_large) -
+    T(n_small)) / (n_large - n_small); ``run_ms(n)`` times one run of n
+    units on ``device``. Each length runs once to warm up, then ``REPS``
+    times on the card, ``HOST_REPS`` on the CPU, the two lengths
+    interleaved, and each T is the fastest of its runs (a busy host only
+    ever adds time). A long run that took no longer than a short
+    one was disturbed (on a host whose load falls while the runs go on,
+    the last and longest run is the quietest): then up to ``MORE_PAIRS``
+    further pairs of runs are taken, and past them it raises. It never
+    returns a time <= 0."""
+    reps = REPS if device.type == "cuda" else HOST_REPS
+    run_ms(n_small)
+    run_ms(n_large)
+    small = large = float("inf")
+    pairs = 0
+    while pairs < reps or (large <= small and pairs < reps + MORE_PAIRS):
+        small = min(small, run_ms(n_small))
+        large = min(large, run_ms(n_large))
+        pairs += 1
+    if not large > small:
+        raise RuntimeError(
+            f"{what}: the fastest of {pairs} runs of {n_large} took "
+            f"{large:.3f} ms, no longer than the fastest of {n_small}, "
+            f"{small:.3f} ms: the host is too loaded to time it by the "
+            f"slope of two run lengths")
+    return (large - small) / (n_large - n_small)
+
+
 def best_of(run: Callable[[], Tuple[Optional[float], float]], reps: int,
             n: int) -> Dict[str, object]:
     """The fastest of ``reps`` runs of ``n`` calls, per call: ``ms`` by
@@ -231,10 +265,16 @@ def time_decode(model, tokenizer, batch_size: int,
     """KV-cached generation throughput (``bench.py:126-167``,
     ``tools/bench_decode.py``): a round encodes B random contracts of the
     model's length once and samples L - 1 tokens (temperature 0.7, the
-    syntax boost, no early stop). One warm-up round, then one round and
-    ``n_large`` rounds by the host clock between synchronisations; a round
-    takes (T(n_large) - T(1)) / (n_large - 1) s. Raises if a round stops
-    before L - 1 steps. The model is put in eval mode for the rounds."""
+    syntax boost, no early stop), timed by the host clock between
+    synchronisations. A round takes ``slope_ms`` of runs of 1 and
+    ``n_large`` rounds: a warm-up run of each length, then the fastest of
+    ``REPS`` runs of each on the card (each run lasts seconds there),
+    ``HOST_REPS`` on the CPU, and further pairs of runs while the long
+    run is not the longer, up to a bound, past which it raises. The JAX
+    ``bench.py:163`` times one run of each length after one warm-up round
+    and clamps the slope at 1e-9 s, so a disturbed run printed about B·1e9
+    contracts/s; here it raises instead. Raises if a round stops before
+    L - 1 steps. The model is put in eval mode for the rounds."""
     from ..infer.generate import make_generate_fn, syntax_boost_ids
     if n_large < 2:
         raise ValueError(f"n_large {n_large}: the slope needs 2 or more")
@@ -248,34 +288,33 @@ def time_decode(model, tokenizer, batch_size: int,
     mask = torch.ones_like(ids)
     generate = make_generate_fn(model, syntax_boost_ids(tokenizer),
                                 min_length=10 ** 9)
+    done = [0]                          # rounds run; each its own seed
 
-    def rounds(n: int, seed0: int) -> float:
+    def rounds_ms(n: int) -> float:
         def run() -> None:
-            for i in range(n):
+            for _ in range(n):
                 with torch.inference_mode():
                     memory = model.encode(ids, mask, ids, mask)
-                gen = torch.Generator(device=dev).manual_seed(seed0 + i)
+                gen = torch.Generator(device=dev).manual_seed(done[0])
+                done[0] += 1
                 _, steps = generate(memory, mask.bool(), gen, TEMPERATURE)
                 if steps != seq - 1:
                     raise AssertionError(f"decode round: {steps} steps, "
                                          f"expected {seq - 1}")
-        return timed_ms(run, dev)[1] / 1e3
+        return timed_ms(run, dev)[1]
 
     was_training = model.training
     model.eval()
     before = kernel_launches()
     try:
-        rounds(1, 0)                    # warm-up
-        t_small = rounds(1, 100)
-        t_large = rounds(n_large, 200)
+        per_round = slope_ms(rounds_ms, 1, n_large, dev,
+                             "decode round") / 1e3
     finally:
         model.train(was_training)
-    per_round = max((t_large - t_small) / (n_large - 1), 1e-9)
     return {"decode_contracts_per_sec": batch_size / per_round,
             "decode_tokens_per_sec": batch_size * (seq - 1) / per_round,
-            "seconds_per_batch": per_round, "rounds": 2 + n_large,
-            "steps": (2 + n_large) * (seq - 1),
-            "launches": _since(before)}
+            "seconds_per_batch": per_round, "rounds": done[0],
+            "steps": done[0] * (seq - 1), "launches": _since(before)}
 
 
 def card_or_device(device: torch.device) -> str:

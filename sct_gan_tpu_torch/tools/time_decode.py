@@ -5,7 +5,7 @@ Port of the JAX repo's ``tools/time_decode.py`` on
 
   (a) one ``decode_step`` outside the generation loop, over the cross K/V
       and caches the generator builds, as the slope between runs of 4 and
-      64 steps from position 0 (by CUDA events);
+      64 steps from position 0 (by CUDA events; ``bench.slope_ms``);
   (b) full-length generation through ``bench.time_decode``, the function
       of the training bench's decode leg and of ``bench_decode``.
 
@@ -25,15 +25,16 @@ import torch
 from ..utils import resolve_device
 from ._common import model_config, tokenizer_for
 from .bench import (DECODE_ROUNDS, add_size_args, card_or_device, emit, log,
-                    time_decode, timed_ms)
+                    slope_ms, time_decode, timed_ms)
 
 SHORT, LONG = 4, 64     # the JAX tool's step counts
 
 
 @torch.inference_mode()
 def decode_step_ms(model, batch_size: int) -> float:
-    """ms of one ``decode_step``: (T(LONG) - T(SHORT)) / (LONG - SHORT),
-    each run from position 0 after a 2-step warm-up."""
+    """ms of one ``decode_step``: ``bench.slope_ms`` of runs of SHORT and
+    LONG steps, each from position 0 (the JAX tool times one run of each
+    after a 2-step warm-up)."""
     cfg = model.config
     dev = next(model.parameters()).device
     rng = np.random.default_rng(0)
@@ -55,8 +56,7 @@ def decode_step_ms(model, batch_size: int) -> float:
         ev, host = timed_ms(lambda: steps(n), dev)
         return host if ev is None else ev
 
-    steps(2)
-    return (ms(LONG) - ms(SHORT)) / (LONG - SHORT)
+    return slope_ms(ms, SHORT, LONG, dev, "decode_step")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -16,9 +16,12 @@ The stages after ``encode`` read one encoder output, computed once. A
 stage's calls are chained through a scalar: each call adds the last one's
 scalar (times 1e-30) to its input (the encoder output; ``encode`` to its
 result) and returns the sum of its outputs in f32. The time of a call is
-(T(44 calls) - T(4 calls)) / 40 after one warm-up call, by CUDA events,
-each T the fastest of ``REPS`` = 2 runs (the JAX tool times one run of
-each length: on a loaded host that difference can come out negative).
+(T(44 calls) - T(4 calls)) / 40 by CUDA events (``bench.slope_ms``): a
+warm-up chain of each length, then each T the fastest of 2 runs (5 on
+the CPU's host clock), and further pairs of runs while T(44) is not
+over T(4), up to a bound, past which it raises.
+The JAX tool times one run of each length after one warm-up call: on a
+loaded host that difference can come out negative.
 ``--grad`` also times each stage under autograd: the forward and
 ``torch.autograd.grad`` of its scalar over every model parameter it
 reaches.
@@ -40,9 +43,8 @@ import torch.nn.functional as F
 
 from ..utils import resolve_device
 from ._common import model_config
-from .bench import add_size_args, card_or_device, emit, log, timed_ms
+from .bench import add_size_args, card_or_device, emit, log, slope_ms, timed_ms
 
-REPS = 2            # runs of each length; the JAX tool makes one
 STAGES = ("encode", "contract_head", "line_head", "decode+CE",
           "discriminator")
 
@@ -101,12 +103,12 @@ def with_grad(model, fn: Callable) -> Callable:
 
 def call_ms(fn: Callable, device: torch.device, n_small: int = 4,
             n_large: int = 44) -> float:
-    """ms of one call of a chain ``c = fn(c)``: (T(n_large) - T(n_small))
-    / (n_large - n_small) after one warm-up call, each T the fastest of
-    ``REPS`` runs (the two lengths' runs interleaved). A run's time only
-    ever gains from a busy host, so the fastest is the nearest to the
-    chain's own; one run of each length can put T(n_large) under
-    T(n_small) on a loaded host."""
+    """ms of one call of a chain ``c = fn(c)``: ``bench.slope_ms`` of
+    chains of ``n_small`` and ``n_large`` calls (a warm-up chain of each
+    length, then each T the fastest of ``bench.REPS`` runs by CUDA events
+    on the card, ``bench.HOST_REPS`` by the host clock on the CPU, the
+    lengths interleaved, and further pairs of runs while T(n_large) <=
+    T(n_small), up to a bound, past which it raises). Never <= 0."""
     box = [torch.zeros((), device=device)]
 
     def chain(n: int) -> None:
@@ -117,14 +119,11 @@ def call_ms(fn: Callable, device: torch.device, n_small: int = 4,
         ev, host = timed_ms(lambda: chain(n), device)
         return host if ev is None else ev
 
-    chain(1)
+    per_call = slope_ms(ms, n_small, n_large, device,
+                        "time_fwd_modules: a stage")
     if not torch.isfinite(box[0]):
         raise AssertionError("a stage's scalar is not finite")
-    small = large = float("inf")
-    for _ in range(REPS):
-        small = min(small, ms(n_small))
-        large = min(large, ms(n_large))
-    return (large - small) / (n_large - n_small)
+    return per_call
 
 
 def main(argv: Optional[List[str]] = None) -> int:

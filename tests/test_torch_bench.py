@@ -15,6 +15,10 @@
     math), and the rebinding is undone after the leg, also when it raises;
   * ``time_decode`` runs every round to L - 1 steps and its rates are
     B (L - 1) over a round's seconds;
+  * the slope of two run lengths (``bench.slope_ms``, behind
+    ``time_decode`` and ``time_fwd_modules.call_ms``) takes further pairs
+    of runs while the long run is not the longer, never gives a time
+    <= 0, and past its bound raises;
   * each tool's ``main`` prints the keys of its JAX counterpart's output.
 """
 import dataclasses
@@ -226,8 +230,12 @@ def test_time_decode_runs_full_length_rounds(monkeypatch):
     cfg = model_config(seq, D, LAYERS)
     model = SmartContractTransformer(cfg, seed=0)
     res = bench.time_decode(model, tokenizer_for(cfg), 3, n_large=2)
-    assert seen == [((3, seq), seq - 1, True)] * 4
-    assert res["rounds"] == 4 and res["steps"] == 4 * (seq - 1)
+    # a warm-up run of each length, then at least HOST_REPS pairs of runs
+    # of 1 and 2 rounds
+    rounds = res["rounds"]
+    assert rounds >= 3 * (1 + bench.HOST_REPS) and rounds % 3 == 0
+    assert seen == [((3, seq), seq - 1, True)] * rounds
+    assert res["steps"] == rounds * (seq - 1)
     assert res["decode_tokens_per_sec"] == pytest.approx(
         3 * (seq - 1) / res["seconds_per_batch"])
     assert res["decode_contracts_per_sec"] == pytest.approx(
@@ -307,3 +315,55 @@ def test_main_prints_the_jax_tools_output(name, capsys):
         assert res["matmul"][0]["n"] == 64 and res["hbm"]["gb_per_s"] > 0
     if name == "time_fwd_modules":
         assert set(res["fwd"]) == {*time_fwd_modules.STAGES, "sum"}
+
+
+def _clock(times):
+    """A stand-in for ``timed_ms`` that runs nothing and returns the next
+    of ``times`` as the host clock's ms (no CUDA events: the CPU)."""
+    it = iter(times)
+    calls = []
+
+    def timed(run, device):
+        calls.append(device)
+        return None, next(it)
+    return timed, calls
+
+
+def test_time_decode_raises_where_a_long_run_is_not_longer(monkeypatch):
+    """Every run shorter than the one before: the long run never takes
+    longer than the short one, so ``time_decode`` takes its further pairs
+    of runs, then raises (the JAX bench clamps the slope and reports
+    about B·1e9 contracts/s)."""
+    from sct_gan_tpu_torch.models.sct_transformer import \
+        SmartContractTransformer
+    timed, calls = _clock(1000.0 - i for i in range(1000))
+    monkeypatch.setattr(bench, "timed_ms", timed)
+    cfg = model_config(SEQ, D, LAYERS)
+    model = SmartContractTransformer(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="host is too loaded"):
+        bench.time_decode(model, tokenizer_for(cfg), B)
+    assert len(calls) == 2 + 2 * (bench.HOST_REPS + bench.MORE_PAIRS)
+
+
+@pytest.mark.parametrize("case", ["recovers", "raises"])
+def test_call_ms_is_positive_or_raises(monkeypatch, case):
+    """``call_ms`` on the host clock at ``--calls 1 2``: a run of two calls
+    timed under one call's run (9 against 10 ms) HOST_REPS times, then a
+    quiet pair (5, 9.5): the stage time is 9 - 5 ms, from the fastest of
+    each length. A host that never lets the long run be the longer makes
+    it raise after its bound; it never returns a time <= 0."""
+    pairs = [(10.0, 9.0)] * bench.HOST_REPS
+    if case == "recovers":
+        pairs.append((5.0, 9.5))
+    else:
+        pairs += [(10.0, 9.0)] * bench.MORE_PAIRS
+    timed, calls = _clock([20.0, 30.0, *(t for p in pairs for t in p)])
+    monkeypatch.setattr(time_fwd_modules, "timed_ms", timed)
+    fn = lambda c: c + 1.0   # noqa: E731
+    cpu = torch.device("cpu")
+    if case == "recovers":
+        assert time_fwd_modules.call_ms(fn, cpu, 1, 2) == 4.0
+    else:
+        with pytest.raises(RuntimeError, match="host is too loaded"):
+            time_fwd_modules.call_ms(fn, cpu, 1, 2)
+    assert len(calls) == 2 + 2 * len(pairs)

@@ -6,9 +6,10 @@ top level's lazy ``_LAZY`` names with ``VULNERABILITY_TYPES`` and
 names the port leaves out by design (``BY_DESIGN``). The JAX exports are
 read from the ``__init__`` sources, so listing them imports nothing. In a
 fresh process, ``import sct_gan_tpu_torch`` and its lazy names pull in no
-JAX, scikit-learn or matplotlib. The sampling helpers are held against
-JAX's on the same numpy logits, and ``AsyncSaver.busy`` against a save
-held in flight.
+JAX, scikit-learn or matplotlib. Each top-level function of the root
+``__graft_entry__.py`` has its counterpart in ``sct_gan_tpu_torch.entry``.
+The sampling helpers are held against JAX's on the same numpy logits, and
+``AsyncSaver.busy`` against a save held in flight.
 """
 import ast
 import importlib
@@ -89,6 +90,26 @@ def test_port_leaves_out_exactly_the_by_design_names():
     missing = {(m, n) for m, n in candidates
                if not hasattr(_port_module(m), n)}
     assert missing == BY_DESIGN
+
+
+# root ``__graft_entry__.py`` functions whose counterpart has another name
+ENTRY_RENAMED = {"_dryrun_impl": "_dryrun_rank"}
+
+
+def test_root_entry_points_have_their_port():
+    """Every top-level function of the root ``__graft_entry__.py`` (read
+    with ``ast``, nothing of it imported) has its counterpart in
+    ``sct_gan_tpu_torch.entry``, so an entry point added there later
+    cannot go unported unnoticed."""
+    from sct_gan_tpu_torch import entry
+    tree = ast.parse((ROOT / "__graft_entry__.py").read_text())
+    names = [node.name for node in tree.body
+             if isinstance(node, ast.FunctionDef)]
+    assert {"_make_batch", "entry", "dryrun_multichip",
+            "_dryrun_impl"} <= set(names)
+    missing = [n for n in names if not callable(
+        getattr(entry, ENTRY_RENAMED.get(n, n), None))]
+    assert missing == []
 
 
 def test_lazy_top_level_imports_no_jax_sklearn_or_matplotlib():
