@@ -9,8 +9,9 @@ backward or the decode attention), and holds each kernel against its plain
 PyTorch version on the card at the main paths' shapes: the flash-attention
 forward (with dropout and LSE) and backward, the single-query decode
 attention (split-K, at the edges of its tiles and splits) and the hash
-dropout; the backward's and the decode attention's two runs must give the
-same bits. The flash forward, the backward pair and the decode attention
+dropout; K1 also under whole masked key tiles (which it skips) with a row
+that attends no key; K1's, the backward's and the decode attention's two
+runs must give the same bits. The flash forward, the backward pair and the decode attention
 are held so at each head-dim instance (64, 96, 128, 192, and 256 for the
 flash kernels), at head dims between them (the flash kernels' padded
 route at 80; the decode attention in place on a wider instance at 80 and
@@ -266,6 +267,9 @@ def phase_build():
           f"{_build.build_seconds or 'not run: built before'})", flush=True)
     for entry, lines in main_path_reports(_build.ptxas_log):
         print(f"  ptxas {entry}: " + "; ".join(lines))
+    for ln in _build.ptxas_log.splitlines():   # serialized wgmma, setmaxnreg
+        if "(C75" in ln:
+            print(f"  ptxas note: {ln.strip()}")
     if not all(any(name in ln for ln in regs) for name in NO_SPILL):
         raise AssertionError(f"build: no ptxas report of {NO_SPILL} beside "
                              f"{path}")
@@ -275,13 +279,14 @@ def phase_build():
 
 
 # the kernels whose ptxas report must show no spill (their designs' budgets
-# allow none): the flash forward (every instance, chunked too), the backward
-# pair (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the
-# wgmma kernels above), the decode attention (every
-# instance; the 192 one, by its mangled name, must be in the report) with
-# its wide-head route
-NO_SPILL = ("flash_fwd_kernel", "flash_bwd_", "decode_splitk_kernel",
-            "decode_splitk_kernelILi192E", "decode_wide_kernel")
+# allow none): the flash forward (every instance: flash_fwd_hopper_kernel
+# at 64-128, flash_fwd_kernel over them, chunked too), the backward pair
+# (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the wgmma
+# kernels above), the decode attention (every instance; the 192 one, by its
+# mangled name, must be in the report) with its wide-head route
+NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
+            "decode_splitk_kernel", "decode_splitk_kernelILi192E",
+            "decode_wide_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -333,6 +338,39 @@ def check_close(errs: dict, kernel: str, name: str, got, want, tol: float,
                              f"(tol {tol}), rel_err {rel} (tol {REL_TOL})")
 
 
+def k1_skip_checks(case, label: str) -> None:
+    """K1 under ``skip_mask`` (whole masked key tiles; row 2 attends no
+    key): with dropout 0.3 and LSE, and causal over the same mask. ``case(
+    name, causal, rate)`` runs one case against the plain version and
+    returns (out, lse); row 2 must give exact zeros and lse = -1e30."""
+    for name, causal, rate in (
+            ("whole masked key tiles, dropout 0.3", False, 0.3),
+            ("whole masked key tiles, causal", True, 0.0)):
+        out, lse = case(name, causal, rate)
+        if out[2].abs().max().item() != 0.0 or not bool(
+                (lse[2] == -1e30).all()):
+            raise AssertionError(f"{label} {name}: the row with no "
+                                 f"attended key must give zeros and "
+                                 f"lse = -1e30")
+
+
+def k1_determinism(q, k, v, mask, scale, what: str) -> None:
+    """Two runs of K1 (causal, dropout 0.3, LSE) give the same bits."""
+    import torch
+    from sct_gan_tpu_torch.ops.flash_attention import flash_attention
+    runs = [flash_attention(q, k, v, key_padding_mask=mask, causal=True,
+                            sm_scale=scale, dropout_rate=0.3, seed=5,
+                            return_lse=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = (torch.equal(runs[0][0].view(torch.int16),
+                        runs[1][0].view(torch.int16))
+            and torch.equal(runs[0][1], runs[1][1]))
+    print(f"  flash_attention_fwd determinism, two runs at {what}, dropout "
+          f"0.3: out and lse bit-identical {same}", flush=True)
+    if not same:
+        raise AssertionError(f"K1 {what}: two runs differ")
+
+
 def phase_kernels():
     """Every kernel against its plain version at the main paths' shapes."""
     import torch
@@ -370,7 +408,7 @@ def phase_kernels():
               f"(tol {LSE_TOL})", flush=True)
         if not err <= LSE_TOL:
             raise AssertionError(f"K1 {name} lse: {err} > {LSE_TOL}")
-        return got
+        return got, lse
 
     pad_mask = torch.arange(1024, device=dev)[None, :] < lens[:, None]
     flash_case("key mask, padded tails", 1024, 1024, False, pad_mask)
@@ -383,9 +421,14 @@ def phase_kernels():
     flash_case("dropout 0.3, ragged causal", 1000, 1000, True, ragged, 0.3)
     empty = pad_mask.clone()
     empty[3] = False
-    out = flash_case("fully-masked row", 1024, 1024, False, empty)
+    out, _ = flash_case("fully-masked row", 1024, 1024, False, empty)
     if out[3].abs().max().item() != 0.0:
         raise AssertionError("K1: a fully-masked row must give zeros")
+    k1_skip_checks(lambda name, causal, rate: flash_case(
+        name, 1024, 1024, causal, skip_mask(dev), rate), "K1")
+    k1_determinism(_heads(rnd(8, 1000, 768, scale=2.0)),
+                   _heads(rnd(8, 1000, 768)), _heads(rnd(8, 1000, 768)),
+                   ragged, scale, "(8, 8, 1000, 96) ragged causal")
 
     def bwd_case(name, b, sq, sk, causal, mask, rate=0.0):
         """The backward kernel pair (through the autograd function) vs
@@ -583,11 +626,11 @@ def concat_mask(dev, b: int = 8, s: int = 1024):
 
 
 def skip_mask(dev, b: int = 8, s: int = 1024):
-    """A key mask whose rows hold whole masked 64-key tiles, which the
-    backward pair skips (a dKV block, a dQ walk step): 128-key spans whose
-    first or second half has no attended key, rows with one or two live
-    tiles, a fully masked row (row 2), every third tile, and every key
-    (row 7)."""
+    """A key mask whose rows hold whole masked 64-key tiles, which K1 and
+    the backward pair skip (a K1 walk step, a dKV block, a dQ walk step):
+    128-key spans whose first or second half has no attended key, rows
+    with one or two live tiles, a fully masked row (row 2), every third
+    tile, and every key (row 7)."""
     import torch
     keys = torch.arange(s, device=dev)
     rows = [(keys >= 64) & (keys < 128) | (keys >= s - 124),
@@ -667,6 +710,7 @@ def phase_head_kernels():
             err = max_err(lse, want_lse)
             if not err <= LSE_TOL:
                 raise AssertionError(f"K1 d={d} {name} lse: {err}")
+            return got, lse
 
         def bwd(name, sq, sk, causal, mask, rate=0.0, shard=None, b=8):
             q, k, v = (rnd(b, s_, sd).requires_grad_()
@@ -690,6 +734,11 @@ def phase_head_kernels():
         fwd("Sq=200, Sk=1000, key mask", 200, 1000, False, ragged)
         fwd("encode_concat mask (a hole), dropout 0.3", 1024, 1024, False,
             hole, 0.3)
+        k1_skip_checks(lambda name, causal, rate: fwd(
+            name, 1024, 1024, causal, skip_mask(dev), rate), f"K1 d={d}")
+        if d in HEAD_DIMS:          # K1's other Hopper instances
+            k1_determinism(rnd(8, 1000, 2.0), rnd(8, 1000), rnd(8, 1000),
+                           ragged, scale, f"(8, {h}, 1000, {d}) ragged causal")
         bwd("key mask, padded tails", 1024, 1024, False, pad_mask)
         bwd("dropout 0.3, ragged causal", 1000, 1000, True, ragged, 0.3)
         bwd("Sq=200, Sk=1000, key mask, dropout 0.3", 200, 1000, False,
@@ -3002,14 +3051,179 @@ def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
     return rows
 
 
-def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
+def k1_library(cu: str, tag: str):
+    """(library, ``ptxas -v`` report) of the K1 source ``cu`` alone, built
+    as the main library is (``_build.build_library``), its
+    ``flash_attention_fwd_bf16`` declared: another checkout's K1 (a parent
+    commit's ``csrc/flash_attention_fwd.cu``, which includes its own
+    headers, or a copy with a candidate change). Timed beside the port's
+    K1, never called by the port."""
+    import ctypes
+    from sct_gan_tpu_torch.ops import _build
+    path, report, _ = _build.build_library([cu], tag)
+    lib = ctypes.CDLL(path)
+    fn = lib.flash_attention_fwd_bf16
+    fn.argtypes = _build._SIGNATURES["flash_attention_fwd_bf16"]
+    fn.restype = ctypes.c_int
+    return lib, report
+
+
+def k1_call(lib, q, k, v, mask, scale: float):
+    """One launch of ``lib``'s K1 (a ``k1_library``) as the port's wrapper
+    makes it (``ops/flash_attention.py::_forward``: no dropout, no LSE, not
+    causal); its output."""
+    import ctypes
+    import torch
+    from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.ops import flash_attention as fa
+    b, h, sq, sk, d = fa._check_shapes(q, k, v, 0.0)
+    out = fa._heads_like(q, sq)
+    mptr, msb, _keep = fa._mask_arg(mask, b, sk, q.device)
+    err = lib.flash_attention_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(), None,
+        b, h, sq, sk, d, *fa._strides(q, "q", 16), *fa._strides(k, "k", 16),
+        *fa._strides(v, "v", 16), *fa._strides(out, "out", 4), msb, 0,
+        ctypes.c_float(scale), *fa._dropout_args(0.0, 0, None),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_fwd_bf16 (timed beside K1)")
+    return out
+
+
+# K1's instances timed by ``k1_times``: head dim -> heads at d=768
+K1_TIMED = {64: 12, 96: 8, 128: 6, 192: 4, 256: 3, 384: 2}
+
+
+def k1_times(checkouts) -> int:
+    """``python3 chip_smoke.py --k1-times <checkout> [<checkout> ...]``: K1
+    of this tree against the K1 of each other checkout (a parent commit
+    unpacked by ``git archive``, or a copy with a candidate change), named
+    by its directory and built from its own sources, one ``nvcc`` each, all
+    at once: in turns at every instance (``flash_times``) and at CodeBERT's
+    shapes (``k1_codebert_times``), then the rate over rows of 1024 and
+    4096 keys against the first checkout (``k1_row_lengths``). Needs the
+    card; prints the lines and nothing else."""
+    import concurrent.futures as cf
+    phase_device()
+    phase_build()
+    card = card_line()
+    names = [os.path.basename(os.path.normpath(c)) for c in checkouts]
+    with cf.ThreadPoolExecutor(len(checkouts)) as pool:
+        libs = list(pool.map(lambda c: k1_library(os.path.join(
+            c, "sct_gan_tpu_torch", "csrc", "flash_attention_fwd.cu"),
+            "k1_" + os.path.basename(os.path.normpath(c))), checkouts))
+    for name, (_, report) in zip(names, libs):
+        for entry, lines in main_path_reports(report):
+            if "flash_fwd" in entry:
+                print(f"  ptxas [{name}] {entry}: " + "; ".join(lines))
+    others = dict(zip(names, libs))
+    for d, h in K1_TIMED.items():
+        flash_times(card, h, d, others=others)
+    k1_codebert_times(card, others)
+    k1_row_lengths(card, libs[0][0])
+    print(card)
+    return 0
+
+
+def k1_codebert_masks(dev):
+    """The key masks that CodeBERT's K1 gets on the TASC path, (4, 512)
+    each: the first four training contracts' tokens and their path
+    tokens, as ``_tasc_loaders`` makes them at ``TASCConfig()``."""
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.variants import build_variant
+    _, cfg = build_variant("binary-tasc", None)
+    train, _ = _tasc_loaders(SolidityTokenizer(vocab_size=cfg.vocab_size),
+                             cfg)
+    rows = [train.dataset[i] for i in range(4)]
+    return {key: torch.as_tensor(np.stack(
+        [np.asarray(r[key]) for r in rows]), device=dev).bool()
+        for key in ("attention_mask", "path_attention_mask")}
+
+
+def k1_codebert_times(card: str, others) -> None:
+    """K1 at CodeBERT's (4, 12, 512, 64) under its two key masks on the
+    TASC path (``k1_codebert_masks``: contracts of 105-229 tokens, paths of
+    12-51) and with every key (a contract of 512 tokens or more), against
+    each of ``others`` (name -> ``k1_library``) in turns (other, port,
+    port, other), beside SDPA with the same mask and the bound over the
+    attended keys; a line each."""
+    import torch
+    import torch.nn.functional as F
+    from sct_gan_tpu_torch.ops.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    b, h, s, d = 4, 12, 512, 64
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (_heads(torch.randn(b, s, h * d, generator=g, device=dev)
+                      .to(torch.bfloat16), h) for _ in range(3))
+    sc = d ** -0.5
+    masks = k1_codebert_masks(dev)
+    masks["every key"] = torch.ones(b, s, dtype=torch.bool, device=dev)
+    for label, mask in masks.items():
+        keys = int(mask.sum())
+        lens = mask.sum(1).tolist()
+        with torch.inference_mode():
+            qkv = ring_inputs((q, k, v))
+            ours = lambda a: flash_attention(*a, key_padding_mask=mask,
+                                             sm_scale=sc)
+            lib_ms = ring_ms(lambda a: F.scaled_dot_product_attention(
+                *a, attn_mask=mask[:, None, None, :], scale=sc), qkv, 20)
+            bnd, by = bound_ms(4 * h * s * keys * d,
+                               2 * 2 * b * h * s * d + 2 * 2 * h * keys * d
+                               + b * s)
+            for name, (lib, _) in others.items():
+                theirs = lambda a: k1_call(lib, *a, mask, sc)
+                o1, p1, p2, o2 = (ring_ms(f, qkv, 20)
+                                  for f in (theirs, ours, ours, theirs))
+                print(f"phase times [{card}]: flash_attention_fwd_dh64 at "
+                      f"CodeBERT's ({b}, {h}, {s}, {d}), {label} (lengths "
+                      f"{lens}), {name} -> this tree, in turns: {o1:.4f} / "
+                      f"{o2:.4f} -> {p1:.4f} / {p2:.4f} ms; library "
+                      f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})",
+                      flush=True)
+            del qkv
+
+
+def k1_row_lengths(card: str, other) -> None:
+    """K1 at 96 with every key over the same number of scores in rows of
+    1024 and of 4096 keys, (8, 8, 1024, 96) and (2, 8, 4096, 96): the
+    longer rows give a block 4x the tiles for one start and one end
+    (mask scan, Q load, O store), so the gap between the two rates is
+    what those cost. ``other``, a ``k1_library``, is timed beside."""
+    import torch
+    from sct_gan_tpu_torch.ops.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    for b, s in ((8, 1024), (2, 4096)):
+        qkv = ring_inputs(tuple(_heads(torch.randn(
+            b, s, 768, generator=g, device=dev).to(torch.bfloat16))
+            for _ in range(3)))
+        with torch.inference_mode():
+            ours = ring_ms(lambda a: flash_attention(*a, sm_scale=0.1),
+                           qkv, 10)
+            theirs = ring_ms(lambda a: k1_call(other, *a, None, 0.1), qkv, 10)
+        del qkv
+        flops = 4 * b * 8 * s * s * 96
+        print(f"phase k1 rows [{card}]: K1 at ({b}, 8, {s}, 96) every key "
+              f"{ours:.4f} ms, {flops / ours / 1e9:.1f} TFLOP/s (the other "
+              f"build {theirs:.4f} ms, {flops / theirs / 1e9:.1f})",
+              flush=True)
+
+
+def flash_times(card: str, h: int = 8, d: int = 96, others=None) -> dict:
     """K1 and the K2-K4 pair's ``h`` x ``d`` instance at the training
     shape (8, h, 1024, d) under the key mask of padded tails (lens 1024,
     900, 700, 512, 300, 1000, 64, 801: 5301 of 8192 keys): kernel
     (``ring_ms``), plain version, SDPA (its backward less its forward) and
-    the bound; prints a line each. Returns name -> (ms, plain ms, library
-    ms, bound ms, bound by), and at d <= 128 the pair's kernels apart
-    (``pair_parts_ms``) under ``<name>:parts``.
+    the bound; prints a line each. K1 also with every key attended.
+    Returns name -> (ms, plain ms, library ms, bound ms, bound by), K1's
+    every-key row under ``<name>:every_key``, and at d <= 128 the pair's
+    kernels apart (``pair_parts_ms``) under ``<name>:parts``.
+
+    ``others``: name -> a ``k1_library`` (a parent commit's K1, say), timed
+    in turns with the port's K1 (other, port, port, other) under the mask
+    and with every key; its rows, (other ms, other ms, port ms, port ms),
+    are ``<name>:<other>`` and ``<name>:<other>:every_key``.
 
     A bound counts the work this run's inputs need: under the key mask a
     masked key adds nothing to the output or to dQ and gets dK = dV = 0, so
@@ -3049,6 +3263,21 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
                 *a, attn_mask=sdpa_mask, scale=sc), qkv, 20),
             # Q read, O written; the attended K and V rows; the mask
             *bound_ms(flops["fwd"], 2 * qkv_bytes + 2 * kv_bytes + b * s))
+        t["fwd:every_key"] = (
+            ring_ms(lambda a: flash_attention(*a, sm_scale=sc), qkv, 20),
+            cuda_ms(lambda: flash_attention_reference(q, k, v, sm_scale=sc)),
+            ring_ms(lambda a: F.scaled_dot_product_attention(*a, scale=sc),
+                    qkv, 20),
+            *bound_ms(dense["fwd"], 4 * qkv_bytes))
+        turns = {}
+        for other, (lib, _) in (others or {}).items():
+            for label, m in (("", mask), (":every_key", None)):
+                theirs = lambda a: k1_call(lib, *a, m, sc)
+                ours = lambda a: flash_attention(*a, key_padding_mask=m,
+                                                 sm_scale=sc)
+                o1, p1, p2, o2 = (ring_ms(f, qkv, 20)
+                                  for f in (theirs, ours, ours, theirs))
+                turns[f":{other}{label}"] = (o1, o2, p1, p2)
         del qkv
 
     # the backward: the kernel pair (with D = rowsum(dO∘O)) vs autograd
@@ -3080,7 +3309,22 @@ def flash_times(card: str, h: int = 8, d: int = 96) -> dict:
         bq, bk, bv, bo, lse, bd, mask, False, sc, 0.0, 0)) if d <= 128 else None
     del ref, qg, kg, vg, bq, bk, bv, bo, bd
     named = {}
+    fwd_name = instance("flash_attention_fwd", d)
+    for suffix, (o1, o2, p1, p2) in turns.items():
+        named[fwd_name + suffix] = (o1, o2, p1, p2)
+        print(f"phase times [{card}]: {fwd_name} at ({b}, {h}, {s}, {d})"
+              f"{' every key' if 'every_key' in suffix else ''}, "
+              f"{suffix.split(':')[1]} -> this tree, in turns: {o1:.4f} / "
+              f"{o2:.4f} -> {p1:.4f} / {p2:.4f} ms", flush=True)
     for part, (ms, plain, libms, bnd, by) in t.items():
+        if part == "fwd:every_key":
+            named[f"{fwd_name}:every_key"] = t[part]
+            print(f"phase times [{card}]: {fwd_name} at ({b}, {h}, {s}, {d}) "
+                  f"every key attended {ms:.4f} ms "
+                  f"({dense['fwd'] / ms / 1e9:.1f} TFLOP/s) vs plain "
+                  f"{plain:.4f} ms, library {libms:.4f} ms, bound {bnd:.4f} "
+                  f"ms ({by})", flush=True)
+            continue
         name = instance(f"flash_attention_{part}", d)
         named[name] = t[part]
         parts = ""
@@ -3672,6 +3916,8 @@ def main() -> int:
                         bound_ms=bnd, bound_by=by)
         if f"{key}:b64" in t:       # K5 at (64, H, 1024, d), every key
             entry["b64"] = times(t[f"{key}:b64"])
+        if f"{name}:every_key" in t:  # K1 with every key attended
+            entry["every_key"] = times(t[f"{name}:every_key"])
         for d in DECODE_TAILS:      # K5 in place on this instance
             if f"{name}:tail{d}" in errs:
                 a, r = errs[f"{name}:tail{d}"]
@@ -3707,4 +3953,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
         sys.exit(parallel_rank(sys.argv[2]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--k1-times":
+        sys.exit(k1_times(sys.argv[2:]))
     sys.exit(main())

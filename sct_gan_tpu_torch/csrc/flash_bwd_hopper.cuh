@@ -117,28 +117,6 @@ __device__ __forceinline__ void grad_tile(float (&acc)[N], const uint32_t (&x)[1
   }
 }
 
-// 2^x by the SFU alone (ex2.approx.ftz: a relative error under 2^-22, -inf
-// gives 0); P is rounded to bf16 before any product, so the difference from
-// exp2f does not show.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Wait until at most N wgmma groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait_n() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep packed A operands live, unmoved, up to here: a wgmma reads them
-// asynchronously, until its group is waited for.
-__device__ __forceinline__ void hold_regs(uint32_t (&x)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(x[i])::"memory");
-}
-
 // The elementwise work of a 64 x 64 score tile: element x = 2m + e of a
 // thread is row r = m & 1 (of two, 8 apart) and column c = (m >> 1) * 8 +
 // 2t + e of the accumulator layout. The bodies are picked a tile at a time

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// TMA tensor maps and loads, mbarriers, cp.async, ldmatrix and wgmma.
+// TMA tensor maps and loads, mbarriers, named barriers, cp.async, ldmatrix,
+// wgmma, setmaxnreg and the SFU's 2^x.
 //
 // Shared-memory layout of a TMA-loaded head tile. A head row of D bf16 (D =
 // 64 to 256: 128 to 512 bytes) is stored as D / 32 chunks of 32
@@ -196,6 +197,12 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most N wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // Keep the compiler from moving register reads or writes of an
 // accumulator across the asynchronous wgmma (CUTLASS's
 // warpgroup_fence_operand).
@@ -203,6 +210,35 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Keep packed A operands live, unmoved, up to here: a wgmma reads them
+// asynchronously, until its group is waited for.
+template <int N>
+__device__ __forceinline__ void hold_regs(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: a relative error under 2^-22, -inf
+// gives 0); P is rounded to bf16 before any product, so the difference from
+// exp2f does not show.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Hand registers between warpgroups (sm_90a): the whole warpgroup runs one
+// of these; N is a multiple of 8 in [24, 256]. A producer warpgroup gives
+// registers back (dec), the consumer warpgroups take them (inc).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // D (64 x 64, f32) {=, +=} A (64 x 16, smem, K-major) * B (16 x 64, smem,

@@ -4,7 +4,14 @@ Counterpart of ``sct_gan_tpu/ops/flash_attention.py``. On a CUDA tensor,
 ``flash_attention`` is an autograd function:
 
   * forward: ``csrc/flash_attention_fwd.cu`` (the TPU ``_fa_fwd_kernel``),
-    with the optional attention-weight dropout and the f32 per-row LSE;
+    with the optional attention-weight dropout and the f32 per-row LSE,
+    one launch a call. Every instance walks only the key tiles that hold
+    an attended key (and, under ``causal``, that its query rows see); at
+    head dims 64, 96 and 128 it is ``flash_fwd_hopper_kernel``: a producer
+    warpgroup that loads by TMA and gives its registers to two consumer
+    warpgroups (``setmaxnreg``), each of which runs one tile's softmax
+    while its previous tile's P V and the other warpgroup's products are
+    on the tensor cores;
   * backward: ``csrc/flash_attention_bwd.cu``, a dKV kernel and a dQ kernel
     (the TPU ``_fa_bwd_fused_kernel`` at nk == 1 and the ``_fa_dkv_kernel``
     / ``_fa_dq_kernel`` pair at nk > 1; at head dims 64, 96 and 128 the

@@ -10,6 +10,10 @@ import chip_smoke
 from sct_gan_tpu_torch.ops import _build
 
 FWD = "_ZN12_GLOBAL__N_116flash_fwd_kernelE14CUtensorMap_st"
+FWD96 = ("_ZN12_GLOBAL__N_123flash_fwd_hopper_kernelINS_8FwdShapeILi96EEEEEv"
+         "14CUtensorMap_stS3_S3_NS_7FwdArgsE")
+FWD64 = ("_ZN12_GLOBAL__N_123flash_fwd_hopper_kernelINS_8FwdShapeILi64EEEEEv"
+         "14CUtensorMap_stS3_S3_NS_7FwdArgsE")
 DKV = ("_ZN12_GLOBAL__N_127flash_bwd_dkv_hopper_kernelINS_8DkvShapeILi96ELi2E"
        "Li3ELi1EEEEEv14CUtensorMap_stS3_S3_S3_NS_7BwdArgsE")
 DQ = ("_ZN12_GLOBAL__N_126flash_bwd_dq_hopper_kernelINS_7DqShapeILi128ELi2E"
@@ -88,6 +92,10 @@ def test_report_path_sits_beside_the_library():
     (_entry(DQ, 24, 20, 20, 200) + _entry(DKV, 0, 0, 0, 232), [DQ]),
     (_entry(DKV64, 0, 0, 0, 190) + _entry(DKV, 16, 8, 12, 255), [DKV]),
     (_entry(WIDE_DQ, 8, 4, 4, 255) + _entry(DQ, 0, 0, 0, 168), [WIDE_DQ]),
+    # K1's Hopper instances at 64-128, each by its own name
+    (_entry(FWD96, 0, 0, 0, 168) + _entry(FWD64, 0, 0, 0, 168), []),
+    (_entry(FWD96, 32, 32, 48, 168) + _entry(FWD, 0, 0, 0, 166), [FWD96]),
+    (_entry(FWD64, 160, 208, 320, 128) + _entry(DKV, 0, 0, 0, 240), [FWD64]),
 ])
 def test_flash_spills_flags_only_the_flash_kernels_spills(log, flagged):
     got = chip_smoke.kernel_spills(log)

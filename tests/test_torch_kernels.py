@@ -47,7 +47,7 @@ FLASH_CASES = {
     # the long walk on a small grid (the sp_encode gradient's role)
     "b1_sk8192": (8192, 8192, False, "tail", (1, 8, "heads")),
 }
-# the head dims of the backward pair's Hopper instances
+# the head dims of K1's and the backward pair's Hopper instances
 PAIR_HEAD_DIMS = (64, 96, 128)
 
 
@@ -110,14 +110,16 @@ def _rel_err(got, want) -> float:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", PAIR_HEAD_DIMS)
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_flash_dropout_and_lse_match_plain_on_card(cuda_device, case):
+def test_flash_dropout_and_lse_match_plain_on_card(cuda_device, case, d):
     """The forward kernel with attention dropout 0.3 (the same hash mask as
-    the plain version) and its f32 LSE: output within 2^-4 absolute (the
-    kept weights are scaled by 1/0.7) and 1e-2 norm-wise relative, LSE
-    within 1e-3."""
+    the plain version) and its f32 LSE, at each head dim of its Hopper
+    instances (``skipped_tiles``: whole masked key tiles, which K1 skips):
+    output within 2^-4 absolute (the kept weights are scaled by 1/0.7) and
+    1e-2 norm-wise relative, LSE within 1e-3."""
     causal = FLASH_CASES[case][2]
-    q, k, v, mask = _qkv_mask(cuda_device, case)
+    q, k, v, mask = _qkv_mask(cuda_device, case, d)
     args = dict(key_padding_mask=mask, causal=causal, dropout_rate=0.3,
                 seed=77, return_lse=True)
     got, lse = flash_attention(q, k, v, **args)
@@ -333,6 +335,37 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, case):
         assert torch.equal(got.view(torch.int16), again.view(torch.int16))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", PAIR_HEAD_DIMS)
+@pytest.mark.parametrize("case", ["causal_1000", "skipped_tiles"])
+def test_flash_forward_is_deterministic_on_card(cuda_device, case, d):
+    """K1 uses no atomics and walks the same tiles each time: two runs on
+    the same inputs, with dropout 0.3 and the LSE, give bit-identical
+    outputs."""
+    causal = FLASH_CASES[case][2]
+    q, k, v, mask = _qkv_mask(cuda_device, case, d)
+    runs = [flash_attention(q, k, v, key_padding_mask=mask, causal=causal,
+                            dropout_rate=0.3, seed=5, return_lse=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0].view(torch.int16),
+                       runs[1][0].view(torch.int16))
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", PAIR_HEAD_DIMS)
+def test_flash_negative_scale_matches_plain_on_card(cuda_device, d):
+    """A scale that is not positive: K1's interior tiles fold a positive
+    scale into the exponent, so such a call takes its masked body on every
+    tile; every key attended, within the 2^-5 of the tests above."""
+    q, k, v, _ = _qkv_mask(cuda_device, "causal", d)
+    got = flash_attention(q, k, v, sm_scale=-0.1)
+    want = flash_attention_reference(q, k, v, sm_scale=-0.1)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -5
+
+
 # head dims of the other kernel instances (64, 128, 192, 256), of the
 # flash kernels' padded route (80 runs their 128 instances on a
 # zero-padded copy, 160 their 192 and 224 their 256), and over 256 of the
@@ -356,7 +389,9 @@ def test_flash_head_dims_match_plain_on_card(cuda_device, d, h, causal):
     """K1 (dropout 0.3, LSE) and the backward pair at each head-dim
     instance and on the padded route, Sq=200 against Sk=1000 keys under a
     key mask (the tiles' edges): the bounds of the head-dim-96 tests above;
-    the scale is the true head dim's."""
+    the scale is the true head dim's. Then K1 alone under whole masked
+    64-key tiles with a row that attends no key (exact zeros, lse =
+    -1e30)."""
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q = _head_view(g, cuda_device, 2, 200, h, d, 2.0).requires_grad_()
     k, v = (_head_view(g, cuda_device, 2, 1000, h, d).requires_grad_()
@@ -379,6 +414,22 @@ def test_flash_head_dims_match_plain_on_card(cuda_device, d, h, causal):
         assert a.shape == w.shape
         assert (a.float() - w.float()).abs().max().item() <= 2 ** -3
         assert _rel_err(a, w) <= 1e-2
+
+    keys = torch.arange(512, device=cuda_device)
+    tiles = torch.stack([((keys >= 64) & (keys < 128)) | (keys >= 448),
+                         torch.zeros_like(keys, dtype=torch.bool)])
+    q, k, v = (_head_view(g, cuda_device, 2, 512, h, d, sd)
+               for sd in (2.0, 1.0, 1.0))
+    args = dict(key_padding_mask=tiles, causal=causal, dropout_rate=0.3,
+                seed=7, return_lse=True)
+    got, lse = flash_attention(q, k, v, **args)
+    want, want_lse = flash_attention_reference(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2 ** -4
+    assert _rel_err(got, want) <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    assert got[1].abs().max().item() == 0.0
+    assert bool((lse[1] == -1e30).all())
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from sct_gan_tpu.ops import sampling as jax_sampling
 from sct_gan_tpu.ops.attention import mha_reference as jax_mha
 from sct_gan_tpu.ops.decode_attention import \
     decode_attention as jax_decode_attention
+from sct_gan_tpu.ops.flash_attention import _flash_forward as jax_flash_forward
 from sct_gan_tpu.ops.flash_attention import \
     flash_attention as jax_flash_attention
 from sct_gan_tpu.ops.segment_mean import line_segment_mean as jax_segmean
@@ -74,6 +75,39 @@ def test_flash_plain_matches_jax_kernel_and_reference(case):
     np.testing.assert_allclose(got, np.asarray(want_r), **TOL)
     if kind == "one_row_empty":
         assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_matches_jax_kernel_over_skipped_tiles(causal):
+    """The semantics K1's tile skip keeps: a row with whole masked 64-key
+    tiles (0 and 2 dead, 3 partly live), a row that attends no key, and a
+    masked tail under the causal diagonal (B=3, H=2, S=256, d=32). The
+    plain version against the JAX forward in interpret mode with 64-key
+    blocks, so that its online softmax too steps across the dead tiles
+    and the empty row a tile at a time; output and LSE. The empty row
+    gives exact zeros and lse = -1e30 (JAX's finite mask)."""
+    rng = np.random.default_rng(5)
+    b, h, s, d = 3, 2, 256, 32
+    q, k, v = _qkv(rng, b, h, s, s, d)
+    keys = np.arange(s)
+    mask = np.stack([((keys >= 64) & (keys < 128)) | (keys >= 200),
+                     np.zeros(s, dtype=bool), keys < 150])
+    scale = 1.0 / 96 ** 0.5
+    bias = jnp.where(jnp.asarray(mask), 0.0, -1e30).astype(jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse, _ = jax_flash_forward(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bias,
+            jnp.int32(0), causal, s, 64, 0.0, scale, True)
+    got, lse = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v),
+                               key_padding_mask=torch.from_numpy(mask),
+                               causal=causal, sm_scale=scale,
+                               return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(want_lse)[:, :, :s, 0], **TOL)
+    assert np.all(got.numpy()[1] == 0.0)
+    assert np.all(lse.numpy()[1] == np.float32(-1e30))
 
 
 def test_dense_weights_match_jax():
