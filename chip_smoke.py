@@ -21,7 +21,9 @@ at 384 and 320; the decode attention's wide-head route, in place, at 224,
 ``encode_concat``'s key mask with its hole. It holds every mode of the
 kernel-timing tools'
 kernels (K7-K10, ``sct_gan_tpu_torch/tools``) against its plain version at
-the tools' shapes, then runs the four tools' ``time_modes`` (their main
+the tools' shapes (K8 also over one to six blocks of key slices, K9 at
+head dims 64, 96 and 128, B 1, 4 and 32, S 300, 1000 and 1024, with a
+fully masked row), then runs the four tools' ``time_modes`` (their main
 path), counting launches. Then it drives the paths of the port at full
 width (d=768, L=1024, vocab 50265 padded to 50304, bf16 compute, random
 weights from seed 0), counting kernel launches around each path to show it
@@ -111,6 +113,13 @@ Every phase prints a line; any failure raises (non-zero exit). The line
 before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a
 CUDA device it exits 1 and prints no result.
+
+    python3 chip_smoke.py --k1-times <checkout> [<checkout> ...]
+    python3 chip_smoke.py --variants-times <checkout> [<checkout> ...]
+
+time K1, or the tools' K8 and K9, against those of other checkouts (a
+parent unpacked by ``git archive``, or a changed copy of ``csrc/``), built
+from their own sources, in turns.
 """
 from __future__ import annotations
 
@@ -283,10 +292,12 @@ def phase_build():
 # at 64-128, flash_fwd_kernel over them, chunked too), the backward pair
 # (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the wgmma
 # kernels above), the decode attention (every instance; the 192 one, by its
-# mangled name, must be in the report) with its wide-head route
+# mangled name, must be in the report) with its wide-head route, and the
+# tools' K8 and K9 (every mode and head dim)
 NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
             "decode_splitk_kernel", "decode_splitk_kernelILi192E",
-            "decode_wide_kernel")
+            "decode_wide_kernel", "flash_variants_kernel",
+            "decode_perbatch_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -830,6 +841,63 @@ def phase_head_kernels():
     return errs
 
 
+# K8's extra key counts (beside the tool's 1024) and K9's shapes held
+# against the plain versions
+K8_SEQS = (64, 320, 1536)
+K9_SHAPES = {"dh": (64, 96, 128), "b": (1, 4, 32), "s": (300, 1000, 1024)}
+
+
+def k9_checks(check) -> None:
+    """K9 v2 and v3 at every head dim, B and S of ``K9_SHAPES`` (at S = 300
+    a v3 chunk straddles heads), with every key attended and under the
+    tool's mask with a fully-masked row (which must give exact zeros),
+    then over whole dead 64-key tiles and the model's head view. ``check``
+    is ``phase_variants``'s (keeps the worst error of each mode)."""
+    import torch
+    from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
+    dev = torch.device("cuda")
+    for dh in K9_SHAPES["dh"]:
+        for b in K9_SHAPES["b"]:
+            for s in K9_SHAPES["s"]:
+                q, k, v, mask = k9.make_inputs(b, 8, s, dh, b + s + dh, dev)
+                if b > 1:                         # a fully-masked row
+                    mask[-1] = False
+                for m in (None, mask):
+                    want = k9.decode_variants_reference(q, k, v, m,
+                                                        sm_scale=dh ** -0.5)
+                    for mode in ("v2", "v3"):
+                        got = k9.decode_variants(q, k, v, m, mode,
+                                                 sm_scale=dh ** -0.5)
+                        check("decode_variants", mode, got, want,
+                              f" k({b}, 8, {s}, {dh}), "
+                              + ("every key" if m is None else
+                                 "~10% keys masked"
+                                 + (", the last row all" if b > 1 else "")))
+                        if (m is not None and b > 1
+                                and got[-1].abs().max().item() != 0):
+                            raise AssertionError(
+                                f"K9 {mode}: a fully-masked row must give "
+                                f"zeros")
+    q, k, v, mask = k9.make_inputs(4, 8, 1000, 96, 5, dev)
+    keys = torch.arange(1000, device=dev)
+    mask[0] = (keys >= 64) & (keys < 128) | (keys >= 900)
+    mask[2] = keys % 128 < 64
+    mask[3] = keys == 999
+    heads = torch.randn(2, 1000, 8 * 96, device=dev).to(torch.bfloat16)
+    view = _heads(heads)                         # (2, 8, 1000, 96), strided
+    qv = torch.randn(2, 8, 1, 96, device=dev).to(torch.bfloat16)
+    for mode in ("v2", "v3"):
+        check("decode_variants", mode,
+              k9.decode_variants(q, k, v, mask, mode, sm_scale=0.1),
+              k9.decode_variants_reference(q, k, v, mask, sm_scale=0.1),
+              " k(4, 8, 1000, 96), whole dead 64-key tiles")
+        check("decode_variants", mode,
+              k9.decode_variants(qv, view, view, None, mode, sm_scale=0.1),
+              k9.decode_variants_reference(qv, view, view, None,
+                                           sm_scale=0.1),
+              " the head view of (2, 1000, 768)")
+
+
 def phase_variants(card: str) -> list:
     """K7-K10, the kernel-timing tools. Every mode against its plain version
     at the tool's shape (K7 and K8 at D = 96 and 128), then the tools'
@@ -879,18 +947,16 @@ def phase_variants(card: str) -> list:
                 check("flash_variants", mode, k8.flash_variants(x, mode),
                       k8.flash_variants_reference(x, mode),
                       f" {tuple(x.shape)}")
-        q, kc, vc, mask = k9.make_inputs(32, 8, 1024, 96, 3, dev)
-        mask[1] = False                           # a fully-masked row
-        for mode in ("v2", "v3"):
-            got = k9.decode_variants(q, kc, vc, mask, mode,
-                                     sm_scale=96 ** -0.5)
-            check("decode_variants", mode, got,
-                  k9.decode_variants_reference(q, kc, vc, mask,
-                                               sm_scale=96 ** -0.5),
-                  f" k{tuple(kc.shape)}, ~10% keys masked, row 1 all")
-            if got[1].abs().max().item() != 0.0:
-                raise AssertionError(f"K9 {mode}: a fully-masked row must "
-                                     f"give zeros")
+            # K8's cluster of key slices: one block (64), a ragged last
+            # slice (320), twelve blocks, past the portable eight (1536)
+            for sk in K8_SEQS:
+                xs = (torch.randn(2, 8, sk, dh, generator=g, device=dev)
+                      * 0.5).to(torch.bfloat16)
+                for mode in k8.MODES:
+                    check("flash_variants", mode, k8.flash_variants(xs, mode),
+                          k8.flash_variants_reference(xs, mode),
+                          f" {tuple(xs.shape)}")
+        k9_checks(check)
         x = torch.randn(*k10.SHAPE, generator=g, device=dev).to(
             torch.bfloat16)
         for mode in k10.MODES:
@@ -924,6 +990,10 @@ def phase_variants(card: str) -> list:
     print(f"phase variants: the four tools' time_modes in "
           f"{time.perf_counter() - t0:.1f} s, launches {launches}",
           flush=True)
+    print("phase variants: K9's rate a batch row's block (bytes / ms / B): "
+          + ", ".join(f"{m} {r['per_sm_gbs']:.1f} GB/s"
+                      for m, r in results["decode_variants"].items()),
+          flush=True)
     entries = []
     for name, (source, replaces, primary) in VARIANTS.items():
         res = results[name]
@@ -936,6 +1006,8 @@ def phase_variants(card: str) -> list:
                            "library_ms": r["library_ms"],
                            "bound_ms": r["bound_ms"], "max_abs_err": a,
                            "max_rel_err": rl}
+            if "per_sm_gbs" in r:
+                modes[mode]["per_sm_gbs"] = r["per_sm_gbs"]
         top = res[primary]
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -3124,6 +3196,171 @@ def k1_times(checkouts) -> int:
     return 0
 
 
+def variants_library(checkout: str):
+    """(library, ``ptxas -v`` report) of another checkout's K8 and K9
+    (its ``csrc/flash_variants.cu`` and ``csrc/decode_variants.cu``, each
+    including its own headers), built as the main library is
+    (``_build.build_library``), their C entry points declared. Timed
+    beside the port's K8 and K9, never called by the port."""
+    import ctypes
+    from sct_gan_tpu_torch.ops import _build
+    csrc = os.path.join(checkout, "sct_gan_tpu_torch", "csrc")
+    name = os.path.basename(os.path.normpath(checkout))
+    path, report, _ = _build.build_library(
+        [os.path.join(csrc, "flash_variants.cu"),
+         os.path.join(csrc, "decode_variants.cu")], "variants_" + name)
+    lib = ctypes.CDLL(path)
+    for fn in ("flash_variants_bf16", "decode_variants_bf16"):
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib, report
+
+
+def k8_call(lib, x, mode: str):
+    """One launch of ``lib``'s K8 as the tool's wrapper makes it (q = k =
+    v = x, contiguous); its output."""
+    import ctypes
+    import torch
+    from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.tools import time_flash_variants as k8
+    b, h, s, d = x.shape
+    out = torch.empty_like(x)
+    err = lib.flash_variants_bf16(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), b * h, s,
+        d, k8.MODES.index(mode), ctypes.c_float(k8.SCALE),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "flash_variants_bf16 (timed beside K8)")
+    return out
+
+
+def k9_call(lib, q, k, v, mask, mode: str, scale: float):
+    """One launch of ``lib``'s K9 v2 or v3 as the tool's wrapper makes it on
+    contiguous (B, H, S, dh) inputs; its output."""
+    import ctypes
+    import torch
+    from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.ops.flash_attention import _mask_arg
+    b, h, s, d = k.shape
+    out = torch.empty_like(q)
+    ks, vs = k.stride()[:3], v.stride()[:3]
+    if mode == "v3":                           # the (B, H*S, dh) slab's
+        ks, vs = (ks[0], 0, d), (vs[0], 0, d)
+    mptr, msb, _keep = _mask_arg(mask, b, s, q.device)
+    err = lib.decode_variants_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
+        2 if mode == "v2" else 3, b, h, s, d, q.stride(0), q.stride(1), *ks,
+        *vs, out.stride(0), out.stride(1), msb, ctypes.c_float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_variants_bf16 (timed beside K9)")
+    return out
+
+
+def variants_times(checkouts) -> int:
+    """``python3 chip_smoke.py --variants-times <checkout> [...]``: K8 and
+    K9 of this tree against those of each other checkout (a parent commit
+    unpacked by ``git archive``, or a copy with a candidate change), named
+    by its directory and built from its own sources, one ``nvcc`` each,
+    all at once. At the tools' shapes, in turns (other, tree, tree,
+    other), each a chain replayed from a CUDA graph (``chain_ms``): every
+    mode of K8 at (8, 8, 1024, 96) on the tool's x = 0.01, and K9's v2 and
+    v3 at (32, 8, 1024, 96) under the tool's mask, with K5 (v1) and SDPA
+    in the same call. Each other checkout's output is first held to this
+    tree's plain version. Needs the card; prints the lines and nothing
+    else."""
+    import concurrent.futures as cf
+    import torch
+    import torch.nn.functional as F
+    from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
+    from sct_gan_tpu_torch.tools import time_flash_variants as k8
+    from sct_gan_tpu_torch.tools._common import self_attention_library
+    from sct_gan_tpu_torch.utils.profiling import chain_ms
+    phase_device()
+    phase_build()
+    card = card_line()
+    names = [os.path.basename(os.path.normpath(c)) for c in checkouts]
+    with cf.ThreadPoolExecutor(len(checkouts)) as pool:
+        libs = list(pool.map(variants_library, checkouts))
+    for name, (_, report) in zip(names, libs):
+        for entry, lines in main_path_reports(report):
+            print(f"  ptxas [{name}] {entry}: " + "; ".join(lines))
+    for entry, lines in main_path_reports(_build.ptxas_log):
+        if "variants" in entry or "perbatch" in entry:
+            print(f"  ptxas [tree] {entry}: " + "; ".join(lines))
+    dev = torch.device("cuda")
+    steps = 256
+    with torch.inference_mode():
+        b, h, s = k8.SHAPE
+        x0 = torch.full((b, h, s, k8.DH), 0.01, dtype=torch.bfloat16,
+                        device=dev)
+        for kind in sorted(set(k8.LIBRARY.values())):
+            lib_ms = chain_ms(self_attention_library(kind, k8.SCALE), x0,
+                              k8.CHAIN)
+            print(f"K8 library {kind}: {lib_ms:.4f} ms", flush=True)
+        g = torch.Generator(device=dev).manual_seed(3)
+        xr = {sk: (torch.randn(2, 8, sk, k8.DH, generator=g, device=dev)
+                   * 0.5).to(torch.bfloat16) for sk in (320, 1024)}
+        for mode in k8.MODES:
+            ours = lambda x, m=mode: k8.flash_variants(x, m)
+            for name, (lib, _) in zip(names, libs):
+                theirs = lambda x, m=mode, lb=lib: k8_call(lb, x, m)
+                errs = []                  # on random x, against the plain
+                for x in xr.values():
+                    want = k8.flash_variants_reference(x, mode)
+                    got = theirs(x)
+                    errs.append(f"{max_err(got, want):.2e} (tol "
+                                f"{kernel_tol(want):.2e}, rel "
+                                f"{rel_err(got, want):.1e})")
+                o1, p1, p2, o2 = (chain_ms(f, x0, k8.CHAIN)
+                                  for f in (theirs, ours, ours, theirs))
+                print(f"K8 {mode} (8, 8, 1024, 96) [{card}]: {name} "
+                      f"{o1:.4f} / {o2:.4f} ms -> tree {p1:.4f} / {p2:.4f} "
+                      f"ms ({name} max_abs_err at S = 320, 1024: "
+                      f"{', '.join(errs)})", flush=True)
+        q, k, v, mask = k9.make_inputs(32, 8, 1024, 96, 0, dev)
+        scale = 96 ** -0.5
+        rows = int(mask.sum().item()) * 8
+        nbytes = (2 * rows * 96 + 2 * q.numel()) * 2 + mask.numel()
+        want = k9.decode_variants_reference(q, k, v, mask, sm_scale=scale)
+        v1 = chain_ms(lambda x: x + k9.decode_variants(
+            x, k, v, mask, "v1", sm_scale=scale) * 0, q, steps)
+        sdpa = chain_ms(lambda x: x + F.scaled_dot_product_attention(
+            x, k, v, attn_mask=mask[:, None, None, :], scale=scale) * 0,
+            q, steps)
+        print(f"K9 (32, 8, 1024, 96) [{card}]: v1 (K5) {v1:.4f} ms, SDPA "
+              f"{sdpa:.4f} ms, bound {bound_ms(4 * rows * 96, nbytes)[0]:.4f}"
+              f" ms ({nbytes / 1e6:.1f} MB)", flush=True)
+        for mode in ("v2", "v3"):
+            ours = lambda x, m=mode: x + k9.decode_variants(
+                x, k, v, mask, m, sm_scale=scale) * 0
+            for name, (lib, _) in zip(names, libs):
+                theirs = lambda x, m=mode, lb=lib: x + k9_call(
+                    lb, x, k, v, mask, m, scale) * 0
+                err = max_err(k9_call(lib, q, k, v, mask, mode, scale), want)
+                o1, p1, p2, o2 = (chain_ms(f, q, steps)
+                                  for f in (theirs, ours, ours, theirs))
+                print(f"K9 {mode} [{card}]: {name} {o1:.4f} / {o2:.4f} ms "
+                      f"-> tree {p1:.4f} / {p2:.4f} ms; a batch row's block "
+                      f"{k9.per_sm_gbs(nbytes, o1, 32):.1f} -> "
+                      f"{k9.per_sm_gbs(nbytes, p1, 32):.1f} GB/s ({name} "
+                      f"max_abs_err {err:.3e})", flush=True)
+        for dh in (64, 128):                  # the tree's other instances
+            q, k, v, mask = k9.make_inputs(32, 8, 1024, dh, 0, dev)
+            rows = int(mask.sum().item()) * 8
+            nbytes = (2 * rows * dh + 2 * q.numel()) * 2 + mask.numel()
+            line = []
+            for mode in ("v1", "v2", "v3"):
+                ms = chain_ms(lambda x, m=mode: x + k9.decode_variants(
+                    x, k, v, mask, m, sm_scale=dh ** -0.5) * 0, q, steps)
+                line.append(f"{mode} {ms:.4f} ms "
+                            f"({k9.per_sm_gbs(nbytes, ms, 32):.1f} GB/s)")
+            print(f"K9 (32, 8, 1024, {dh}) [{card}]: " + ", ".join(line)
+                  + f", bound {bound_ms(4 * rows * dh, nbytes)[0]:.4f} ms",
+                  flush=True)
+    print(card)
+    return 0
+
+
 def k1_codebert_masks(dev):
     """The key masks that CodeBERT's K1 gets on the TASC path, (4, 512)
     each: the first four training contracts' tokens and their path
@@ -3955,4 +4192,6 @@ if __name__ == "__main__":
         sys.exit(parallel_rank(sys.argv[2]))
     if len(sys.argv) >= 3 and sys.argv[1] == "--k1-times":
         sys.exit(k1_times(sys.argv[2:]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--variants-times":
+        sys.exit(variants_times(sys.argv[2:]))
     sys.exit(main())

@@ -3,38 +3,155 @@
 //
 // Replaces the TPU kernels of tools/time_decode_kernel_variants.py (its
 // pallas_calls at :77, v2, and :113, v3), which asked whether fewer and
-// larger programs read the K/V cache faster than one program per (b, h):
+// larger programs read the K/V cache faster than one program per (b, h).
+// Both keep the TPU's blocking, one block per batch row (grid (B,)):
 //
-//   v2  one block per batch row; the block loops over the H heads, its 8
-//       warps working on one head at a time with K5's three passes (scores
-//       to shared memory, the block's max and sum, p V) and K5's barriers;
-//   v3  one block per batch row that reads K and V as one (H*S, D) slab:
-//       warp w takes the head slices w, w + 8, ... of the slab and does all
-//       three passes of its head alone, with warp shuffles and no block
-//       barrier between heads.
+//   v2  the block walks the H heads one after the other, each head's K
+//       then its V, read through the cache's (b, h, s) strides;
+//   v3  the block reads K and V as the batch row's one (H*S, D) slab, in
+//       linear chunks that do not follow the heads.
 //
 // (v1, one block per (b, h), is K5 itself: decode_attention.cu.)
 //
-// What bounds it on an H100: the bytes of K and V, each read once: 100.7 MB
-// at B = 32, H = 8, S = 1024, D = 96, 0.030 ms at 3.35 TB/s. Both variants
-// launch B blocks, 32 at B = 32, fewer than the 132 SMs, where K5 launches
-// B*H; they are here to measure what that costs on this card.
+// What bounds it on an H100: the bytes of K and V, each attended row read
+// once: 90.6 MB at B = 32, H = 8, S = 1024, D = 96 under the tool's mask
+// (about 10% of keys off), 0.027 ms at 3.35 TB/s. Both variants launch B
+// blocks, 32 at B = 32, so 32 of the 132 SMs must pull it all: about 2.8
+// MB a block, 105 GB/s an SM near the bound. A decode step does about one
+// flop a byte, so both products run on the CUDA cores. The earlier design
+// lost 20x to this bound through a latency chain: one 192-byte K row in
+// flight a warp, three passes a head with block barriers between them.
+// This one keeps the bytes in flight:
 //
-// Semantics (K5's): o = softmax(q . K^T * scale, masked) V; masked keys get
-// -inf and read nothing; a fully-masked row gives zeros.
+// * A producer warp streams the block's rows into a ring of STAGES stages
+//   of ROWS = 128 rows (16, 24 or 32 KB at D = 64, 96, 128; 8, 7 and 5
+//   stages, over 130 KB in flight) on mbarriers; eight consumer warps
+//   compute. The producer runs ahead across head boundaries.
+//   - v2: a stage is two 64-key tiles of one head's K (or V), each one 2-D
+//     TMA box of 64 rows x D through the strides (make_rows_map): head h's
+//     K tiles, then its V tiles, then head h + 1's. Tiles whose mask bytes
+//     are all zero are never loaded (the live-tile list is built once per
+//     block from the mask bits, the same for every head).
+//   - v3: a stage is one linear chunk of 128 slab rows (16-32 KB), one
+//     cp.async.bulk. Chunks straddle heads (at S = 300 a chunk holds the
+//     end of one head and the start of the next); the consumers split
+//     each chunk's rows by head. The V chunk of a row comes after the K
+//     chunk that completes the row's head: K chunk k, then every V chunk
+//     whose last head ends in K chunk k.
+// * The softmax keeps the TPU's form: a head's scores go to a row in shared
+//   memory (a ring of 8192 f32, indexed by key in v2 and by slab row in
+//   v3), the head's max and sum are taken once all its scores are in (three
+//   consumer barriers a head), and its V rows weigh p / l rounded to bf16,
+//   as the plain version rounds it. Nothing is rescaled.
+// * Work split: a row is LPR lanes (4 at D = 96, 8 at 64 and 128), each
+//   lane UPL 16-byte units of it (units part, part + LPR, ...), so a
+//   quarter warp reads eight distinct bank groups; a score's LPR partial
+//   dots meet by shuffles. For p V each lane keeps UPL x 8 f32 sums over
+//   its rows; at the end of a head they meet by shuffles and in shared
+//   memory, and the head's row of o is written.
+// * The consumers are bound by latency, not by the load pipe: on an NVIDIA
+//   H100 80GB HBM3 at 700 W the producer alone (consumers releasing each
+//   stage unread) pulls 66 GB/s a block, the whole kernel 41 (v2). So a
+//   thread runs two passes of rows at a time with their loads issued
+//   first, four FMA chains a dot, q of the next head fetched a head ahead,
+//   and v3 follows the heads without dividing; sixteen consumer warps and
+//   a ring of four stages timed the same or slower (PERF.md §6 PR 18).
+//
+// Limits: v2 up to 8192 keys (the score ring), v3 up to 4096 keys (the
+// ring holds a head and the rows in flight behind it). Head dims 64, 96 and
+// 128. v2 reads K and V through a TMA map (16-byte strides), v3 needs the
+// slab dense (row stride D); the wrapper copies what is not.
+//
+// Semantics (K5's): o = softmax(q . K^T * scale, masked) V; masked keys
+// weigh nothing; a fully-masked row gives zeros; q is scaled in f32.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper_tile.cuh"
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int D = 96;                 // the model's head dim
-constexpr int P = D / 2;              // bf16 pairs of a row
-constexpr int PL = (P + 31) / 32;     // pairs per lane
-constexpr int MAX_KEYS = 8192;        // v2: one head's scores in shared memory
-constexpr int MAX_SLAB_KEYS = 4096;   // v3: NWARPS heads' scores
+using namespace hopper;
+
+constexpr int SMEM_LIMIT = 232448;     // bytes of shared memory a block may use
+constexpr int TILE = 64;               // keys a tile: v2's skip unit
+constexpr int ROWS = 128;              // rows a ring stage
+constexpr int NCW = 8;                 // consumer warps
+constexpr int NC = NCW * 32;
+constexpr int NTHREADS = NC + 32;      // and the producer warp
+constexpr int RING = 8192;             // f32 scores (a power of two)
+constexpr int NSTAT = 512;             // heads' 1 / l (a power of two)
+constexpr int MAX_KEYS = 8192;         // v2: one head's scores
+constexpr int MAX_SLAB_KEYS = 4096;    // v3: a head and the rows in flight
+constexpr int MAX_TILES = MAX_KEYS / TILE;
+constexpr int CONSUMERS = 1;           // named barrier of the consumer warps
+constexpr float LOG2E = 1.4426950408889634f;
+
+// What a ring stage holds, written by the producer before the stage's
+// arrival releases it.
+struct Item {
+  int kind;        // 0: K rows, 1: V rows
+  int head;        // v2: the head
+  int row0, n;     // v3: the chunk's first slab row and its rows
+  int tile[2];     // v2: the 64-key tiles of stage rows 0-63, 64-127 (-1: none)
+  int last;        // v2: the head's last stage of this kind
+};
+
+// The shared memory besides the ring.
+template <int D>
+struct Fixed {
+  float ring[RING];                 // scores, then p = 2^(s - m)
+  float inv_l[NSTAT];               // 1 / l of head h at h % NSTAT
+  float part[2][NCW][D];            // a head's o, one row a warp
+  uint32_t mbits[MAX_KEYS / 32];    // bit j: key j is attended
+  int live[MAX_TILES];              // v2: the live tiles, in order
+  float red[2][NCW];
+  int n_live;
+};
+
+template <int D_>
+struct Shape {
+  static constexpr int D = D_;
+  static constexpr int UNITS = D / 8;              // 16-byte units a row
+  static constexpr int LPR = D == 96 ? 4 : 8;      // lanes a row
+  static constexpr int UPL = UNITS / LPR;          // units a lane: 1, 3, 2
+  static constexpr int RPW = 32 / LPR;             // rows a warp a pass
+  static constexpr int RPP = RPW * NCW;            // rows a pass
+  static constexpr int STAGE_BYTES = ROWS * D * 2;
+  static constexpr int FREE = SMEM_LIMIT - 1024 - (int)sizeof(Fixed<D>) - 512;
+  static constexpr int STAGES = FREE / STAGE_BYTES < 8 ? FREE / STAGE_BYTES : 8;
+  static_assert(UPL * LPR == UNITS, "whole units a lane");
+  static_assert(STAGES >= 4, "a ring of four stages at least");
+  // v3: a fast warp writes scores at most STAGES items ahead of a slow one
+  static_assert((STAGES + 2) * ROWS + MAX_SLAB_KEYS <= RING, "the score ring");
+};
+
+template <class C>
+struct Smem {
+  alignas(1024) unsigned char stage[C::STAGES][C::STAGE_BYTES];
+  Fixed<C::D> f;
+  Item item[C::STAGES];
+  uint64_t full[C::STAGES], empty[C::STAGES];
+};
+
+struct DecArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;           // v3: the slabs
+  const __nv_bfloat16* v;
+  const uint8_t* mask;              // (B, S), nonzero = attend, or null
+  __nv_bfloat16* o;
+  int H, S, q_sb, q_sh, k_sb, v_sb, o_sb, o_sh, mask_sb;
+  float scale_log2;
+};
+
+template <class T>
+__device__ __forceinline__ T& aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(raw + pad);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -48,223 +165,492 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Block-wide reduction of one value per thread; every thread gets the result.
-template <bool IS_MAX>
-__device__ float block_reduce(float x, float* red) {
-  x = IS_MAX ? warp_max(x) : warp_sum(x);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();                   // red may still be read by a prior call
-  if (lane == 0) red[warp] = x;
+// the two bf16 of a word as f32
+__device__ __forceinline__ float lo_f(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ bool attended(const uint32_t* mbits, int j) {
+  return (mbits[j >> 5] >> (j & 31)) & 1u;
+}
+
+// A consumer thread: its lanes' row within a pass and its part of the row.
+template <class C>
+struct Lane {
+  int part, grp;                    // units part + LPR * c; row grp of a pass
+  __device__ Lane() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    part = lane % C::LPR;
+    grp = warp * C::RPW + lane / C::LPR;
+  }
+};
+
+// this thread's units of q for head h, as bf16 pairs: issued a head ahead,
+// so the load's latency hides under the head before
+template <class C>
+__device__ __forceinline__ void fetch_q(uint32_t (&qw)[C::UPL * 4], const DecArgs& a, int b,
+                                        int h, int part) {
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(
+      a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh);
+#pragma unroll
+  for (int c = 0; c < C::UPL; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qw[c * 4 + e] = src[(part + C::LPR * c) * 4 + e];
+}
+
+// the next head's q, scaled in f32, and the fetch of the one after
+template <class C>
+__device__ __forceinline__ void next_q(float (&qr)[C::UPL * 8], uint32_t (&qw)[C::UPL * 4],
+                                       const DecArgs& a, int b, int h, int part) {
+#pragma unroll
+  for (int e = 0; e < C::UPL * 4; ++e) {
+    qr[2 * e] = lo_f(qw[e]) * a.scale_log2;
+    qr[2 * e + 1] = hi_f(qw[e]) * a.scale_log2;
+  }
+  if (h + 1 < a.H) fetch_q<C>(qw, a, b, h + 1, part);
+}
+
+// Scores of n stage rows from `first`: row i goes to ring[pos(i)] (pos < 0:
+// no score). Every consumer thread calls it with the same n. Two passes at
+// a time, their loads first: eight independent chains a thread.
+template <class C, class Pos>
+__device__ __forceinline__ void score_rows(const unsigned char* stage, int first, int n,
+                                           const float (&qr)[C::UPL * 8], float* ring,
+                                           const Lane<C>& ln, Pos pos) {
+  const uint4* rows = reinterpret_cast<const uint4*>(stage);
+  for (int p0 = 0; p0 < n; p0 += 2 * C::RPP) {
+    int i[2];
+    uint4 u[2][C::UPL];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      i[k] = p0 + k * C::RPP + ln.grp;
+      const uint4* row = rows + (size_t)(first + (i[k] < n ? i[k] : 0)) * C::UNITS;
+#pragma unroll
+      for (int c = 0; c < C::UPL; ++c) u[k][c] = row[ln.part + C::LPR * c];
+    }
+    float s[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float sp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < C::UPL; ++c) {
+        const uint32_t w[4] = {u[k][c].x, u[k][c].y, u[k][c].z, u[k][c].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sp[(e & 1) * 2] = fmaf(qr[c * 8 + 2 * e], lo_f(w[e]), sp[(e & 1) * 2]);
+          sp[(e & 1) * 2 + 1] = fmaf(qr[c * 8 + 2 * e + 1], hi_f(w[e]), sp[(e & 1) * 2 + 1]);
+        }
+      }
+      s[k] = (sp[0] + sp[1]) + (sp[2] + sp[3]);
+    }
+#pragma unroll
+    for (int o = 1; o < C::LPR; o <<= 1)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+    if (ln.part == 0)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int at = i[k] < n ? pos(i[k]) : -1;
+        if (at >= 0) ring[at] = s[k];
+      }
+  }
+}
+
+// acc += (p / l rounded to bf16) * V over n stage rows from `first`; row i's
+// p at ring[pos(i)] (pos < 0: the row weighs nothing). Two passes at a
+// time, their loads first.
+template <class C, class Pos>
+__device__ __forceinline__ void pv_rows(const unsigned char* stage, int first, int n,
+                                        float inv, const float* ring,
+                                        float (&acc)[C::UPL * 8], const Lane<C>& ln, Pos pos) {
+  const uint4* rows = reinterpret_cast<const uint4*>(stage);
+  for (int p0 = 0; p0 < n; p0 += 2 * C::RPP) {
+    float w[2];
+    uint4 u[2][C::UPL];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = p0 + k * C::RPP + ln.grp;
+      const int at = i < n ? pos(i) : -1;
+      w[k] = at >= 0 ? __bfloat162float(__float2bfloat16(ring[at] * inv)) : 0.f;
+      const uint4* row = rows + (size_t)(first + (at >= 0 ? i : 0)) * C::UNITS;
+#pragma unroll
+      for (int c = 0; c < C::UPL; ++c) u[k][c] = row[ln.part + C::LPR * c];
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int c = 0; c < C::UPL; ++c) {
+        const uint32_t x[4] = {u[k][c].x, u[k][c].y, u[k][c].z, u[k][c].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[c * 8 + 2 * e] = fmaf(w[k], lo_f(x[e]), acc[c * 8 + 2 * e]);
+          acc[c * 8 + 2 * e + 1] = fmaf(w[k], hi_f(x[e]), acc[c * 8 + 2 * e + 1]);
+        }
+      }
+  }
+}
+
+// Head h's scores are all in the ring, key j at (base + j) % RING: its max m
+// and p = 2^(s - m) (0 for a masked key) in place, and 1 / l (0 when every
+// key is masked) at inv_l[h % NSTAT]. All consumer threads; three barriers.
+template <int D>
+__device__ __forceinline__ void head_stats(Fixed<D>& f, int h, int base, int S) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  bar_sync(CONSUMERS, NC);          // every score of the head is written
+  float mx = -INFINITY;
+  for (int j = tid; j < S; j += NC)
+    if (attended(f.mbits, j)) mx = fmaxf(mx, f.ring[(base + j) & (RING - 1)]);
+  mx = warp_max(mx);
+  if (lane == 0) f.red[0][warp] = mx;
+  bar_sync(CONSUMERS, NC);
+  float m = f.red[0][0];
+#pragma unroll
+  for (int w = 1; w < NCW; ++w) m = fmaxf(m, f.red[0][w]);
+  const float mb = m == -INFINITY ? 0.f : m;      // fully masked: every p is 0
+  float sum = 0.f;
+  for (int j = tid; j < S; j += NC) {
+    const int at = (base + j) & (RING - 1);
+    const float p = attended(f.mbits, j) ? exp2f(f.ring[at] - mb) : 0.f;
+    f.ring[at] = p;
+    sum += p;
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) f.red[1][warp] = sum;
+  bar_sync(CONSUMERS, NC);
+  if (tid == 0) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NCW; ++w) l += f.red[1][w];
+    f.inv_l[h & (NSTAT - 1)] = l > 0.f ? 1.f / l : 0.f;
+  }
+  bar_sync(CONSUMERS, NC);          // p and 1 / l are in place
+}
+
+// Head h's V rows are all in acc: the threads' sums meet (shuffles over the
+// lanes of one part, then one row a warp in shared memory) and row h of o
+// is written; acc is zeroed for the next head. One barrier.
+template <class C>
+__device__ __forceinline__ void head_output(Fixed<C::D>& f, float (&acc)[C::UPL * 8],
+                                            const DecArgs& a, int b, int h, const Lane<C>& ln) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int o = C::LPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int e = 0; e < C::UPL * 8; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  float (*part)[C::D] = f.part[h & 1];
+  if (lane < C::LPR) {
+#pragma unroll
+    for (int c = 0; c < C::UPL; ++c) {
+      float4* dst = reinterpret_cast<float4*>(&part[warp][(ln.part + C::LPR * c) * 8]);
+      dst[0] = make_float4(acc[c * 8], acc[c * 8 + 1], acc[c * 8 + 2], acc[c * 8 + 3]);
+      dst[1] = make_float4(acc[c * 8 + 4], acc[c * 8 + 5], acc[c * 8 + 6], acc[c * 8 + 7]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < C::UPL * 8; ++e) acc[e] = 0.f;
+  bar_sync(CONSUMERS, NC);
+  if (tid < C::D / 2) {
+    float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < NCW; ++w) {
+      x0 += part[w][2 * tid];
+      x1 += part[w][2 * tid + 1];
+    }
+    reinterpret_cast<__nv_bfloat162*>(a.o + (size_t)b * a.o_sb + (size_t)h * a.o_sh)[tid] =
+        __floats2bfloat162_rn(x0, x1);
+  }
+}
+
+// The producer warp's lane 0: wait for stage st of item i to be free.
+template <class C>
+__device__ __forceinline__ int claim(Smem<C>& s, int i) {
+  const int st = i % C::STAGES;
+  mbar_wait(&s.empty[st], ((i / C::STAGES) & 1) ^ 1);
+  return st;
+}
+
+// v2's producer: for each head, its live K tiles two a stage, then its V
+// tiles; each tile one TMA box of 64 rows x D (rows past S are zeros).
+template <class C>
+__device__ __forceinline__ void produce_v2(Smem<C>& s, const CUtensorMap* k_map,
+                                           const CUtensorMap* v_map, int b, int H) {
+  const int n_live = s.f.n_live, np = (n_live + 1) / 2;
+  constexpr uint32_t TILE_BYTES = TILE * C::D * 2;
+  int i = 0;
+  for (int h = 0; h < H; ++h)
+    for (int kind = 0; kind < 2; ++kind)
+      for (int p = 0; p < np; ++p, ++i) {
+        const int st = claim(s, i);
+        const int t0 = s.f.live[2 * p], t1 = 2 * p + 1 < n_live ? s.f.live[2 * p + 1] : -1;
+        Item& it = s.item[st];
+        it.kind = kind;
+        it.head = h;
+        it.tile[0] = t0;
+        it.tile[1] = t1;
+        it.last = p == np - 1;
+        mbar_arrive_expect_tx(&s.full[st], (t1 >= 0 ? 2 : 1) * TILE_BYTES);
+        const CUtensorMap* map = kind == 0 ? k_map : v_map;
+        tma_load_4d(s.stage[st], map, &s.full[st], 0, t0 * TILE, h, b);
+        if (t1 >= 0) tma_load_4d(s.stage[st] + TILE_BYTES, map, &s.full[st], 0, t1 * TILE, h, b);
+      }
+}
+
+// v3: the last K chunk that a V chunk waits for (its last head's end)
+__device__ __forceinline__ int k_need(int c, int S, int total) {
+  const int last = min(total, (c + 1) * ROWS) - 1;
+  return (((last / S) + 1) * S - 1) / ROWS;
+}
+
+// v3's producer: the slab in chunks of ROWS rows, one bulk copy each; K
+// chunk k, then every V chunk whose last head ends in it.
+template <class C>
+__device__ __forceinline__ void produce_v3(Smem<C>& s, const DecArgs& a, int b) {
+  const int total = a.H * a.S, nch = (total + ROWS - 1) / ROWS;
+  const __nv_bfloat16* kb = a.k + (size_t)b * a.k_sb;
+  const __nv_bfloat16* vb = a.v + (size_t)b * a.v_sb;
+  int i = 0, kv = 0;
+  auto issue = [&](int kind, int c) {
+    const int st = claim(s, i++);
+    const int row0 = c * ROWS, n = min(ROWS, total - row0);
+    Item& it = s.item[st];
+    it.kind = kind;
+    it.row0 = row0;
+    it.n = n;
+    const uint32_t bytes = (uint32_t)n * C::D * 2;
+    mbar_arrive_expect_tx(&s.full[st], bytes);
+    bulk_load(s.stage[st], (kind == 0 ? kb : vb) + (size_t)row0 * C::D, bytes, &s.full[st]);
+  };
+  for (int k = 0; k < nch; ++k) {
+    issue(0, k);
+    while (kv < nch && k_need(kv, a.S, total) == k) issue(1, kv++);
+  }
+}
+
+template <class C, int MODE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+decode_perbatch_kernel(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ DecArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem<C>& s = aligned_smem<Smem<C>>(smem_raw);
+  Fixed<C::D>& f = s.f;
+  const int b = blockIdx.x, S = a.S, H = a.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // the batch row's mask bits, then (v2) its live tiles; the barriers
+  const uint8_t* mb = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+  const int words = (S + 31) / 32;
+  for (int w = warp; w < words; w += NTHREADS / 32) {
+    const int j = w * 32 + lane;
+    const uint32_t bits = __ballot_sync(0xffffffffu, j < S && (mb == nullptr || mb[j] != 0));
+    if (lane == 0) f.mbits[w] = bits;
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(&s.full[i], 1);         // the producer's arrival with its bytes
+      mbar_init(&s.empty[i], NCW);      // one lane a consumer warp
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < NWARPS; ++w) r = IS_MAX ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-// the dot product of one K row with q (held as float pairs, PL per lane)
-__device__ __forceinline__ float row_dot(const __nv_bfloat16* row, const float2 (&qv)[PL],
-                                         int lane) {
-  const __nv_bfloat162* r = reinterpret_cast<const __nv_bfloat162*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < P) {
-      const float2 kv = __bfloat1622float2(r[c]);
-      acc += qv[i].x * kv.x + qv[i].y * kv.y;
+  if (MODE == 2 && warp == 0) {
+    const int tiles = (S + TILE - 1) / TILE;
+    int n = 0;
+    for (int t0 = 0; t0 < tiles; t0 += 32) {
+      const int t = t0 + lane;
+      const bool on = t < tiles && (f.mbits[2 * t] | (2 * t + 1 < words ? f.mbits[2 * t + 1] : 0u));
+      const uint32_t vote = __ballot_sync(0xffffffffu, on);
+      if (on) f.live[n + __popc(vote & ((1u << lane) - 1u))] = t;
+      n += __popc(vote);
     }
+    if (lane == 0) f.n_live = n;
   }
-  return warp_sum(acc);
-}
+  __syncthreads();
 
-// acc += p * (one V row), PL pairs per lane
-__device__ __forceinline__ void row_axpy(float (&acc)[PL][2], float p,
-                                         const __nv_bfloat16* row, int lane) {
-  const __nv_bfloat162* r = reinterpret_cast<const __nv_bfloat162*>(row);
-#pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < P) {
-      const float2 vv = __bfloat1622float2(r[c]);
-      acc[i][0] += p * vv.x;
-      acc[i][1] += p * vv.y;
+  if (warp == NCW) {                // the producer warp
+    if (lane == 0) {
+      if (MODE == 2)
+        produce_v2(s, &k_map, &v_map, b, H);
+      else
+        produce_v3(s, a, b);
     }
+    return;
   }
-}
 
-__device__ __forceinline__ void load_q(float2 (&qv)[PL], const __nv_bfloat16* qh, int lane) {
-  const __nv_bfloat162* r = reinterpret_cast<const __nv_bfloat162*>(qh);
+  const Lane<C> ln;
+  float qr[C::UPL * 8], acc[C::UPL * 8];
 #pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = lane + 32 * i;
-    qv[i] = c < P ? __bfloat1622float2(r[c]) : make_float2(0.f, 0.f);
-  }
-}
+  for (int e = 0; e < C::UPL * 8; ++e) acc[e] = 0.f;
+  uint32_t qw[C::UPL * 4];          // the next head's q, in flight
+  fetch_q<C>(qw, a, b, 0, ln.part);
+  int qh = -1;                      // the head whose q is in qr; heads come in order
 
-// v2: grid (B,); the block loops over heads, all warps on one head.
-__global__ void __launch_bounds__(NTHREADS)
-decode_perbatch_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                       __nv_bfloat16* __restrict__ o, int H, int S, int q_sb, int q_sh,
-                       int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
-                       int o_sb, int o_sh, int mask_sb, float scale) {
-  extern __shared__ float scores[];  // (S,), one head at a time
-  __shared__ float red[NWARPS];
-  __shared__ float part[NWARPS][D];
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
-
-  for (int h = 0; h < H; ++h) {
-    const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
-    const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
-    float2 qv[PL];
-    load_q(qv, q + (size_t)b * q_sb + (size_t)h * q_sh, lane);
-    __syncthreads();                 // the last head's scores and parts are read
-
-    for (int j = warp; j < S; j += NWARPS) {   // pass 1: scores
-      float dot = -INFINITY;
-      if (mb == nullptr || mb[j]) dot = row_dot(kb + (size_t)j * k_ss, qv, lane) * scale;
-      if (lane == 0) scores[j] = dot;
+  if (MODE == 2) {
+    const int n_live = f.n_live, np = (n_live + 1) / 2;
+    if (n_live == 0) {              // every key masked: o is zero
+      for (int x = tid; x < H * (C::D / 2); x += NC) {
+        const int h = x / (C::D / 2), c = x % (C::D / 2);
+        reinterpret_cast<__nv_bfloat162*>(a.o + (size_t)b * a.o_sb + (size_t)h * a.o_sh)[c] =
+            __floats2bfloat162_rn(0.f, 0.f);
+      }
+      return;
     }
-    __syncthreads();
-
-    float mx = -INFINITY;            // pass 2: softmax statistics
-    for (int j = threadIdx.x; j < S; j += NTHREADS) mx = fmaxf(mx, scores[j]);
-    mx = block_reduce<true>(mx, red);
-    const float base = mx == -INFINITY ? 0.f : mx;   // fully masked: p = 0
-    float sum = 0.f;
-    for (int j = threadIdx.x; j < S; j += NTHREADS) {
-      const float p = expf(scores[j] - base);
-      scores[j] = p;
-      sum += p;
-    }
-    sum = block_reduce<false>(sum, red);         // its barriers publish scores
-    const float inv = sum > 0.f ? 1.f / sum : 0.f;
-
-    float acc[PL][2];                // pass 3: p . V
-#pragma unroll
-    for (int i = 0; i < PL; ++i) acc[i][0] = acc[i][1] = 0.f;
-    for (int j = warp; j < S; j += NWARPS) {
-      const float p = scores[j];
-      if (p != 0.f) row_axpy(acc, p, vb + (size_t)j * v_ss, lane);   // warp-uniform
-    }
-#pragma unroll
-    for (int i = 0; i < PL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < P) {
-        part[warp][2 * c] = acc[i][0];
-        part[warp][2 * c + 1] = acc[i][1];
+    const int items = H * 2 * np;
+    for (int i = 0; i < items; ++i) {
+      const int st = i % C::STAGES;
+      mbar_wait(&s.full[st], (i / C::STAGES) & 1);
+      const Item it = s.item[st];
+      const int n = it.tile[1] >= 0 ? 2 * TILE : TILE;
+      // stage row r is key tile[r / 64] * 64 + r % 64; past S: no row
+      const int k0 = it.tile[0] * TILE, k1 = it.tile[1] * TILE - TILE;
+      auto pos = [=](int r) {
+        const int j = (r < TILE ? k0 : k1) + r;
+        return j < S ? j : -1;
+      };
+      if (it.kind == 0) {
+        if (it.head != qh) {
+          next_q<C>(qr, qw, a, b, it.head, ln.part);
+          qh = it.head;
+        }
+        score_rows<C>(s.stage[st], 0, n, qr, f.ring, ln, pos);
+      } else {
+        pv_rows<C>(s.stage[st], 0, n, f.inv_l[it.head & (NSTAT - 1)], f.ring, acc, ln, pos);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[st]);
+      if (it.last) {
+        if (it.kind == 0)
+          head_stats<C::D>(f, it.head, 0, S);
+        else
+          head_output<C>(f, acc, a, b, it.head, ln);
       }
     }
-    __syncthreads();
-    __nv_bfloat16* ob = o + (size_t)b * o_sb + (size_t)h * o_sh;
-    for (int d = threadIdx.x; d < D; d += NTHREADS) {
-      float r = 0.f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) r += part[w][d];
-      ob[d] = __float2bfloat16(r * inv);
+  } else {
+    const int total = H * S, items = 2 * ((total + ROWS - 1) / ROWS);
+    int hk = 0, hv = 0;             // the heads of the next K row and the next V row
+    for (int i = 0; i < items; ++i) {
+      const int st = i % C::STAGES;
+      mbar_wait(&s.full[st], (i / C::STAGES) & 1);
+      const Item it = s.item[st];
+      const int end = it.row0 + it.n;
+      // the chunk's rows, split by head; a head that ends with the chunk is
+      // finished once the stage is released
+      auto finish = [&](int h) {
+        if (it.kind == 0)
+          head_stats<C::D>(f, h, h * S, S);
+        else
+          head_output<C>(f, acc, a, b, h, ln);
+      };
+      int last = -1;
+      int h = it.kind == 0 ? hk : hv;
+      for (int r = it.row0; r < end;) {
+        const int e = min((h + 1) * S, end);
+        // segment row x is slab row r + x, key r + x - h S
+        auto pos = [&](int x) { return (r + x) & (RING - 1); };
+        if (it.kind == 0) {
+          if (h != qh) {
+            next_q<C>(qr, qw, a, b, h, ln.part);
+            qh = h;
+          }
+          score_rows<C>(s.stage[st], r - it.row0, e - r, qr, f.ring, ln, pos);
+        } else {
+          pv_rows<C>(s.stage[st], r - it.row0, e - r, f.inv_l[h & (NSTAT - 1)], f.ring, acc,
+                     ln, pos);
+        }
+        if (e == (h + 1) * S) {
+          if (e < end)
+            finish(h);
+          else
+            last = h;
+          ++h;
+        }
+        r = e;
+      }
+      if (it.kind == 0)
+        hk = h;
+      else
+        hv = h;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[st]);
+      if (last >= 0) finish(last);
     }
   }
 }
 
-// v3: grid (B,); K and V are (B, H*S, D) slabs; warp w owns heads w, w + 8, ...
-__global__ void __launch_bounds__(NTHREADS)
-decode_slab_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                   __nv_bfloat16* __restrict__ o, int H, int S, int q_sb, int q_sh,
-                   int k_sb, int k_ss, int v_sb, int v_ss, int o_sb, int o_sh,
-                   int mask_sb, float scale) {
-  extern __shared__ float scores[];  // (NWARPS, S): one row a warp
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
-  float* sc = scores + (size_t)warp * S;
-
-  for (int h = warp; h < H; h += NWARPS) {
-    // head h is rows h*S .. h*S + S - 1 of the batch row's slab
-    const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * S * k_ss;
-    const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * S * v_ss;
-    float2 qv[PL];
-    load_q(qv, q + (size_t)b * q_sb + (size_t)h * q_sh, lane);
-
-    float mx = -INFINITY;            // pass 1: scores and their max
-    for (int j = 0; j < S; ++j) {
-      float dot = -INFINITY;
-      if (mb == nullptr || mb[j]) dot = row_dot(kb + (size_t)j * k_ss, qv, lane) * scale;
-      mx = fmaxf(mx, dot);           // dot is the same in every lane
-      if (lane == 0) sc[j] = dot;
-    }
-    __syncwarp();
-    const float base = mx == -INFINITY ? 0.f : mx;   // fully masked: p = 0
-    float sum = 0.f;                 // pass 2: exponents and their sum
-    for (int j = lane; j < S; j += 32) {
-      const float p = expf(sc[j] - base);
-      sc[j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    const float inv = sum > 0.f ? 1.f / sum : 0.f;
-
-    float acc[PL][2];                // pass 3: p . V
-#pragma unroll
-    for (int i = 0; i < PL; ++i) acc[i][0] = acc[i][1] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float p = sc[j];
-      if (p != 0.f) row_axpy(acc, p, vb + (size_t)j * v_ss, lane);   // warp-uniform
-    }
-    __nv_bfloat162* ob = reinterpret_cast<__nv_bfloat162*>(
-        o + (size_t)b * o_sb + (size_t)h * o_sh);
-#pragma unroll
-    for (int i = 0; i < PL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < P) ob[c] = __floats2bfloat162_rn(acc[i][0] * inv, acc[i][1] * inv);
-    }
-    __syncwarp();                    // sc is rewritten for the warp's next head
+template <int D, int MODE>
+int launch(const DecArgs& a, int B, int k_sh, int k_ss, int v_sh, int v_ss,
+           cudaStream_t stream) {
+  using C = Shape<D>;
+  constexpr int bytes = sizeof(Smem<C>) + 1024;    // + alignment slack
+  static_assert(bytes <= SMEM_LIMIT, "shared memory over the limit");
+  CUtensorMap km, vm;
+  memset(&km, 0, sizeof(km));
+  memset(&vm, 0, sizeof(vm));
+  if (MODE == 2) {
+    int err = make_rows_map(&km, a.k, B, a.H, a.S, D, a.k_sb, k_sh, k_ss, TILE);
+    if (err == 0) err = make_rows_map(&vm, a.v, B, a.H, a.S, D, a.v_sb, v_sh, v_ss, TILE);
+    if (err != 0) return err;
   }
+  const auto kernel = decode_perbatch_kernel<C, MODE>;
+  static bool configured = false;           // above 48 KB needs an opt-in
+  if (!configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  kernel<<<B, NTHREADS, bytes, stream>>>(km, vm, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_mode(int mode, const DecArgs& a, int B, int k_sh, int k_ss, int v_sh, int v_ss,
+                cudaStream_t stream) {
+  if (mode == 2) return launch<D, 2>(a, B, k_sh, k_ss, v_sh, v_ss, stream);
+  return launch<D, 3>(a, B, k_sh, k_ss, v_sh, v_ss, stream);
 }
 
 }  // namespace
 
-// q, o: bf16 (B, H, 1, D); k, v: bf16 (B, H, S, D) with element strides
-// (sb, sh, ss), the last dimension contiguous and rows on 4-byte lines;
-// D = 96. mode 2 (v2) reads K and V through those strides; mode 3 (v3)
-// reads them as (B, H*S, D) slabs, row h*S + j of batch row b at
-// b*sb + (h*S + j)*ss (its sh are unused). mask: (B, S) uint8 (nonzero =
-// attend) with row stride mask_sb, or null. Returns cudaGetLastError().
+// q, o: bf16 (B, H, 1, D) with element strides (sb, sh), rows on 4-byte
+// lines; k, v: bf16 (B, H, S, D) with element strides (sb, sh, ss), the
+// last dimension contiguous; D in {64, 96, 128}. mode 2 (v2, S <= 8192)
+// reads K and V through those strides by TMA: base and strides on 16-byte
+// lines. mode 3 (v3, S <= 4096) reads them as dense (B, H*S, D) slabs: row
+// h*S + j of batch row b at b*sb + (h*S + j)*D, so ss must be D (sh is
+// unused) and the base and sb on 16-byte lines. mask: (B, S) uint8
+// (nonzero = attend) with row stride mask_sb, or null. Returns
+// cudaGetLastError().
 extern "C" int decode_variants_bf16(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    int mode, int B, int H, int S, int D_, int q_sb, int q_sh, int k_sb,
+    int mode, int B, int H, int S, int D, int q_sb, int q_sh, int k_sb,
     int k_sh, int k_ss, int v_sb, int v_sh, int v_ss, int o_sb, int o_sh,
     int mask_sb, float scale, void* stream) {
-  if (D_ != D || B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* mp = static_cast<const uint8_t*>(mask);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  if (mode == 2) {
-    if (S > MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t bytes = (size_t)S * sizeof(float);   // at most 32 KB
-    decode_perbatch_kernel<<<B, NTHREADS, bytes, s>>>(
-        qp, kp, vp, mp, op, H, S, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-        o_sb, o_sh, mask_sb, scale);
-  } else if (mode == 3) {
-    // raised once, at the largest S (no call inside a graph capture)
-    const size_t bytes = (size_t)NWARPS * S * sizeof(float);
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        decode_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        NWARPS * MAX_SLAB_KEYS * (int)sizeof(float));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    if (S > MAX_SLAB_KEYS) return static_cast<int>(cudaErrorInvalidValue);
-    decode_slab_kernel<<<B, NTHREADS, bytes, s>>>(
-        qp, kp, vp, mp, op, H, S, q_sb, q_sh, k_sb, k_ss, v_sb, v_ss, o_sb, o_sh,
-        mask_sb, scale);
-  } else {
+  if (B <= 0 || H <= 0 || S <= 0 || (D != 64 && D != 96 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (mode == 2 ? S > MAX_KEYS : mode == 3 ? S > MAX_SLAB_KEYS : true)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == 3 && (k_ss != D || v_ss != D || k_sb % 8 || v_sb % 8 ||
+                    reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.H = H;
+  a.S = S;
+  a.q_sb = q_sb;
+  a.q_sh = q_sh;
+  a.k_sb = k_sb;
+  a.v_sb = v_sb;
+  a.o_sb = o_sb;
+  a.o_sh = o_sh;
+  a.mask_sb = mask_sb;
+  a.scale_log2 = scale * LOG2E;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_mode<64>(mode, a, B, k_sh, k_ss, v_sh, v_ss, s);
+  if (D == 96) return launch_mode<96>(mode, a, B, k_sh, k_ss, v_sh, v_ss, s);
+  return launch_mode<128>(mode, a, B, k_sh, k_ss, v_sh, v_ss, s);
 }

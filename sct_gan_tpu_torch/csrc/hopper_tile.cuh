@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// TMA tensor maps and loads, mbarriers, named barriers, cp.async, ldmatrix,
-// wgmma, setmaxnreg and the SFU's 2^x.
+// Hopper (sm_90a) building blocks shared by the attention kernels: TMA
+// tensor maps and loads, bulk copies, mbarriers, named barriers, cp.async,
+// ldmatrix, wgmma, setmaxnreg and the SFU's 2^x.
 //
 // Shared-memory layout of a TMA-loaded head tile. A head row of D bf16 (D =
 // 64 to 256: 128 to 512 bytes) is stored as D / 32 chunks of 32
@@ -103,6 +103,47 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, completing on bar: the largest
+// plain copy the card offers (cp.async.bulk, no tensor map)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The cluster barrier in two halves (every thread of every block of the
+// cluster runs both): arrive publishes this thread's writes (shared and
+// distributed shared memory), wait returns once every thread has arrived
+// and sees theirs. Work between the two runs under the barrier's latency.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// this block's shared address `p` as the address of the same offset in the
+// shared memory of cluster block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(smem_u32(p)), "r"(rank));
+  return d;
+}
+
+// `bytes` (a multiple of 16) from this block's shared memory into another
+// block's of the cluster (dst, bar: cluster_addr), completing on bar there
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, const void* src,
+                                                     uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "r"(smem_u32(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
 // ---- cp.async (16 bytes, or 4; src_bytes = 0 zero-fills) -------------------
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -201,6 +242,12 @@ __device__ __forceinline__ void wgmma_wait0() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait_n() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's shared-memory operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Keep the compiler from moving register reads or writes of an
@@ -424,15 +471,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+// D (64 x 8, f32) += A (64 x 16, registers) * B (16 x 8, smem): the narrowest
+// product, for a column block of a constant B (a block of ones gives the row
+// sums of A in every column). d[0], d[1]: row 16w + g, columns 2t, 2t + 1;
+// d[2], d[3]: row 16w + g + 8.
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
 // ---- host: tensor maps ------------------------------------------------------
 // A rank-4 (D, S, H, B) bf16 map of a tensor with element strides (sb, sh,
-// ss) and a contiguous last dim, read in boxes of 32 columns x box_rows rows
-// with the 64-byte swizzle; rows past S read as zeros. Returns 0 or a
+// ss) and a contiguous last dim, read in boxes of box_cols columns x
+// box_rows rows with `swizzle`; rows past S read as zeros. Returns 0 or a
 // cudaError_t (a stride that is not a multiple of 16 bytes, a base that is
 // not 16-byte aligned, or the driver refusing the map).
-inline int make_head_map(CUtensorMap* map, const void* base, int B, int H,
-                         int S, int D, long long sb, long long sh, long long ss,
-                         int box_rows) {
+inline int encode_head_map(CUtensorMap* map, const void* base, int B, int H, int S,
+                           int D, long long sb, long long sh, long long ss,
+                           int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -456,15 +520,32 @@ inline int make_head_map(CUtensorMap* map, const void* base, int B, int H,
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(ss * el), (cuuint64_t)(sh * el),
                                  (cuuint64_t)(sb * el)};
-  const cuuint32_t box[4] = {(cuuint32_t)CHUNK_COLS, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                               const_cast<void*>(base), dims, strides, box, estr,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The swizzled chunk layout of the header: boxes of 32 columns x box_rows
+// rows with the 64-byte swizzle.
+inline int make_head_map(CUtensorMap* map, const void* base, int B, int H,
+                         int S, int D, long long sb, long long sh, long long ss,
+                         int box_rows) {
+  return encode_head_map(map, base, B, H, S, D, sb, sh, ss, CHUNK_COLS, box_rows,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// Whole rows, unswizzled: a box of box_rows rows of D columns lands as a
+// dense (box_rows, D) tile, row r at r * D * 2 bytes (D * 2 a multiple of
+// 16, D at most 256).
+inline int make_rows_map(CUtensorMap* map, const void* base, int B, int H, int S,
+                         int D, long long sb, long long sh, long long ss, int box_rows) {
+  return encode_head_map(map, base, B, H, S, D, sb, sh, ss, D, box_rows,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

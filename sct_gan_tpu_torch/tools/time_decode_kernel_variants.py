@@ -7,18 +7,23 @@ Port of ``tools/time_decode_kernel_variants.py`` (its TPU kernels, the
   v1  the shipped kernel K5 (``csrc/decode_attention.cu``): split-K over
       the keys, up to 8 blocks per (b, h) (one block at this tool's B=32),
       combined inside the launch through a thread block cluster
-  v2  one block per batch row looping over the heads, all warps on one head
-  v3  one block per batch row reading K and V as a (B, H*S, dh) slab, one
-      warp per head slice
+  v2  one block per batch row walking the heads, each head's K then its V
+      streamed by TMA through the cache's strides (dead 64-key tiles
+      skipped)
+  v3  one block per batch row reading K and V as its (H*S, dh) slab, in
+      linear bulk copies of 128 rows that straddle heads
 
-v2 and v3 are one CUDA kernel file (``csrc/decode_variants.cu``). As in the
-tool, v2 and v3 must first agree with v1 within 2e-2, then each is timed as
-``n`` dependent decode calls (``q = q + o * 0``) replayed from a CUDA graph
-(``chain_ms``), beside the plain version, SDPA with the key mask in the
-same loop, and the floor: the K and V rows of the attended keys read once
-(with q and the mask, and o written) at the card's 3.35 TB/s.
+v2 and v3 are one CUDA kernel file (``csrc/decode_variants.cu``), with
+instances at dh 64, 96 and 128. As in the tool, v2 and v3 must first agree
+with v1 within 2e-2, then each is timed as ``n`` dependent decode calls
+(``q = q + o * 0``) replayed from a CUDA graph (``chain_ms``), beside the
+plain version, SDPA with the key mask in the same loop, and the floor: the
+K and V rows of the attended keys read once (with q and the mask, and o
+written) at the card's 3.35 TB/s. Each mode's rate is also given per block
+of a batch row (``per_sm_gbs``: those bytes over its time, over B): v2 and
+v3 run B blocks, so B SMs must pull every byte.
 
-    python3 -m sct_gan_tpu_torch.tools.time_decode_kernel_variants [--batch 32] [--steps 256]
+    python3 -m sct_gan_tpu_torch.tools.time_decode_kernel_variants [--batch 32] [--steps 256] [--dh 96]
 
 It measures the card and raises without one.
 """
@@ -40,8 +45,8 @@ from ._common import device_kind, mode_index, summary_line, timing_row
 MODES = ("v1", "v2", "v3")
 PARITY_TOL = 2e-2               # the tool's gate: v2, v3 against v1, max abs
 MAX_KEYS = 8192                 # v2: one head's scores in shared memory
-MAX_SLAB_KEYS = 4096            # v3: 8 warps' score rows in shared memory
-HEAD_DIM = 96                   # v2, v3: the head dim their kernels take
+MAX_SLAB_KEYS = 4096            # v3: a head and the rows in flight behind it
+HEAD_DIMS = (64, 96, 128)       # v2, v3: the head dims of the kernel's instances
 
 
 def decode_variants_reference(q, k, v, mask=None, *, sm_scale: float):
@@ -49,15 +54,40 @@ def decode_variants_reference(q, k, v, mask=None, *, sm_scale: float):
     return decode_attention_reference(q, k, v, mask, sm_scale=sm_scale)
 
 
-def _slab(t: torch.Tensor, name: str):
-    """A (B, H, S, dh) bf16 cache as its (B, H*S, dh) slab and the slab's
-    (batch, row) strides (a copy when the cache is not viewable so)."""
+def kernel_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mode: str):
+    """(B, H, S, dh) of a v2 or v3 call, checked against what the kernel
+    takes: one query row, K and V alike, dh in ``HEAD_DIMS``, 1 to 8192
+    keys (v2) or 4096 (v3). Raises ValueError on anything else; reads only
+    the shapes, so it holds for tensors on any device."""
+    b, h, sq, d = q.shape
+    s = k.shape[2]
+    if sq != 1 or k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    limit = MAX_SLAB_KEYS if mode == "v3" else MAX_KEYS
+    if d not in HEAD_DIMS or not 0 < s <= limit:
+        raise ValueError(f"head dim {d} / keys {s} not supported (head dims "
+                         f"{HEAD_DIMS}, 1..{limit} keys)")
+    return b, h, s, d
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, H, S, dh) as v2's TMA maps read it: last dim contiguous,
+    base and strides on 16-byte lines (a copy when it is not)."""
+    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(x % 8 == 0 for x in t.stride()[:3])):
+        return t
+    return t.contiguous()
+
+
+def _slab(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, H, S, dh) whose batch rows are dense (H*S, dh) slabs on
+    16-byte lines, as v3 reads them (a copy when they are not)."""
     b, h, s, d = t.shape
-    slab = t.reshape(b, h * s, d)
-    if slab.stride(2) != 1 or slab.data_ptr() % 4 or any(
-            x % 2 for x in slab.stride()[:2]):
-        raise ValueError(f"{name}: rows must be contiguous on 4-byte lines")
-    return slab, slab.stride(0), slab.stride(1)
+    dense = (t.stride(3) == 1 and t.stride(2) == d and t.stride(1) == s * d
+             and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0)
+    return t if dense else t.contiguous()
 
 
 def decode_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,28 +98,22 @@ def decode_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CPU tensor runs the plain version. On CUDA, v1 is K5
     (``ops.decode_attention``, which counts its own launches); v2 and v3
-    launch this tool's kernel: bf16, dh = 96, rows contiguous; anything
-    else raises."""
+    launch this tool's kernel: bf16, dh in ``HEAD_DIMS``, up to
+    ``MAX_KEYS`` / ``MAX_SLAB_KEYS`` keys (``kernel_shape``); anything else
+    raises. K and V that the kernel cannot read in place (v2: strides off
+    16-byte lines; v3: batch rows that are not dense slabs) are copied."""
     idx = mode_index(mode, MODES)
     if device_kind(q, "decode_variants") == "cpu":
         return decode_variants_reference(q, k, v, mask, sm_scale=sm_scale)
     if mode == "v1":
         return decode_attention(q, k, v, mask, sm_scale=sm_scale)
-    b, h, sq, d = q.shape
-    s = k.shape[2]
-    if sq != 1 or k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    limit = MAX_SLAB_KEYS if mode == "v3" else MAX_KEYS
-    if d != HEAD_DIM or not 0 < s <= limit:
-        raise ValueError(f"head dim {d} / keys {s} not supported (head dim "
-                         f"{HEAD_DIM}, 1..{limit} keys)")
+    b, h, s, d = kernel_shape(q, k, v, mode)
     qs = _strides(q, "q", 4)
-    ks, vs = _strides(k, "k", 4), _strides(v, "v", 4)
-    if mode == "v3":
-        k, ksb, kss = _slab(k, "k")
-        v, vsb, vss = _slab(v, "v")
-        ks, vs = (ksb, 0, kss), (vsb, 0, vss)   # the kernel reads no sh
+    operand = _slab if mode == "v3" else _tma_operand
+    k, v = operand(k), operand(v)
+    ks, vs = _strides(k, "k", 16), _strides(v, "v", 16)
+    if mode == "v3":                            # slab rows dh apart; no sh
+        ks, vs = (ks[0], 0, d), (vs[0], 0, d)
     out = torch.empty(b, h, 1, d, dtype=q.dtype, device=q.device)
     os_ = _strides(out, "out", 4)
     mptr, msb, _keep = _mask_arg(mask, b, s, q.device)
@@ -158,7 +182,15 @@ def time_modes(batch: int = 32, steps: int = 256, seq: int = 1024,
                 lambda x, m=mode: x + decode_variants(
                     x, k, v, mask, m, sm_scale=scale) * 0, q, steps),
                 plain, lib, bound)
+            out[mode]["per_sm_gbs"] = per_sm_gbs(nbytes, out[mode]["ms"],
+                                                 batch)
     return out
+
+
+def per_sm_gbs(nbytes: float, ms: float, batch: int) -> float:
+    """GB/s a block of a batch row pulls: ``nbytes`` over ``ms``, over the
+    ``batch`` blocks that v2 and v3 run (one an SM)."""
+    return nbytes / (ms * 1e-3) / batch / 1e9
 
 
 def main(argv=None) -> int:
@@ -178,7 +210,8 @@ def main(argv=None) -> int:
     floor = result["v1"]["bound_ms"]
     for mode, r in result.items():
         print(f"  {mode}: {r['ms'] / floor:.2f}x the floor "
-              f"({floor:.4f} ms)", flush=True)
+              f"({floor:.4f} ms), {r['per_sm_gbs']:.1f} GB/s a batch row's "
+              f"block", flush=True)
     return 0
 
 

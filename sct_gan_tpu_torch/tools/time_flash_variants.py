@@ -3,7 +3,10 @@
 Port of ``tools/time_flash_variants.py`` (its TPU kernel, the
 ``pallas_call`` at ``:75``). One CUDA kernel (``csrc/flash_variants.cu``)
 that, like the TPU's nk == 1 kernel, takes each row's max over all S keys
-before any exponent and rescales nothing. Modes, at s = 0.1 Q K^T:
+before any exponent, rescales nothing and computes Q K^T and P V once: the
+keys of a query tile are split over a thread block cluster, each block's
+scores held in its accumulators, the row max and the partial outputs
+exchanged through distributed shared memory. Modes, at s = 0.1 Q K^T:
 
   nk1     p = exp(s - m)
   exp2    nk1 with exp2 and log2(e) folded into the scale
@@ -38,7 +41,7 @@ from .time_flash_parts import DH, HEAD_DIMS, SCALE, SHAPE
 
 MODES = ("nk1", "exp2", "mxsum", "bf16p", "masked", "mmonly")
 CHAIN = 200                     # the tool's chain length
-MAX_SEQ = 1536                  # the scores of 32 rows live in shared memory
+MAX_SEQ = 1536                  # twelve blocks of 128 keys in a cluster
 LIBRARY = {"nk1": "sdpa", "exp2": "sdpa", "mxsum": "sdpa", "bf16p": "sdpa",
            "masked": "sdpa_mask", "mmonly": "bmm"}
 _EXP2 = ("exp2", "mxsum", "bf16p")

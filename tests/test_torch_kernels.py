@@ -649,11 +649,14 @@ def test_flash_parts_kernel_matches_plain_on_card(cuda_device, mode, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seq", [64, 320, 1024, 1536])
 @pytest.mark.parametrize("dh", [96, 128])
 @pytest.mark.parametrize("mode", k8.MODES)
-def test_flash_variants_kernel_matches_plain_on_card(cuda_device, mode, dh):
-    """K8, each mode: the bound of the K7 test."""
-    x = _tool_input(cuda_device, dh)
+def test_flash_variants_kernel_matches_plain_on_card(cuda_device, mode, dh,
+                                                     seq):
+    """K8, each mode: the bound of the K7 test, from one block of key
+    slices (64 keys) over a ragged last slice (320) to twelve (1536)."""
+    x = _tool_input(cuda_device, dh, seq)
     got = k8.flash_variants(x, mode)
     want = k8.flash_variants_reference(x, mode)
     torch.cuda.synchronize()
@@ -662,18 +665,29 @@ def test_flash_variants_kernel_matches_plain_on_card(cuda_device, mode, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("seq", [300, 1000, 1024])
+@pytest.mark.parametrize("batch", [1, 4, 32])
+@pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("mode", ["v2", "v3"])
-def test_decode_variants_kernel_matches_plain_on_card(cuda_device, mode):
-    """K9 v2 and v3 on a key mask with a fully-masked row: within two bf16
-    steps at the largest |output|, that row zeros."""
-    q, k, v, mask = k9.make_inputs(4, 8, 300, 96, 0, cuda_device)
-    mask[2] = False
-    got = k9.decode_variants(q, k, v, mask, mode, sm_scale=96 ** -0.5)
-    want = k9.decode_variants_reference(q, k, v, mask, sm_scale=96 ** -0.5)
+def test_decode_variants_kernel_matches_plain_on_card(cuda_device, mode, dh,
+                                                      batch, seq, masked):
+    """K9 v2 and v3 at each head dim, with every key attended or on the
+    tool's key mask, whose last row is then fully masked where B > 1 (at
+    S = 300 a v3 chunk straddles heads): within two bf16 steps at the
+    largest |output|, that row exact zeros."""
+    q, k, v, mask = k9.make_inputs(batch, 8, seq, dh, seq + dh, cuda_device)
+    empty_row = masked and batch > 1        # at B = 1 it would be every row
+    if empty_row:
+        mask[-1] = False
+    mask = mask if masked else None
+    got = k9.decode_variants(q, k, v, mask, mode, sm_scale=dh ** -0.5)
+    want = k9.decode_variants_reference(q, k, v, mask, sm_scale=dh ** -0.5)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= _bf16_steps(want)
     assert _rel_err(got, want) <= 1e-2
-    assert got[2].abs().max().item() == 0.0
+    if empty_row:
+        assert got[-1].abs().max().item() == 0.0
 
 
 @pytest.mark.cuda

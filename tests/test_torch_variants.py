@@ -156,19 +156,21 @@ def test_bf16_inputs_round_p_as_the_tool_does():
                                        err_msg=f"{tool} {mode}")
 
 
+@pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("seq", [128, 256])
 @pytest.mark.parametrize("mode", ["v2", "v3"])
-def test_decode_variants_match_jax_kernel(mode, seq):
-    """v2 and v3 compute K5's function: against the JAX package's
-    ``decode_attention`` in interpret mode, f32, a key mask with about 10%
-    of keys off and one fully-masked row (zeros)."""
-    rng = np.random.default_rng(seq)
-    q = rng.standard_normal((2, 2, 1, 96)).astype(np.float32)
-    k, v = (rng.standard_normal((2, 2, seq, 96)).astype(np.float32)
+def test_decode_variants_match_jax_kernel(mode, seq, dh):
+    """v2 and v3 compute K5's function at each head dim of the kernel's
+    instances: against the JAX package's ``decode_attention`` in interpret
+    mode, f32, a key mask with about 10% of keys off and one fully-masked
+    row (zeros)."""
+    rng = np.random.default_rng(seq + dh)
+    q = rng.standard_normal((2, 2, 1, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2, seq, dh)).astype(np.float32)
             for _ in range(2))
     mask = rng.random((2, seq)) > 0.1
     mask[1] = False
-    scale = 96 ** -0.5
+    scale = dh ** -0.5
     want = jax_decode_attention(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), jnp.asarray(mask),
                                 sm_scale=scale, interpret=True)
@@ -177,6 +179,29 @@ def test_decode_variants_match_jax_kernel(mode, seq):
                              mode, sm_scale=scale).numpy()
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
     assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("dh,seq,mode", [(80, 64, "v2"), (192, 64, "v3"),
+                                         (32, 64, "v2"), (96, 8193, "v2"),
+                                         (96, 4097, "v3")])
+def test_decode_variants_kernel_shape_raises_outside_its_instances(dh, seq,
+                                                                   mode):
+    """The K9 kernel has instances at head dims 64, 96 and 128 only, up to
+    8192 keys (v2) and 4096 (v3): any other shape raises before a launch
+    (``kernel_shape``, which the wrapper calls on a CUDA tensor)."""
+    q = torch.zeros(1, 2, 1, dh)
+    k = torch.zeros(1, 2, seq, dh)
+    with pytest.raises(ValueError, match="not supported"):
+        k9.kernel_shape(q, k, k, mode)
+
+
+@pytest.mark.parametrize("dh", k9.HEAD_DIMS)
+def test_decode_variants_kernel_shape_takes_its_instances(dh):
+    """Every head dim of an instance, at the key limit of each mode."""
+    q = torch.zeros(1, 2, 1, dh)
+    for mode, seq in (("v2", k9.MAX_KEYS), ("v3", k9.MAX_SLAB_KEYS)):
+        k = torch.zeros(1, 2, seq, dh)
+        assert k9.kernel_shape(q, k, k, mode) == (1, 2, seq, dh)
 
 
 def _jax_hash_bits(n: int, seed: int):
