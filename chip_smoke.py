@@ -117,7 +117,7 @@ CUDA device it exits 1 and prints no result.
     python3 chip_smoke.py --k1-times <checkout> [<checkout> ...]
     python3 chip_smoke.py --variants-times <checkout> [<checkout> ...]
 
-time K1, or the tools' K8 and K9, against those of other checkouts (a
+time K1, or the tools' K7, K8 and K9, against those of other checkouts (a
 parent unpacked by ``git archive``, or a changed copy of ``csrc/``), built
 from their own sources, in turns.
 """
@@ -293,11 +293,11 @@ def phase_build():
 # (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the wgmma
 # kernels above), the decode attention (every instance; the 192 one, by its
 # mangled name, must be in the report) with its wide-head route, and the
-# tools' K8 and K9 (every mode and head dim)
+# tools' K7, K8 and K9 (every mode and head dim)
 NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
             "decode_splitk_kernel", "decode_splitk_kernelILi192E",
-            "decode_wide_kernel", "flash_variants_kernel",
-            "decode_perbatch_kernel")
+            "decode_wide_kernel", "flash_parts_hopper_kernel",
+            "flash_variants_kernel", "decode_perbatch_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -844,6 +844,9 @@ def phase_head_kernels():
 # K8's extra key counts (beside the tool's 1024) and K9's shapes held
 # against the plain versions
 K8_SEQS = (64, 320, 1536)
+# K7's key lengths beside the tool's 1024: one key tile and half a block
+# of query rows (64), and two, sixteen and twenty-four tiles
+K7_SEQS = (64, 256, 1536)
 K9_SHAPES = {"dh": (64, 96, 128), "b": (1, 4, 32), "s": (300, 1000, 1024)}
 
 
@@ -900,9 +903,11 @@ def k9_checks(check) -> None:
 
 def phase_variants(card: str) -> list:
     """K7-K10, the kernel-timing tools. Every mode against its plain version
-    at the tool's shape (K7 and K8 at D = 96 and 128), then the tools'
-    ``time_modes`` at D = 96, the main path of this slice, with the launches
-    counted. Returns the tools' entries of the kernels line."""
+    at the tool's shape (K7 and K8 at D = 96 and 128, K7 also at
+    ``K7_SEQS`` keys and ``full`` on ``rising_max``'s input, which rescales
+    O at most tiles), then the tools' ``time_modes`` at D = 96, the main
+    path of this slice, with the launches counted. Returns the tools'
+    entries of the kernels line."""
     import torch
     from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
     from sct_gan_tpu_torch.tools import time_dropout_kernel as k10
@@ -943,6 +948,18 @@ def phase_variants(card: str) -> list:
             for mode in k7.MODES:
                 check("flash_parts", mode, k7.flash_parts(x, mode),
                       k7.flash_parts_reference(x, mode), f" {tuple(x.shape)}")
+            for sk in (*K7_SEQS, s):
+                xs = (torch.randn(2, 8, sk, dh, generator=g, device=dev)
+                      * 0.5).to(torch.bfloat16)
+                if sk != s:
+                    for mode in k7.MODES:
+                        check("flash_parts", mode, k7.flash_parts(xs, mode),
+                              k7.flash_parts_reference(xs, mode),
+                              f" {tuple(xs.shape)}")
+                xr = k7.rising_max(xs)
+                check("flash_parts", "full", k7.flash_parts(xr, "full"),
+                      k7.flash_parts_reference(xr, "full"),
+                      f" {tuple(xs.shape)}, rising maxima")
             for mode in k8.MODES:
                 check("flash_variants", mode, k8.flash_variants(x, mode),
                       k8.flash_variants_reference(x, mode),
@@ -3196,41 +3213,81 @@ def k1_times(checkouts) -> int:
     return 0
 
 
+# the tools' sources that ``--variants-times`` builds from each checkout,
+# and their C entry points
+VARIANT_SOURCES = {"flash_parts.cu": "flash_parts_bf16",
+                   "flash_variants.cu": "flash_variants_bf16",
+                   "decode_variants.cu": "decode_variants_bf16"}
+
+
 def variants_library(checkout: str):
-    """(library, ``ptxas -v`` report) of another checkout's K8 and K9
-    (its ``csrc/flash_variants.cu`` and ``csrc/decode_variants.cu``, each
-    including its own headers), built as the main library is
-    (``_build.build_library``), their C entry points declared. Timed
-    beside the port's K8 and K9, never called by the port."""
+    """(library, ``ptxas -v`` report) of another checkout's K7, K8 and K9
+    (its ``csrc/flash_parts.cu``, ``csrc/flash_variants.cu`` and
+    ``csrc/decode_variants.cu``, each including its own headers), built as
+    the main library is (``_build.build_library``), their C entry points
+    declared. Timed beside the port's K7, K8 and K9, never called by the
+    port."""
     import ctypes
     from sct_gan_tpu_torch.ops import _build
     csrc = os.path.join(checkout, "sct_gan_tpu_torch", "csrc")
     name = os.path.basename(os.path.normpath(checkout))
     path, report, _ = _build.build_library(
-        [os.path.join(csrc, "flash_variants.cu"),
-         os.path.join(csrc, "decode_variants.cu")], "variants_" + name)
+        [os.path.join(csrc, src) for src in VARIANT_SOURCES],
+        "variants_" + name)
     lib = ctypes.CDLL(path)
-    for fn in ("flash_variants_bf16", "decode_variants_bf16"):
+    for fn in VARIANT_SOURCES.values():
         getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     return lib, report
 
 
-def k8_call(lib, x, mode: str):
-    """One launch of ``lib``'s K8 as the tool's wrapper makes it (q = k =
-    v = x, contiguous); its output."""
+def self_attention_call(lib, fn: str, tool, x, mode: str):
+    """One launch of ``lib``'s K7 or K8 entry ``fn`` as ``tool``'s wrapper
+    makes it (q = k = v = x, contiguous); its output."""
     import ctypes
     import torch
     from sct_gan_tpu_torch.ops import _build
-    from sct_gan_tpu_torch.tools import time_flash_variants as k8
     b, h, s, d = x.shape
     out = torch.empty_like(x)
-    err = lib.flash_variants_bf16(
+    err = getattr(lib, fn)(
         x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), b * h, s,
-        d, k8.MODES.index(mode), ctypes.c_float(k8.SCALE),
+        d, tool.MODES.index(mode), ctypes.c_float(tool.SCALE),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "flash_variants_bf16 (timed beside K8)")
+    _build.check(err, f"{fn} (timed beside this tree's)")
     return out
+
+
+def self_attention_turns(card: str, label: str, tool, fn: str, ours,
+                         reference, x0, seqs, others) -> None:
+    """Every mode of ``tool`` (K7 or K8) on ``x0`` against each of
+    ``others`` (name -> library) in turns (other, tree, tree, other), each
+    a chain replayed from a CUDA graph, after holding the other's output
+    to this tree's plain version ``reference`` on random x at ``seqs``
+    keys; a line a mode and other."""
+    import torch
+    from sct_gan_tpu_torch.utils.profiling import chain_ms
+    g = torch.Generator(device=x0.device).manual_seed(3)
+    xr = [(torch.randn(2, 8, sk, tool.DH, generator=g, device=x0.device)
+           * 0.5).to(torch.bfloat16) for sk in seqs]
+    for mode in tool.MODES:
+        mine = lambda x, m=mode: ours(x, m)
+        for name, lib in others.items():
+            theirs = lambda x, m=mode, lb=lib: self_attention_call(
+                lb, fn, tool, x, m)
+            errs = []
+            for x in xr:
+                want = reference(x, mode)
+                got = theirs(x)
+                errs.append(f"{max_err(got, want):.2e} (tol "
+                            f"{kernel_tol(want):.2e}, rel "
+                            f"{rel_err(got, want):.1e})")
+            o1, p1, p2, o2 = (chain_ms(f, x0, tool.CHAIN)
+                              for f in (theirs, mine, mine, theirs))
+            print(f"{label} {mode} {tuple(x0.shape)} [{card}]: {name} "
+                  f"{o1:.4f} / {o2:.4f} ms -> tree {p1:.4f} / {p2:.4f} ms "
+                  f"({name} max_abs_err at S = "
+                  f"{', '.join(map(str, seqs))}: {', '.join(errs)})",
+                  flush=True)
 
 
 def k9_call(lib, q, k, v, mask, mode: str, scale: float):
@@ -3256,22 +3313,24 @@ def k9_call(lib, q, k, v, mask, mode: str, scale: float):
 
 
 def variants_times(checkouts) -> int:
-    """``python3 chip_smoke.py --variants-times <checkout> [...]``: K8 and
-    K9 of this tree against those of each other checkout (a parent commit
-    unpacked by ``git archive``, or a copy with a candidate change), named
-    by its directory and built from its own sources, one ``nvcc`` each,
-    all at once. At the tools' shapes, in turns (other, tree, tree,
+    """``python3 chip_smoke.py --variants-times <checkout> [...]``: K7, K8
+    and K9 of this tree against those of each other checkout (a parent
+    commit unpacked by ``git archive``, or a copy with a candidate change),
+    named by its directory and built from its own sources, one ``nvcc``
+    each, all at once. At the tools' shapes, in turns (other, tree, tree,
     other), each a chain replayed from a CUDA graph (``chain_ms``): every
-    mode of K8 at (8, 8, 1024, 96) on the tool's x = 0.01, and K9's v2 and
-    v3 at (32, 8, 1024, 96) under the tool's mask, with K5 (v1) and SDPA
-    in the same call. Each other checkout's output is first held to this
-    tree's plain version. Needs the card; prints the lines and nothing
-    else."""
+    mode of K7 and K8 at (8, 8, 1024, 96) on the tool's x = 0.01, with
+    K1, SDPA and ``bmm`` in the same call, and K9's v2 and v3 at (32, 8,
+    1024, 96) under the tool's mask, with K5 (v1) and SDPA. Each other
+    checkout's output is first held to this tree's plain version. Needs
+    the card; prints the lines and nothing else."""
     import concurrent.futures as cf
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.ops.flash_attention import flash_attention
     from sct_gan_tpu_torch.tools import time_decode_kernel_variants as k9
+    from sct_gan_tpu_torch.tools import time_flash_parts as k7
     from sct_gan_tpu_torch.tools import time_flash_variants as k8
     from sct_gan_tpu_torch.tools._common import self_attention_library
     from sct_gan_tpu_torch.utils.profiling import chain_ms
@@ -3285,11 +3344,27 @@ def variants_times(checkouts) -> int:
         for entry, lines in main_path_reports(report):
             print(f"  ptxas [{name}] {entry}: " + "; ".join(lines))
     for entry, lines in main_path_reports(_build.ptxas_log):
-        if "variants" in entry or "perbatch" in entry:
+        if any(k in entry for k in ("parts", "variants", "perbatch")):
             print(f"  ptxas [tree] {entry}: " + "; ".join(lines))
     dev = torch.device("cuda")
     steps = 256
     with torch.inference_mode():
+        b, h, s = k7.SHAPE
+        x0 = torch.full((b, h, s, k7.DH), 0.01, dtype=torch.bfloat16,
+                        device=dev)
+        k1_ms = chain_ms(lambda x: flash_attention(x, x, x,
+                                                   sm_scale=k7.SCALE),
+                         x0, k7.CHAIN)
+        k7_lib = {kind: chain_ms(self_attention_library(kind, k7.SCALE), x0,
+                                 k7.CHAIN)
+                  for kind in sorted(set(k7.LIBRARY.values()))}
+        print(f"K7 (8, 8, 1024, 96) [{card}]: k1 {k1_ms:.4f} ms, library "
+              + ", ".join(f"{kind} {ms:.4f} ms" for kind, ms in k7_lib.items()),
+              flush=True)
+        others = {name: lib for name, (lib, _) in zip(names, libs)}
+        self_attention_turns(card, "K7", k7, "flash_parts_bf16",
+                             k7.flash_parts, k7.flash_parts_reference, x0,
+                             (256, 1024), others)
         b, h, s = k8.SHAPE
         x0 = torch.full((b, h, s, k8.DH), 0.01, dtype=torch.bfloat16,
                         device=dev)
@@ -3297,26 +3372,9 @@ def variants_times(checkouts) -> int:
             lib_ms = chain_ms(self_attention_library(kind, k8.SCALE), x0,
                               k8.CHAIN)
             print(f"K8 library {kind}: {lib_ms:.4f} ms", flush=True)
-        g = torch.Generator(device=dev).manual_seed(3)
-        xr = {sk: (torch.randn(2, 8, sk, k8.DH, generator=g, device=dev)
-                   * 0.5).to(torch.bfloat16) for sk in (320, 1024)}
-        for mode in k8.MODES:
-            ours = lambda x, m=mode: k8.flash_variants(x, m)
-            for name, (lib, _) in zip(names, libs):
-                theirs = lambda x, m=mode, lb=lib: k8_call(lb, x, m)
-                errs = []                  # on random x, against the plain
-                for x in xr.values():
-                    want = k8.flash_variants_reference(x, mode)
-                    got = theirs(x)
-                    errs.append(f"{max_err(got, want):.2e} (tol "
-                                f"{kernel_tol(want):.2e}, rel "
-                                f"{rel_err(got, want):.1e})")
-                o1, p1, p2, o2 = (chain_ms(f, x0, k8.CHAIN)
-                                  for f in (theirs, ours, ours, theirs))
-                print(f"K8 {mode} (8, 8, 1024, 96) [{card}]: {name} "
-                      f"{o1:.4f} / {o2:.4f} ms -> tree {p1:.4f} / {p2:.4f} "
-                      f"ms ({name} max_abs_err at S = 320, 1024: "
-                      f"{', '.join(errs)})", flush=True)
+        self_attention_turns(card, "K8", k8, "flash_variants_bf16",
+                             k8.flash_variants, k8.flash_variants_reference,
+                             x0, (320, 1024), others)
         q, k, v, mask = k9.make_inputs(32, 8, 1024, 96, 0, dev)
         scale = 96 ** -0.5
         rows = int(mask.sum().item()) * 8
@@ -3975,8 +4033,9 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
     print(f"phase times [{card}]: K1 on K7's input (the reference row: "
           f"(8, 8, 1024, 96), x = 0.01, a chain of x = f(x)) {k1_ms:.4f} ms "
           f"({4 * b * h * s * s * d / k1_ms / 1e9:.1f} TFLOP/s) against K7 "
-          f"full {k7['full']['ms']:.4f} ms, which keeps the first K1 "
-          f"design's tiling (4 warps, mma.sync)", flush=True)
+          f"full {k7['full']['ms']:.4f} ms, noexp {k7['noexp']['ms']:.4f} "
+          f"ms, mmonly {k7['mmonly']['ms']:.4f} ms (K1's pipeline, every "
+          f"key tile, the body swapped)", flush=True)
 
     # -- the paths --------------------------------------------------------------
     with torch.inference_mode():

@@ -1,7 +1,5 @@
 // Helpers shared by the flash-attention kernels: the bf16 mma.sync tile
-// product and bf16 packing, and the synchronous shared-memory tile loads
-// that the timing tools' kernels (flash_parts.cu, flash_variants.cu) keep
-// from the first forward design.
+// product and bf16 packing.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..2t+1],
@@ -31,20 +29,4 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // two consecutive bf16 (the low one first) as one 32-bit operand register
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows [r0, r0 + 64) x D of a strided (rows, D) matrix into shared
-// memory with row stride LD, zero-filling rows >= n_rows. 16-byte chunks.
-template <int D, int LD, int NTHREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int n_rows, int row_stride) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < 64 * CH; c += NTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
 }

@@ -69,6 +69,7 @@ DECODE_ROUNDS = 3                   # the long run; the short run is 1
 TEMPERATURE = 0.7
 HOST_REPS = 5       # runs of each length of a slope timed on the CPU
 MORE_PAIRS = 10     # further pairs of runs while a slope is not positive
+TRACES = 3          # profiled runs of device_ms before an empty trace raises
 
 
 def log(msg: str) -> None:
@@ -174,24 +175,31 @@ def timed_ms(run: Callable[[], object], device: torch.device
 
 
 def device_ms(run: Callable[[], object], units: int,
-              device: torch.device) -> Optional[float]:
-    """Device ms a unit of ``run()``, which runs ``units`` units: the
-    summed device time of its kernels under ``torch.profiler`` (no host
-    gap counted), over one run; on the CPU the run is made, unprofiled,
-    and the result is None. Set beside a time by CUDA events, it gives
-    the card's busy share."""
+              device: torch.device) -> Tuple[Optional[float], int]:
+    """(Device ms a unit of ``run()``, which runs ``units`` units; the runs
+    made): the summed device time of its kernels under ``torch.profiler``
+    (no host gap counted), over one run; on the CPU the run is made,
+    unprofiled, and the ms is None. Set beside a time by CUDA events, it
+    gives the card's busy share. ``run()`` launches kernels, so a trace
+    with no device time lost its records (in a long process the profiler
+    drops some, and now and then all): the run is profiled again, up to
+    ``TRACES`` runs, and past them it raises."""
     if device.type != "cuda":
         run()
-        return None
+        return None, 1
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        run()
-        torch.cuda.synchronize(device)
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / units / 1e3
+    for runs in range(1, TRACES + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            run()
+            torch.cuda.synchronize(device)
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / units / 1e3, runs
+    raise RuntimeError(f"torch.profiler recorded no device time in {TRACES} "
+                       "traces of a run that launches kernels")
 
 
 def slope_ms(run_ms: Callable[[int], float], n_small: int, n_large: int,

@@ -20,7 +20,8 @@ Python loops of launches, and those launches are the host cost this tool
 exists to expose. So each row gives the ms a step by CUDA events beside
 the host clock over the same run (the best of 2 runs after one warm-up
 run, as the JAX tool's best of 2), the kernels' own device time a step
-(``bench.device_ms``, one more run) and the kernel launches a step,
+(``bench.device_ms``, one more run, or more where a trace came back
+empty) and the kernel launches a step,
 counted by the wrappers: the decode attention (K5) twice a layer in the
 layers-only loops, nothing in the other two. The self-attention reads the
 cache up to the step's position, so the port's step grows with the
@@ -128,8 +129,8 @@ def time_loop(run: Callable[[], object], device: torch.device,
     with torch.inference_mode():
         timed_ms(run, device)
         row = best_of(lambda: timed_ms(run, device), REPS, n)
-        row["device_ms"] = device_ms(run, n, device)
-    steps = (2 + REPS) * n
+        row["device_ms"], traced = device_ms(run, n, device)
+    steps = (1 + REPS + traced) * n
     total = _since(before)
     row.update(steps=steps, launches={
         "total": total, "per_step": {k: v / steps for k, v in total.items()}})

@@ -2,9 +2,11 @@
 softmax (K7).
 
 Port of ``tools/time_flash_parts.py`` (its TPU kernel, the ``pallas_call``
-at ``:81``). One CUDA kernel (``csrc/flash_parts.cu``) with K1's tiling and
-three softmax bodies, so that memory traffic and grid are the same in all
-three:
+at ``:81``). One CUDA kernel (``csrc/flash_parts.cu``): the shipped flash
+forward's (K1's) Hopper pipeline at head dims 96 and 128, the TMA producer
+and the two ping-pong ``wgmma`` consumers of ``csrc/flash_fwd_hopper.cuh``,
+with one of three elementwise bodies between the two products, so that the
+grid, the loads and the products are the same in all three:
 
   full    the online softmax: running max and sum, the accumulator rescaled
   noexp   p = clip(s, 0, 1): no max, no exponent, no rescale
@@ -40,6 +42,17 @@ HEAD_DIMS = (96, 128)           # the model's head; the tool's lane-padded one
 DH = 96                         # the head time_modes times (128: checks only)
 CHAIN = 20                      # the tool's chain length
 LIBRARY = {"full": "sdpa", "mmonly": "bmm"}   # noexp: no one PyTorch call
+
+
+def rising_max(x: torch.Tensor) -> torch.Tensor:
+    """``x`` plus ``2 j / S`` on every column of key row ``j``: with q = k =
+    v the score maxima then rise along the keys, so ``full`` rescales O at
+    most (row, key tile) pairs (86-90% at S = 256-1024 on 0.5 N(0, 1) at
+    D = 96; the tool's own input, x = 0.01 everywhere, never moves the
+    max). A check input; the tool does not time it."""
+    s = x.shape[-2]
+    ramp = 2.0 * torch.arange(s, device=x.device, dtype=torch.float32) / s
+    return (x.float() + ramp[:, None]).to(x.dtype)
 
 
 def flash_parts_reference(x: torch.Tensor, mode: str) -> torch.Tensor:

@@ -19,6 +19,8 @@
     ``time_decode`` and ``time_fwd_modules.call_ms``) takes further pairs
     of runs while the long run is not the longer, never gives a time
     <= 0, and past its bound raises;
+  * ``bench.device_ms`` profiles the run again after a trace with no
+    device time, up to ``TRACES`` runs, and says how many it made;
   * each tool's ``main`` prints the keys of its JAX counterpart's output.
 """
 import dataclasses
@@ -367,3 +369,39 @@ def test_call_ms_is_positive_or_raises(monkeypatch, case):
         with pytest.raises(RuntimeError, match="host is too loaded"):
             time_fwd_modules.call_ms(fn, cpu, 1, 2)
     assert len(calls) == 2 + 2 * len(pairs)
+
+
+@pytest.mark.parametrize("trace_us", [[7.0], [0.0, 0.0, 5.0], [0.0] * 3])
+def test_device_ms_profiles_again_after_an_empty_trace(monkeypatch,
+                                                       trace_us):
+    """``device_ms`` on a card whose profiler gives the traces' device µs
+    in turn: a trace with device time is the result, over the runs made;
+    an empty one (records lost) is profiled again, up to ``TRACES`` runs,
+    then it raises. Every trace runs the run once."""
+    from torch.autograd import DeviceType
+    it, ran = iter(trace_us), []
+
+    class Trace:
+        def __enter__(self):
+            self.us = next(it)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [type("Event", (), {"device_type": DeviceType.CUDA,
+                                       "self_device_time_total": self.us})]
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Trace())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    run = lambda: ran.append(1)   # noqa: E731
+    cuda = torch.device("cuda")
+    assert len(trace_us) <= bench.TRACES
+    if trace_us[-1] > 0:
+        ms, runs = bench.device_ms(run, 4, cuda)
+        assert (ms, runs) == (trace_us[-1] / 4 / 1e3, len(trace_us))
+    else:
+        with pytest.raises(RuntimeError, match="no device time"):
+            bench.device_ms(run, 4, cuda)
+    assert len(ran) == len(trace_us)

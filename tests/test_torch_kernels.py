@@ -635,13 +635,20 @@ def _tool_input(device, dh, seq=256):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rising", [False, True])
+@pytest.mark.parametrize("seq", [64, 256, 1024, 1536])
 @pytest.mark.parametrize("dh", [96, 128])
 @pytest.mark.parametrize("mode", k7.MODES)
-def test_flash_parts_kernel_matches_plain_on_card(cuda_device, mode, dh):
+def test_flash_parts_kernel_matches_plain_on_card(cuda_device, mode, dh, seq,
+                                                  rising):
     """K7, each mode: within two bf16 steps at the largest |output| (both
     round P and the output to bf16, at different places) and 1e-2
-    norm-wise relative."""
-    x = _tool_input(cuda_device, dh)
+    norm-wise relative, from one key tile and half a block of rows (64) to
+    24 tiles (1536), also on ``rising_max``'s input, whose row maxima rise
+    along the keys (so ``full`` rescales O at most tiles)."""
+    x = _tool_input(cuda_device, dh, seq)
+    if rising:
+        x = k7.rising_max(x)
     got, want = k7.flash_parts(x, mode), k7.flash_parts_reference(x, mode)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= _bf16_steps(want)

@@ -127,13 +127,22 @@ def test_softmax_modes_match_jax_mha_reference(tool, mode, dh):
 
 
 @pytest.mark.parametrize("dh", sorted(SEQ))
-@pytest.mark.parametrize("tool,mode",
-                         [("parts", m) for m in k7.MODES]
-                         + [("variants", m) for m in k8.MODES])
-def test_modes_match_the_tool_kernel_bodies(tool, mode, dh):
+@pytest.mark.parametrize("tool,mode,rising",
+                         [pytest.param("parts", m, False, id=f"parts-{m}")
+                          for m in k7.MODES]
+                         + [pytest.param("variants", m, False,
+                                         id=f"variants-{m}")
+                            for m in k8.MODES]
+                         + [pytest.param("parts", m, True,
+                                         id=f"parts-{m}-rising")
+                            for m in k7.MODES])
+def test_modes_match_the_tool_kernel_bodies(tool, mode, rising, dh):
     """Every mode of K7 and K8 against a jnp transcription of the TPU
-    tool's kernel body, f32 inputs."""
+    tool's kernel body, f32 inputs; K7 also on ``rising_max``'s input,
+    whose row maxima rise along the keys."""
     x = _x(dh, seed=1)
+    if rising:
+        x = k7.rising_max(torch.from_numpy(x)).numpy()
     fn, _ = TOOLS[tool]
     got = fn(torch.from_numpy(x), mode).numpy()
     want = np.asarray(JAX_BODIES[tool](jnp.asarray(x), mode))
