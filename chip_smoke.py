@@ -101,13 +101,21 @@ ran through its kernels:
   * the attribution tools (``attribution``, after the bench):
     ``time_lmce``, ``time_lmce_parts``, ``time_flash_real``,
     ``time_layer``, ``time_decode_parts`` and ``time_host_prep`` once each
-    at the JAX tools' shapes, each tool's launches held to the config.
+    at the JAX tools' shapes, each tool's launches held to the config;
+  * the step tools (``step tools``, after the attribution tools):
+    ``profile_step``, ``time_opt_ab``, ``time_lmce_ab``,
+    ``time_opt_megaleaf``, ``ablate_step``, ``time_dispatch`` (with its
+    CUDA graph of 8 train steps held to 8 eager steps), ``ab_aug_labels``
+    and ``ab_contract_dilution`` once each at the JAX tools'
+    configurations with fewer repeats, each tool's launches held to the
+    config.
 
 It times the kernels (every head-dim instance), their plain versions, the
 PyTorch library call for the same function and each path with CUDA events
 or synchronised host clocks, and profiles detection, generation, 127 beam
 steps and one train step with ``torch.profiler`` (tables in
-``profile_out/profile_*.txt``).
+``profile_out/profile_*.txt``), every trace read through
+``utils.profiling.trace_device`` (primed, held to the launch counters).
 
 Every phase prints a line; any failure raises (non-zero exit). The line
 before the last is a JSON object of the kernels; the last line is
@@ -120,6 +128,11 @@ CUDA device it exits 1 and prints no result.
 time K1, or the tools' K7, K8 and K9, against those of other checkouts (a
 parent unpacked by ``git archive``, or a changed copy of ``csrc/``), built
 from their own sources, in turns.
+
+    python3 chip_smoke.py --profiler-probe
+
+shows where ``torch.profiler`` loses records (a session's first, once the
+process is a minute or two old) and that a primed trace keeps them.
 """
 from __future__ import annotations
 
@@ -3637,28 +3650,20 @@ def flash_times(card: str, h: int = 8, d: int = 96, others=None) -> dict:
 
 def pair_parts_ms(fn, n: int = 10) -> dict:
     """Device ms a call of the backward's D, dKV and dQ kernels apart:
-    ``fn()`` (one launch of the pair) ``n`` times under ``torch.profiler``
-    after one warm-up call, each kernel's mean device time a launch. (A
-    process that ran the profiler before may see records dropped, so the
-    mean is taken over the launches recorded, not over ``n``.)"""
+    ``fn()`` (one launch of the pair) ``n`` times in a whole
+    ``torch.profiler`` trace (``utils.profiling.trace_device``) after one
+    warm-up call, each kernel's mean device time a launch."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from sct_gan_tpu_torch.utils.profiling import trace_device
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    trace = trace_device(lambda: [fn() for _ in range(n)])
     total = {"dvec": 0.0, "dkv": 0.0, "dq": 0.0}
-    count = dict.fromkeys(total, 0)
-    for e in prof.key_averages():
+    for key, _, us in trace.rows:
         for part in total:
-            if (e.device_type == DeviceType.CUDA
-                    and f"flash_bwd_{part}_" in e.key):
-                total[part] += e.self_device_time_total
-                count[part] += e.count
-    return {part: total[part] / max(count[part], 1) / 1e3 for part in total}
+            if f"flash_bwd_{part}_" in key:
+                total[part] += us
+    return {part: total[part] / n / 1e3 for part in total}
 
 
 def head_dim_times(card: str) -> dict:
@@ -3919,6 +3924,151 @@ def phase_attribution(card: str, tools=ATTRIBUTION_CARD,
     return read_counts()
 
 
+# The eight step tools, after the attribution tools: on the card at
+# the JAX tools' configurations with fewer repeats (profile_step 2 steps,
+# not 6; the A/Bs 2 steps a run, not 10; ablate_step 1, not 8; the quality
+# A/Bs 40 contracts for 2 epochs, not 300 for 30); on the CPU, to rehearse,
+# at a tiny size.
+STEP_TOOLS_CARD = (
+    ("profile_step", ["--steps", "2", "--topk", "12"]),
+    ("time_opt_ab", ["--steps", "2"]),
+    ("time_lmce_ab", ["--steps", "2"]),
+    ("time_opt_megaleaf", []),
+    ("ablate_step", ["--steps", "1"]),
+    ("time_dispatch", ["--k", "8"]),
+    ("ab_aug_labels", ["--contracts", "40", "--epochs", "2"]),
+    ("ab_contract_dilution", ["--contracts", "40", "--epochs", "2"]),
+)
+_TINY = ["--d-model", "32", "--layers", "1", "--seq", "64", "--vocab",
+         "512"]
+_TINY_STEP = [*_TINY, "--batch", "2", "--heads", "4"]
+STEP_TOOLS_CPU = (
+    ("profile_step", [*_TINY, "--batch", "2", "--steps", "1", "--topk",
+                      "5"]),
+    ("time_opt_ab", [*_TINY, "--batch", "2", "--steps", "1"]),
+    ("time_lmce_ab", [*_TINY, "--batch", "2", "--steps", "1"]),
+    ("time_opt_megaleaf", _TINY),
+    ("ablate_step", [*_TINY_STEP, "--steps", "1"]),
+    ("time_dispatch", [*_TINY_STEP, "--k", "2", "--calls", "5",
+                       "--matmul", "64"]),
+    ("ab_aug_labels", ["--contracts", "24", "--epochs", "1", "--seq", "64",
+                       "--vocab", "512"]),
+    ("ab_contract_dilution", ["--contracts", "24", "--epochs", "1", "--seq",
+                              "64", "--vocab", "512"]),
+)
+# the backward pair's calls a step of each ablation, against K1's forward
+# calls F (flash_per_forward): the flash calls whose output the loss reads
+# (the line head's two and the discriminator's one drop out with their
+# losses)
+ABLATION_BWD = {"full": 0, "no_embed_grad": 0, "ce_only_loss": 3,
+                "no_line_loss": 2, "no_heads": 3, "no_dropout": 0}
+
+
+def step_tool_launch_errors(name: str, res: dict, total: dict,
+                            on_card: bool) -> list:
+    """Where a step tool's launches (``total``, counted around its run, and
+    its rows') leave the config, at ``_common.model_config()``'s F =
+    ``flash_per_forward`` K1 calls a step: a train step runs F K1 and F
+    pair calls (``ablate_step``: F less the line head's two without heads,
+    and the pair ``ABLATION_BWD`` fewer) and a fixed number of K6 launches
+    (0 with dropout off), no K5, and each trainer built adds its start-up
+    forward's F K1; ``time_dispatch`` counts its eager steps,
+    the warm-up, capture and parity steps; ``time_opt_megaleaf`` none; the
+    quality A/Bs train and score a 2+2-layer model: K1 and the pair, K1
+    at least as often, K6, no K5. On the CPU every count is 0."""
+    from sct_gan_tpu_torch.tools._common import model_config
+    f = flash_per_forward(model_config())
+    errs = []
+
+    def steps_of(label, launches, steps, bwd_less=0, fwd_less=0,
+                 dropout_on=True):
+        want = {"flash_attention_fwd": (f - fwd_less) * steps,
+                "flash_attention_bwd": (f - bwd_less) * steps,
+                "decode_attention": 0}
+        drop = launches["dropout"]
+        got = {k: launches[k] for k in want}
+        bad_drop = (drop % steps or (drop > 0) != (dropout_on and on_card))
+        if got != {k: v * on_card for k, v in want.items()} or bad_drop:
+            errs.append(f"{name} {label}: launches {launches} over {steps} "
+                        f"steps, expected {want} a run and K6 "
+                        f"{'a multiple of the steps' if dropout_on else 0}")
+        return drop // steps
+
+    # each SmartContractTrainer's start-up forward (its dimension test)
+    startup = {k: f * on_card * (k == "flash_attention_fwd")
+               for k in KERNELS}
+    if name == "profile_step":
+        steps_of("trace", {k: v - startup[k] for k, v in total.items()},
+                 res["warmup"] + res["steps"] * (1 + res["traced_runs"]))
+    elif name in ("time_opt_ab", "time_lmce_ab"):
+        drops = {steps_of(arm, r["launches"], r["steps"])
+                 for arm, r in res["arms"].items()}
+        rows = {k: sum(r["launches"][k] + startup[k]
+                       for r in res["arms"].values()) for k in KERNELS}
+        if len(drops) != 1 or rows != total:
+            errs.append(f"{name}: K6 a step {drops} across arms, arms' "
+                        f"launches {rows} against {total}")
+    elif name == "ablate_step":
+        rows = dict.fromkeys(KERNELS, 0)
+        for label, r in res["ablations"].items():
+            steps_of(label, r["launches"], r["steps"], ABLATION_BWD[label],
+                     2 * (label == "no_heads"), label != "no_dropout")
+            for k in KERNELS:
+                rows[k] += r["launches"][k]
+        if rows != total:
+            errs.append(f"{name}: rows' launches {rows} against {total}")
+    elif name == "time_dispatch":
+        e = res["eager"]
+        per = steps_of("eager", e["launches"], e["steps"])
+        steps_of("all step calls", total, res["step_calls"])
+        if on_card:
+            steps_of("capture", res["graph"]["launches"], res["k"])
+            if per * res["step_calls"] != total["dropout"]:
+                errs.append(f"{name}: K6 {total} over {res['step_calls']} "
+                            f"step calls, {per} a step")
+    elif name == "time_opt_megaleaf":
+        if any(total.values()):
+            errs.append(f"{name}: launches {total}, expected none")
+    else:           # the quality A/Bs
+        fwd, bwd = total["flash_attention_fwd"], total["flash_attention_bwd"]
+        ok = (min(fwd, bwd, total["dropout"]) > 0 and fwd >= bwd
+              and total["decode_attention"] == 0)
+        if not ok if on_card else any(total.values()):
+            errs.append(f"{name}: launches {total}")
+    return errs
+
+
+def phase_step_tools(card: str, tools=STEP_TOOLS_CARD,
+                     device: str = "cuda") -> dict:
+    """The eight step tools (``sct_gan_tpu_torch/tools``: ``profile_step``,
+    ``time_opt_ab``, ``time_lmce_ab``, ``time_opt_megaleaf``,
+    ``ablate_step``, ``time_dispatch``, ``ab_aug_labels``,
+    ``ab_contract_dilution``), once each with ``tools``' options on
+    ``device``: every number of every JSON finite and positive
+    (``run_tool``), each tool's launches held to the config
+    (``step_tool_launch_errors``), and ``time_dispatch``'s K-step CUDA
+    graph held to K eager steps from the same state and seeds (inside the
+    tool: bit for bit, or the update norm-wise within its
+    ``PARITY_RTOL``). Returns the phase's launches. Rehearse it on the CPU
+    with ``phase_step_tools("cpu", STEP_TOOLS_CPU, device="cpu")``."""
+    from sct_gan_tpu_torch.tools.bench import free_memory
+    reset_counts()
+    t0 = time.perf_counter()
+    for name, argv in tools:
+        before = read_counts()
+        res, secs = run_tool(name, ["--device", device, *argv])
+        total = {k: v - before[k] for k, v in read_counts().items()}
+        errs = step_tool_launch_errors(name, res, total, device == "cuda")
+        if errs:
+            raise AssertionError("; ".join(errs))
+        print(f"phase step tools [{card}]: {name} {' '.join(argv)} in "
+              f"{secs:.1f} s, launches {total}", flush=True)
+        free_memory()
+    print(f"phase step tools: {len(tools)} tools in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return read_counts()
+
+
 def profile_naive_step(card: str, wall_ms: float) -> None:
     """One step of the bench's naive leg (f32, dense attention) under
     ``torch.profiler``, after one warm-up step: where its time goes
@@ -4074,20 +4224,16 @@ def phase_times(an, codes, template, trainer, batch, card, variants):
 
 def profile_device(fn, name: str, wall_ms: float, card: str):
     """Run ``fn()``, which returns how many units it ran, under
-    ``torch.profiler`` (device activity only); print device time and
+    ``torch.profiler`` (device activity only), through the port's one
+    reading of its records (``utils.profiling.trace_device``: primed, held
+    to the launch counters, taken again when short); print device time and
     launches per unit against ``wall_ms``, the unprofiled time of one unit,
-    and the top kernels; write every kernel to
-    ``profile_out/profile_<name>.txt``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        per = fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)
-    total_us = sum(e.self_device_time_total for e in evs)
+    and the top kernels (``tools/profile_step.py``'s rows); write every
+    kernel to ``profile_out/profile_<name>.txt``."""
+    from sct_gan_tpu_torch.tools.profile_step import print_top
+    from sct_gan_tpu_torch.utils.profiling import trace_device
+    trace = trace_device(fn)
+    per, total_us = trace.value, trace.total_us
     dev_ms = total_us / per / 1e3
     out_dir = os.path.join(ROOT, "profile_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -4095,18 +4241,68 @@ def profile_device(fn, name: str, wall_ms: float, card: str):
     with open(path, "w") as f:
         f.write(f"# {name}: {per} units, {card}\n# share  us/unit  "
                 f"launches/unit  kernel\n")
-        for e in evs:
-            f.write(f"{e.self_device_time_total / total_us:6.1%} "
-                    f"{e.self_device_time_total / per:10.2f} "
-                    f"{e.count / per:8.2f}  {e.key}\n")
+        for key, count, us in trace.rows:
+            f.write(f"{us / total_us:6.1%} {us / per:10.2f} "
+                    f"{count / per:8.2f}  {key}\n")
     print(f"phase profile {name} [{card}]: device {dev_ms:.3f} ms and "
-          f"{sum(e.count for e in evs) / per:.1f} launches per unit, against "
-          f"{wall_ms:.3f} ms unprofiled: busy {dev_ms / wall_ms:.1%}; "
-          f"table in {os.path.relpath(path, ROOT)}", flush=True)
-    for e in evs[:8]:
-        print(f"  {e.self_device_time_total / total_us:6.1%} "
-              f"{e.self_device_time_total / per / 1e3:.4f} ms x"
-              f"{e.count / per:.1f}  {e.key[:90]}")
+          f"{trace.records / per:.1f} launches per unit, against "
+          f"{wall_ms:.3f} ms unprofiled: busy {dev_ms / wall_ms:.1%} "
+          f"(whole trace after {trace.runs} run(s)); table in "
+          f"{os.path.relpath(path, ROOT)}", flush=True)
+    print_top(trace.rows, 8, card, per=per)
+
+
+def profiler_probe(rounds: int = 10, idle_s: float = 90.0) -> int:
+    """C7, where ``torch.profiler`` loses device records: a chain of 20 K1
+    calls, each times 0.999 (40 kernels), traced bare, fresh and after
+    ``idle_s`` seconds of process life, against the same chain through
+    ``trace_device`` (64 primer kernels first), in turns, ``rounds``
+    times. Prints one JSON line a trace: the chain's K1 launches, its K1
+    and total records, and the runs the primed trace took to come back
+    whole. Diagnostic only: the port reads the profiler through
+    ``trace_device`` alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sct_gan_tpu_torch.tools.time_flash_real import fwd_chain
+    from sct_gan_tpu_torch.utils.profiling import trace_device
+    phase_device()
+    phase_build()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(8, 8, 1024, 96, generator=g, device=dev).to(
+        torch.bfloat16) * 0.05
+    mask = torch.ones(8, 1024, dtype=torch.bool, device=dev)
+    chain = lambda: fwd_chain(q, mask, 0.0, 20)
+    chain()
+    torch.cuda.synchronize()
+
+    def report(label, launches, rows, runs=1):
+        k1 = sum(c for k, c, *_ in rows if "flash_fwd" in k)
+        print("probe " + json.dumps({
+            "trace": label, "k1_launches": launches, "k1_records": k1,
+            "records": sum(r[1] for r in rows), "runs": runs}), flush=True)
+
+    def bare(label):
+        before = read_counts()["flash_attention_fwd"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chain()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        report(label, read_counts()["flash_attention_fwd"] - before, rows)
+
+    def primed(label):
+        before = read_counts()["flash_attention_fwd"]
+        trace = trace_device(chain)
+        report(label, (read_counts()["flash_attention_fwd"] - before)
+               // trace.runs, trace.rows, trace.runs)
+    bare("bare, fresh")
+    time.sleep(idle_s)
+    for i in range(rounds):
+        bare(f"bare {i}")
+        primed(f"primed {i}")
+    return 0
 
 
 def main() -> int:
@@ -4133,6 +4329,7 @@ def main() -> int:
     entry_launches = phase_entry(card)
     bench_launches, peaks = phase_bench(card)
     attribution_launches = phase_attribution(card)
+    step_tool_launches = phase_step_tools(card)
     t, det_ms, gen_ms, train_ms, step = phase_times(an, codes, template,
                                                     trainer, batch, card,
                                                     variants)
@@ -4180,7 +4377,8 @@ def main() -> int:
             launches = sum(p[name] for p in (
                 serve_launches, beam_launches, analyzer_launches,
                 eval_launches, train_launches, loop_launches,
-                tools_launches, bench_launches, attribution_launches))
+                tools_launches, bench_launches, attribution_launches,
+                step_tool_launches))
         else:
             launches = head_launches[name]
         # the TASC paths: head dim 96, and CodeBERT's K1 at 64; the
@@ -4253,4 +4451,6 @@ if __name__ == "__main__":
         sys.exit(k1_times(sys.argv[2:]))
     if len(sys.argv) >= 3 and sys.argv[1] == "--variants-times":
         sys.exit(variants_times(sys.argv[2:]))
+    if sys.argv[1:] == ["--profiler-probe"]:
+        sys.exit(profiler_probe())
     sys.exit(main())

@@ -105,10 +105,12 @@ def entry(cfg: Optional[ModelConfig] = None, device="cuda"
     return fn, (params, batch)
 
 
-def tiny_config(device="cpu") -> ModelConfig:
-    """The JAX file's dry-run model (``__graft_entry__.py:136-141``). Its
-    f32 compute holds on the CPU; on the card it computes in bf16, the
-    dtype the flash kernel takes (an f32 operand there raises)."""
+def tiny_config(device="cuda") -> ModelConfig:
+    """The JAX file's dry-run model (``__graft_entry__.py:136-141``), for
+    ``device`` (the card by default, as ``entry()`` and
+    ``dryrun_multichip``). Its f32 compute holds on the CPU; on the card
+    it computes in bf16, the dtype the flash kernel takes (an f32 operand
+    there raises)."""
     on_card = torch.device(device).type == "cuda"
     return ModelConfig(d_model=64, nhead=4, num_encoder_layers=2,
                        num_decoder_layers=2, dim_feedforward=128, dropout=0.1,
@@ -117,13 +119,15 @@ def tiny_config(device="cpu") -> ModelConfig:
                        compute_dtype="bfloat16" if on_card else "float32")
 
 
-def dryrun_trainer(cfg: ModelConfig, dp: int, mesh=None, device="cpu"):
+def dryrun_trainer(cfg: ModelConfig, dp: int, mesh=None, device="cuda"):
     """The dry run's trainer and host batch (``__graft_entry__.py:
     142-156``): ``max(2 dp, 4)`` synthetic records, a loader of ``max(dp,
     2)`` rows, the model from seed 0, ``TrainConfig(learning_rate=1e-4,
     use_gan=True, use_augmentation=True, warmup_epochs=1)``, and the
     loader's first batch padded to a multiple of dp. As in the JAX file,
-    the batch is not augmented: augmentation sets the loss mix only."""
+    the batch is not augmented: augmentation sets the loss mix only. The
+    trainer runs on ``mesh``'s device, else on ``device`` (the card by
+    default; ``"cpu"`` asks for the plain versions)."""
     from .data.dataset import (ArrayDataLoader,
                                SmartContractVulnerabilityDataset)
     from .data.synthetic import generate_corpus

@@ -47,6 +47,21 @@ the model's size (``--d-model``, ``--layers``, ``--seq``, ``--batch``):
   time_host_prep    the trainer's host preparation per epoch, with and
                     without the augmentation bank
 
+The step tools, the JAX repo's A/B and step-pricing scripts, with the
+JAX tools' options plus ``--device``, ``--out`` and small-size options:
+
+  profile_step          the fused step's top device kernels by self time
+  time_opt_ab           the step with FusedOptimizer against the chain
+  time_lmce_ab          the step with the fused LM CE against the logits
+  time_opt_megaleaf     the optimizer chain over one leaf of the model's
+                        size against the 405-leaf tree and FusedOptimizer
+  ablate_step           the step under six ablations (embedding gradient,
+                        CE only, no line loss, no heads, no dropout)
+  time_dispatch         one launch's floor, and K steps in one CUDA graph
+                        against K step calls
+  ab_aug_labels         quality A/B: the augmentation label quirk
+  ab_contract_dilution  quality A/B: short against window-filling contracts
+
 They run on the card by default and raise without one; ``--device cpu``
 runs the plain versions. Run any of them as
 
@@ -61,4 +76,6 @@ __all__ = [
     "bench", "quick_bench", "bench_decode", "peak_matmul", "time_fwd",
     "time_decode", "time_fwd_modules", "time_lmce", "time_lmce_parts",
     "time_flash_real", "time_layer", "time_decode_parts", "time_host_prep",
+    "profile_step", "time_opt_ab", "time_lmce_ab", "time_opt_megaleaf",
+    "ablate_step", "time_dispatch", "ab_aug_labels", "ab_contract_dilution",
 ]

@@ -131,14 +131,14 @@ def summary_line(title: str, result: Dict[str, dict], card: str) -> str:
 # -- what the training and evaluation entry points share ----------------------
 
 def model_config(seq: int = 1024, d_model: int = 768, layers: int = 6,
-                 compute_dtype: str = "bfloat16"):
+                 compute_dtype: str = "bfloat16", vocab: int = 50265):
     """The JAX tools' ``ModelConfig``: the GAN model at L = ``seq`` with
     ``seq`` line slots, FFN 2048 at the reference width (else 8/3 of
     d_model), ``layers`` encoder and decoder layers, computing in
-    ``compute_dtype``."""
+    ``compute_dtype``; ``vocab`` tokens (the reference's by default)."""
     from ..config import ModelConfig
     return ModelConfig(use_gan=True, max_length=seq, max_lines=seq,
-                       d_model=d_model,
+                       d_model=d_model, vocab_size=vocab,
                        dim_feedforward=(2048 if d_model == 768
                                         else d_model * 8 // 3),
                        num_encoder_layers=layers, num_decoder_layers=layers,
@@ -230,20 +230,126 @@ class _NoBatches:
 
 def bench_trainer(device: str, fused: bool, d_model: int = 768,
                   layers: int = 6, seq: int = 1024, batch_size: int = 8,
-                  compute_dtype: str = "bfloat16"):
+                  compute_dtype: str = "bfloat16", fused_lm_ce: bool = True,
+                  vocab: int = 50265):
     """The JAX bench's trainer (``bench.build_trainer("bfloat16", True, 8,
     1024)``): ``ModelConfig(use_gan=True)`` at L=1024, B=8, learning rate
     1e-5, one warm-up epoch, no loaders; ``fused`` picks
-    ``FusedOptimizer`` or the unfused chain (``GradientTransform``).
-    ``d_model`` and ``layers`` shrink it for tests."""
+    ``FusedOptimizer`` or the unfused chain (``GradientTransform``),
+    ``fused_lm_ce`` the fused LM-head cross-entropy or the materialised
+    logits. ``d_model``, ``layers`` and ``vocab`` shrink it for tests."""
     from ..config import TrainConfig
     from ..models.sct_transformer import SmartContractTransformer
     from ..train.trainer import SmartContractTrainer
-    cfg = model_config(seq, d_model, layers, compute_dtype)
+    cfg = model_config(seq, d_model, layers, compute_dtype, vocab)
     tok = tokenizer_for(cfg)
     return SmartContractTrainer(
         SmartContractTransformer(cfg, seed=0), _NoBatches(batch_size),
         _NoBatches(batch_size), tok,
         config=TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1,
-                           fused_optimizer=fused),
+                           fused_optimizer=fused, fused_lm_ce=fused_lm_ce),
         device=device, verbose=False)
+
+
+# -- the quality A/Bs (ab_aug_labels, ab_contract_dilution) -------------------
+
+def ab_model_config(seq: int, use_gan: bool, device: str,
+                    vocab: int = 50265):
+    """The JAX A/B tools' tiny recipe: d=128, 4 heads of 32, 2+2 layers,
+    FFN 256, L = ``seq`` line slots too, ``vocab`` tokens; f32 on the
+    CPU, bf16 on the card (the flash kernels take bf16; head dim 32 runs
+    their padded route)."""
+    import torch
+
+    from ..config import ModelConfig
+    on_card = torch.device(device).type == "cuda"
+    return ModelConfig(d_model=128, nhead=4, num_encoder_layers=2,
+                       num_decoder_layers=2, dim_feedforward=256,
+                       max_length=seq, max_lines=seq, use_gan=use_gan,
+                       vocab_size=vocab,
+                       compute_dtype="bfloat16" if on_card else "float32")
+
+
+def quality_arm(label: str, csv_path: str, seq: int, epochs: int,
+                batch_size: int, device: str, card: str, work_dir: str,
+                vocab: int = 50265, **train_kw) -> Dict[str, float]:
+    """One arm of a quality A/B (the JAX tools' ``run_arm``): train the
+    tiny recipe on ``csv_path`` for ``epochs`` epochs (learning rate 5e-5,
+    no early stop, ``train_kw``: ``use_gan``, ``use_augmentation``,
+    ``aug_label_correct``), then score the contract head's eval-mode
+    probabilities over the validation split, every type's label a sample,
+    by the port's numpy metrics (``evals.metrics``: the harness's PR-AUC,
+    the trapezoid area under the precision-recall curve, where the JAX
+    tools call scikit-learn's average precision; and ROC-AUC). ``vocab``
+    sizes the tokenizer and the model (the reference's by default)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from ..config import TrainConfig
+    from ..data.dataset import create_dataloaders
+    from ..data.native_tokenizer import NativeSolidityTokenizer
+    from ..evals.metrics import pr_auc_score, roc_auc_score
+    from ..models.sct_transformer import SmartContractTransformer
+    from ..train.trainer import SmartContractTrainer
+    tok = NativeSolidityTokenizer(vocab_size=vocab)
+    train_loader, val_loader = create_dataloaders(
+        csv_path, tokenizer=tok, batch_size=batch_size, max_length=seq)
+    cfg = ab_model_config(seq, train_kw.get("use_gan", False), device,
+                          vocab)
+    trainer = SmartContractTrainer(
+        SmartContractTransformer(cfg, seed=0), train_loader, val_loader,
+        tok, config=TrainConfig(learning_rate=5e-5, latest_every=10 ** 9,
+                                patience=10 ** 9, checkpoint_dir=work_dir,
+                                **train_kw),
+        device=device, verbose=False)
+    t0 = time.time()
+    for epoch in range(epochs):
+        m = trainer.train_epoch(epoch)
+        if epoch % 5 == 0 or epoch == epochs - 1:
+            print(f"  [{label}] epoch {epoch}: gen {m['gen_loss']:.3f} "
+                  f"contract {m['contract_vuln_loss']:.5f} [{card}]",
+                  flush=True)
+    model = trainer.model.eval()
+    probs, labels = [], []
+    with torch.no_grad():
+        for batch in val_loader:
+            b = trainer.to_device(batch)
+            out = model(input_ids=b["input_ids"],
+                        attention_mask=b["attention_mask"],
+                        ast_input_ids=b["ast_input_ids"],
+                        ast_attention_mask=b["ast_attention_mask"],
+                        target_ids=b["input_ids"],
+                        token_to_line=b["token_to_line"])
+            probs.append(torch.sigmoid(
+                out["contract_vulnerability_logits"]).float().cpu().numpy())
+            labels.append(np.asarray(batch["contract_vulnerabilities"]))
+    p = np.concatenate(probs).ravel()
+    y = np.concatenate(labels).ravel()
+    res = {"pr_auc": pr_auc_score(y, p), "roc_auc": roc_auc_score(y, p),
+           "base_rate": float(y.mean()), "seconds": time.time() - t0,
+           "epochs": epochs}
+    print(f"  [{label}] contract PR-AUC {res['pr_auc']:.3f} ROC-AUC "
+          f"{res['roc_auc']:.3f} (base rate {res['base_rate']:.3f}; "
+          f"{res['seconds']:.0f}s) [{card}]", flush=True)
+    del trainer, model
+    return res
+
+
+def quality_args(ap, work: str) -> None:
+    """The JAX A/B tools' options, ``--device``, ``--out`` (the JSON) and
+    ``--work-dir`` (their ``--out``: the corpora, under a fresh temporary
+    directory by default, removed after the run)."""
+    ap.add_argument("--contracts", type=int, default=300)
+    ap.add_argument("--epochs", type=int, default=30)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--vocab", type=int, default=50265,
+                    help="the tokenizer's and model's vocabulary (smaller "
+                         "for a quick run on the CPU)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--work-dir", default="",
+                    help=f"the corpora's directory (the JAX tool's --out, "
+                         f"{work})")
+    ap.add_argument("--out", default="", help="also write the JSON here")

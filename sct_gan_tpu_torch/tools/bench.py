@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
+from ..utils.profiling import kernel_launches, trace_device
 from ._common import bench_trainer, write_json
 
 BATCH, SEQ, DECODE_BATCH = 8, 1024, 64
@@ -69,7 +70,6 @@ DECODE_ROUNDS = 3                   # the long run; the short run is 1
 TEMPERATURE = 0.7
 HOST_REPS = 5       # runs of each length of a slope timed on the CPU
 MORE_PAIRS = 10     # further pairs of runs while a slope is not positive
-TRACES = 3          # profiled runs of device_ms before an empty trace raises
 
 
 def log(msg: str) -> None:
@@ -91,19 +91,6 @@ def make_batch(batch_size: int, seq: int, vocab: int):
         "contract_vulnerabilities": rng.integers(
             0, 2, (batch_size, 8)).astype(np.int32),
     }
-
-
-def kernel_launches() -> Dict[str, int]:
-    """The launch counts of the main path's kernel wrappers (each adds one
-    where it launches its kernel; on the CPU they stay 0)."""
-    from ..ops.decode_attention import decode_attention
-    from ..ops.dropout import dropout
-    from ..ops.flash_attention import (flash_attention,
-                                       flash_attention_backward)
-    return {"flash_attention_fwd": flash_attention.launches,
-            "flash_attention_bwd": flash_attention_backward.launches,
-            "dropout": dropout.launches,
-            "decode_attention": decode_attention.launches}
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:
@@ -137,20 +124,21 @@ def _under_dense(fn: Callable) -> Callable:
 
 def build_trainer(compute_dtype: str, dense: bool, batch_size: int = BATCH,
                   seq: int = SEQ, device: str = "cuda", d_model: int = 768,
-                  layers: int = 6):
+                  layers: int = 6, vocab: int = 50265):
     """The JAX bench's ``build_trainer(compute_dtype, use_flash, batch_size,
     seq)`` (``bench.py:29-54``) over ``_common.bench_trainer``. ``dense``
     (the JAX ``use_flash=False``) builds the trainer and runs each of its
-    train and eval steps under ``dense_attention``; ``d_model`` and
-    ``layers`` shrink the model for tests. Raises first, before any
-    model is built, when ``device`` is a card that is not there."""
+    train and eval steps under ``dense_attention``; ``d_model``,
+    ``layers`` and ``vocab`` shrink the model for tests. Raises first,
+    before any model is built, when ``device`` is a card that is not
+    there."""
     resolve_device(device)
     if not dense:
         return bench_trainer(device, True, d_model, layers, seq, batch_size,
-                             compute_dtype)
+                             compute_dtype, vocab=vocab)
     with dense_attention():
         trainer = bench_trainer(device, True, d_model, layers, seq,
-                                batch_size, compute_dtype)
+                                batch_size, compute_dtype, vocab=vocab)
     trainer.train_step = _under_dense(trainer.train_step)
     trainer.eval_step = _under_dense(trainer.eval_step)
     return trainer
@@ -178,28 +166,13 @@ def device_ms(run: Callable[[], object], units: int,
               device: torch.device) -> Tuple[Optional[float], int]:
     """(Device ms a unit of ``run()``, which runs ``units`` units; the runs
     made): the summed device time of its kernels under ``torch.profiler``
-    (no host gap counted), over one run; on the CPU the run is made,
-    unprofiled, and the ms is None. Set beside a time by CUDA events, it
-    gives the card's busy share. ``run()`` launches kernels, so a trace
-    with no device time lost its records (in a long process the profiler
-    drops some, and now and then all): the run is profiled again, up to
-    ``TRACES`` runs, and past them it raises."""
-    if device.type != "cuda":
-        run()
-        return None, 1
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for runs in range(1, TRACES + 1):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            run()
-            torch.cuda.synchronize(device)
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / units / 1e3, runs
-    raise RuntimeError(f"torch.profiler recorded no device time in {TRACES} "
-                       "traces of a run that launches kernels")
+    (no host gap counted), from a whole trace of one run
+    (``utils.profiling.trace_device``: a trace that lost records of the
+    run is profiled again, and past ``TRACES`` runs it raises); on the CPU
+    the run is made, unprofiled, and the ms is None. Set beside a time by
+    CUDA events, it gives the card's busy share."""
+    row = device_stats(run, units, device)
+    return row["device_ms"], row["traced_runs"]
 
 
 def slope_ms(run_ms: Callable[[int], float], n_small: int, n_large: int,
@@ -244,10 +217,13 @@ def best_of(run: Callable[[], Tuple[Optional[float], float]], reps: int,
 
 
 def time_step(trainer, batch, warmup: int = WARMUP, n_large: int = STEPS,
-              reps: int = REPS) -> Dict[str, object]:
+              reps: int = REPS, trace: bool = False) -> Dict[str, object]:
     """ms a train step: ``warmup`` steps, then the best of ``reps`` runs of
     ``n_large`` chained steps (``best_of``'s keys), the steps run and their
-    kernel launches; ``trainer.state`` holds the last state after."""
+    kernel launches; ``trainer.state`` holds the last state after.
+    ``trace``: also ``device_ms``, the device time a step over one more
+    run of ``n_large`` steps (or more, where a trace came back short),
+    and on the card ``kernels``, the device kernels a step in it."""
     device_batch = trainer.to_device(batch)
     lrs = trainer._group_lrs()
     box = {"state": trainer.state, "scalars": trainer._scalars(1.0)}
@@ -263,9 +239,26 @@ def time_step(trainer, batch, warmup: int = WARMUP, n_large: int = STEPS,
         timed_ms(lambda: steps(1), trainer.device)
     best = best_of(lambda: timed_ms(lambda: steps(n_large), trainer.device),
                    reps, n_large)
+    run = warmup + reps * n_large
+    if trace:
+        best.update(device_stats(lambda: steps(n_large), n_large,
+                                 trainer.device))
+        run += best["traced_runs"] * n_large
     trainer.state = box["state"]
-    return dict(best, steps=warmup + reps * n_large,
-                launches=_since(before))
+    return dict(best, steps=run, launches=_since(before))
+
+
+def device_stats(run: Callable[[], object], units: int,
+                 device: torch.device) -> Dict[str, object]:
+    """``device_ms`` of ``run()`` (``units`` units) as a row's keys:
+    ``device_ms`` a unit, ``traced_runs`` and, on the card, ``kernels``,
+    the device kernels a unit in the whole trace."""
+    if device.type != "cuda":
+        run()
+        return {"device_ms": None, "traced_runs": 1}
+    trace = trace_device(run)
+    return {"device_ms": trace.total_us / units / 1e3,
+            "kernels": trace.records / units, "traced_runs": trace.runs}
 
 
 def time_decode(model, tokenizer, batch_size: int,
@@ -404,15 +397,55 @@ def run(args) -> Dict[str, object]:
     }
 
 
-def add_size_args(ap: argparse.ArgumentParser, batch: bool = True) -> None:
+def time_arms(args, arms, what: str) -> Dict[str, object]:
+    """The A/B tools' arms (``time_opt_ab``, ``time_lmce_ab``): for each
+    (name, ``bench_trainer`` options), a fresh trainer at the tools' size
+    options timed by ``time_step`` with ``args.steps`` steps a run and a
+    device trace, printed as the JAX tools print an arm; the card's
+    memory is freed between arms. Returns the JSON: each arm's row with
+    its tokens/s, and ``what``."""
+    device = resolve_device(args.device)
+    card = card_or_device(device)
+    tokens = args.batch * args.seq
+    res: Dict[str, object] = {"card": card, "device": str(device),
+                              "batch": args.batch, "seq": args.seq,
+                              "compared": what, "arms": {}}
+    for name, kw in arms:
+        print(f"[{name}] building + timing...", flush=True)
+        trainer = bench_trainer(args.device, d_model=args.d_model,
+                                layers=args.layers, seq=args.seq,
+                                batch_size=args.batch, vocab=args.vocab,
+                                **kw)
+        batch = make_batch(args.batch, args.seq,
+                           trainer.model.config.vocab_size)
+        row = time_step(trainer, batch, n_large=args.steps, trace=True)
+        row["tokens_per_sec"] = tokens / row["ms"] * 1e3
+        dev = ("" if row["device_ms"] is None else
+               f" (device {row['device_ms']:.1f} ms, {row['kernels']:.0f} "
+               f"kernels a step)")
+        print(f"[{name}] {row['ms']:.1f} ms/step = "
+              f"{row['tokens_per_sec']:,.0f} tok/s/chip{dev} [{card}]",
+              flush=True)
+        res["arms"][name] = row
+        del trainer
+        free_memory()
+    res["timing"] = row["timing"]
+    return res
+
+
+def add_size_args(ap: argparse.ArgumentParser, batch: bool = True,
+                  vocab: bool = False) -> None:
     """The options the bench tools share: the device and the model's size
-    (the JAX bench's by default); ``batch=False`` leaves ``--batch`` out."""
+    (the JAX bench's by default); ``batch=False`` leaves ``--batch`` out,
+    ``vocab=True`` adds ``--vocab``."""
     ap.add_argument("--device", default="cuda")
     if batch:
         ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--seq", type=int, default=SEQ)
     ap.add_argument("--d-model", type=int, default=768)
     ap.add_argument("--layers", type=int, default=6)
+    if vocab:
+        ap.add_argument("--vocab", type=int, default=50265)
     ap.add_argument("--out", default="", help="also write the JSON here")
 
 

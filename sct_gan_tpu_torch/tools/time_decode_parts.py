@@ -20,8 +20,8 @@ Python loops of launches, and those launches are the host cost this tool
 exists to expose. So each row gives the ms a step by CUDA events beside
 the host clock over the same run (the best of 2 runs after one warm-up
 run, as the JAX tool's best of 2), the kernels' own device time a step
-(``bench.device_ms``, one more run, or more where a trace came back
-empty) and the kernel launches a step,
+(``bench.device_ms``, one more run, or more where a trace lost records
+of it) and the kernel launches a step,
 counted by the wrappers: the decode attention (K5) twice a layer in the
 layers-only loops, nothing in the other two. The self-attention reads the
 cache up to the step's position, so the port's step grows with the

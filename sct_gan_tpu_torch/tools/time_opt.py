@@ -8,8 +8,9 @@ JAX bench's trainer (``_common.bench_trainer``: ``ModelConfig(use_gan=True)``,
 B=8, L=1024). The unfused chain (``train.optimizer.GradientTransform``) by
 default, ``FusedOptimizer`` with ``--fused``. On the card the time is the
 best mean of two runs of 10 stages by CUDA events after one warm-up stage,
-and the launches are the device kernels ``torch.profiler`` records in one
-stage; on the CPU the host clock, and no launches.
+and the launches are the device kernels of one stage in a whole
+``torch.profiler`` trace (``utils.profiling.trace_device``); on the CPU
+the host clock, and no launches.
 
     python -m sct_gan_tpu_torch.tools.time_opt [--fused]
 
@@ -21,47 +22,45 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..utils import resolve_device
+from ..utils.profiling import trace_device
 from ._common import bench_trainer, write_json
 
 REPS, STAGES = 2, 10            # the JAX tool's: best of 2 runs of 10
 
 
-def stage_fn(trainer):
-    """``stage(seed)``: synthesise the gradients and apply one optimizer
-    update in place to the trainer's parameters and state."""
-    opt = trainer.optimizer
-    params = [trainer.state.params[n] for n in opt.names]
-    state = trainer.state.opt_state
-    lrs = trainer._group_lrs()
-    loss = torch.zeros((), device=trainer.device)
+def optimizer_stage(opt, opt_state, lrs, params):
+    """``stage(seed)``: synthesise the gradients of ``params`` (``opt``'s
+    parameters) from them and apply one update of ``opt`` in place to
+    them and ``opt_state``."""
+    loss = torch.zeros((), device=params[0].device)
 
     def stage(seed: float) -> None:
         grads = [p * 1e-3 + seed * 1e-9 for p in params]
-        opt.update(grads, state, lrs, loss)
+        opt.update(grads, opt_state, lrs, loss)
     return stage
 
 
-def stage_launches(stage) -> int:
-    """Device kernels (and copies) of one stage, by ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        stage(0.5)
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+def stage_fn(trainer):
+    """``optimizer_stage`` of the trainer's optimizer, parameters and
+    state."""
+    opt = trainer.optimizer
+    return optimizer_stage(opt, trainer.state.opt_state,
+                           trainer._group_lrs(),
+                           [trainer.state.params[n] for n in opt.names])
 
 
-def time_stage(trainer) -> Dict[str, object]:
-    """ms per stage (best of ``REPS`` runs of ``STAGES``) and, on the card,
-    launches per stage."""
-    stage = stage_fn(trainer)
-    cuda = trainer.device.type == "cuda"
+def time_stages(stage: Callable[[float], None], device: torch.device
+                ) -> Dict[str, object]:
+    """ms per stage (best of ``REPS`` runs of ``STAGES`` after one warm-up
+    stage; CUDA events on the card, the host clock on the CPU) and, on
+    the card, the device kernels of one stage, from a whole
+    ``torch.profiler`` trace (``utils.profiling.trace_device``)."""
+    cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     stage(0.0)                  # warm-up
     sync()
@@ -81,8 +80,15 @@ def time_stage(trainer) -> Dict[str, object]:
         else:
             ms = (time.perf_counter() - t0) * 1e3
         best = min(best, ms / STAGES)
-    return {"ms": best, "launches": stage_launches(stage) if cuda else None,
-            "parameters": len(trainer.optimizer.names)}
+    launches = trace_device(lambda: stage(0.5)).records if cuda else None
+    return {"ms": best, "launches": launches}
+
+
+def time_stage(trainer) -> Dict[str, object]:
+    """``time_stages`` of the trainer's optimizer, with its parameter
+    count."""
+    return dict(time_stages(stage_fn(trainer), trainer.device),
+                parameters=len(trainer.optimizer.names))
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -18,17 +18,21 @@ compiled artefacts, its CUDA kernels, are cached by ``ops/_build.py`` in
 
 Added for the card: ``card_line`` (the card's name and power limit, which
 every kept number is written beside), ``cuda_ms``, ``chain_ms`` and
-``ring_ms`` (device time by CUDA events), and ``bound_ms`` with the H100
-SXM's published peaks.
+``ring_ms`` (device time by CUDA events), ``bound_ms`` with the H100
+SXM's published peaks, ``kernel_launches`` (the launch counts of the
+port's kernel wrappers) and ``trace_device``, the one place the port
+reads ``torch.profiler``'s device records.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import re
 import subprocess
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -269,3 +273,136 @@ def bound_ms(flops: float, nbytes: float) -> Tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The launch counts of the main path's kernel wrappers (each adds one
+    where it launches its kernel; on the CPU they stay 0)."""
+    from ..ops.decode_attention import decode_attention
+    from ..ops.dropout import dropout
+    from ..ops.flash_attention import (flash_attention,
+                                       flash_attention_backward)
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_backward.launches,
+            "dropout": dropout.launches,
+            "decode_attention": decode_attention.launches}
+
+
+# The device kernels of each counted wrapper, by name, and how many one
+# launch runs: K1 one; the backward pair three (D, dKV, dQ); K6 one; K5 one
+PORT_KERNELS = {
+    "flash_attention_fwd": (re.compile(r"\bflash_fwd_(?:hopper_)?kernel\b"),
+                            1),
+    "flash_attention_bwd": (re.compile(
+        r"\bflash_bwd_(?:dvec|dkv_\w+|dq_\w+)_kernel\b"), 3),
+    "dropout": (re.compile(r"\bdropout_kernel\b"), 1),
+    "decode_attention": (re.compile(r"\bdecode_(?:splitk|wide)_kernel\b"), 1),
+}
+# Every device trace opens with this many short spin kernels
+# (``torch.cuda._sleep``), then waits for them. A profiler session can lose
+# the first records it would take, all at its start: in a process that has
+# run for a minute or two, the first 7 of a 40-kernel run's records in every
+# session, now and then more (``chip_smoke.py --profiler-probe``). The
+# primers absorb the loss; a trace in which none survived, or whose port
+# kernels fall short of the launch counters, lost records of the run
+# itself.
+PRIMERS = 64
+PRIMER_CYCLES = 1000
+PRIMER_NAME = "spin_kernel"
+TRACES = 5      # traces of a run before a short one raises
+
+
+class DeviceTrace(NamedTuple):
+    """One traced run: ``rows`` (kernel name, records, device µs) by
+    device time, the primers left out; ``runs``, the runs made to get a
+    whole trace (1, or more after short ones); ``value``, what the last
+    run returned."""
+
+    rows: List[Tuple[str, int, float]]
+    runs: int
+    value: Any
+
+    @property
+    def total_us(self) -> float:
+        return sum(r[2] for r in self.rows)
+
+    @property
+    def records(self) -> int:
+        return sum(r[1] for r in self.rows)
+
+
+def port_records(rows) -> Dict[str, int]:
+    """Launches of each counted wrapper that ``rows`` (kernel name,
+    records, ...) hold: each wrapper's kernel records over its kernels a
+    launch."""
+    got = dict.fromkeys(PORT_KERNELS, 0)
+    for name, count, *_ in rows:
+        for wrapper, (pattern, _) in PORT_KERNELS.items():
+            if pattern.search(name):
+                got[wrapper] += count
+    return {k: v / PORT_KERNELS[k][1] for k, v in got.items()}
+
+
+def trace_device(run: Callable[[], Any],
+                 expected: Optional[Dict[str, int]] = None,
+                 cpu: bool = False) -> DeviceTrace:
+    """``run()`` under ``torch.profiler``, the device kernels' records.
+
+    On the card (``cpu=False``) the trace opens with ``PRIMERS`` spin
+    kernels, waited for, then runs ``run()`` and waits for the card. The
+    trace is whole when at least one primer's record survived (the loss
+    takes a session's first records only) and the records of the port's
+    kernels equal the wrapper's launches: ``expected`` (wrapper -> launches,
+    for a run that replays a CUDA graph, which counts nothing) or the
+    launch counters over the run. A short trace is profiled again, with
+    the run made again, up to ``TRACES`` runs; past them it raises. No
+    caller reads a short trace. ``cpu=True`` profiles CPU activity (the
+    ops' self time), with no primer and no check."""
+    from torch.profiler import ProfilerActivity, profile
+    short = []
+    for runs in range(1, TRACES + 1):
+        before = kernel_launches()
+        with profile(activities=[ProfilerActivity.CPU if cpu
+                                 else ProfilerActivity.CUDA]) as prof:
+            if not cpu:
+                for _ in range(PRIMERS):
+                    torch.cuda._sleep(PRIMER_CYCLES)
+                torch.cuda.synchronize()
+            value = run()
+            if not cpu:
+                torch.cuda.synchronize()
+        want = expected or {k: v - before[k]
+                            for k, v in kernel_launches().items()}
+        rows, primers = _rows(prof, cpu), 0
+        for i, (key, count, _) in enumerate(rows):
+            if PRIMER_NAME in key:
+                primers = rows.pop(i)[1]
+                break
+        got = port_records(rows)
+        if cpu or (primers > 0 and all(got[k] == want.get(k, 0)
+                                       for k in got)):
+            rows.sort(key=lambda r: -r[2])
+            return DeviceTrace(rows, runs, value)
+        short.append(f"{primers} of {PRIMERS} primers, port kernels "
+                     f"{got} against launches {want}")
+    raise RuntimeError(f"torch.profiler lost records of the run in "
+                       f"{TRACES} traces: " + "; ".join(short))
+
+
+def _rows(prof, cpu: bool) -> List[Tuple[str, int, float]]:
+    """(name, records, µs) of a finished trace, by name: the CPU ops' self
+    time (``key_averages``), or each device kernel's time read from the
+    raw records (``key_averages`` builds an object a record, seconds for
+    the ~100k kernels of a graph of 8 train steps)."""
+    from torch.autograd import DeviceType
+    if cpu:
+        return [(e.key, e.count, e.self_cpu_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+    acc: Dict[str, List[float]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = acc.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return [(k, int(c), us) for k, (c, us) in acc.items()]

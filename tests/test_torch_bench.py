@@ -20,7 +20,8 @@
     of runs while the long run is not the longer, never gives a time
     <= 0, and past its bound raises;
   * ``bench.device_ms`` profiles the run again after a trace with no
-    device time, up to ``TRACES`` runs, and says how many it made;
+    device time, up to ``profiling.TRACES`` runs, and says how many it
+    made;
   * each tool's ``main`` prints the keys of its JAX counterpart's output.
 """
 import dataclasses
@@ -49,6 +50,7 @@ from sct_gan_tpu_torch.tools import (bench, bench_decode, peak_matmul,
                                      quick_bench, time_decode, time_fwd,
                                      time_fwd_modules)
 from sct_gan_tpu_torch.tools._common import model_config, tokenizer_for
+from sct_gan_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, LAYERS, SEQ, B = 32, 1, 64, 2
@@ -371,37 +373,46 @@ def test_call_ms_is_positive_or_raises(monkeypatch, case):
     assert len(calls) == 2 + 2 * len(pairs)
 
 
-@pytest.mark.parametrize("trace_us", [[7.0], [0.0, 0.0, 5.0], [0.0] * 3])
+@pytest.mark.parametrize("trace_us", [[7.0], [0.0, 0.0, 5.0],
+                                      [0.0] * profiling.TRACES])
 def test_device_ms_profiles_again_after_an_empty_trace(monkeypatch,
                                                        trace_us):
     """``device_ms`` on a card whose profiler gives the traces' device µs
     in turn: a trace with device time is the result, over the runs made;
-    an empty one (records lost) is profiled again, up to ``TRACES`` runs,
-    then it raises. Every trace runs the run once."""
+    an empty one (records lost, the primers' too) is profiled again, up
+    to ``TRACES`` runs, then it raises. Every trace runs the run once."""
     from torch.autograd import DeviceType
     it, ran = iter(trace_us), []
 
+    def records(name, count, us):
+        return [type("Record", (), {
+            "name": lambda self: name, "device_type":
+            lambda self: DeviceType.CUDA, "start_ns": lambda self: 0,
+            "end_ns": lambda self: us * 1e3 / count})()] * count
+
     class Trace:
         def __enter__(self):
-            self.us = next(it)
+            us = next(it)
+            events = [] if us == 0 else [
+                *records(profiling.PRIMER_NAME, profiling.PRIMERS, 1.0),
+                *records("k", 1, us)]
+            results = type("Results", (), {"events": lambda self: events})
+            self.profiler = type("Profiler", (), {
+                "kineto_results": results()})()
             return self
 
         def __exit__(self, *exc):
             return False
 
-        def key_averages(self):
-            return [type("Event", (), {"device_type": DeviceType.CUDA,
-                                       "self_device_time_total": self.us})]
-
     monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Trace())
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
     run = lambda: ran.append(1)   # noqa: E731
     cuda = torch.device("cuda")
-    assert len(trace_us) <= bench.TRACES
     if trace_us[-1] > 0:
         ms, runs = bench.device_ms(run, 4, cuda)
         assert (ms, runs) == (trace_us[-1] / 4 / 1e3, len(trace_us))
     else:
-        with pytest.raises(RuntimeError, match="no device time"):
+        with pytest.raises(RuntimeError, match="lost records"):
             bench.device_ms(run, 4, cuda)
     assert len(ran) == len(trace_us)
