@@ -64,16 +64,18 @@ ran through its kernels:
     train step and 16 generation steps each, with no padded copy in the
     decode attention;
   * the TASC variants (``tasc``) at ``TASCConfig()`` width (d=768, 8 heads
-    of 96, 6+6 layers, decoder vocab 50000, L=512; CodeBERT 12 layers of
-    12 heads of 64; bf16 compute), binary and multiclass, built by
+    of 96, 6+6 layers, decoder vocab 50000, L=512, bf16 compute; CodeBERT
+    12 layers of 12 heads of 64 in f32, the f32 decode caches, as in the
+    JAX package), binary and multiclass, built by
     ``build_variant`` / ``build_trainer``: ``train(2)`` over 16 training
     and 8 validation records with a best checkpoint, a fresh trainer's
     ``restore`` held bit for bit, ``validate``, 512-token
     ``generate_vulnerable_code`` and (multiclass) ``detect_vulnerabilities``;
-    a deterministic B=2 step and the CodeBERT embedding cross-checked
-    against the CPU in f32; and one ``build_variant("model-v3")`` train
-    step on the bench's batch. K1, the pair and K5 are also held to their
-    plain versions at the TASC shapes;
+    a deterministic B=2 step and the CodeBERT embedding (1e-4
+    norm-wise) cross-checked against the CPU in f32; and one
+    ``build_variant("model-v3")`` train step on the bench's batch. K1,
+    the pair and K5 are also held to their plain versions at the TASC
+    shapes;
   * the parallel paths (``parallel``, the serving and training width,
     ``sct_gan_tpu_torch/parallel``): on an NCCL world of one, the 1 x 1
     mesh's train step and ``analyze_multiple_contracts`` held bit for bit
@@ -90,8 +92,16 @@ ran through its kernels:
     forward once, its probabilities against the CPU in f32, then
     ``dryrun_multichip(1)`` over NCCL and ``dryrun_multichip(2)`` as two
     gloo ranks sharing the card (a GAN train step on the dp x mp mesh and
-    the sp encode, at the JAX file's tiny config in bf16), the two losses
+    the sp encode, at the JAX file's tiny config in f32), the two losses
     held to each other;
+  * the f32 paths (``f32``, after ``entry``): the f32 instances of K1,
+    the pair and K5 (3xTF32 products) against their plain f32 versions
+    (forward 1e-5, backward 1e-4 norm-wise, the dropout keep bits exactly),
+    then ``ModelConfig(compute_dtype="float32")`` at full width: 3 train
+    steps of the bench's configuration with the peak device memory and a
+    B=2 check against the CPU, a detection batch of 8 and generation of 2
+    contracts, each held to the CPU or to teacher forcing, and the f32
+    kernels' times;
   * the bench (``bench``, the training width; ``sct_gan_tpu_torch/tools/
     bench.py``, the port of the JAX repo's ``bench.py``): its line at the
     JAX bench's configuration and counts (the fused step, decode at B=64,
@@ -150,6 +160,9 @@ sys.path.insert(0, ROOT)
 # the card's name and power limit, CUDA-event timing and the H100's peaks
 from sct_gan_tpu_torch.utils.profiling import (  # noqa: E402
     GRAPH_REPLAYS, bound_ms, card_line, cuda_ms, ring_inputs, ring_ms)
+# the port's one table of kernel launch counters
+from sct_gan_tpu_torch.utils.profiling import (  # noqa: E402
+    kernel_launches as read_counts, reset_kernel_launches as reset_counts)
 # SDPA's backward, the backward pair's yardstick (timed, never called by
 # the port)
 from sct_gan_tpu_torch.tools._common import sdpa_backward_ms  # noqa: E402
@@ -205,7 +218,35 @@ KERNELS = {
     "decode_attention": (
         "sct_gan_tpu_torch/csrc/decode_attention.cu",
         "sct_gan_tpu/ops/decode_attention.py:83"),
+    # the f32 instances (phase_f32): K1, the pair and K5 on f32 operands
+    "flash_attention_fwd_f32": (
+        "sct_gan_tpu_torch/csrc/flash_attention_fwd_f32.cu",
+        "sct_gan_tpu/ops/flash_attention.py:205"),
+    "flash_attention_bwd_f32": (
+        "sct_gan_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+        "sct_gan_tpu/ops/flash_attention.py:510 (K2), :530 (K3), :550 (K4)"),
+    "decode_attention_f32": (
+        "sct_gan_tpu_torch/csrc/decode_attention_f32.cu",
+        "sct_gan_tpu/ops/decode_attention.py:83"),
 }
+# the bf16 kernels, whose line entries come per head-dim instance
+BF16_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "dropout",
+                "decode_attention")
+F32_KERNELS = ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
+               "decode_attention_f32")
+
+
+def launch_dict(fwd: int = 0, bwd: int = 0, dropout: int = 0,
+                decode: int = 0, f32: bool = False, **named) -> dict:
+    """A whole count of ``read_counts()``'s kernels: ``fwd`` K1, ``bwd``
+    pair, ``dropout`` K6 and ``decode`` K5 launches (of the f32 instances
+    when ``f32``), others by name in ``named``, 0 elsewhere."""
+    sfx = "_f32" if f32 else ""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"flash_attention_fwd" + sfx: fwd,
+                 "flash_attention_bwd" + sfx: bwd, "dropout": dropout,
+                 "decode_attention" + sfx: decode}, **named)
+    return want
 # The kernel-timing tools' kernels (sct_gan_tpu_torch/tools): name ->
 # (source, TPU kernel replaced, the mode the kernels line reports at its top
 # level: the one closest to the shipped kernel)
@@ -224,25 +265,6 @@ VARIANTS = {
 # AST and cross 2 + line heads 2 + discriminator 1 (the contract pooling
 # stays dense: it returns its weights)
 FLASH_PER_TRAIN_FORWARD = 23
-
-
-def _counters():
-    from sct_gan_tpu_torch.ops.decode_attention import decode_attention
-    from sct_gan_tpu_torch.ops.dropout import dropout
-    from sct_gan_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward)
-    return {"flash_attention_fwd": flash_attention,
-            "flash_attention_bwd": flash_attention_backward,
-            "dropout": dropout, "decode_attention": decode_attention}
-
-
-def reset_counts() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
-
-
-def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def max_err(a, b) -> float:
@@ -305,12 +327,15 @@ def phase_build():
 # at 64-128, flash_fwd_kernel over them, chunked too), the backward pair
 # (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the wgmma
 # kernels above), the decode attention (every instance; the 192 one, by its
-# mangled name, must be in the report) with its wide-head route, and the
-# tools' K7, K8 and K9 (every mode and head dim)
+# mangled name, must be in the report) with its wide-head route, the f32
+# instances of the three, and the tools' K7, K8 and K9 (every mode and head
+# dim)
 NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
             "decode_splitk_kernel", "decode_splitk_kernelILi192E",
             "decode_wide_kernel", "flash_parts_hopper_kernel",
-            "flash_variants_kernel", "decode_perbatch_kernel")
+            "flash_variants_kernel", "decode_perbatch_kernel",
+            "flash_f32_fwd_kernel", "flash_f32_dkv_kernel",
+            "flash_f32_dq_kernel", "decode_f32_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -349,17 +374,17 @@ def _heads(x, h=8):
 
 
 def check_close(errs: dict, kernel: str, name: str, got, want, tol: float,
-                what: str = "") -> None:
-    """Hold ``got`` to ``want`` within ``tol`` (max abs) and ``REL_TOL``
+                what: str = "", rel_tol: float = REL_TOL) -> None:
+    """Hold ``got`` to ``want`` within ``tol`` (max abs) and ``rel_tol``
     (norm-wise); keep the worst of each in ``errs[kernel]``; print a line."""
     err, rel = max_err(got, want), rel_err(got, want)
     a, r = errs.get(kernel, (0.0, 0.0))
     errs[kernel] = (max(a, err), max(r, rel))
     print(f"  {kernel} {name}{what}: max_abs_err {err:.3e} "
-          f"(tol {tol:.3e}), rel_err {rel:.3e} (tol {REL_TOL})", flush=True)
-    if not (err <= tol and rel <= REL_TOL):
+          f"(tol {tol:.3e}), rel_err {rel:.3e} (tol {rel_tol})", flush=True)
+    if not (err <= tol and rel <= rel_tol):
         raise AssertionError(f"{kernel} {name}{what}: max_abs_err {err} "
-                             f"(tol {tol}), rel_err {rel} (tol {REL_TOL})")
+                             f"(tol {tol}), rel_err {rel} (tol {rel_tol})")
 
 
 def k1_skip_checks(case, label: str) -> None:
@@ -1226,9 +1251,8 @@ def phase_train():
         h.remove()
     trainer.state = state
     per_step_drop = 2 * calls[0] // 5
-    want = {"flash_attention_fwd": 5 * FLASH_PER_TRAIN_FORWARD,
-            "flash_attention_bwd": 5 * FLASH_PER_TRAIN_FORWARD,
-            "dropout": 5 * per_step_drop, "decode_attention": 0}
+    want = launch_dict(5 * FLASH_PER_TRAIN_FORWARD,
+                       5 * FLASH_PER_TRAIN_FORWARD, 5 * per_step_drop)
     if counts != want or calls[0] % 5:
         raise AssertionError(f"train: launches {counts}, expected {want}")
     rows = [{k: float(v) for k, v in m.items()} for m in history]
@@ -1493,10 +1517,8 @@ def phase_tools() -> dict:
             "epochs": summary["epochs_run"] == 2 and len(timing["epochs"]) == 2,
             "errors": errors["contracts"] == 8 and errors["family"] == 2,
             "time_opt": all(o["ms"] > 0 and o["launches"] > 0 for o in opt),
-            "launches": counts == {
-                "flash_attention_fwd": want_fwd,
-                "flash_attention_bwd": want_bwd, "dropout": want_drop,
-                "decode_attention": 0}}
+            "launches": counts == launch_dict(want_fwd, want_bwd,
+                                              want_drop)}
         print(f"phase tools: run_corpus_v2 {TOOLS_RUN} in {total_s:.1f} s "
               f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}); "
               f"epochs {[round(e['train_s'], 2) for e in timing['epochs']]} "
@@ -1851,7 +1873,7 @@ def phase_heads() -> dict:
               flush=True)
         if not ok:
             raise AssertionError(f"heads d={d}: launches or outputs wrong")
-        for kernel in KERNELS:
+        for kernel in BF16_KERNELS:
             name = instance(kernel, d)
             launches[name] = launches.get(name, 0) + (
                 c_det[kernel] + c_train[kernel] + c_gen[kernel])
@@ -1872,20 +1894,20 @@ TASC_LOSS_RTOL = 1e-2
 # ~3 significant digits): 2e-2 absolute.
 TASC_SCORE_TOL = 2e-2
 # the CodeBERT embedding (12 post-norm layers, LayerNorm outputs of unit
-# scale): bf16 arithmetic alone lies further than 2e-2 (max abs) from f32
-# there (the CPU's plain path run in bf16 on the same weights and batch,
-# measured in the same run beside the card: ~3.5e-2 at 12 layers, 2.1e-2
-# after one), so the card is held to TASC_EMBED_FLOOR_X times that floor
-# or 2e-2, whichever is larger, and to 2e-2 norm-wise. A kernel fault (a
-# wrong mask bit, a lost tile) moves whole rows by O(1).
-TASC_EMBED_TOL = 2e-2
-TASC_EMBED_FLOOR_X = 1.5
+# scale) computes in f32 on both sides, the card's attention in the f32
+# flash kernel (3xTF32 products) and its matmuls in full f32 (TF32 off):
+# only the order of sums differs, ~1e-6 relative a layer, so the card is
+# held to 1e-4 norm-wise. A kernel fault (a wrong mask bit, a lost tile)
+# moves whole rows by O(1).
+TASC_EMBED_TOL = 1e-4
 
 
 def tasc_per_path(cfg) -> dict:
-    """Kernel launches of each TASC path per unit, from the config: K1 of
-    one CodeBERT embedding (one stream, head dim 64), and per step or batch
-    the TASC model's K1 (head dim 96), the backward pair, K6 and K5."""
+    """Kernel launches of each TASC path per unit, from the config: the f32
+    K1 of one CodeBERT embedding (one stream, head dim 64), and per step or
+    batch the TASC model's K1 (head dim 96), the backward pair, K6 and K5
+    (the self attention's over the f32 caches, the cross attention's over
+    the memory's K/V in the compute dtype)."""
     n = cfg.num_layers
     return {"embed": cfg.codebert_num_layers,
             # the encoder in training mode (K1 with dropout, 3 K6 sites a
@@ -1895,8 +1917,9 @@ def tasc_per_path(cfg) -> dict:
             # the full forward of validation: encoder and decoder
             "val_fwd": 3 * n,
             "detect_fwd": n,
-            # a decode step: self (S = pos + 1) and cross (S = 1) a layer
-            "decode": 2 * n}
+            # a decode step: self (S = pos + 1, the f32 caches) and cross
+            # (S = 1) a layer
+            "decode_self": n, "decode_cross": n}
 
 
 def _forward_calls(module) -> list:
@@ -1964,14 +1987,12 @@ def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
           f"{len(val.dataset)} val contracts at L={cfg.max_length}, batch "
           f"{train.batch_size}; built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    launches = dict.fromkeys(
-        ("flash_attention_fwd", "flash_attention_fwd_dh64",
-         "flash_attention_bwd", "dropout", "decode_attention"), 0)
+    launches = dict.fromkeys(KERNELS, 0)
 
     def run(label, fn, want, tr=trainer):
         """Run ``fn`` with the counts set to 0 and ``tr``'s CodeBERT calls
         hooked; hold the launches to ``want`` (K1 of the TASC model, pair,
-        K6, K5) plus CodeBERT's K1 per call; add them by instance."""
+        K6) plus CodeBERT's f32 K1 per call; add them up."""
         calls = _forward_calls(tr.codebert)
         reset_counts()
         t = time.perf_counter()
@@ -1980,20 +2001,16 @@ def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
         secs = time.perf_counter() - t
         counts = read_counts()
         calls[1].remove()
-        dh64 = calls[0] * per["embed"]
-        expect = {"flash_attention_fwd": want[0] + dh64,
-                  "flash_attention_bwd": want[1], "dropout": want[2],
-                  "decode_attention": want[3]}
+        cb = calls[0] * per["embed"]
+        expect = launch_dict(*want, flash_attention_fwd_f32=cb)
         print(f"phase tasc {name} {label}: {secs:.2f} s, launches {counts} "
-              f"({calls[0]} CodeBERT calls: {dh64} of the K1 launches at "
-              f"head dim 64)", flush=True)
+              f"({calls[0]} CodeBERT calls: {cb} f32 K1 launches at head "
+              f"dim 64)", flush=True)
         if counts != expect:
             raise AssertionError(f"tasc {name} {label}: launches {counts}, "
                                  f"expected {expect}")
-        launches["flash_attention_fwd_dh64"] += dh64
-        launches["flash_attention_fwd"] += counts["flash_attention_fwd"] - dh64
-        for k in ("flash_attention_bwd", "dropout", "decode_attention"):
-            launches[k] += counts[k]
+        for k, v in counts.items():
+            launches[k] += v
         return out, calls[0], secs
 
     steps, vals = len(train), len(val)
@@ -2002,7 +2019,7 @@ def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
         hist, cb_calls, train_s = run(
             "train(2)", lambda: trainer.train(2, checkpoint_dir=ckdir),
             (2 * steps * per["train_fwd"] + 2 * vals * per["val_fwd"],
-             2 * steps * per["train_bwd"], 2 * steps * per["train_drop"], 0))
+             2 * steps * per["train_bwd"], 2 * steps * per["train_drop"]))
         finite = all(math.isfinite(x) for k in ("g_loss", "d_loss",
                                                  "decoder_loss", "val_loss")
                      for x in hist[k])
@@ -2042,7 +2059,7 @@ def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
         if not all(same.values()):
             raise AssertionError(f"tasc {name}: restore differs: {same}")
         val_loss, _, _ = run("validate (restored)", fresh.validate,
-                             (vals * per["val_fwd"], 0, 0, 0), fresh)
+                             (vals * per["val_fwd"],), fresh)
         if val_loss != trainer.validate():
             raise AssertionError(f"tasc {name}: the restored trainer "
                                  f"validates to {val_loss}")
@@ -2061,9 +2078,9 @@ def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
         tokens = out["tokens"]
         ok = (tuple(tokens.shape) == (2, cfg.max_gen_length)
               and bool((tokens[:, 0] == 0).all())
-              and counts == {"flash_attention_fwd": 0,
-                             "flash_attention_bwd": 0, "dropout": 0,
-                             "decode_attention": n_steps * per["decode"]}
+              and counts == launch_dict(
+                  decode=n_steps * per["decode_cross"],
+                  decode_attention_f32=n_steps * per["decode_self"])
               and (n_steps == cfg.max_gen_length - 1
                    or bool((tokens[:, 1:n_steps + 1] == 0).any(1).all())))
         if cfg.multiclass:
@@ -2075,7 +2092,8 @@ def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
         if not ok:
             raise AssertionError(f"tasc {name}: generation {counts}, "
                                  f"tokens {tuple(tokens.shape)}")
-        launches["decode_attention"] += counts["decode_attention"]
+        for k, v in counts.items():
+            launches[k] += v
 
         if cfg.multiclass:
             batch = next(iter(val))
@@ -2086,7 +2104,7 @@ def _tasc_variant(name: str, card: str, overrides=None, device="cuda"):
                         trainer._embed(batch["input_ids"],
                                        batch["attention_mask"]))
             det, _, _ = run("detect_vulnerabilities", detect,
-                            (per["detect_fwd"], 0, 0, 0))
+                            (per["detect_fwd"],))
             scores = det["vulnerability_scores"]
             if (tuple(scores.shape) != (len(batch["label"]),
                                         cfg.num_vulnerability_types)
@@ -2163,13 +2181,11 @@ def _tasc_cpu_check(overrides=None, device="cuda") -> None:
 
     import numpy as np
     import torch
-    from sct_gan_tpu_torch.config import (CodeBERTConfig,
-                                          multiclass_tasc_config)
+    from sct_gan_tpu_torch.config import multiclass_tasc_config
     from sct_gan_tpu_torch.data import (TASCDataLoader, TASCDataset,
                                         tasc_records_from_corpus)
     from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
-    from sct_gan_tpu_torch.variants import (FlaxCodeBERT,
-                                            SmartContractVulnerabilityGAN,
+    from sct_gan_tpu_torch.variants import (SmartContractVulnerabilityGAN,
                                             VulnerabilityDetectionTrainer)
     cfg = dataclasses.replace(multiclass_tasc_config(**(overrides or {})),
                               dropout=0.0)
@@ -2207,33 +2223,22 @@ def _tasc_cpu_check(overrides=None, device="cuda") -> None:
     t0 = time.perf_counter()
     want = run(cpu)
     cpu_s = time.perf_counter() - t0
-    # the floor: the CPU's plain path in bf16, same weights and batch
-    bf16_cb = FlaxCodeBERT.from_config(dataclasses.replace(
-        CodeBERTConfig.from_tasc(cfg), compute_dtype="bfloat16"), seed=None)
-    bf16_cb.load_state_dict(cpu.codebert.state_dict())
-    with torch.no_grad():
-        floor = bf16_cb(torch.as_tensor(batch["input_ids"]).long(),
-                        torch.as_tensor(batch["attention_mask"]).long())
-    floor_err = max_err(floor, want[0])
-    embed_tol = max(TASC_EMBED_TOL, TASC_EMBED_FLOOR_X * floor_err)
     embed_err, embed_rel = max_err(got[0], want[0]), rel_err(got[0], want[0])
     score_err = max(max_err(got[1][k], want[1][k]) for k in want[1])
     rel = {k: abs(got[2][k] - want[2][k]) / abs(want[2][k]) for k in want[2]}
     print(f"phase tasc card vs cpu: multiclass step at B=2 L="
           f"{cfg.max_length}, dropout 0 (card {card_s:.1f} s, CPU f32 "
-          f"{cpu_s:.1f} s): CodeBERT embedding max_abs_err {embed_err:.3e} "
-          f"(tol {embed_tol:.3e}: the CPU's bf16 path is {floor_err:.3e} "
-          f"from f32, rel_err {rel_err(floor, want[0]):.3e}), rel_err "
-          f"{embed_rel:.3e} (tol {TASC_EMBED_TOL}); detection scores "
+          f"{cpu_s:.1f} s): CodeBERT embedding (f32 on both) max_abs_err "
+          f"{embed_err:.3e}, rel_err {embed_rel:.3e} (tol "
+          f"{TASC_EMBED_TOL}); detection scores "
           f"max_abs_err {score_err:.3e} (tol {TASC_SCORE_TOL}); losses card "
           f"{got[2]} cpu {want[2]}, rel "
           f"{ {k: float('%.3e' % v) for k, v in rel.items()} } (tol "
           f"{TASC_LOSS_RTOL})", flush=True)
-    if not (embed_err <= embed_tol and embed_rel <= TASC_EMBED_TOL
-            and score_err <= TASC_SCORE_TOL
+    if not (embed_rel <= TASC_EMBED_TOL and score_err <= TASC_SCORE_TOL
             and all(v <= TASC_LOSS_RTOL for v in rel.values())):
         raise AssertionError("tasc: the card disagrees with the CPU")
-    del card, cpu, bf16_cb
+    del card, cpu
     torch.cuda.empty_cache()
 
 
@@ -2299,8 +2304,8 @@ def tasc_kernel_checks(errs: dict) -> None:
     lens = torch.tensor([512, 204, 143, 77], device=dev)
     mask = torch.arange(512, device=dev)[None, :] < lens[:, None]
     for kernel, label, h, d, m, causal, rate in (
-            ("flash_attention_fwd_dh64", "CodeBERT, key mask", 12, 64, mask,
-             False, 0.0),
+            ("flash_attention_fwd_dh64", "12 heads of 64, key mask", 12, 64,
+             mask, False, 0.0),
             ("flash_attention_fwd", "TASC encoder, dropout 0.1", 8, 96, None,
              False, 0.1),
             ("flash_attention_fwd", "TASC decoder self, causal", 8, 96, None,
@@ -2371,15 +2376,17 @@ def _loss_and_norms(model, batch, tables, device):
     return total.item(), math.sqrt(sum(sq.values())), math.sqrt(qkv)
 
 
-def phase_train_check(trainer):
-    """Same weights, dropout off, B=2: the card (bf16, kernels) against the
-    CPU (f32, plain versions) on the loss and the gradient norms."""
+def phase_train_check(trainer, loss_rtol: float = LOSS_RTOL,
+                      gnorm_rtol: float = GNORM_RTOL):
+    """Same weights, dropout off, B=2: the card (the trainer's compute
+    dtype, kernels) against the CPU (f32, plain versions) on the loss and
+    the gradient norms, within ``loss_rtol`` and ``gnorm_rtol``."""
     import torch
     from sct_gan_tpu_torch import SmartContractTransformer
     from sct_gan_tpu_torch.config import ModelConfig
 
     model = trainer.model
-    host = make_batch(2, 1024, model.config.vocab_size)
+    host = make_batch(2, model.config.max_length, model.config.vocab_size)
     card = _loss_and_norms(model, trainer.to_device(host),
                            trainer.syntax_tables, trainer.device)
     cfg32 = ModelConfig(**{**model.config.__dict__,
@@ -2391,14 +2398,15 @@ def phase_train_check(trainer):
     cpu_batch = {k: v.cpu() for k, v in trainer.to_device(host).items()}
     cpu = _loss_and_norms(cpu_model, cpu_batch, trainer.syntax_tables, "cpu")
     rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
-    print(f"phase train cross-check: B=2, dropout off, card bf16 vs CPU f32 "
+    print(f"phase train cross-check: B=2, dropout off, card "
+          f"{model.config.compute_dtype} vs CPU f32 "
           f"({time.perf_counter() - t0:.1f} s on the CPU): total loss "
-          f"{card[0]:.5f} vs {cpu[0]:.5f} (rel {rel[0]:.2e}, tol {LOSS_RTOL}); "
+          f"{card[0]:.5f} vs {cpu[0]:.5f} (rel {rel[0]:.2e}, tol {loss_rtol}); "
           f"grad norm {card[1]:.4f} vs {cpu[1]:.4f} (rel {rel[1]:.2e}); "
           f"q/k/v grad norm {card[2]:.5f} vs {cpu[2]:.5f} (rel {rel[2]:.2e}, "
-          f"tol {GNORM_RTOL})", flush=True)
-    if not (rel[0] <= LOSS_RTOL and rel[1] <= GNORM_RTOL
-            and rel[2] <= GNORM_RTOL):
+          f"tol {gnorm_rtol})", flush=True)
+    if not (rel[0] <= loss_rtol and rel[1] <= gnorm_rtol
+            and rel[2] <= gnorm_rtol):
         raise AssertionError("train cross-check: card and CPU disagree")
 
 
@@ -2668,7 +2676,7 @@ def phase_parallel(card: str, overrides=None, device: str = "cuda") -> dict:
         m.load_state_dict(state)
         return m
 
-    totals = {k: 0 for k in _counters()}
+    totals = dict.fromkeys(KERNELS, 0)
     refs, report = {}, {}
 
     def count(part, counts, want):
@@ -2942,12 +2950,13 @@ DRYRUN_LOSS_RTOL = 2e-4
 
 
 def _by_instance(counts: dict, head_dim: int) -> dict:
-    """A model's launches by the kernels line's names: the flash kernels'
-    at the instance its head dim takes."""
+    """A model's launches by the kernels line's names: the bf16 flash
+    kernels' at the instance its head dim takes (the f32 instances have
+    one entry each)."""
     from sct_gan_tpu_torch.ops.flash_attention import kernel_route
     d = kernel_route(head_dim)[0]
-    return {(instance(k, d) if k.startswith("flash") else k): v
-            for k, v in counts.items()}
+    return {(instance(k, d) if k.startswith("flash") and k in BF16_KERNELS
+             else k): v for k, v in counts.items()}
 
 
 def _dryrun_expected(cfg):
@@ -2967,11 +2976,9 @@ def _dryrun_expected(cfg):
     for h in calls[1]:
         h.remove()
     fwd = flash_per_forward(cfg)
-    return ({"step": {"flash_attention_fwd": fwd, "flash_attention_bwd": fwd,
-                      "dropout": 2 * calls[0], "decode_attention": 0},
-             "sp_encode": {"flash_attention_fwd": cfg.num_encoder_layers + 2,
-                           "flash_attention_bwd": 0, "dropout": 0,
-                           "decode_attention": 0}},
+    f32 = cfg.compute_dtype == "float32"
+    return ({"step": launch_dict(fwd, fwd, 2 * calls[0], f32=f32),
+             "sp_encode": launch_dict(cfg.num_encoder_layers + 2, f32=f32)},
             float(metrics["total_loss"]))
 
 
@@ -2987,7 +2994,7 @@ def phase_entry(card: str, cfg=None, device: str = "cuda") -> dict:
     weights and batch; then its ms over 5 more calls, by CUDA events and by
     the host clock. ``dryrun_multichip(1)`` (NCCL, a world of one) and
     ``dryrun_multichip(2)`` (two gloo ranks sharing the card), at the JAX
-    file's tiny config in bf16 (head dim 16, the flash kernels' padded
+    file's tiny config in f32 (head dim 16, the f32 flash kernels' padded
     route to 64): each rank's launches in each leg held to
     ``_dryrun_expected``, the world of two's loss within
     ``DRYRUN_LOSS_RTOL`` of the world of one's, and that within
@@ -3010,8 +3017,8 @@ def phase_entry(card: str, cfg=None, device: str = "cuda") -> dict:
     if cuda:
         torch.cuda.synchronize()
     counts = read_counts()
-    want = {"flash_attention_fwd": flash_per_forward(cfg),
-            "flash_attention_bwd": 0, "dropout": 0, "decode_attention": 0}
+    want = launch_dict(flash_per_forward(cfg),
+                       f32=cfg.compute_dtype == "float32")
     if cuda and counts != want:
         raise AssertionError(f"entry: launches {counts}, expected {want}")
     # the root entry()'s outputs at B=2: contract logits, line logits, the
@@ -3083,6 +3090,444 @@ def phase_entry(card: str, cfg=None, device: str = "cuda") -> dict:
     print(f"phase entry: dry-run losses {one!r} (one rank), {two!r} (two), "
           f"CPU f32 {cpu_loss!r}; launches {totals}", flush=True)
     return totals
+
+
+# -- the f32 paths (phase_f32) ------------------------------------------------
+# The f32 kernels against their plain f32 versions on the card (full f32
+# products: TF32 off, phase_device). The kernels run every product in
+# 3xTF32 (~2^-22 relative each) and sum in another order, so they sit
+# ~1e-6 from the plain versions norm-wise: the forward and K5 are held to
+# 1e-5, the gradients (one more softmax, dS, and dK and dV summed over 1024
+# queries) to 1e-4, both norm-wise. A wrong mask bit or a lost tile moves
+# the norm by its share of the entries, 1e-3 and up. Dropout keep bits are
+# compared exactly.
+F32_FWD_TOL = 1e-5
+F32_BWD_TOL = 1e-4
+# card (f32, the f32 kernels, full f32 matmuls) vs CPU (f32, plain
+# versions), same weights and inputs: only the order of sums differs, ~1e-6
+# relative a layer. Detection probabilities 1e-4 absolute (sigmoids, slope
+# <= 1/4); the cached decode step against teacher-forced logits on the
+# card 1e-3 absolute (|logits| < 10); the train step's loss 1e-4 and its
+# gradient norms 1e-3 relative (12 layers each way).
+F32_DETECT_TOL = 1e-4
+F32_DECODE_TOL = 1e-3
+F32_LOSS_RTOL = 1e-4
+F32_GNORM_RTOL = 1e-3
+F32_TRAIN_STEPS = 3
+# the smoke's key mask over (8, 1024): 5301 of 8192 keys attended
+SMOKE_LENS = (1024, 900, 700, 512, 300, 1000, 64, 801)
+CODEBERT_LENS = (512, 204, 143, 77)
+
+
+def f32_keep_bits(b: int = 2, h: int = 8, s: int = 1024, rate: float = 0.3,
+                  seed: int = 11) -> None:
+    """The f32 K1's and the f32 pair's dropout keep bits, held exactly to
+    the plain version's mask (``attention_keep``), at head dim 64 (the
+    hash index does not depend on the head dim). q = 0 makes P uniform
+    over the attended keys. Forward: a key mask of one 64-key window at a
+    time and V = the 64 x 64 identity on it give O[i][c] = keep(i, 64 w +
+    c) / 64 / (1 - rate) or 0. Backward at Sq = 64: dO = the identity gives
+    dV[j][c] = keep(c, j) / Sk / (1 - rate) or 0."""
+    import torch
+    from sct_gan_tpu_torch.ops.attention import attention_keep
+    from sct_gan_tpu_torch.ops.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    eye = torch.eye(64, device=dev)
+    q = torch.zeros(b, h, s, 64, device=dev)
+    k = torch.randn(b, h, s, 64, generator=g, device=dev)
+    v = eye.repeat(s // 64, 1).expand(b, h, s, 64).contiguous()
+    want = attention_keep((b, h, s, s), seed, rate, None, dev)
+    got = torch.empty_like(want)
+    for w in range(s // 64):
+        mask = torch.zeros(b, s, dtype=torch.bool, device=dev)
+        mask[:, 64 * w:64 * (w + 1)] = True
+        out = flash_attention(q, k, v, key_padding_mask=mask, sm_scale=0.125,
+                              dropout_rate=rate, seed=seed)
+        got[..., 64 * w:64 * (w + 1)] = out > 0
+    fwd_bad = int((got != want).sum())
+    qg = torch.zeros(b, h, 64, 64, device=dev, requires_grad=True)
+    kg = k.detach().requires_grad_()
+    vg = torch.randn(b, h, s, 64, generator=g, device=dev).requires_grad_()
+    dout = eye.expand(b, h, 64, 64).contiguous()
+    out = flash_attention(qg, kg, vg, sm_scale=0.125, dropout_rate=rate,
+                          seed=seed)
+    dv = torch.autograd.grad(out, vg, dout)[0]
+    want_b = attention_keep((b, h, 64, s), seed, rate, None, dev)
+    bwd_bad = int(((dv.transpose(-1, -2) > 0) != want_b).sum())
+    torch.cuda.synchronize()
+    print(f"  f32 dropout keep bits, rate {rate}: K1 at ({b}, {h}, {s}, {s}) "
+          f"{fwd_bad} of {want.numel()} differ; the pair's dV at ({b}, {h}, "
+          f"64, {s}) {bwd_bad} of {want_b.numel()} differ", flush=True)
+    if fwd_bad or bwd_bad:
+        raise AssertionError("f32 dropout keep bits differ from the plain "
+                             "version's")
+
+
+def f32_kernel_checks(errs: dict) -> None:
+    """The f32 K1, pair and K5 against their plain f32 versions at the f32
+    paths' shapes: K1 at (8, 8, 1024, 96) under the smoke's key mask with
+    dropout 0.3 and LSE, at CodeBERT's (4, 12, 512, 64) under its masks,
+    causal (4, 8, 512, 96), at (8, 6, 1024, 128), at the dry run's head dim
+    16 (padded to 64) and over whole masked key tiles (a row with no
+    attended key gives zeros and lse = -1e30); the pair at (8, 8, 1024, 96)
+    (key mask, dropout 0.3; causal), (4, 12, 512, 64) and (8, 6, 1024,
+    128); K5 at (2, 8, 1024, 96) under a source mask with f32 and bf16
+    queries (its output in the query's dtype), (64, 8, 1024, 96) every key,
+    a self step over a cache cut to 513 keys, head dims 64, 128 and 80
+    (padded); then the keep bits (``f32_keep_bits``)."""
+    import torch
+    from sct_gan_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+
+    def lens_mask(lens, s):
+        return (torch.arange(s, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+
+    smoke = lens_mask(SMOKE_LENS, 1024)
+    for label, (b, h, s, d), mask, causal, rate in (
+            ("smoke key mask, dropout 0.3", (8, 8, 1024, 96), smoke, False,
+             0.3),
+            ("CodeBERT key mask", (4, 12, 512, 64),
+             lens_mask(CODEBERT_LENS, 512), False, 0.0),
+            ("causal", (4, 8, 512, 96), None, True, 0.0),
+            ("key mask, dropout 0.3", (8, 6, 1024, 128), smoke, False, 0.3),
+            ("dry-run head dim 16, dropout 0.1", (8, 4, 128, 16), None, True,
+             0.1),
+            ("whole masked key tiles, dropout 0.3", (8, 8, 1024, 96),
+             skip_mask(dev), False, 0.3)):
+        q, k, v = (_heads(rf(b, s, h * d), h) for _ in range(3))
+        args = dict(key_padding_mask=mask, causal=causal, sm_scale=d ** -0.5,
+                    dropout_rate=rate, seed=7, return_lse=True)
+        out, lse = flash_attention(q, k, v, **args)
+        ref, ref_lse = flash_attention_reference(q, k, v, **args)
+        torch.cuda.synchronize()
+        what = f" q{tuple(q.shape)}"
+        check_close(errs, "flash_attention_fwd_f32", label, out, ref,
+                    math.inf, what, F32_FWD_TOL)
+        live = ref_lse > -1e29       # rows that attend a key
+        check_close(errs, "flash_attention_fwd_f32", label + " (lse)",
+                    lse[live], ref_lse[live], math.inf, what, F32_FWD_TOL)
+        if out.dtype != torch.float32:
+            raise AssertionError(f"f32 K1 gave {out.dtype}")
+        if label.startswith("whole") and (out[2].abs().max().item() != 0.0
+                                          or not bool((lse[2] == -1e30)
+                                                      .all())):
+            raise AssertionError("f32 K1: the row with no attended key must "
+                                 "give zeros and lse = -1e30")
+
+    for label, (b, h, s, d), mask, causal, rate in (
+            ("smoke key mask, dropout 0.3", (8, 8, 1024, 96), smoke, False,
+             0.3),
+            ("causal", (8, 8, 1024, 96), None, True, 0.0),
+            ("CodeBERT key mask", (4, 12, 512, 64),
+             lens_mask(CODEBERT_LENS, 512), False, 0.0),
+            ("key mask, dropout 0.3", (8, 6, 1024, 128), smoke, False, 0.3)):
+        q, k, v = (_heads(rf(b, s, h * d), h).requires_grad_()
+                   for _ in range(3))
+        dout = _heads(rf(b, s, h * d), h)
+        args = dict(key_padding_mask=mask, causal=causal, sm_scale=d ** -0.5,
+                    dropout_rate=rate, seed=9)
+        got = torch.autograd.grad(flash_attention(q, k, v, **args),
+                                  (q, k, v), dout)
+        want = torch.autograd.grad(flash_attention_reference(q, k, v, **args),
+                                   (q, k, v), dout)
+        torch.cuda.synchronize()
+        for nm, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            check_close(errs, "flash_attention_bwd_f32", label, gt, wt,
+                        math.inf, f" {nm} q{tuple(q.shape)}", F32_BWD_TOL)
+
+    for label, (b, h, s, d), qdt, mask, cut in (
+            ("cross, source mask, f32 query", (2, 8, 1024, 96), torch.float32,
+             lens_mask((1024, 900), 1024), None),
+            ("cross, source mask, bf16 query", (2, 8, 1024, 96),
+             torch.bfloat16, lens_mask((1024, 900), 1024), None),
+            ("every key", (64, 8, 1024, 96), torch.float32, None, None),
+            ("self step, bf16 query", (2, 8, 1024, 96), torch.bfloat16, None,
+             513),
+            ("12 heads of 64", (2, 12, 1024, 64), torch.float32, None, None),
+            ("6 heads of 128", (2, 6, 1024, 128), torch.float32,
+             lens_mask((1024, 900), 1024), None),
+            ("head dim 80 (padded)", (2, 8, 300, 80), torch.float32, None,
+             None)):
+        q = _heads(rf(b, 1, h * d), h).to(qdt)
+        k, v = (_heads(rf(b, s, h * d), h) for _ in range(2))
+        if cut is not None:           # the cache view the decode step passes
+            k, v = k[:, :, :cut], v[:, :, :cut]
+        got = decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
+        want = decode_attention_reference(q, k, v, mask, sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        if got.dtype != qdt or want.dtype != qdt:
+            raise AssertionError(f"f32 K5 gave {got.dtype} for a {qdt} query")
+        # a bf16 output is held at the bf16 kernels' bound: both round the
+        # same f32 value once
+        tol = F32_FWD_TOL if qdt == torch.float32 else REL_TOL
+        check_close(errs, "decode_attention_f32", label, got, want, math.inf,
+                    f" q{tuple(q.shape)} k{tuple(k.shape)}", tol)
+    f32_keep_bits()
+
+
+def f32_times(card: str) -> dict:
+    """The f32 kernels at the f32 paths' shapes against their plain
+    versions, the library call (f32, TF32 off) and the bound at 3xTF32's
+    165 TFLOP/s or the HBM rate: K1 and the pair at (8, 8, 1024, 96) under
+    the smoke's key mask, K1 also at CodeBERT's (4, 12, 512, 64) under its
+    masks; K5 at (2, 8, 1024, 96) under a source mask (1924 keys) and at
+    (64, 8, 1024, 96) with every key. Kernels and library calls replayed
+    from CUDA graphs over inputs twice the L2 (``ring_ms``). A bound counts
+    the attended keys only. Returns name -> (ms, plain ms, library ms,
+    bound ms, bound by), the CodeBERT row under ``<name>:codebert``, K5's
+    B=64 row under ``<name>:b64``."""
+    import torch
+    import torch.nn.functional as F
+    from sct_gan_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_reference)
+    from sct_gan_tpu_torch.utils.profiling import PEAK_3XTF32_FLOPS
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    t = {}
+    el = 4                               # bytes of an f32 element
+
+    def bound(flops, nbytes):
+        return bound_ms(flops, nbytes, PEAK_3XTF32_FLOPS)
+
+    for label, (b, h, s, d), lens in (
+            ("", (8, 8, 1024, 96), SMOKE_LENS),
+            (":codebert", (4, 12, 512, 64), CODEBERT_LENS)):
+        q, k, v = (_heads(rf(b, s, h * d), h) for _ in range(3))
+        mask = (torch.arange(s, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+        sc, keys = d ** -0.5, sum(lens)
+        qkv_bytes, kv_bytes = b * h * s * d * el, h * keys * d * el
+        with torch.inference_mode():
+            qkv = ring_inputs((q, k, v))
+            t["flash_attention_fwd_f32" + label] = (
+                ring_ms(lambda a: flash_attention(*a, key_padding_mask=mask,
+                                                  sm_scale=sc), qkv, 20),
+                cuda_ms(lambda: flash_attention_reference(
+                    q, k, v, key_padding_mask=mask, sm_scale=sc), iters=5),
+                ring_ms(lambda a: F.scaled_dot_product_attention(
+                    *a, attn_mask=mask[:, None, None, :], scale=sc), qkv, 20),
+                # Q read, O written; the attended K and V rows; the mask
+                *bound(4 * h * s * keys * d,
+                       2 * qkv_bytes + 2 * kv_bytes + b * s))
+            del qkv
+        if label:
+            continue
+        dout = _heads(rf(b, s, h * d), h)
+        out, lse = flash_attention(q, k, v, key_padding_mask=mask,
+                                   sm_scale=sc, return_lse=True)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        ref = flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
+                                        sm_scale=sc)
+        t["flash_attention_bwd_f32"] = (
+            ring_ms(lambda _: flash_attention_backward(
+                q, k, v, out, lse, dout, mask, False, sc, 0.0, 0), [None], 10),
+            cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
+                                                retain_graph=True), iters=5),
+            sdpa_backward_ms(q, k, v, mask, dout, sc),
+            # Q, O, dO read, dQ written; the attended K and V rows; dK, dV
+            # written in full; lse; the mask
+            *bound(10 * h * s * keys * d, 6 * qkv_bytes + 2 * kv_bytes
+                   + b * h * s * el + b * s))
+        del ref, qg, kg, vg, out, lse, dout
+
+    for label, b, lens in (("", 2, (1024, 900)), (":b64", 64, None)):
+        h, s, d = 8, 1024, 96
+        q = _heads(rf(b, 1, h * d), h)
+        k, v = (_heads(rf(b, s, h * d), h) for _ in range(2))
+        mask = (None if lens is None else
+                torch.arange(s, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+        keys = b * s if lens is None else sum(lens)
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        with torch.inference_mode():
+            qkv = ring_inputs((q, k, v))
+            t["decode_attention_f32" + label] = (
+                ring_ms(lambda a: decode_attention(*a, mask,
+                                                   sm_scale=d ** -0.5),
+                        qkv, 20),
+                cuda_ms(lambda: decode_attention_reference(
+                    q, k, v, mask, sm_scale=d ** -0.5), iters=5),
+                ring_ms(lambda a: F.scaled_dot_product_attention(
+                    *a, attn_mask=sdpa_mask, scale=d ** -0.5), qkv, 20),
+                # q read, o written; the attended keys' K and V rows; mask
+                *bound(4 * h * keys * d, 2 * b * h * d * el
+                       + 2 * h * keys * d * el + (0 if lens is None
+                                                  else b * s)))
+            del qkv
+    for name, (ms, plain, lib, bnd, by) in t.items():
+        print(f"phase f32 times [{card}]: {name} {ms:.4f} ms vs plain "
+              f"{plain:.4f} ms, library (f32, TF32 off) {lib:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
+    return t
+
+
+def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
+    """The f32 paths at the reference width (``compute_dtype="float32"``,
+    d=768, 8 heads of 96, 6+6 layers, L=1024, random weights from seed 0):
+    the f32 kernels against their plain versions (``f32_kernel_checks``),
+    then, counted, ``F32_TRAIN_STEPS`` train steps on the JAX bench's batch
+    (B=8, dropout 0.3, fused LM-head CE, fused optimizer; K1 and the pair
+    23 a step, K6 as its dropout sites are called), the card's peak memory
+    beside them, and the same step's loss and gradient norms against the
+    CPU at B=2 with dropout off; an f32 detection batch of 8 (10 K1) held
+    to the CPU on one contract; f32 generation of 2 contracts (12 f32 K5 a
+    step, 8 in the encode) and 32 cached decode steps against
+    teacher-forced logits. Then ``f32_times``. Returns (launches by the
+    kernels line's names, worst errors by kernel, times).
+
+    It rehearses on the CPU: ``phase_f32(card, tiny_overrides,
+    device="cpu")`` runs the paths at ``overrides`` on the plain versions
+    (no kernel checks, times or launch checks)."""
+    import numpy as np
+    import torch
+    from sct_gan_tpu_torch import (SmartContractAnalyzer,
+                                   SmartContractTrainer,
+                                   SmartContractTransformer)
+    from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
+    from sct_gan_tpu_torch.data.synthetic import generate_corpus
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    errs = {}
+    if cuda:
+        f32_kernel_checks(errs)
+        print(f"phase f32: kernel checks in {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # -- train steps ----------------------------------------------------------
+    cfg = ModelConfig(**{"use_gan": True, "max_length": 1024,
+                         "max_lines": 1024, **(overrides or {}),
+                         "compute_dtype": "float32"})
+    tcfg = TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1)
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    model = SmartContractTransformer(cfg, seed=0)
+    trainer = SmartContractTrainer(model, _Empty(), _Empty(), tok,
+                                   config=tcfg, verbose=False, device=device)
+    batch = trainer.to_device(make_batch(8, cfg.max_length, cfg.vocab_size))
+    scalars, lrs = trainer._scalars(1.0), trainer._group_lrs()
+    calls = _dropout_calls(model)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, losses = trainer.state, []
+    t0 = time.perf_counter()
+    for _ in range(F32_TRAIN_STEPS):
+        state, metrics, scalars = trainer.train_step(
+            state, batch, scalars, lrs, trainer.generator)
+        losses.append(float(metrics["total_loss"]))
+    sync()
+    step_s = (time.perf_counter() - t0) / F32_TRAIN_STEPS
+    counts = read_counts()
+    for hnd in calls[1]:
+        hnd.remove()
+    trainer.state = state
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    n = F32_TRAIN_STEPS
+    want = launch_dict(n * FLASH_PER_TRAIN_FORWARD,
+                       n * FLASH_PER_TRAIN_FORWARD, 2 * calls[0], f32=True)
+    print(f"phase f32 train: {n} steps at B=8 L={cfg.max_length} (dropout "
+          f"{cfg.dropout}, fused_lm_ce {tcfg.fused_lm_ce}, fused_optimizer "
+          f"{tcfg.fused_optimizer}), {step_s:.3f} s a step (the first "
+          f"included); losses {losses}; launches {counts}; peak "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GiB", flush=True)
+    if ((cuda and counts != want) or calls[0] % n or calls[0] == 0
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"f32 train: launches {counts}, expected "
+                             f"{want}; losses {losses}")
+    add(counts)
+    phase_train_check(trainer, F32_LOSS_RTOL, F32_GNORM_RTOL)
+    del trainer, model, state, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- detection and generation ----------------------------------------------
+    an = SmartContractAnalyzer(seed=0, verbose=False, model_config=cfg,
+                               tokenizer=tok, device=device)
+    codes = [r["source_code"] for r in generate_corpus(n=8, seed=0)]
+    reset_counts()
+    results = an.analyze_multiple_contracts(codes)
+    sync()
+    detect = read_counts()
+    cp = np.asarray([r["contract_probabilities"][0] for r in results])
+    if (cuda and detect != launch_dict(flash_per_detect(cfg), f32=True)) or \
+            not (len(results) == 8 and np.isfinite(cp).all()):
+        raise AssertionError(f"f32 detection: launches {detect}, probs {cp}")
+    add(detect)
+    card_r = an.detect_vulnerabilities(codes[1])
+    cpu = SmartContractAnalyzer(device="cpu", seed=0, verbose=False,
+                                tokenizer=an.tokenizer, model_config=cfg)
+    ref = cpu.detect_vulnerabilities(codes[1])
+    del cpu
+    d_c = float(np.abs(np.asarray(card_r["contract_probabilities"])
+                       - np.asarray(ref["contract_probabilities"])).max())
+    d_l = float(np.abs(np.asarray(card_r["line_probabilities"])
+                       - np.asarray(ref["line_probabilities"])).max())
+    print(f"phase f32 detect: 8 contracts, launches {detect}; card f32 vs "
+          f"CPU f32 on one contract: contract probs max diff {d_c:.3e}, "
+          f"line probs {d_l:.3e} (tol {F32_DETECT_TOL})", flush=True)
+    if not (d_c <= F32_DETECT_TOL and d_l <= F32_DETECT_TOL):
+        raise AssertionError("f32 detection: card and CPU disagree")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    generated = an.generate_synthetic_contract(codes[0], num_contracts=2)
+    sync()
+    gen_s = time.perf_counter() - t0
+    gen = read_counts()
+    steps = an.last_decode_steps
+    if (cuda and gen != launch_dict(cfg.num_encoder_layers + 2,
+                                    decode=2 * cfg.num_decoder_layers * steps,
+                                    f32=True)) or steps < 1 or \
+            len(generated) != 2:
+        raise AssertionError(f"f32 generation: launches {gen} for {steps} "
+                             f"steps")
+    add(gen)
+    model = an.model
+    with torch.inference_mode():
+        b = an._prepare_inputs([codes[0]])
+        memory = model.encode(b["input_ids"], b["attention_mask"],
+                              b["ast_input_ids"], b["ast_attention_mask"])
+        src = b["attention_mask"].bool()
+        prefix = b["input_ids"][:, :32]
+        full = model.decode_teacher_forced(prefix, memory, src).float()
+        caches = model.init_decode_cache(1)
+        cross = model.precompute_cross_kv(memory)
+        step_err = 0.0
+        for pos in range(prefix.shape[1]):
+            lg = model.decode_step(prefix[:, pos:pos + 1], pos, caches, cross,
+                                   src)
+            step_err = max(step_err, max_err(lg, full[:, pos]))
+    if caches[0][0].dtype != torch.float32:
+        raise AssertionError(f"f32 generation: caches {caches[0][0].dtype}")
+    print(f"phase f32 generate: 2 contracts, {steps} decode steps in "
+          f"{gen_s:.2f} s, launches {gen}; 32 cached decode steps vs "
+          f"teacher-forced logits max |diff| {step_err:.3e} (tol "
+          f"{F32_DECODE_TOL})", flush=True)
+    if not step_err <= F32_DECODE_TOL:
+        raise AssertionError("f32 decode_step disagrees with teacher forcing")
+    del an, model, memory, caches, cross
+    if not cuda:
+        return launches, errs, {}
+    torch.cuda.empty_cache()
+    times = f32_times(card)
+    return launches, errs, times
 
 
 def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
@@ -3778,16 +4223,12 @@ def phase_bench(card: str, size=(), device: str = "cuda") -> dict:
         fwd = flash_per_forward(cfg)
         drop = step["dropout"] // step["steps"]
         want = {
-            "step": {"flash_attention_fwd": fwd * step["steps"],
-                     "flash_attention_bwd": fwd * step["steps"],
-                     "dropout": drop * step["steps"], "decode_attention": 0},
-            "naive_step": {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                           "dropout": drop * naive["steps"],
-                           "decode_attention": 0},
-            "decode": {"flash_attention_fwd": (cfg.num_encoder_layers + 2)
-                       * dec["rounds"], "flash_attention_bwd": 0,
-                       "dropout": 0, "decode_attention":
-                       2 * cfg.num_decoder_layers * dec["steps"]}}
+            "step": launch_dict(fwd * step["steps"], fwd * step["steps"],
+                                drop * step["steps"]),
+            "naive_step": launch_dict(dropout=drop * naive["steps"]),
+            "decode": launch_dict(
+                (cfg.num_encoder_layers + 2) * dec["rounds"],
+                decode=2 * cfg.num_decoder_layers * dec["steps"])}
         got = {leg: {k: legs[leg][k] for k in counts} for leg in want}
         if counts != legs["total"] or got != want or drop == 0:
             raise AssertionError(f"bench: launches {legs}, read_counts "
@@ -3856,7 +4297,7 @@ def attribution_launch_errors(name: str, res: dict, total: dict,
     ``time_decode_parts`` 2 L K5 a step in the layers-only loops, none in
     the others, and one encode's K1 for each loop's model;
     ``time_host_prep`` none over its epochs, and each trainer's start-up
-    forward's K1; ``time_lmce`` and ``time_lmce_parts`` none. On the CPU
+    forward's f32 K1; ``time_lmce`` and ``time_lmce_parts`` none. On the CPU
     every count is 0."""
     from sct_gan_tpu_torch.tools.time_decode_parts import LAYERS
     want = lambda **kw: {k: kw.get(k, 0) * int(on_card) for k in KERNELS}
@@ -3895,7 +4336,7 @@ def attribution_launch_errors(name: str, res: dict, total: dict,
         from sct_gan_tpu_torch.tools.time_host_prep import prep_config
         for label, r in res["banks"].items():
             row(label, r["launches"], want())
-        rows_total["flash_attention_fwd"] += int(on_card) * len(
+        rows_total["flash_attention_fwd_f32"] += int(on_card) * len(
             res["banks"]) * flash_per_forward(prep_config(res["seq"]))
     if total != rows_total:
         errs.append(f"{name}: launches {total}, expected {rows_total}")
@@ -3974,8 +4415,9 @@ def step_tool_launch_errors(name: str, res: dict, total: dict,
     (0 with dropout off), no K5, and each trainer built adds its start-up
     forward's F K1; ``time_dispatch`` counts its eager steps,
     the warm-up, capture and parity steps; ``time_opt_megaleaf`` none; the
-    quality A/Bs train and score a 2+2-layer model: K1 and the pair, K1
-    at least as often, K6, no K5. On the CPU every count is 0."""
+    quality A/Bs train and score a 2+2-layer f32 model: the f32 K1 and
+    pair, K1 at least as often, K6, nothing else. On the CPU every count
+    is 0."""
     from sct_gan_tpu_torch.tools._common import model_config
     f = flash_per_forward(model_config())
     errs = []
@@ -4029,10 +4471,11 @@ def step_tool_launch_errors(name: str, res: dict, total: dict,
     elif name == "time_opt_megaleaf":
         if any(total.values()):
             errs.append(f"{name}: launches {total}, expected none")
-    else:           # the quality A/Bs
-        fwd, bwd = total["flash_attention_fwd"], total["flash_attention_bwd"]
+    else:           # the quality A/Bs: an f32 model, as the JAX tools'
+        fwd = total["flash_attention_fwd_f32"]
+        bwd = total["flash_attention_bwd_f32"]
         ok = (min(fwd, bwd, total["dropout"]) > 0 and fwd >= bwd
-              and total["decode_attention"] == 0)
+              and total == launch_dict(fwd, bwd, total["dropout"], f32=True))
         if not ok if on_card else any(total.values()):
             errs.append(f"{name}: launches {total}")
     return errs
@@ -4090,23 +4533,55 @@ def profile_naive_step(card: str, wall_ms: float) -> None:
     profile_device(step, "naive", wall_ms, card)
 
 
-def add_measured_bounds(entry, peaks, by=None) -> None:
+def f32_entries(t: dict, errs: dict, *launch_counts) -> list:
+    """The kernels line's entries of the f32 instances: launches summed over
+    ``launch_counts`` (the f32 paths', the TASC paths' and the entry
+    points'), the worst errors of ``f32_kernel_checks``, the times of
+    ``f32_times`` (K1's CodeBERT row under ``codebert``, K5's B=64 row under
+    ``b64``) and the 3xTF32 peak its operations bound is taken at."""
+    from sct_gan_tpu_torch.utils.profiling import PEAK_3XTF32_FLOPS
+    out = []
+    for name in F32_KERNELS:
+        source, replaces = KERNELS[name]
+        launches = sum(c.get(name, 0) for c in launch_counts)
+        if launches == 0:
+            raise AssertionError(f"{name}: no launch on its main path")
+        ms, plain, libms, bnd, by = t[name]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": libms, "f32_peak_flops": PEAK_3XTF32_FLOPS}
+        for sub_row in ("codebert", "b64"):
+            if f"{name}:{sub_row}" in t:
+                ms, plain, libms, bnd, by = t[f"{name}:{sub_row}"]
+                entry[sub_row] = dict(ms=ms, plain_ms=plain, library_ms=libms,
+                                      bound_ms=bnd, bound_by=by)
+        out.append(entry)
+    return out
+
+
+def add_measured_bounds(entry, peaks, by=None, f32=False) -> None:
     """Beside every ``bound_ms`` in ``entry`` (a kernels-line entry, its
     nested rows included), ``bound_measured_ms``: the same bound at the
     card's measured peaks (``peak_matmul``: (FLOP/s, bytes/s)) in place of
     the data sheet's, rescaling the term that bounds it (a nested row
-    without ``bound_by`` is bound as its parent)."""
+    without ``bound_by`` is bound as its parent). The measured peak is a
+    bf16 product's, so an f32 kernel's (``f32_peak_flops``) operations
+    bound gets none; its bytes bound does."""
     from sct_gan_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_BYTES
     if isinstance(entry, list):
         for e in entry:
-            add_measured_bounds(e, peaks, by)
+            add_measured_bounds(e, peaks, by, f32)
         return
     if not isinstance(entry, dict):
         return
     by = entry.get("bound_by", by)
+    f32 = f32 or "f32_peak_flops" in entry
     for v in list(entry.values()):
-        add_measured_bounds(v, peaks, by)
-    if "bound_ms" in entry:
+        add_measured_bounds(v, peaks, by, f32)
+    if "bound_ms" in entry and not (f32 and by == "operations"):
         scale = (PEAK_BF16_FLOPS / peaks[0] if by == "operations"
                  else PEAK_BYTES / peaks[1])
         entry["bound_measured_ms"] = entry["bound_ms"] * scale
@@ -4327,6 +4802,7 @@ def main() -> int:
     tasc_launches = phase_tasc(card)
     parallel_launches = phase_parallel(card)
     entry_launches = phase_entry(card)
+    f32_launches, f32_errs, f32_t = phase_f32(card)
     bench_launches, peaks = phase_bench(card)
     attribution_launches = phase_attribution(card)
     step_tool_launches = phase_step_tools(card)
@@ -4367,7 +4843,7 @@ def main() -> int:
 
     kernels = []
     names = list(dict.fromkeys(
-        (k, instance(k, d)) for k in KERNELS
+        (k, instance(k, d)) for k in BF16_KERNELS
         for d in ((96, *HEAD_DIMS, *WIDE_DIMS) if k != "dropout" else (96,))))
     for kernel, name in names:
         source, replaces = KERNELS[kernel]
@@ -4387,6 +4863,7 @@ def main() -> int:
         launches += tasc_launches.get(name, 0)
         launches += parallel_launches.get(name, 0)
         launches += entry_launches.get(name, 0)
+        launches += f32_launches.get(name, 0)   # K6 on the f32 step
         if launches == 0:
             raise AssertionError(f"{name}: no launch on its main path")
         entry = {
@@ -4434,6 +4911,8 @@ def main() -> int:
                 if f"{name}:dh{d}:b64" in t:  # K5 at (64, H, 1024, d)
                     row["b64"] = times(t[f"{name}:dh{d}:b64"])
         kernels.append(entry)
+    kernels += f32_entries(f32_t, f32_errs, f32_launches, tasc_launches,
+                           entry_launches)
     kernels += variants
     add_measured_bounds(kernels, peaks)
     print(card)

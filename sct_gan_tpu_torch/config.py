@@ -193,9 +193,9 @@ class CodeBERTConfig:
     """Shapes of the frozen CodeBERT (RoBERTa-base) embedder.
 
     ``compute_dtype`` is the dtype of its matmuls and attention; the
-    parameters stay f32. The JAX trainer runs it in f32; the port's TASC
-    trainer gives it the TASC config's compute dtype, because the card's
-    attention kernel takes bf16 only."""
+    parameters stay f32. The TASC trainers of both packages run it in f32
+    (``from_tasc``), whatever the TASC model's own compute dtype; on the
+    card its attention runs the f32 flash kernel."""
 
     vocab_size: int = 50265
     d_model: int = 768
@@ -207,9 +207,10 @@ class CodeBERTConfig:
 
     @classmethod
     def from_tasc(cls, cfg: TASCConfig) -> "CodeBERTConfig":
-        """The embedder a TASC trainer builds for ``cfg``."""
+        """The embedder a TASC trainer builds for ``cfg``: its shapes, in
+        f32 (the JAX trainer's ``FlaxCodeBERT`` takes no dtype)."""
         return cls(vocab_size=cfg.vocab_size, d_model=cfg.d_model,
                    num_layers=cfg.codebert_num_layers,
                    num_heads=cfg.codebert_nhead,
                    dim_feedforward=cfg.codebert_ffn,
-                   compute_dtype=cfg.compute_dtype)
+                   compute_dtype="float32")

@@ -51,6 +51,16 @@ _SIGNATURES = {
                                  *[_I] * 24,                 # 8 tensors' strides
                                  _I, _I, _F,                 # mask_sb causal scale
                                  *_DROP, _P],                # ... stream
+    # the f32 kernels take the bf16 ones' arguments (the decode one also
+    # whether its output is bf16)
+    "flash_attention_fwd_f32": [_P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, *[_I] * 12,
+                                _I, _I, _F, *_DROP, _P],
+    "flash_attention_bwd_f32": [*[_P] * 11, _I, _I, _I, _I, _I,
+                                *[_I] * 24, _I, _I, _F, *_DROP, _P],
+    "decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             *[_I] * 12,                 # q k v o strides
+                             _I, _I, _F, _I, _P],  # ... scale o_bf16 stream
     "hash_dropout": [_P, _P, _U, _I,                         # x y n is_bf16
                      _U, _U, _F,                 # seed threshold scale
                      _U, _U, _U, _P],   # origin row_len row_stride stream

@@ -22,6 +22,15 @@ and writes only the true ones. A head dim that is not a multiple of 8 goes
 through a copy zero-padded to its route's head dim, since its rows are not
 whole 16-byte units. The flash kernels route head dims their own way
 (``flash_attention.kernel_route``).
+
+f32 caches (the TASC decoder's, as in the JAX package, and f32 generation
+of ``compute_dtype="float32"``) run their own kernel,
+``csrc/decode_attention_f32.cu``: the same split-K and cluster combine on
+f32 rows, with instances for head dims 64, 96 and 128, the f32 flash
+kernels' (``flash_attention.kernel_route_f32``: a smaller head dim goes
+through a copy padded to the next one, one over 128 raises). A bf16 query is upcast to
+f32 exactly, and the output comes back in the query's dtype, as the JAX
+kernel's does.
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ import torch
 
 from . import _build
 from .attention import mha_reference
-from .flash_attention import _mask_arg, _strides, head_strides, pad_head_dim
+from .flash_attention import (_mask_arg, _strides, head_strides,
+                              kernel_route_f32, pad_head_dim)
 
 # head dims with a kernel instance; the plain version takes any
 DECODE_HEAD_DIMS = (64, 96, 128, 192)
@@ -101,8 +111,11 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor,
                                mask: Optional[torch.Tensor] = None, *,
                                sm_scale: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: same arguments, same result."""
-    return mha_reference(q, k, v, key_padding_mask=mask, sm_scale=sm_scale)
+    """Plain PyTorch version of the kernel: same arguments, same result, in
+    q's dtype (f32 caches with a bf16 query give bf16, as the JAX kernel)."""
+    return mha_reference(q, k, v, key_padding_mask=mask,
+                         sm_scale=sm_scale).to(q.dtype)
+
 
 
 def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
@@ -181,17 +194,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, H, 1, dh); k, v: (B, H, S, dh), any (b, h, s) strides with rows
     on 16-byte lines; mask: (B, S) bool, True = attend, or None for all S
     keys visible. Returns (B, H, 1, dh) in q's dtype. A fully-masked row
-    gives zeros. On CUDA (``decode_route``), a dh up to 192 runs on the
-    smallest kernel instance that holds it, a dh over 192 on the wide-head
-    route (one block per 128 columns of the output); a multiple of 8 in
-    place, any other dh on a copy padded to its route's head dim.
+    gives zeros. On CUDA, bf16 q, k and v (``decode_route``): a dh up to
+    192 runs on the smallest kernel instance that holds it, a dh over 192
+    on the wide-head route (one block per 128 columns of the output); a
+    multiple of 8 in place, any other dh on a copy padded to its route's
+    head dim. f32 k and v with a bf16 or f32 q run the f32-cache kernel
+    (``kernel_route_f32``); any other mix raises.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, mask, sm_scale=sm_scale)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: expected a bf16 CUDA tensor, got "
-                             f"{t.dtype} on {t.device}")
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if k.dtype == v.dtype == torch.float32 and q.dtype in (torch.bfloat16,
+                                                           torch.float32):
+        return _decode_f32(q, k, v, mask, sm_scale)
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: "
+                         f"the kernels take bf16 q, k, v, or f32 k and v "
+                         f"with a bf16 or f32 q")
     d = q.shape[-1]
     if not decode_runs_on_kernel(d):  # rows of part 16-byte units
         out = decode_attention(
@@ -216,6 +237,34 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-# Plain count of kernel launches: a run reads it to show it went through the
-# kernel. Only a successful launch adds to it.
+def _decode_f32(q, k, v, mask, sm_scale: float) -> torch.Tensor:
+    """``decode_attention`` over f32 caches: the f32 kernel, q upcast to f32
+    exactly, the output in q's dtype."""
+    d = q.shape[-1]
+    dk = kernel_route_f32(d)
+    if dk != d:     # a padded copy: zero columns add nothing
+        out = _decode_f32(*(pad_head_dim(t, dk) for t in (q, k, v)), mask,
+                          sm_scale)
+        return out[..., :d]
+    qf = q.float()
+    qs, ks, vs = decode_layout(qf, k, v)
+    b, h, _, _ = q.shape
+    s = k.shape[2]
+    out = torch.empty(b, h, 1, d, dtype=q.dtype, device=q.device)
+    os_ = _strides(out, "out", 4)
+    mptr, msb, _keep = _mask_arg(mask, b, s, q.device)
+    err = _build.load().decode_attention_f32(
+        qf.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
+        b, h, s, d, *qs, *ks, *vs, *os_, msb, decode_splits(b, h, s),
+        ctypes.c_float(sm_scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_attention_f32")
+    decode_attention.f32_launches += 1
+    return out
+
+
+# Plain counts of kernel launches: a run reads them to show it went through
+# the kernels. Only a successful launch adds to them. ``launches`` counts
+# the bf16 kernel, ``f32_launches`` the f32-cache one.
 decode_attention.launches = 0
+decode_attention.f32_launches = 0

@@ -36,6 +36,16 @@ where both do: ``CHUNK_WIDTHS``) and runs in chunks of that instance: one
 block per column chunk of the output, the scores recomputed over the full
 head dim in every chunk's block (``kernel_route``).
 
+f32 operands (CodeBERT, ``compute_dtype="float32"``) run their own
+kernels, ``csrc/flash_attention_fwd_f32.cu`` and
+``csrc/flash_attention_bwd_f32.cu`` (the D vector, dKV and dQ), with the
+same arguments, dropout bits and masked-tile skips, every product at f32
+accuracy (3xTF32 on the tensor cores). They have instances for head dims
+64, 96 and 128 (``F32_HEAD_DIMS``); a smaller head dim takes the next
+instance through a zero-padded copy (``kernel_route_f32``), and an f32 head
+dim over 128 raises. q, k and v share one dtype, bf16 or f32; there is no
+cast between them.
+
 On a CPU tensor it runs the plain version, ``flash_attention_reference``,
 whose gradient is plain autograd through ``mha_reference``. The kernels'
 headers say what bounds them on an H100 and what their design does about it.
@@ -54,6 +64,8 @@ from .dropout import keep_threshold
 
 # head dims with a kernel instance; the plain version takes any
 KERNEL_HEAD_DIMS = (64, 96, 128, 192, 256)
+# head dims with an f32 kernel instance
+F32_HEAD_DIMS = (64, 96, 128)
 # the chunk widths of the route over 256, the preferred first
 CHUNK_WIDTHS = (256, 192)
 
@@ -71,16 +83,33 @@ def kernel_route(d: int):
     return -width, padded // -width
 
 
-def kernel_head_dim(d: int) -> int:
-    """The head dim a head dim ``d`` runs at on the card: ``d`` padded to
-    its ``kernel_route``."""
+def kernel_route_f32(d: int) -> int:
+    """The f32 instance that head dim ``d`` runs on, in the f32 flash
+    kernels and the f32-cache decode kernel alike: the smallest of
+    ``F32_HEAD_DIMS`` that holds it (16 -> 64, 80 -> 96). An f32 head dim
+    over 128 has no route and raises."""
+    for dk in F32_HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(f"head dim {d} in float32: the f32 kernels have "
+                     f"instances for head dims up to {F32_HEAD_DIMS[-1]} "
+                     f"({F32_HEAD_DIMS})")
+
+
+def kernel_head_dim(d: int, dtype=torch.bfloat16) -> int:
+    """The head dim a head dim ``d`` of ``dtype`` runs at on the card: ``d``
+    padded to its ``kernel_route`` (f32: ``kernel_route_f32``)."""
+    if dtype == torch.float32:
+        return kernel_route_f32(d)
     width, chunks = kernel_route(d)
     return width * chunks
 
 
-def runs_on_kernel(d: int) -> bool:
+def runs_on_kernel(d: int, dtype=torch.bfloat16) -> bool:
     """Whether the kernels take head dim ``d`` as it is, with no padded
-    copy: an instance, or over 256 a multiple of 256 or of 192."""
+    copy: an instance, or (bf16) over 256 a multiple of 256 or of 192."""
+    if dtype == torch.float32:
+        return d in F32_HEAD_DIMS
     return kernel_head_dim(d) == d
 
 
@@ -110,29 +139,33 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _strides(t: torch.Tensor, name: str, align: int):
-    """(sb, sh, ss) element strides of a (B, H, S, D) bf16 CUDA tensor laid
-    out as ``head_strides`` requires."""
-    if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: expected a bf16 CUDA tensor, got "
+    """(sb, sh, ss) element strides of a (B, H, S, D) bf16 or f32 CUDA
+    tensor laid out as ``head_strides`` requires."""
+    if t.device.type != "cuda" or t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: expected a bf16 or f32 CUDA tensor, got "
                          f"{t.dtype} on {t.device}")
     return head_strides(t, name, align)
 
 
 def head_strides(t: torch.Tensor, name: str, align: int):
-    """(sb, sh, ss) element strides of a (B, H, S, D) 2-byte tensor whose
-    last dim is contiguous and whose base and rows start on ``align``-byte
-    lines. The kernels read q, k, v and dO at ``align`` = 16: the forward
-    through rank-4 (D, S, H, B) TMA maps built from these strides (a map
-    takes only byte strides of whole 16-byte units), the backward pair
-    through the same maps. The model's head views of (B, S, H*96) pass as
-    they are. It reads only the shape, the strides and the base address, so it
-    holds for a tensor on any device."""
+    """(sb, sh, ss) element strides of a (B, H, S, D) tensor whose last dim
+    is contiguous and whose base and rows start on ``align``-byte lines
+    (strides in whole ``align``-byte units of its element size). The
+    kernels read q, k, v and dO at ``align`` = 16: the bf16 forward through
+    rank-4 (D, S, H, B) TMA maps built from these strides (a map takes only
+    byte strides of whole 16-byte units), the bf16 backward pair through the
+    same maps, the f32 kernels by 16-byte cp.async copies. The model's head
+    views of (B, S, H*96) pass as they are. It reads only the shape, the
+    strides and the base address, so it holds for a tensor on any device."""
     if t.dim() != 4 or t.stride(3) != 1:
         raise ValueError(f"{name}: expected (B, H, S, D) with a contiguous "
                          f"last dim, got shape {tuple(t.shape)} strides "
                          f"{t.stride()}")
-    el = align // 2
+    el = max(1, align // t.element_size())
     sb, sh, ss = t.stride(0), t.stride(1), t.stride(2)
     if t.data_ptr() % align or any(s % el for s in (sb, sh, ss)):
         raise ValueError(f"{name}: rows must start on {align}-byte lines "
@@ -168,8 +201,9 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     """t itself when the kernels can read it through its strides (last dim
     contiguous, rows on 16-byte lines), else a contiguous copy: autograd may
     hand the backward a gradient in any layout."""
+    el = 16 // t.element_size()
     if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 8 == 0 for s in t.stride()[:3])):
+            and all(s % el == 0 for s in t.stride()[:3])):
         return t
     return t.contiguous()
 
@@ -183,13 +217,26 @@ def _dropout_args(rate: float, seed: int, shard):
             *shard)
 
 
+def _check_dtypes(q, k, v) -> None:
+    """q, k and v share one dtype the kernels take: bf16 or f32."""
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: "
+                         f"the kernels take one of bf16 or f32 for all three")
+
+
 def _check_shapes(q, k, v, rate: float, shard=None):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if not runs_on_kernel(d):
+    _check_dtypes(q, k, v)
+    if q.dtype == torch.float32:
+        if not runs_on_kernel(d, q.dtype):
+            raise ValueError(f"head dim {d} in float32: the f32 kernels "
+                             f"have instances for {F32_HEAD_DIMS} "
+                             f"(flash_attention pads smaller head dims)")
+    elif not runs_on_kernel(d):
         raise ValueError(f"head dim {d}: the kernels have instances for "
                          f"{KERNEL_HEAD_DIMS} and, over 256, multiples of "
                          f"{' or '.join(map(str, CHUNK_WIDTHS))} "
@@ -212,21 +259,27 @@ def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse, shard):
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
            if need_lse else None)
     mptr, msb, _keep = _mask_arg(mask, b, sk, q.device)
-    err = _build.load().flash_attention_fwd_bf16(
+    f32 = q.dtype == torch.float32
+    name = "flash_attention_fwd_f32" if f32 else "flash_attention_fwd_bf16"
+    err = getattr(_build.load(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, h, sq, sk, d, *qs, *ks,
         *vs, *_strides(out, "out", 4), msb, int(causal), ctypes.c_float(scale),
         *_dropout_args(rate, seed, shard),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_fwd_bf16")
-    flash_attention.launches += 1
+    _build.check(err, name)
+    if f32:
+        flash_attention.f32_launches += 1
+    else:
+        flash_attention.launches += 1
     return out, lse
 
 
 def backward_call(q, k, v, out, lse, dout, mask, causal, scale, rate, seed,
                   shard=None, dvec=None):
     """The arguments of the backward's C entry point
-    (``flash_attention_bwd_bf16``) for the forward's ``out`` and dO =
+    (``flash_attention_bwd_bf16``, or ``_f32`` for f32 operands: the same
+    arguments) for the forward's ``out`` and dO =
     ``dout``, both laid out as the kernels read them, with (dq, dk, dv)
     allocated laid out like the forward's output and D = rowsum(dO ∘ O) the
     entry point fills (or ``dvec``, D already computed, for an entry that
@@ -257,14 +310,19 @@ def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
     the forward's output. dout and out are read through their strides when
     they can be, else copied contiguous. D = rowsum(dO ∘ O), which the JAX
     package computes in XLA before its kernels, is the first of them (f32,
-    from the bf16 dO and O)."""
+    from dO and O)."""
     dout = _kernel_operand(dout.to(q.dtype))
     args, grads, _keep = backward_call(q, k, v, _kernel_operand(out), lse,
                                        dout, mask, causal, scale, rate, seed,
                                        shard)
-    err = _build.load().flash_attention_bwd_bf16(*args)
-    _build.check(err, "flash_attention_bwd_bf16")
-    flash_attention_backward.launches += 1
+    f32 = q.dtype == torch.float32
+    name = "flash_attention_bwd_f32" if f32 else "flash_attention_bwd_bf16"
+    err = getattr(_build.load(), name)(*args)
+    _build.check(err, name)
+    if f32:
+        flash_attention_backward.f32_launches += 1
+    else:
+        flash_attention_backward.launches += 1
     return grads
 
 
@@ -295,11 +353,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """dropout(softmax(Q Kᵀ·scale + mask [+ causal])) V over split heads.
 
     q: (B, H, Sq, dh); k, v: (B, H, Sk, dh); key_padding_mask: (B, Sk) bool,
-    True = attend. Any (b, h, s) strides are taken as they are. On CUDA, dh
-    64, 96, 128, 192 or 256 runs its kernel instance directly, any other dh
-    <= 256 through a zero-padded copy, and dh > 256 in chunks of the 256 or
-    192 instance (through a zero-padded copy unless dh is a multiple of
-    one: ``kernel_route``).
+    True = attend. Any (b, h, s) strides are taken as they are. On CUDA, q,
+    k and v are all bf16 or all f32 (else it raises). bf16: dh 64, 96, 128,
+    192 or 256 runs its kernel instance directly, any other dh <= 256
+    through a zero-padded copy, and dh > 256 in chunks of the 256 or 192
+    instance (through a zero-padded copy unless dh is a multiple of one:
+    ``kernel_route``). f32: dh 64, 96 or 128 runs its f32 instance, a
+    smaller dh through a zero-padded copy (``kernel_route_f32``), and a dh
+    over 128 raises.
     ``dropout_rate`` > 0 drops attention weights with the hash keep mask of
     ``seed``, at ``drop_shard`` = (b0, h0, hg) in the global grid (None: the
     call is the whole grid). Returns (B, H, Sq, dh) in q's dtype (on CUDA laid out as
@@ -318,7 +379,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = (1.0 / d ** 0.5) if sm_scale is None else float(sm_scale)
     rate = float(dropout_rate) if dropout_rate > 0.0 else 0.0
     shard = tuple(int(x) for x in (drop_shard or (0, 0, q.shape[1])))
-    dk = kernel_head_dim(d)
+    dk = kernel_head_dim(d, q.dtype)
     if dk != d:   # padded: autograd slices the gradients back
         q, k, v = (pad_head_dim(t, dk) for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -334,6 +395,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 # Plain counts of kernel launches: a run reads them to show it went through
 # the kernels. Only a successful launch adds to them; the backward counts
-# one launch of its kernel pair.
+# one launch of its kernel pair. ``launches`` counts the bf16 kernels,
+# ``f32_launches`` the f32 ones.
 flash_attention.launches = 0
+flash_attention.f32_launches = 0
 flash_attention_backward.launches = 0
+flash_attention_backward.f32_launches = 0

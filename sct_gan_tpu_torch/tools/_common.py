@@ -253,21 +253,15 @@ def bench_trainer(device: str, fused: bool, d_model: int = 768,
 
 # -- the quality A/Bs (ab_aug_labels, ab_contract_dilution) -------------------
 
-def ab_model_config(seq: int, use_gan: bool, device: str,
-                    vocab: int = 50265):
+def ab_model_config(seq: int, use_gan: bool, vocab: int = 50265):
     """The JAX A/B tools' tiny recipe: d=128, 4 heads of 32, 2+2 layers,
-    FFN 256, L = ``seq`` line slots too, ``vocab`` tokens; f32 on the
-    CPU, bf16 on the card (the flash kernels take bf16; head dim 32 runs
-    their padded route)."""
-    import torch
-
+    FFN 256, L = ``seq`` line slots too, ``vocab`` tokens, f32 (on the
+    card head dim 32 runs the f32 flash kernels' padded route)."""
     from ..config import ModelConfig
-    on_card = torch.device(device).type == "cuda"
     return ModelConfig(d_model=128, nhead=4, num_encoder_layers=2,
                        num_decoder_layers=2, dim_feedforward=256,
                        max_length=seq, max_lines=seq, use_gan=use_gan,
-                       vocab_size=vocab,
-                       compute_dtype="bfloat16" if on_card else "float32")
+                       vocab_size=vocab, compute_dtype="float32")
 
 
 def quality_arm(label: str, csv_path: str, seq: int, epochs: int,
@@ -296,8 +290,7 @@ def quality_arm(label: str, csv_path: str, seq: int, epochs: int,
     tok = NativeSolidityTokenizer(vocab_size=vocab)
     train_loader, val_loader = create_dataloaders(
         csv_path, tokenizer=tok, batch_size=batch_size, max_length=seq)
-    cfg = ab_model_config(seq, train_kw.get("use_gan", False), device,
-                          vocab)
+    cfg = ab_model_config(seq, train_kw.get("use_gan", False), vocab)
     trainer = SmartContractTrainer(
         SmartContractTransformer(cfg, seed=0), train_loader, val_loader,
         tok, config=TrainConfig(learning_rate=5e-5, latest_every=10 ** 9,

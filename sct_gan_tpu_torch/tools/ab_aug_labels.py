@@ -11,8 +11,9 @@ GAN on, augmentation on) through the port's ``SmartContractTrainer`` on
 one card under (a) the quirk (``aug_label_correct=False``) and (b) the
 source's own labels, and prints each arm's contract PR-AUC and ROC-AUC on
 the validation split, with the card's name and power limit, then one JSON
-line. On the card the model computes in bf16 and its head dim, 32, takes
-the flash kernels' padded route to 64; the JAX tool ran f32 on the CPU.
+line. The model computes in f32 as the JAX tool's does; on the card its
+head dim, 32, takes the f32 flash kernels' padded route to 64 (the JAX
+tool turned flash attention off; the port has no such switch).
 
     python -m sct_gan_tpu_torch.tools.ab_aug_labels [--contracts 300]
         [--epochs 30] [--seq 512]

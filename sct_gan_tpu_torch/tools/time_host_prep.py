@@ -8,8 +8,8 @@ its regex transforms and re-tokenizes every contract every epoch
 training loader, with the augmentation bank (``aug_bank_size`` 6: each
 contract's variants tokenized once, then sampled) and without it (0: the
 reference's re-tokenization every epoch). No device work is in the loop:
-the trainer's model is a tiny one (d=32, 1+1 layers, bf16, so that its
-attention runs the flash kernel on the card) that runs only the trainer's
+the trainer's model is a tiny one (d=32, 1+1 layers, f32 as the JAX
+tool's; its attention runs the f32 flash kernel on the card) that runs only the trainer's
 start-up forward (``_dimension_smoke_test``), and it sits on ``--device``
 like every other entry point's. The JSON gives each bank's kernel
 launches over its epochs (none).
@@ -43,14 +43,14 @@ BANKS = (6, 0)
 
 
 def prep_config(seq: int):
-    """The tiny GAN model of ``time_host_prep.py:58-62``, in bf16 (the
-    JAX tool's is f32 with dense attention; the port has no attention
-    switch, and its flash kernel takes bf16)."""
+    """The tiny GAN model of ``time_host_prep.py:58-62``, f32 as the JAX
+    tool's (which also turns flash attention off; the port has no such
+    switch, so on the card it runs the f32 flash kernels)."""
     from ..config import ModelConfig
     return ModelConfig(d_model=32, nhead=2, num_encoder_layers=1,
                        num_decoder_layers=1, dim_feedforward=64,
                        max_length=seq, max_lines=seq, use_gan=True,
-                       compute_dtype="bfloat16")
+                       compute_dtype="float32")
 
 
 def prep_trainer(train_loader, val_loader, tok, seq: int, bank: int,

@@ -19,8 +19,9 @@ compiled artefacts, its CUDA kernels, are cached by ``ops/_build.py`` in
 Added for the card: ``card_line`` (the card's name and power limit, which
 every kept number is written beside), ``cuda_ms``, ``chain_ms`` and
 ``ring_ms`` (device time by CUDA events), ``bound_ms`` with the H100
-SXM's published peaks, ``kernel_launches`` (the launch counts of the
-port's kernel wrappers) and ``trace_device``, the one place the port
+SXM's published peaks, ``kernel_launches`` and ``reset_kernel_launches``
+(the one table of the launch counts of the port's kernel wrappers) and
+``trace_device``, the one place the port
 reads ``torch.profiler``'s device records.
 """
 from __future__ import annotations
@@ -40,6 +41,9 @@ import torch
 # tensor-core rate and the HBM3 bandwidth, for bound_ms
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# f32-accurate products on the tensor cores: 3xTF32 runs three TF32
+# products (495 TFLOP/s) for each, the f32 kernels' route
+PEAK_3XTF32_FLOPS = 495e12 / 3
 # ring_ms's inputs together: twice the H100's 50 MB L2, so that each is
 # evicted before the ring comes back to it
 RING_BYTES = 100 * 2 ** 20
@@ -267,29 +271,49 @@ def _ring_count(xs: Sequence[torch.Tensor]) -> int:
                                        for x in xs)))
 
 
-def bound_ms(flops: float, nbytes: float) -> Tuple[float, str]:
-    """(least time in ms, what bounds it): operations at the bf16 peak or
-    bytes (each input read once, each output written once) at the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = PEAK_BF16_FLOPS) -> Tuple[float, str]:
+    """(least time in ms, what bounds it): operations at ``peak_flops``
+    (the bf16 peak by default) or bytes (each input read once, each output
+    written once) at the HBM rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_launches() -> Dict[str, int]:
-    """The launch counts of the main path's kernel wrappers (each adds one
-    where it launches its kernel; on the CPU they stay 0)."""
+def _launch_counters() -> Dict[str, Tuple[Any, str]]:
+    """Each kernel of the main paths -> (its wrapper, the wrapper's count
+    attribute): the one table of the port's launch counters."""
     from ..ops.decode_attention import decode_attention
     from ..ops.dropout import dropout
     from ..ops.flash_attention import (flash_attention,
                                        flash_attention_backward)
-    return {"flash_attention_fwd": flash_attention.launches,
-            "flash_attention_bwd": flash_attention_backward.launches,
-            "dropout": dropout.launches,
-            "decode_attention": decode_attention.launches}
+    return {"flash_attention_fwd": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention_backward, "launches"),
+            "dropout": (dropout, "launches"),
+            "decode_attention": (decode_attention, "launches"),
+            "flash_attention_fwd_f32": (flash_attention, "f32_launches"),
+            "flash_attention_bwd_f32": (flash_attention_backward,
+                                        "f32_launches"),
+            "decode_attention_f32": (decode_attention, "f32_launches")}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The launch counts of the main paths' kernels (each wrapper adds one
+    where it launches its kernel; on the CPU they stay 0)."""
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _launch_counters().items()}
+
+
+def reset_kernel_launches() -> None:
+    """Set every count of ``kernel_launches`` to 0."""
+    for fn, attr in _launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 # The device kernels of each counted wrapper, by name, and how many one
-# launch runs: K1 one; the backward pair three (D, dKV, dQ); K6 one; K5 one
+# launch runs: K1 one; the backward pair three (D, dKV, dQ); K6 one; K5 one;
+# their f32 instances likewise
 PORT_KERNELS = {
     "flash_attention_fwd": (re.compile(r"\bflash_fwd_(?:hopper_)?kernel\b"),
                             1),
@@ -297,6 +321,10 @@ PORT_KERNELS = {
         r"\bflash_bwd_(?:dvec|dkv_\w+|dq_\w+)_kernel\b"), 3),
     "dropout": (re.compile(r"\bdropout_kernel\b"), 1),
     "decode_attention": (re.compile(r"\bdecode_(?:splitk|wide)_kernel\b"), 1),
+    "flash_attention_fwd_f32": (re.compile(r"\bflash_f32_fwd_kernel\b"), 1),
+    "flash_attention_bwd_f32": (re.compile(
+        r"\bflash_f32_(?:dvec|dkv|dq)_kernel\b"), 3),
+    "decode_attention_f32": (re.compile(r"\bdecode_f32_kernel\b"), 1),
 }
 # Every device trace opens with this many short spin kernels
 # (``torch.cuda._sleep``), then waits for them. A profiler session can lose

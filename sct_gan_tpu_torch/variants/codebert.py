@@ -13,9 +13,9 @@ it returns a seeded random initialisation of the same shapes.
 
 Precision: ``CodeBERTConfig.compute_dtype`` is the dtype of the matmuls and
 the attention; parameters and LayerNorm outputs are f32 (flax's promotion
-for a LayerNorm without a dtype). The JAX trainer runs the embedder in f32;
-the port's TASC trainer runs it in the TASC config's compute dtype, because
-the card's attention kernel (K1, head dim 64 with the key mask) takes bf16.
+for a LayerNorm without a dtype). The TASC trainers of both packages run the
+embedder in f32 (``CodeBERTConfig.from_tasc``); on the card its attention
+(head dim 64 with the key mask) runs the f32 flash kernel.
 """
 from __future__ import annotations
 

@@ -255,17 +255,17 @@ class CodeDecoder(nn.Module):
     def init_cache(self, batch_size: int, max_length: Optional[int] = None,
                    device=None) -> List:
         """Self-attention KV caches, one (k, v) pair per layer, each
-        (B, H, max_length, dh) zeros in the compute dtype (the JAX caches
-        are f32; the card's decode kernel takes bf16). Also fuses each
-        layer's q/k/v projection for ``step`` from the weights as they are
-        now."""
+        (B, H, max_length, dh) f32 zeros, as the JAX caches: each step
+        writes its K/V into them as f32 and attends over them with the
+        f32-cache decode kernel on the card. Also fuses each layer's q/k/v
+        projection for ``step`` from the weights as they are now."""
         for layer in self.layers:
             layer.self_attn.fuse_qkv_()
         shape = (batch_size, self.num_heads, max_length or self.max_length,
                  self.head_dim)
         device = device or self.embedding.weight.device
-        return [(torch.zeros(shape, dtype=self.dtype, device=device),
-                 torch.zeros(shape, dtype=self.dtype, device=device))
+        return [(torch.zeros(shape, dtype=_F32, device=device),
+                 torch.zeros(shape, dtype=_F32, device=device))
                 for _ in range(self.num_layers)]
 
     def decode_step(self, token_ids, pos: int, caches, cross_kvs):

@@ -157,7 +157,7 @@ class VulnerabilityDetectionTrainer:
                                 else None)
         self.generator = torch.Generator().manual_seed(seed)
 
-        # frozen CodeBERT embedder, in the config's compute dtype
+        # frozen CodeBERT embedder, in f32 as in the JAX trainer
         self.codebert = FlaxCodeBERT.from_config(
             CodeBERTConfig.from_tasc(self.cfg), seed=None)
         self.codebert.load_state_dict(

@@ -162,8 +162,8 @@ def test_detect_vulnerabilities_matches_jax(pair):
 
 def test_decode_steps_match_jax(pair):
     """8 KV-cached steps against a one-key memory, no mask: the JAX
-    decoder's f32 caches against the port's (compute dtype, f32 here),
-    logits step for step."""
+    decoder's f32 caches against the port's (f32 on both sides, whatever
+    the compute dtype), logits step for step."""
     cfg, jm, params, tm = pair
     rng = np.random.default_rng(2)
     memory = rng.normal(0, 1, (2, 1, cfg.d_model)).astype(np.float32)
