@@ -134,10 +134,11 @@ CUDA device it exits 1 and prints no result.
 
     python3 chip_smoke.py --k1-times <checkout> [<checkout> ...]
     python3 chip_smoke.py --variants-times <checkout> [<checkout> ...]
+    python3 chip_smoke.py --f32-times <checkout> [<checkout> ...]
 
-time K1, or the tools' K7, K8 and K9, against those of other checkouts (a
-parent unpacked by ``git archive``, or a changed copy of ``csrc/``), built
-from their own sources, in turns.
+time K1, the tools' K7, K8 and K9, or the f32 K1 and pair against those of
+other checkouts (a parent unpacked by ``git archive``, or a changed copy of
+``csrc/``), built from their own sources, in turns.
 
     python3 chip_smoke.py --profiler-probe
 
@@ -3371,6 +3372,238 @@ def f32_times(card: str) -> dict:
     return t
 
 
+# the f32 sources that ``--f32-times`` builds from each checkout, and their
+# C entry points
+F32_SOURCES = {"flash_attention_fwd_f32.cu": "flash_attention_fwd_f32",
+               "flash_attention_bwd_f32.cu": "flash_attention_bwd_f32"}
+
+
+def f32_library(checkout: str):
+    """(library, ``ptxas -v`` report) of another checkout's f32 K1 and pair
+    (its ``csrc/flash_attention_fwd_f32.cu`` and ``flash_attention_bwd_f32
+    .cu``, each including its own headers), built as the main library is
+    (``_build.build_library``), their C entry points declared. Timed beside
+    the port's, never called by the port."""
+    import ctypes
+    from sct_gan_tpu_torch.ops import _build
+    csrc = os.path.join(checkout, "sct_gan_tpu_torch", "csrc")
+    name = os.path.basename(os.path.normpath(checkout))
+    path, report, _ = _build.build_library(
+        [os.path.join(csrc, src) for src in F32_SOURCES], "f32_" + name)
+    lib = ctypes.CDLL(path)
+    for fn in F32_SOURCES.values():
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib, report
+
+
+def f32_bwd_call(lib, q, k, v, out, lse, dout, mask, scale: float):
+    """One launch of ``lib``'s f32 pair (an ``f32_library``) as the port's
+    wrapper makes it (no dropout, not causal); (dq, dk, dv)."""
+    from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.ops.flash_attention import backward_call
+    args, grads, _keep = backward_call(q, k, v, out, lse, dout, mask, False,
+                                       scale, 0.0, 0)
+    _build.check(lib.flash_attention_bwd_f32(*args),
+                 "flash_attention_bwd_f32 (timed beside this tree's)")
+    return grads
+
+
+def tf32_probe() -> list:
+    """The card's TF32 product of operands whose 13 low bits TF32 drops
+    (``csrc/flash_attention_fwd_f32.cu::tf32_probe_kernel``): [x, -x, x]
+    as the tensor core took x = 1 + 3 * 2^-12."""
+    import torch
+    from sct_gan_tpu_torch.ops import _build
+    out = torch.zeros(3, device="cuda")
+    _build.check(_build.load().f32_tf32_probe(
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "f32_tf32_probe")
+    torch.cuda.synchronize()
+    return out.tolist()
+
+
+def tf32_wgmma_tflops(reps: int = 4000) -> dict:
+    """TF32 wgmma m64nNk8 on every SM, two warpgroups each, chains of 12
+    into one accumulator (``csrc/flash_attention_fwd_f32.cu::
+    tf32_rate_kernel``): (N, "SS" or "RS") -> TFLOP/s by CUDA events."""
+    import torch
+    from sct_gan_tpu_torch.ops import _build
+    lib = _build.load()
+    out = torch.zeros(1, device="cuda")
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    rates = {}
+    for n, rs in ((16, 0), (16, 1), (32, 0), (32, 1), (64, 0), (64, 1),
+                  (96, 1)):
+        ms = cuda_ms(lambda: _build.check(lib.f32_wgmma_rate(
+            out.data_ptr(), n, rs, reps, blocks,
+            torch.cuda.current_stream().cuda_stream), "f32_wgmma_rate"),
+            iters=5)
+        rates[(n, "RS" if rs else "SS")] = (
+            2 * 64 * n * 8 * 12 * reps * 2 * blocks / ms / 1e9)
+    return rates
+
+
+def tf32_matmul_tflops(n: int = 8192) -> float:
+    """TF32 ``torch.matmul`` of two (n, n) f32 matrices, TFLOP/s by CUDA
+    events: TF32 switched on for this measurement only and restored after
+    (the f32 kernels' measured 3xTF32 bound is a third of it)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a, b = (torch.randn(n, n, generator=g, device="cuda") for _ in range(2))
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ms = cuda_ms(lambda: torch.matmul(a, b), iters=20)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    return 2 * n ** 3 / ms / 1e9
+
+
+def f32_ab_times(checkouts) -> int:
+    """``python3 chip_smoke.py --f32-times <checkout> [<checkout> ...]``:
+    the f32 K1 and pair of this tree against those of each other checkout
+    (a parent commit unpacked by ``git archive``, or a copy with a
+    candidate change), named by its directory and built from its own
+    sources, one ``nvcc`` each, all at once; both ptxas reports. At
+    ``f32_times``' shapes, in turns (other, tree, tree, other), each call
+    replayed from a CUDA graph over inputs twice the L2 (``ring_ms``): K1
+    at (8, 8, 1024, 96) under the smoke's key mask and at CodeBERT's (4,
+    12, 512, 64) under its masks, the pair at (8, 8, 1024, 96) with its D,
+    dKV and dQ kernels apart (``pair_parts_ms``). Beside them SDPA in f32
+    with TF32 off, the plain version, the bound at the sheet's 3xTF32 (165
+    TFLOP/s) and at a third of the measured TF32 matmul rate, the card's
+    handling of the bits TF32 drops (``tf32_probe``) and its TF32 wgmma
+    rate by shape (``tf32_wgmma_tflops``). Each checkout's errors against
+    the plain version are printed beside its times. Needs the card; prints
+    the lines and nothing else."""
+    import concurrent.futures as cf
+    import torch
+    import torch.nn.functional as F
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_reference)
+    from sct_gan_tpu_torch.utils.profiling import PEAK_3XTF32_FLOPS
+    phase_device()
+    phase_build()
+    card = card_line()
+    names = [os.path.basename(os.path.normpath(c)) for c in checkouts]
+    with cf.ThreadPoolExecutor(len(checkouts)) as pool:
+        libs = list(pool.map(f32_library, checkouts))
+    for name, (_, report) in zip(names, libs):
+        for entry, lines in main_path_reports(report):
+            print(f"  ptxas [{name}] {entry}: " + "; ".join(lines))
+    x = 1 + 3 * 2.0 ** -12
+    got = tf32_probe()
+    how = ("dropped" if got == [1.0, -1.0, 1.0] else "rounded to nearest"
+           if got == [1 + 2.0 ** -10, -1 - 2.0 ** -10, 1 + 2.0 ** -10]
+           else "kept" if got == [x, -x, x] else "neither dropped nor rounded")
+    tflops = tf32_matmul_tflops()
+    peak = tflops * 1e12 / 3
+    print(f"phase f32 ab [{card}]: TF32 products of x = 1 + 3 * 2^-12: "
+          f"{got} (the 13 low bits are {how}); TF32 matmul (8192^3) "
+          f"{tflops:.1f} TFLOP/s, so 3xTF32 {tflops / 3:.1f}", flush=True)
+    rates = tf32_wgmma_tflops()
+    print(f"phase f32 ab [{card}]: TF32 wgmma m64nNk8 TFLOP/s, chains of "
+          f"12 into one accumulator, two warpgroups an SM: " + ", ".join(
+              f"N {n} {mode} {r:.1f}" for (n, mode), r in rates.items()),
+          flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    el = 4
+    for label, (b, h, s, d), lens in (
+            ("smoke key mask", (8, 8, 1024, 96), SMOKE_LENS),
+            ("CodeBERT's masks", (4, 12, 512, 64), CODEBERT_LENS)):
+        q, k, v = (_heads(rf(b, s, h * d), h) for _ in range(3))
+        mask = (torch.arange(s, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+        sc, keys = d ** -0.5, sum(lens)
+        qkv_bytes, kv_bytes = b * h * s * d * el, h * keys * d * el
+        flops = 4 * h * s * keys * d
+        nbytes = 2 * qkv_bytes + 2 * kv_bytes + b * s
+        sheet, by = bound_ms(flops, nbytes, PEAK_3XTF32_FLOPS)
+        measured, _ = bound_ms(flops, nbytes, peak)
+        ref = flash_attention_reference(q, k, v, key_padding_mask=mask,
+                                        sm_scale=sc)
+        errs = {"tree": max_err(flash_attention(
+            q, k, v, key_padding_mask=mask, sm_scale=sc), ref)}
+        for name, (lib, _) in zip(names, libs):
+            errs[name] = max_err(k1_call(lib, q, k, v, mask, sc,
+                                         "flash_attention_fwd_f32"), ref)
+        del ref
+        with torch.inference_mode():
+            qkv = ring_inputs((q, k, v))
+            ours = lambda a: flash_attention(*a, key_padding_mask=mask,
+                                             sm_scale=sc)
+            lib_ms = ring_ms(lambda a: F.scaled_dot_product_attention(
+                *a, attn_mask=mask[:, None, None, :], scale=sc), qkv, 20)
+            plain = cuda_ms(lambda: flash_attention_reference(
+                q, k, v, key_padding_mask=mask, sm_scale=sc), iters=5)
+            for name, (lib, _) in zip(names, libs):
+                theirs = lambda a: k1_call(lib, *a, mask, sc,
+                                           "flash_attention_fwd_f32")
+                o1, p1, p2, o2 = (ring_ms(f, qkv, 20)
+                                  for f in (theirs, ours, ours, theirs))
+                print(f"phase f32 ab [{card}]: flash_attention_fwd_f32 at "
+                      f"({b}, {h}, {s}, {d}), {label}, {name} -> this tree, "
+                      f"in turns: {o1:.4f} / {o2:.4f} -> {p1:.4f} / "
+                      f"{p2:.4f} ms ({flops / p1 / 1e9:.1f} TFLOP/s of the "
+                      f"attended keys' products); plain {plain:.4f} ms, "
+                      f"library (SDPA f32, TF32 off) {lib_ms:.4f} ms, bound "
+                      f"{sheet:.4f} (sheet) / {measured:.4f} (measured) ms "
+                      f"({by}); max_abs_err {errs}", flush=True)
+            del qkv
+        if s != 1024:
+            continue
+        dout = _heads(rf(b, s, h * d), h)
+        out, lse = flash_attention(q, k, v, key_padding_mask=mask,
+                                   sm_scale=sc, return_lse=True)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        want = torch.autograd.grad(flash_attention_reference(
+            qg, kg, vg, key_padding_mask=mask, sm_scale=sc), (qg, kg, vg), dout)
+        ours = lambda: flash_attention_backward(q, k, v, out, lse, dout, mask,
+                                                False, sc, 0.0, 0)
+        runs = {"tree": ours}
+        for name, (lib, _) in zip(names, libs):
+            runs[name] = (lambda lb=lib: f32_bwd_call(lb, q, k, v, out, lse,
+                                                      dout, mask, sc))
+        errs = {who: [f"{rel_err(gt, wt):.1e}" for gt, wt in zip(fn(), want)]
+                for who, fn in runs.items()}
+        del want
+        flops = 10 * h * s * keys * d
+        nbytes = 6 * qkv_bytes + 2 * kv_bytes + b * h * s * el + b * s
+        sheet, by = bound_ms(flops, nbytes, PEAK_3XTF32_FLOPS)
+        measured, _ = bound_ms(flops, nbytes, peak)
+        plain = cuda_ms(lambda: torch.autograd.grad(
+            flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
+                                      sm_scale=sc), (qg, kg, vg), dout),
+            iters=3)
+        lib_ms = sdpa_backward_ms(q, k, v, mask, dout, sc)
+        parts = {who: pair_parts_ms(
+            fn, name="flash_f32_{}_kernel", expected=None if who == "tree"
+            else {"flash_attention_bwd_f32": 10}) for who, fn in runs.items()}
+        for name in names:
+            theirs = lambda _, fn=runs[name]: fn()
+            o1, p1, p2, o2 = (ring_ms(f, [None], 10) for f in
+                              (theirs, lambda _: ours(), lambda _: ours(),
+                               theirs))
+            split = "; ".join(
+                f"{who} D {pt['dvec']:.4f} + dKV {pt['dkv']:.4f} + dQ "
+                f"{pt['dq']:.4f} ms" for who, pt in parts.items()
+                if who in (name, "tree"))
+            print(f"phase f32 ab [{card}]: flash_attention_bwd_f32 at ({b}, "
+                  f"{h}, {s}, {d}), {label}, {name} -> this tree, in turns: "
+                  f"{o1:.4f} / {o2:.4f} -> {p1:.4f} / {p2:.4f} ms "
+                  f"({flops / p1 / 1e9:.1f} TFLOP/s of the attended keys' "
+                  f"products; {split}); plain {plain:.4f} ms, library (SDPA "
+                  f"f32 backward, TF32 off) {lib_ms:.4f} ms, bound "
+                  f"{sheet:.4f} (sheet) / {measured:.4f} (measured) ms "
+                  f"({by}); rel err dq, dk, dv {errs}", flush=True)
+        del out, lse, dout, qg, kg, vg
+    print(card)
+    return 0
+
+
 def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
     """The f32 paths at the reference width (``compute_dtype="float32"``,
     d=768, 8 heads of 96, 6+6 layers, L=1024, random weights from seed 0):
@@ -3615,10 +3848,12 @@ def k1_library(cu: str, tag: str):
     return lib, report
 
 
-def k1_call(lib, q, k, v, mask, scale: float):
-    """One launch of ``lib``'s K1 (a ``k1_library``) as the port's wrapper
-    makes it (``ops/flash_attention.py::_forward``: no dropout, no LSE, not
-    causal); its output."""
+def k1_call(lib, q, k, v, mask, scale: float,
+            fn: str = "flash_attention_fwd_bf16"):
+    """One launch of ``lib``'s K1 (a ``k1_library``; ``fn`` names its entry
+    point, ``flash_attention_fwd_f32`` for an ``f32_library``'s) as the
+    port's wrapper makes it (``ops/flash_attention.py::_forward``: no
+    dropout, no LSE, not causal); its output."""
     import ctypes
     import torch
     from sct_gan_tpu_torch.ops import _build
@@ -3626,13 +3861,13 @@ def k1_call(lib, q, k, v, mask, scale: float):
     b, h, sq, sk, d = fa._check_shapes(q, k, v, 0.0)
     out = fa._heads_like(q, sq)
     mptr, msb, _keep = fa._mask_arg(mask, b, sk, q.device)
-    err = lib.flash_attention_fwd_bf16(
+    err = getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(), None,
         b, h, sq, sk, d, *fa._strides(q, "q", 16), *fa._strides(k, "k", 16),
         *fa._strides(v, "v", 16), *fa._strides(out, "out", 4), msb, 0,
         ctypes.c_float(scale), *fa._dropout_args(0.0, 0, None),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_fwd_bf16 (timed beside K1)")
+    _build.check(err, f"{fn} (timed beside this tree's)")
     return out
 
 
@@ -4093,20 +4328,24 @@ def flash_times(card: str, h: int = 8, d: int = 96, others=None) -> dict:
     return named
 
 
-def pair_parts_ms(fn, n: int = 10) -> dict:
+def pair_parts_ms(fn, n: int = 10, name: str = "flash_bwd_{}_",
+                  expected=None) -> dict:
     """Device ms a call of the backward's D, dKV and dQ kernels apart:
     ``fn()`` (one launch of the pair) ``n`` times in a whole
     ``torch.profiler`` trace (``utils.profiling.trace_device``) after one
-    warm-up call, each kernel's mean device time a launch."""
+    warm-up call, each kernel's mean device time a launch. ``name``: the
+    kernels' names, ``{}`` for the part (``flash_f32_{}_kernel`` for the
+    f32 pair); ``expected``: the launches ``trace_device`` holds the trace
+    to where ``fn`` calls no counted wrapper (another build's pair)."""
     import torch
     from sct_gan_tpu_torch.utils.profiling import trace_device
     fn()
     torch.cuda.synchronize()
-    trace = trace_device(lambda: [fn() for _ in range(n)])
+    trace = trace_device(lambda: [fn() for _ in range(n)], expected)
     total = {"dvec": 0.0, "dkv": 0.0, "dq": 0.0}
     for key, _, us in trace.rows:
         for part in total:
-            if f"flash_bwd_{part}_" in key:
+            if name.format(part) in key:
                 total[part] += us
     return {part: total[part] / n / 1e3 for part in total}
 
@@ -4930,6 +5169,8 @@ if __name__ == "__main__":
         sys.exit(k1_times(sys.argv[2:]))
     if len(sys.argv) >= 3 and sys.argv[1] == "--variants-times":
         sys.exit(variants_times(sys.argv[2:]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--f32-times":
+        sys.exit(f32_ab_times(sys.argv[2:]))
     if sys.argv[1:] == ["--profiler-probe"]:
         sys.exit(profiler_probe())
     sys.exit(main())

@@ -23,30 +23,54 @@
 // TFLOP/s by 3xTF32 (f32_attention.cuh): 0.25 ms at (8, 8, 1024, 96) under
 // chip_smoke.py's key mask, against ~0.05 ms of bytes.
 //
-// Design (simple and right; no Hopper pipeline yet): every product runs on
-// mma.sync.m16n8k8 in 3xTF32, with tiles row-major in shared memory (rows of
-// D + 4 f32) loaded by cp.async through 2 stages, and the score tiles (S,
-// dP and their transposes) kept in registers, where P and dS are formed and
-// fed straight to the gradient products.
-//   dKV: a block owns 64 keys, 16 a warp (K and V resident), and walks
-//        32-query tiles of Q, dO and their lse and D (from the tile holding
-//        its first key on, when causal). Each warp computes S^T = K Q^T and
-//        dP^T = V dO^T, forms P^T and dS^T, and accumulates dV += P_drop^T
-//        dO and dK += dS^T Q. A block whose 64 keys are all masked walks
-//        nothing and writes zeros.
-//   dQ:  a block owns 64 queries, 16 a warp (Q and dO resident), and walks
-//        the 64-key tiles that hold an attended key (up to the diagonal,
-//        when causal; the forward's vote, f32_attention.cuh::next_live);
-//        each warp computes S and dP, forms dS and accumulates dQ += dS K.
-// Budget at D = 128 / 96 / 64: dKV K + V 67.6 / 51.2 / 34.8 KB and 2 stages
-// of Q + dO (32 rows) 67.6 / 51.2 / 34.8 KB; registers dK + dV (D f32), S^T
-// + dP^T (32). dQ Q + dO 67.6 / 51.2 / 34.8 KB and 2 stages of K + V (64
-// rows) 135 / 102 / 70 KB; registers dQ (D / 2), S + dP (64).
+// Design: the forward's (flash_attention_fwd_f32.cu). A block is a
+// transform warpgroup and one or two consumer warpgroups. The transform's
+// first warp issues the TMA loads: the block's resident 64 rows once, then
+// each walked tile into a raw ring; its four warps split each landed tile
+// once, for the whole block, into its TF32 halves in wgmma's layout
+// (f32_attention.cuh), into a ring of split stages. The consumer
+// warpgroups take the walked tiles in turn, each with its own gradient
+// accumulators, and sum them at the end in a fixed order (warpgroup 0's,
+// then 1's). Every product is 3xTF32 on TF32 wgmma: the scores with A the
+// resident rows (from shared memory, or their big half from registers:
+// QREG) and B the tile, the gradients with P or dS split in registers as
+// the A operand and the tile's transposed halves as B. P is 2^x of the
+// scaled score less lse, both in the log2 domain (the SFU's exponent).
+//   dKV: a block owns 64 keys (K and V resident). Per W-query tile the
+//        transform makes Q's and dO's halves both ways: as landed (B of S^T
+//        = K Q^T and dP^T = V dO^T) and transposed (B of dV += P_drop^T dO
+//        and dK += dS^T Q); the consumers read its lse and D. It walks the
+//        query tiles from the one holding its first key on, when causal; a
+//        block whose 64 keys are all masked walks nothing and writes zeros.
+//   dQ:  a block owns 64 queries (Q and dO resident; their big halves in
+//        registers at 64 and 96) and walks the W-key tiles that hold an
+//        attended key (TileWalk; up to the diagonal, when causal). Per tile
+//        the transform makes K's halves both ways (B of S = Q K^T;
+//        transposed, B of dQ += dS K) and V's (B of dP = dO V^T).
+// Budget (bytes of shared memory: the resident halves + the split stages +
+// the raw ring; the struct rounds up to 1 KB and 1 KB more aligns it):
+//   dKV D = 64:  W 32, 2 split + 2 raw stages: 65536 + 131072 + 32768 = 229,376
+//       D = 96:  W 16, 2 split + 2 raw:        98304 +  98304 + 24576 = 221,184
+//       D = 128: W 16, 1 split + 2 raw:       131072 +  65536 + 32768 = 229,376
+//   dQ  D = 64:  W 32, 3 split + 2 raw, QREG:  32768 + 147456 + 32768 = 212,992
+//       D = 96:  W 32, 2 split + 1 raw, QREG:  49152 + 147456 + 24576 = 221,184
+//       D = 128: W 16, 1 split + 3 raw:       131072 +  49152 + 49152 = 229,376
+// dKV's f32 halves of 64 resident keys and of a query tile both ways leave
+// room at D = 96 for 16-query tiles only, so its score products are wgmma
+// of N = 16 with both operands in shared memory: ~40% of the TF32 rate on
+// the card (chip_smoke.py --f32-times), which bounds it; holding K's or
+// V's big half in registers does not fit beside dK and dV (D f32 a thread).
+// Registers: dKV at 64 and 96 two consumer warpgroups (384 threads: 168 a
+// thread), at 128 one (256 threads: 255); dQ one consumer warpgroup (255:
+// Q's and dO's big halves, dQ, S, dP and dS's halves). No product is left
+// on mma.sync.
+// Waves on 132 SMs at (8, 8, 1024, 96): 1024 blocks each, 7.76 waves.
 //
 // The mask and causal semantics are the forward's: a masked key, a key past
 // Sk, a query past Sq and a causal key j > i all get P = 0, so a fully-
 // masked row gets dQ = 0 whatever its lse. The dropout keep bit is the
 // forward's (hash_dropout.cuh), keyed by ((b*H + h)*Sq + i)*Sk + j.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,19 +81,20 @@
 namespace {
 
 using namespace f32att;
+using namespace hopper;
 
 struct St {
   int sb, sh, ss;
 };
 
 struct BwdF32Args {
-  const float *q, *k, *v, *dout, *o;
+  const float *dout, *o;
   const uint8_t* mask;   // (B, Sk), nonzero = attend, or null
   const float* lse;      // contiguous (B*H, Sq)
   float* dvec;           // D = rowsum(dO o O), contiguous (B*H, Sq)
   float *dq, *dk, *dv;
   int H, Sq, Sk;
-  St qs, ks, vs, dos, os, dqs, dks, dvs;
+  St dos, os, dqs, dks, dvs;
   int mask_sb, causal;
   float scale;
   int dropout;
@@ -77,6 +102,8 @@ struct BwdF32Args {
   float inv_keep;
   DropShard ds;
 };
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T>
 __device__ __forceinline__ T* head(T* p, const St& s, int b, int h) {
@@ -98,225 +125,552 @@ flash_f32_dvec_kernel(const BwdF32Args a, int rows, int Dh) {
   if (lane == 0) a.dvec[row] = s;
 }
 
-// Write a warp's 16 x D gradient tile (the C layout) at rows r0, r0 + 8 of
-// a strided head, times `mul`; rows >= n_rows are not written.
+// A block's shape: D, the walked tile's rows W, split stages, raw stages,
+// consumer warpgroups, and (dQ) whether the resident rows' big halves are
+// held in registers (QREG: A of two of each score's three products; only
+// their small halves stay in shared memory).
+template <int D_, int W_, int STAGES_, int RAW_, int NWG_, bool QREG_ = false>
+struct BwdShape {
+  static constexpr int D = D_, W = W_, STAGES = STAGES_, RAW = RAW_, NWG = NWG_;
+  static constexpr bool QREG = QREG_;
+  static constexpr int ROWS = 64;                      // the block's resident rows
+  static constexpr int NX = 128, NT = 128 * NWG + NX;  // NX: the transform's threads
+  static constexpr int RES = ROWS * D * 4, TILE = W * D * 4, WORDS = (W + 31) / 32;
+};
+
 template <int D>
-__device__ __forceinline__ void store_rows(float* base, int ss, const float (&acc)[D / 8][4],
+struct Dkv;
+template <>
+struct Dkv<64> : BwdShape<64, 32, 2, 2, 2> {};
+template <>
+struct Dkv<96> : BwdShape<96, 16, 2, 2, 2> {};
+template <>
+struct Dkv<128> : BwdShape<128, 16, 1, 2, 1> {};
+
+template <int D>
+struct Dq;
+template <>
+struct Dq<64> : BwdShape<64, 32, 3, 2, 1, true> {};
+template <>
+struct Dq<96> : BwdShape<96, 32, 2, 1, 1, true> {};
+template <>
+struct Dq<128> : BwdShape<128, 16, 1, 3, 1> {};
+
+// Write a warpgroup's 64 x D gradient tile (accumulator layout) at rows r0,
+// r0 + 8 of a strided head, times `mul`; rows >= n_rows are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(float* base, int ss, const float (&acc)[D / 2],
                                            int r0, int n_rows, float mul, int t) {
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (r0 < n_rows)
       *reinterpret_cast<float2*>(base + (size_t)r0 * ss + col) =
-          make_float2(acc[n][0] * mul, acc[n][1] * mul);
+          make_float2(acc[4 * n] * mul, acc[4 * n + 1] * mul);
     if (r0 + 8 < n_rows)
       *reinterpret_cast<float2*>(base + (size_t)(r0 + 8) * ss + col) =
-          make_float2(acc[n][2] * mul, acc[n][3] * mul);
+          make_float2(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
   }
 }
 
-constexpr int NT = 128;                      // 4 warps, 16 rows each
-constexpr int BKEYS = 64;                    // dKV: keys a block
-constexpr int WQ = 32;                       // dKV: queries a walked tile
-constexpr int BQ = 64;                       // dQ: queries a block
-constexpr int WK = 64;                       // dQ: keys a walked tile
+// Sum the consumer warpgroups' accumulators into warpgroup 0's, thread by
+// thread, through shared memory xs (free by now): warpgroup 1 adds after 0.
+template <int NWG, int N>
+__device__ __forceinline__ void merge_warpgroups(float (&acc)[N], float* xs, int wg) {
+  if constexpr (NWG == 2) {
+    const int x = threadIdx.x % 128;
+    bar_sync(COMBINE_BAR, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) xs[i * 128 + x] = acc[i];
+    }
+    bar_sync(COMBINE_BAR, 256);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc[i] += xs[i * 128 + x];
+    }
+  }
+}
 
-template <int D>
-struct Dkv {
-  static constexpr int LD = D + 4;
-  static constexpr int SMEM = (2 * BKEYS * LD + 2 * 2 * WQ * LD + 2 * 2 * WQ) * 4;
-  static constexpr int MIN_BLOCKS = 233472 / (SMEM + 1024) < 4 ? 233472 / (SMEM + 1024) : 4;
-  static_assert(SMEM <= 232448, "shared memory over the limit");
+// S (or S^T, dP, dP^T) += A B^T, 3xTF32: A the resident halves (64 rows;
+// its big half from registers ar when REG), B the stage's (W rows); issues
+// 3 D / 8 wgmma, no commit.
+template <class C, bool REG = false, int NR = 1>
+__device__ __forceinline__ void scores(float (&acc)[C::W / 2], const unsigned char* ab,
+                                       const unsigned char* as, const unsigned char* bb,
+                                       const unsigned char* bs,
+                                       const uint32_t (&ar)[NR][4] = {{0u, 0u, 0u, 0u}}) {
+  // the resident halves as addresses the compiler cannot hoist: their
+  // k-steps' descriptors are made afresh each tile (held across the walk
+  // they cost two registers each)
+  uint32_t ra[2] = {smem_u32(as), REG ? 0u : smem_u32(ab)};
+  asm volatile("" : "+r"(ra[0]), "+r"(ra[1]));
+#pragma unroll
+  for (int kk = 0; kk < C::D / 8; ++kk)
+    wgmma_tf32_ss(acc, km_desc_at(ra[0] + (kk >> 1) * C::ROWS * 64 + (kk & 1) * 32),
+                  km_desc(bb, C::W, kk));
+  const unsigned char* bt[2] = {bs, bb};
+#pragma unroll
+  for (int term = 0; term < 2; ++term)
+#pragma unroll
+    for (int kk = 0; kk < C::D / 8; ++kk) {
+      if constexpr (REG)
+        wgmma_tf32_rs(acc, ar[kk], km_desc(bt[term], C::W, kk));
+      else
+        wgmma_tf32_ss(acc, km_desc_at(ra[1] + (kk >> 1) * C::ROWS * 64 + (kk & 1) * 32),
+                      km_desc(bt[term], C::W, kk));
+    }
+}
+
+// acc += X Y over the stage's W rows, X's halves in A order (x[kk][r]), Y
+// the stage's transposed halves (D rows); issues 3 W / 8 wgmma, no commit.
+template <class C>
+__device__ __forceinline__ void grad(float (&acc)[C::D / 2], const uint32_t (&xb)[C::W / 8][4],
+                                     const uint32_t (&xs)[C::W / 8][4], const unsigned char* yb,
+                                     const unsigned char* ys) {
+#pragma unroll
+  for (int kk = 0; kk < C::W / 8; ++kk) wgmma_tf32_rs(acc, xs[kk], km_desc(yb, C::D, kk));
+#pragma unroll
+  for (int kk = 0; kk < C::W / 8; ++kk) wgmma_tf32_rs(acc, xb[kk], km_desc(ys, C::D, kk));
+#pragma unroll
+  for (int kk = 0; kk < C::W / 8; ++kk) wgmma_tf32_rs(acc, xb[kk], km_desc(yb, C::D, kk));
+}
+
+// ---- dKV ------------------------------------------------------------------------
+
+template <class C>
+struct DkvSmem {
+  alignas(1024) unsigned char kb[C::RES];   // resident: K's and V's halves (K, V as landed in kb, vb)
+  alignas(1024) unsigned char ks[C::RES];
+  alignas(1024) unsigned char vb[C::RES];
+  alignas(1024) unsigned char vs[C::RES];
+  alignas(1024) unsigned char qb[C::STAGES][C::TILE];    // split stages: Q's and dO's halves
+  alignas(1024) unsigned char qs[C::STAGES][C::TILE];
+  alignas(1024) unsigned char ob[C::STAGES][C::TILE];
+  alignas(1024) unsigned char os[C::STAGES][C::TILE];
+  alignas(1024) unsigned char qtb[C::STAGES][C::TILE];   // and transposed
+  alignas(1024) unsigned char qts[C::STAGES][C::TILE];
+  alignas(1024) unsigned char otb[C::STAGES][C::TILE];
+  alignas(1024) unsigned char ots[C::STAGES][C::TILE];
+  alignas(1024) unsigned char qraw[C::RAW][C::TILE];     // the raw ring: Q, dO as landed
+  alignas(1024) unsigned char oraw[C::RAW][C::TILE];
+  int n_items, t_first;                 // the walk, published on `meta`
+  uint64_t meta, kv_full, kv_ready, raw_full[C::RAW], full[C::STAGES], empty[C::STAGES];
 };
 
-template <int D>
-__global__ void __launch_bounds__(NT, Dkv<D>::MIN_BLOCKS)
-flash_f32_dkv_kernel(const BwdF32Args a) {
-  constexpr int LD = Dkv<D>::LD;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);   // [BKEYS][LD]
-  float* vs = ks + BKEYS * LD;                   // [BKEYS][LD]
-  float* walk = vs + BKEYS * LD;                 // [2 stages][Q, dO][WQ][LD]
-  float* stats = walk + 4 * WQ * LD;             // [2 stages][lse, D][WQ]
-  const int k0 = blockIdx.x * BKEYS, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+template <class C>
+__device__ __forceinline__ void dkv_transform(DkvSmem<C>& s, const CUtensorMap* q_map,
+                                              const CUtensorMap* k_map,
+                                              const CUtensorMap* v_map,
+                                              const CUtensorMap* do_map, const BwdF32Args& a,
+                                              int k0, int b, int h) {
+  constexpr int W = C::W, NX = C::NX;
+  const int tid = threadIdx.x - 128 * C::NWG, warp = tid / 32, lane = tid % 32;
+  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+  if (warp == 0) {
+    bool on = false;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int key = k0 + 32 * u + lane;
+      on |= key < a.Sk && (mrow == nullptr || mrow[key] != 0);
+    }
+    const bool any = __any_sync(0xffffffffu, on);
+    const int t_first = a.causal ? k0 / W : 0, t_end = (a.Sq + W - 1) / W;
+    if (lane == 0) {
+      s.t_first = t_first;
+      s.n_items = any ? max(0, t_end - t_first) : 0;
+      mbar_arrive(&s.meta);
+    }
+  }
+  bar_sync(XF_BAR, NX);
+  const int n = s.n_items, t_first = s.t_first;
+  if (n == 0) return;
+  auto issue = [&](int item) {              // one thread: query tile item into its raw stage
+    const int r = item % C::RAW;
+    mbar_arrive_expect_tx(&s.raw_full[r], 2 * C::TILE);
+    tma_tile<C::D>(s.qraw[r], q_map, &s.raw_full[r], W, (t_first + item) * W, h, b);
+    tma_tile<C::D>(s.oraw[r], do_map, &s.raw_full[r], W, (t_first + item) * W, h, b);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&s.kv_full, 2 * C::RES);
+    tma_tile<C::D>(s.kb, k_map, &s.kv_full, C::ROWS, k0, h, b);
+    tma_tile<C::D>(s.vb, v_map, &s.kv_full, C::ROWS, k0, h, b);
+    for (int item = 0; item < C::RAW && item < n; ++item) issue(item);
+  }
+  mbar_wait(&s.kv_full, 0);
+  split_km<C::ROWS, C::D, NX>(s.kb, s.kb, s.ks, tid);
+  split_km<C::ROWS, C::D, NX>(s.vb, s.vb, s.vs, tid);
+  fence_proxy_async();
+  mbar_arrive(&s.kv_ready);
+  for (int item = 0; item < n; ++item) {
+    const int r = item % C::RAW, st = item % C::STAGES;
+    mbar_wait(&s.raw_full[r], (item / C::RAW) & 1);
+    mbar_wait(&s.empty[st], ((item / C::STAGES) & 1) ^ 1);   // the stage is free
+    split_t<W, C::D, NX, true>(s.qraw[r], s.qtb[st], s.qts[st], s.qb[st], s.qs[st], tid);
+    split_t<W, C::D, NX, true>(s.oraw[r], s.otb[st], s.ots[st], s.ob[st], s.os[st], tid);
+    fence_proxy_async();
+    mbar_arrive(&s.full[st]);
+    bar_sync(XF_BAR, NX);                   // raw stage r is read: free for item + RAW
+    if (tid == 0 && item + C::RAW < n) issue(item + C::RAW);
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void dkv_consume(DkvSmem<C>& s, const BwdF32Args& a, int k0, int b,
+                                            int h, int wg) {
+  constexpr int D = C::D, W = C::W;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t = lane & 3;
   const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;   // this thread's rows
   const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
   const bool on0 = key0 < a.Sk && (mrow == nullptr || mrow[key0] != 0);
   const bool on1 = key1 < a.Sk && (mrow == nullptr || mrow[key1] != 0);
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const bool any = __syncthreads_or(
-      threadIdx.x < BKEYS && k0 + (int)threadIdx.x < a.Sk &&
-      (mrow == nullptr || mrow[k0 + threadIdx.x] != 0));
-  const int t_first = a.causal ? k0 / WQ : 0;
-  const int t_end = any ? (a.Sq + WQ - 1) / WQ : t_first;
-  const float* qb = head(a.q, a.qs, b, h);
-  const float* dob = head(a.dout, a.dos, b, h);
-  const float* lse = a.lse + (size_t)bh * a.Sq;
-  const float* dvec = a.dvec + (size_t)bh * a.Sq;
-  auto issue = [&](int j, int st) {          // Q, dO, lse and D of query tile j
-    float* w = walk + st * 2 * WQ * LD;
-    load_rows<WQ, D, LD, NT>(w, qb, a.qs.ss, j * WQ, a.Sq);
-    load_rows<WQ, D, LD, NT>(w + WQ * LD, dob, a.dos.ss, j * WQ, a.Sq);
-    if (threadIdx.x < WQ) {
-      const int i = j * WQ + threadIdx.x;
-      stats[st * 2 * WQ + threadIdx.x] = i < a.Sq ? lse[i] : 0.f;
-      stats[st * 2 * WQ + WQ + threadIdx.x] = i < a.Sq ? dvec[i] : 0.f;
-    }
-  };
-  if (t_first < t_end) {
-    load_rows<BKEYS, D, LD, NT>(ks, head(a.k, a.ks, b, h), a.ks.ss, k0, a.Sk);
-    load_rows<BKEYS, D, LD, NT>(vs, head(a.v, a.vs, b, h), a.vs.ss, k0, a.Sk);
-    issue(t_first, 0);
-  }
-  hopper::cp_async_commit();
   const uint32_t head_index = drop_head(b, h, a.ds) * (uint32_t)a.Sq;
-  for (int j = t_first; j < t_end; ++j) {
-    const int st = (j - t_first) & 1;
-    if (j + 1 < t_end) issue(j + 1, st ^ 1);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<1>();
-    __syncthreads();
-    const float* qt = walk + st * 2 * WQ * LD;
-    const float* dot = qt + WQ * LD;
-    const float* sl = stats + st * 2 * WQ;
+  const float* lse = a.lse + (size_t)(b * a.H + h) * a.Sq;
+  const float* dvec = a.dvec + (size_t)(b * a.H + h) * a.Sq;
+  const float scale_log2 = a.scale * LOG2E;  // P = 2^(S scale log2(e) - lse log2(e))
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
-    float s[WQ / 8][4], dp[WQ / 8][4];       // S^T and dP^T: 16 keys x WQ queries
+  mbar_wait(&s.meta, 0);
+  const int n = s.n_items, t_first = s.t_first;
+  if (n > 0) mbar_wait(&s.kv_ready, 0);
+  for (int item = wg; item < n; item += C::NWG) {
+    const int st = item % C::STAGES;
+    mbar_wait(&s.full[st], (item / C::STAGES) & 1);
+    const int q0 = (t_first + item) * W;
+    // the queries' lse and D, this thread's columns 8n + 2t (+ 1): loaded
+    // now, read after the products
+    float lq[W / 4], dd[W / 4];
 #pragma unroll
-    for (int n = 0; n < WQ / 8; ++n)
+    for (int x = 0; x < W / 4; ++x) {
+      const int i = q0 + (x >> 1) * 8 + 2 * t + (x & 1);
+      lq[x] = i < a.Sq ? lse[i] * LOG2E : 0.f;
+      dd[x] = i < a.Sq ? dvec[i] : 0.f;
+    }
+    float sc[W / 2], dp[W / 2];             // S^T and dP^T: 64 keys x W queries
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_nt<WQ, D, LD>(s, ks + warp * 16 * LD, qt, lane);
-    mma_nt<WQ, D, LD>(dp, vs + warp * 16 * LD, dot, lane);
+    for (int i = 0; i < W / 2; ++i) sc[i] = dp[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    scores<C>(sc, s.kb, s.ks, s.qb[st], s.qs[st]);
+    scores<C>(dp, s.vb, s.vs, s.ob[st], s.os[st]);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+    fence_regs(dp);
 #pragma unroll
-    for (int n = 0; n < WQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), i = j * WQ + c;
-        const int key = e < 2 ? key0 : key1;
-        const bool live = (e < 2 ? on0 : on1) && i < a.Sq && !(a.causal && key > i);
-        const float p = live ? expf(s[n][e] * a.scale - sl[c]) : 0.f;
-        float pd = p, dpd = dp[n][e];
-        if (a.dropout) {
-          const bool keep = hash_keep((head_index + (uint32_t)i) * (uint32_t)a.Sk + (uint32_t)key,
-                                      a.seed, a.threshold);
-          pd = keep ? p * a.inv_keep : 0.f;
-          dpd = keep ? dpd * a.inv_keep : 0.f;
-        }
-        s[n][e] = pd;                        // P_drop^T
-        dp[n][e] = p * (dpd - sl[WQ + c]);   // dS^T
+    for (int x = 0; x < W / 2; ++x) {
+      const int c = (x >> 2) * 8 + 2 * t + (x & 1), i = q0 + c;
+      const int e = (x >> 1) & 1, key = e ? key1 : key0;
+      const bool live = (e ? on1 : on0) && i < a.Sq && !(a.causal && key > i);
+      const int cx = ((x >> 2) << 1) | (x & 1);   // column x's lq, dd
+      const float p = live ? fast_exp2(fmaf(sc[x], scale_log2, -lq[cx])) : 0.f;
+      float pd = p, dpd = dp[x];
+      if (a.dropout) {
+        const bool keep = hash_keep((head_index + (uint32_t)i) * (uint32_t)a.Sk + (uint32_t)key,
+                                    a.seed, a.threshold);
+        pd = keep ? p * a.inv_keep : 0.f;
+        dpd = keep ? dpd * a.inv_keep : 0.f;
       }
-    mma_pn<WQ, D, LD>(dv, s, dot, lane);
-    mma_pn<WQ, D, LD>(dk, dp, qt, lane);
-    __syncthreads();                         // stage st is free for tile j + 2
+      sc[x] = pd;                           // P_drop^T
+      dp[x] = p * (dpd - dd[cx]);           // dS^T
+    }
+    uint32_t pb[W / 8][4], ps[W / 8][4], db[W / 8][4], ds[W / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < W / 8; ++kk) {
+      a_operand(sc, kk, pb[kk], ps[kk]);
+      a_operand(dp, kk, db[kk], ds[kk]);
+    }
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+    grad<C>(dv, pb, ps, s.otb[st], s.ots[st]);
+    grad<C>(dk, db, ds, s.qtb[st], s.qts[st]);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dv);
+    fence_regs(dk);
+#pragma unroll
+    for (int kk = 0; kk < W / 8; ++kk) {
+      hold_regs(pb[kk]);
+      hold_regs(ps[kk]);
+      hold_regs(db[kk]);
+      hold_regs(ds[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[st]);
   }
-  hopper::cp_async_wait<0>();
-  const int r0 = k0 + warp * 16 + g;
-  store_rows<D>(head(a.dk, a.dks, b, h), a.dks.ss, dk, r0, a.Sk, a.scale, t);
-  store_rows<D>(head(a.dv, a.dvs, b, h), a.dvs.ss, dv, r0, a.Sk, 1.f, t);
+
+  static_assert(C::NWG == 1 || D * 128 * 4 <= 8 * C::STAGES * C::TILE, "merge scratch");
+  float* xs = reinterpret_cast<float*>(&s.qb[0][0]);
+  merge_warpgroups<C::NWG>(dk, xs, wg);
+  merge_warpgroups<C::NWG>(dv, xs + (D / 2) * 128, wg);
+  if (wg != 0) return;
+  store_rows<D>(head(a.dk, a.dks, b, h), a.dks.ss, dk, key0, a.Sk, a.scale, t);
+  store_rows<D>(head(a.dv, a.dvs, b, h), a.dvs.ss, dv, key0, a.Sk, 1.f, t);
 }
 
 template <int D>
-struct Dq {
-  static constexpr int LD = D + 4;
-  static constexpr int SMEM = (2 * BQ * LD + 2 * 2 * WK * LD + 2 * WK) * 4;
-  static constexpr int MIN_BLOCKS = 233472 / (SMEM + 1024) < 4 ? 233472 / (SMEM + 1024) : 4;
-  static_assert(SMEM <= 232448, "shared memory over the limit");
+__global__ void __launch_bounds__(Dkv<D>::NT, 1)
+flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map, const BwdF32Args a) {
+  using C = Dkv<D>;
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem<C>& s = aligned_smem<DkvSmem<C>>(smem_raw);
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, k0 = blockIdx.x * C::ROWS;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);   // warp-uniform
+  if (threadIdx.x == 0) {
+    mbar_init(&s.meta, 1);
+    mbar_init(&s.kv_full, 1);
+    mbar_init(&s.kv_ready, C::NX);
+#pragma unroll
+    for (int i = 0; i < C::RAW; ++i) mbar_init(&s.raw_full[i], 1);
+#pragma unroll
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(&s.full[i], C::NX);
+      mbar_init(&s.empty[i], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == C::NWG)
+    dkv_transform<C>(s, &q_map, &k_map, &v_map, &do_map, a, k0, b, h);
+  else
+    dkv_consume<C>(s, a, k0, b, h, wg);
+}
+
+// ---- dQ -------------------------------------------------------------------------
+
+template <class C>
+struct DqSmem {
+  // resident: Q's and dO's small halves (QS, OS; Q and dO land there and are
+  // split in place) and, unless QREG, their big halves (QB, OB)
+  static constexpr int QS = 0, OS = 1, QB = 2, OB = 3;
+  alignas(1024) unsigned char res[C::QREG ? 2 : 4][C::RES];
+  alignas(1024) unsigned char kb[C::STAGES][C::TILE];    // split stages: K's and V's halves
+  alignas(1024) unsigned char ks[C::STAGES][C::TILE];
+  alignas(1024) unsigned char vb[C::STAGES][C::TILE];
+  alignas(1024) unsigned char vs[C::STAGES][C::TILE];
+  alignas(1024) unsigned char ktb[C::STAGES][C::TILE];   // K's, transposed
+  alignas(1024) unsigned char kts[C::STAGES][C::TILE];
+  alignas(1024) unsigned char kraw[C::RAW][C::TILE];     // the raw ring: K, V as landed
+  alignas(1024) unsigned char vraw[C::RAW][C::TILE];
+  uint32_t bits[C::STAGES][C::WORDS];   // the stage's key-mask bits (tile_bits)
+  int tile[C::STAGES];                  // the stage's first key
+  uint32_t raw_bits[C::RAW][C::WORDS];
+  int raw_tile[C::RAW];
+  int n_live;
+  uint64_t meta, qo_full, qo_read, qo_ready, raw_full[C::RAW], full[C::STAGES],
+      empty[C::STAGES];
 };
 
-template <int D>
-__global__ void __launch_bounds__(NT, Dq<D>::MIN_BLOCKS)
-flash_f32_dq_kernel(const BwdF32Args a) {
-  constexpr int LD = Dq<D>::LD;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [BQ][LD]
-  float* dos = qs + BQ * LD;                     // [BQ][LD]
-  float* kv = dos + BQ * LD;                     // [2 stages][K, V][WK][LD]
-  float* bias = kv + 4 * WK * LD;                // [2 stages][WK]: 0 or -inf
-  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+template <class C>
+__device__ __forceinline__ void dq_transform(DqSmem<C>& s, const CUtensorMap* q_map,
+                                             const CUtensorMap* k_map,
+                                             const CUtensorMap* v_map,
+                                             const CUtensorMap* do_map, const BwdF32Args& a,
+                                             int q0, int b, int h) {
+  constexpr int W = C::W, NX = C::NX;
+  const int tid = threadIdx.x - 128 * C::NWG, warp = tid / 32, lane = tid % 32;
+  int n_tiles = (a.Sk + W - 1) / W;
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + C::ROWS, a.Sq) - 1) / W + 1);
   const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
-  const float* kb = head(a.k, a.ks, b, h);
-  const float* vb = head(a.v, a.vs, b, h);
-  const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] : 0.f;
-  const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] : 0.f;
-  const float dv0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
-  const float dv1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
-  int n_tiles = (a.Sk + WK - 1) / WK;
-  if (a.causal) n_tiles = min(n_tiles, (min(q0 + BQ, a.Sq) - 1) / WK + 1);
-  auto issue = [&](int j, int st) {          // K, V and the mask bias of tile j
-    float* kt = kv + st * 2 * WK * LD;
-    load_rows<WK, D, LD, NT>(kt, kb, a.ks.ss, j * WK, a.Sk);
-    load_rows<WK, D, LD, NT>(kt + WK * LD, vb, a.vs.ss, j * WK, a.Sk);
-    if (threadIdx.x < WK) {
-      const int key = j * WK + threadIdx.x;
-      bias[st * WK + threadIdx.x] =
-          key < a.Sk && (mrow == nullptr || mrow[key] != 0) ? 0.f : -INFINITY;
+  TileWalk<W> walk(mrow, a.Sk, n_tiles);
+  if (warp == 0) {
+    const int n = walk.count(lane);
+    if (lane == 0) {
+      s.n_live = n;
+      mbar_arrive(&s.meta);
+    }
+  }
+  bar_sync(XF_BAR, NX);
+  const int n_live = s.n_live;
+  if (n_live == 0) return;
+  auto issue = [&](int r) {                 // warp 0: the next live tile into raw stage r
+    const int k0 = walk.next(lane) * W;
+    uint32_t kb[C::WORDS];
+    tile_bits<W>(kb, mrow, k0, a.Sk, lane);
+    if (lane == 0) {
+      s.raw_tile[r] = k0;
+#pragma unroll
+      for (int u = 0; u < C::WORDS; ++u) s.raw_bits[r][u] = kb[u];
+      mbar_arrive_expect_tx(&s.raw_full[r], 2 * C::TILE);
+      tma_tile<C::D>(s.kraw[r], k_map, &s.raw_full[r], W, k0, h, b);
+      tma_tile<C::D>(s.vraw[r], v_map, &s.raw_full[r], W, k0, h, b);
     }
   };
-  float dq[D / 8][4];
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&s.qo_full, 2 * C::RES);
+      tma_tile<C::D>(s.res[s.QS], q_map, &s.qo_full, C::ROWS, q0, h, b);
+      tma_tile<C::D>(s.res[s.OS], do_map, &s.qo_full, C::ROWS, q0, h, b);
+    }
+    for (int r = 0; r < C::RAW && r < n_live; ++r) issue(r);
+  }
+  if constexpr (C::QREG) {                  // the consumers took the big halves
+    mbar_wait(&s.qo_read, 0);
+    split_km<C::ROWS, C::D, NX, false>(s.res[s.QS], nullptr, s.res[s.QS], tid);
+    split_km<C::ROWS, C::D, NX, false>(s.res[s.OS], nullptr, s.res[s.OS], tid);
+  } else {
+    mbar_wait(&s.qo_full, 0);
+    split_km<C::ROWS, C::D, NX>(s.res[s.QS], s.res[s.QB], s.res[s.QS], tid);
+    split_km<C::ROWS, C::D, NX>(s.res[s.OS], s.res[s.OB], s.res[s.OS], tid);
+  }
+  fence_proxy_async();
+  mbar_arrive(&s.qo_ready);
+  for (int item = 0; item < n_live; ++item) {
+    const int r = item % C::RAW, st = item % C::STAGES;
+    mbar_wait(&s.raw_full[r], (item / C::RAW) & 1);
+    mbar_wait(&s.empty[st], ((item / C::STAGES) & 1) ^ 1);   // the stage is free
+    split_t<W, C::D, NX, true>(s.kraw[r], s.ktb[st], s.kts[st], s.kb[st], s.ks[st], tid);
+    split_km<W, C::D, NX>(s.vraw[r], s.vb[st], s.vs[st], tid);
+    if (tid == 0) {
+      s.tile[st] = s.raw_tile[r];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+      for (int u = 0; u < C::WORDS; ++u) s.bits[st][u] = s.raw_bits[r][u];
+    }
+    fence_proxy_async();
+    mbar_arrive(&s.full[st]);
+    bar_sync(XF_BAR, NX);                   // raw stage r is read: free for tile item + RAW
+    if (warp == 0 && item + C::RAW < n_live) issue(r);
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void dq_consume(DqSmem<C>& s, const BwdF32Args& a, int q0, int b,
+                                           int h, int wg) {
+  constexpr int D = C::D, W = C::W;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int bh = b * a.H + h;
+  // the rows' lse in the log2 domain: P = 2^(S scale log2(e) - lse log2(e))
+  const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] * LOG2E : 0.f;
+  const float scale_log2 = a.scale * LOG2E;
+  const float dv0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
+  const float dv1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
   const uint32_t drop0 =
       (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  int cur = next_live<WK>(mrow, 0, n_tiles, a.Sk);
-  if (cur < n_tiles) {
-    load_rows<BQ, D, LD, NT>(qs, head(a.q, a.qs, b, h), a.qs.ss, q0, a.Sq);
-    load_rows<BQ, D, LD, NT>(dos, head(a.dout, a.dos, b, h), a.dos.ss, q0, a.Sq);
-    issue(cur, 0);
-  }
-  hopper::cp_async_commit();
-  int nxt = next_live<WK>(mrow, cur + 1, n_tiles, a.Sk);
-  for (int n = 0; cur < n_tiles; ++n) {
-    const int st = n & 1;
-    if (nxt < n_tiles) issue(nxt, st ^ 1);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<1>();
-    __syncthreads();
-    const float* kt = kv + st * 2 * WK * LD;
-    const float* bs = bias + st * WK;
-    const int k0 = cur * WK;
-
-    float s[WK / 8][4], dp[WK / 8][4];
+  mbar_wait(&s.meta, 0);
+  const int n_live = s.n_live;
+  // QREG: Q's and dO's big halves as A fragments (k-step kk: rows g, g + 8
+  // of the warp's 16, columns 8 kk + t, + 4), read as they landed
+  uint32_t qr[C::QREG ? D / 8 : 1][4], orr[C::QREG ? D / 8 : 1][4];
+  if (n_live > 0) {
+    if constexpr (C::QREG) {
+      mbar_wait(&s.qo_full, 0);
 #pragma unroll
-    for (int n8 = 0; n8 < WK / 8; ++n8)
+      for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n8][e] = dp[n8][e] = 0.f;
-    mma_nt<WK, D, LD>(s, qs + warp * 16 * LD, kt, lane);
-    mma_nt<WK, D, LD>(dp, dos + warp * 16 * LD, kt + WK * LD, lane);
-#pragma unroll
-    for (int n8 = 0; n8 < WK / 8; ++n8)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n8 * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const bool live = bs[col] == 0.f && row < a.Sq && !(a.causal && k0 + col > row);
-        const float p = live ? expf(s[n8][e] * a.scale - (e < 2 ? lse0 : lse1)) : 0.f;
-        float dpd = dp[n8][e];
-        if (a.dropout) {
-          const bool keep = hash_keep((e < 2 ? drop0 : drop1) + (uint32_t)(k0 + col), a.seed,
-                                      a.threshold);
-          dpd = keep ? dpd * a.inv_keep : 0.f;
+        for (int r = 0; r < 4; ++r) {
+          const int row = warp * 16 + g + 8 * (r & 1), col = 8 * kk + t + 4 * (r >> 1);
+          const uint32_t off = km_off(C::ROWS, row, col >> 2) + (col & 3) * 4;
+          qr[kk][r] = *reinterpret_cast<const uint32_t*>(s.res[s.QS] + off) & 0xffffe000u;
+          orr[kk][r] = *reinterpret_cast<const uint32_t*>(s.res[s.OS] + off) & 0xffffe000u;
         }
-        s[n8][e] = p * (dpd - (e < 2 ? dv0 : dv1));   // dS
-      }
-    mma_pn<WK, D, LD>(dq, s, kt, lane);
-    __syncthreads();                         // stage st is free for tile n + 2
-    cur = nxt;
-    nxt = next_live<WK>(mrow, nxt + 1, n_tiles, a.Sk);
+      mbar_arrive(&s.qo_read);
+    }
+    mbar_wait(&s.qo_ready, 0);
   }
-  hopper::cp_async_wait<0>();
+  for (int item = wg; item < n_live; item += C::NWG) {
+    const int st = item % C::STAGES;
+    mbar_wait(&s.full[st], (item / C::STAGES) & 1);
+    const int k0 = s.tile[st];
+    uint32_t kb[C::WORDS];
+#pragma unroll
+    for (int u = 0; u < C::WORDS; ++u) kb[u] = s.bits[st][u];
+    float sc[W / 2], dp[W / 2];             // S and dP: 64 queries x W keys
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) sc[i] = dp[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    // (with QREG the big halves come from qr and orr: the first operand is unread)
+    scores<C, C::QREG>(sc, s.res[C::QREG ? s.QS : s.QB], s.res[s.QS], s.kb[st], s.ks[st], qr);
+    scores<C, C::QREG>(dp, s.res[C::QREG ? s.OS : s.OB], s.res[s.OS], s.vb[st], s.vs[st], orr);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+    fence_regs(dp);
+#pragma unroll
+    for (int x = 0; x < W / 2; ++x) {
+      const int col = (x >> 2) * 8 + 2 * t + (x & 1), e = (x >> 1) & 1;
+      const int row = e ? row1 : row0;
+      const bool live = key_on(kb, col) && row < a.Sq && !(a.causal && k0 + col > row);
+      const float p = live ? fast_exp2(fmaf(sc[x], scale_log2, -(e ? lse1 : lse0))) : 0.f;
+      float dpd = dp[x];
+      if (a.dropout) {
+        const bool keep =
+            hash_keep((e ? drop1 : drop0) + (uint32_t)(k0 + col), a.seed, a.threshold);
+        dpd = keep ? dpd * a.inv_keep : 0.f;
+      }
+      sc[x] = p * (dpd - (e ? dv1 : dv0));  // dS
+    }
+    uint32_t db[W / 8][4], ds[W / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < W / 8; ++kk) a_operand(sc, kk, db[kk], ds[kk]);
+    fence_regs(dq);
+    wgmma_fence();
+    grad<C>(dq, db, ds, s.ktb[st], s.kts[st]);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < W / 8; ++kk) {
+      hold_regs(db[kk]);
+      hold_regs(ds[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[st]);
+  }
+
+  static_assert(C::NWG == 1 || (D / 2) * 128 * 4 <= 6 * C::STAGES * C::TILE, "merge scratch");
+  merge_warpgroups<C::NWG>(dq, reinterpret_cast<float*>(&s.kb[0][0]), wg);
+  if (wg != 0) return;
   store_rows<D>(head(a.dq, a.dqs, b, h), a.dqs.ss, dq, row0, a.Sq, a.scale, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::NT, 1)
+flash_f32_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map, const BwdF32Args a) {
+  using C = Dq<D>;
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem<C>& s = aligned_smem<DqSmem<C>>(smem_raw);
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, q0 = blockIdx.x * C::ROWS;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);   // warp-uniform
+  if (threadIdx.x == 0) {
+    mbar_init(&s.meta, 1);
+    mbar_init(&s.qo_full, 1);
+    mbar_init(&s.qo_read, 128 * C::NWG);    // the consumer threads (QREG)
+    mbar_init(&s.qo_ready, C::NX);
+#pragma unroll
+    for (int i = 0; i < C::RAW; ++i) mbar_init(&s.raw_full[i], 1);
+#pragma unroll
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(&s.full[i], C::NX);
+      mbar_init(&s.empty[i], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == C::NWG)
+    dq_transform<C>(s, &q_map, &k_map, &v_map, &do_map, a, q0, b, h);
+  else
+    dq_consume<C>(s, a, q0, b, h, wg);
 }
 
 template <typename Kernel>
@@ -328,16 +682,42 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
   return err;
 }
 
+// q, k, v, dO: their TMA maps at box_rows (the resident 64 rows or the
+// walked tile's), element strides st (q, k, v, dO); walk_q: Q and dO are
+// walked (dKV), else K and V (dQ).
 template <int D>
-int launch(const BwdF32Args& a, int B, cudaStream_t s) {
+int make_maps(CUtensorMap (&m)[4], const void* const (&p)[4], const St (&st)[4], int B,
+              int H, int Sq, int Sk, bool walk_q, int w) {
+  const int S[4] = {Sq, Sk, Sk, Sq};
+  const bool walked[4] = {walk_q, !walk_q, !walk_q, walk_q};
+  for (int i = 0; i < 4; ++i) {
+    const int e = make_f32_map(&m[i], p[i], B, H, S[i], D, st[i].sb, st[i].sh, st[i].ss,
+                               walked[i] ? w : 64);
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
+template <int D>
+int launch(const BwdF32Args& a, const void* const (&p)[4], const St (&st)[4], int B,
+           cudaStream_t s) {
+  constexpr int dkv_bytes = sizeof(DkvSmem<Dkv<D>>) + 1024;
+  constexpr int dq_bytes = sizeof(DqSmem<Dq<D>>) + 1024;
+  static_assert(dkv_bytes <= 232448 && dq_bytes <= 232448, "shared memory over the limit");
   static bool dkv_ok = false, dq_ok = false;
-  cudaError_t e = allow_smem(flash_f32_dkv_kernel<D>, Dkv<D>::SMEM, dkv_ok);
-  if (e == cudaSuccess) e = allow_smem(flash_f32_dq_kernel<D>, Dq<D>::SMEM, dq_ok);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_f32_dkv_kernel<D><<<dim3((a.Sk + BKEYS - 1) / BKEYS, B * a.H), NT, Dkv<D>::SMEM, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_f32_dq_kernel<D><<<dim3((a.Sq + BQ - 1) / BQ, B * a.H), NT, Dq<D>::SMEM, s>>>(a);
+  CUtensorMap dkv_maps[4], dq_maps[4];
+  int e = make_maps<D>(dkv_maps, p, st, B, a.H, a.Sq, a.Sk, true, Dkv<D>::W);
+  if (e == 0) e = make_maps<D>(dq_maps, p, st, B, a.H, a.Sq, a.Sk, false, Dq<D>::W);
+  if (e != 0) return e;
+  cudaError_t err = allow_smem(flash_f32_dkv_kernel<D>, dkv_bytes, dkv_ok);
+  if (err == cudaSuccess) err = allow_smem(flash_f32_dq_kernel<D>, dq_bytes, dq_ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_f32_dkv_kernel<D><<<dim3((a.Sk + 63) / 64, B * a.H), Dkv<D>::NT, dkv_bytes, s>>>(
+      dkv_maps[0], dkv_maps[1], dkv_maps[2], dkv_maps[3], a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_f32_dq_kernel<D><<<dim3((a.Sq + 63) / 64, B * a.H), Dq<D>::NT, dq_bytes, s>>>(
+      dq_maps[0], dq_maps[1], dq_maps[2], dq_maps[3], a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,9 +726,9 @@ int launch(const BwdF32Args& a, int B, cudaStream_t s) {
 // The bf16 entry point's arguments (flash_attention_bwd.cu), for f32 q, k,
 // v, dout, out, dq, dk, dv: (B, H, S, Dh) with element strides (sb, sh, ss)
 // and the last dimension contiguous; q, k, v, dout on 16-byte lines with
-// strides of whole 16-byte units (the cp.async copies), out and the
-// gradients on 8-byte lines; Dh 64, 96 or 128. lse: the forward's, dvec: f32
-// (B*H*Sq) scratch the entry fills with D. Returns the first error.
+// strides of whole 16-byte units (their TMA maps), out and the gradients on
+// 8-byte lines; Dh 64, 96 or 128. lse: the forward's, dvec: f32 (B*H*Sq)
+// scratch the entry fills with D. Returns the first error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout, const void* out,
     const void* mask, const void* lse, void* dvec, void* dq, void* dk, void* dv, int B,
@@ -358,13 +738,10 @@ extern "C" int flash_attention_bwd_f32(
     int dv_sb, int dv_sh, int dv_ss, int mask_sb, int causal, float scale, int dropout,
     uint32_t seed, uint32_t threshold, float inv_keep, int drop_b0, int drop_h0,
     int drop_hg, void* stream) {
-  const BwdF32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<const float*>(dout),
-                     static_cast<const float*>(out), static_cast<const uint8_t*>(mask),
-                     static_cast<const float*>(lse), static_cast<float*>(dvec),
-                     static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
-                     H, Sq, Sk,
-                     {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
+  const BwdF32Args a{static_cast<const float*>(dout), static_cast<const float*>(out),
+                     static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
+                     static_cast<float*>(dvec), static_cast<float*>(dq),
+                     static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
                      {do_sb, do_sh, do_ss}, {o_sb, o_sh, o_ss}, {dq_sb, dq_sh, dq_ss},
                      {dk_sb, dk_sh, dk_ss}, {dv_sb, dv_sh, dv_ss},
                      mask_sb, causal, scale, dropout, seed, threshold, inv_keep,
@@ -373,13 +750,16 @@ extern "C" int flash_attention_bwd_f32(
       (Dh != 64 && Dh != 96 && Dh != 128))
     return static_cast<int>(cudaErrorInvalidValue);   // no instance takes it
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* const p[4] = {q, k, v, dout};
+  const St st[4] = {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
+                    {do_sb, do_sh, do_ss}};
   const int rows = B * H * Sq;
   flash_f32_dvec_kernel<<<(rows + 7) / 8, 256, 0, s>>>(a, rows, Dh);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   switch (Dh) {
-    case 64: return launch<64>(a, B, s);
-    case 96: return launch<96>(a, B, s);
-    default: return launch<128>(a, B, s);
+    case 64: return launch<64>(a, p, st, B, s);
+    case 96: return launch<96>(a, p, st, B, s);
+    default: return launch<128>(a, p, st, B, s);
   }
 }

@@ -58,6 +58,10 @@ _SIGNATURES = {
                                 _I, _I, _F, *_DROP, _P],
     "flash_attention_bwd_f32": [*[_P] * 11, _I, _I, _I, _I, _I,
                                 *[_I] * 24, _I, _I, _F, *_DROP, _P],
+    # the card's handling of the bits TF32 drops and its TF32 wgmma rate by
+    # shape (chip_smoke.py --f32-times)
+    "f32_tf32_probe": [_P, _P],                              # out stream
+    "f32_wgmma_rate": [_P, _I, _I, _I, _I, _P],  # out N RS reps blocks stream
     "decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                              *[_I] * 12,                 # q k v o strides
                              _I, _I, _F, _I, _P],  # ... scale o_bf16 stream

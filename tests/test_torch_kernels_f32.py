@@ -154,3 +154,100 @@ def test_f32_routes_raise_on_card(cuda_device):
     with pytest.raises(ValueError, match="dtypes"):
         decode_attention(y[:, :, :1], y.to(torch.bfloat16),
                          y.to(torch.bfloat16), None, sm_scale=0.1)
+
+
+# The edges of the Hopper f32 kernels' tiles (csrc/flash_attention_fwd_f32.cu,
+# flash_attention_bwd_f32.cu: 128-row forward blocks, 64-row backward
+# blocks, 16- to 64-key and 16- to 32-query walked tiles): name -> (B, H, Sq,
+# Sk, causal, mask kind, layout). "rows" masks every key of batch row 1;
+# "tail" keeps the first Sk - 3 keys of row 0 and a third of row 1; "heads"
+# is the model's (B, H, S, d) view of (B, S, H*d) projections.
+F32_EDGE_CASES = {
+    "sk1": (2, 4, 64, 1, False, None, "bhsd"),
+    "sq100_sk65": (2, 4, 100, 65, False, "tail", "bhsd"),
+    "sq1_sk1000": (2, 4, 1, 1000, False, "tail", "bhsd"),
+    "causal_sq100_sk300": (2, 4, 100, 300, True, None, "bhsd"),
+    "causal_sq300_sk100": (2, 4, 300, 100, True, "tail", "bhsd"),
+    "row_all_masked": (3, 4, 200, 200, False, "rows", "bhsd"),
+    "strided_heads_257": (2, 4, 257, 257, False, "tail", "heads"),
+}
+
+
+def _edge_inputs(device, case, d):
+    """q, k, v (f32, seed 3, head dim d) and the key mask of an edge case."""
+    b, h, sq, sk, causal, kind, layout = F32_EDGE_CASES[case]
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def make(s):
+        if layout == "heads":
+            return torch.randn(b, s, h * d, generator=g, device=device).view(
+                b, s, h, d).transpose(1, 2)
+        return torch.randn(b, h, s, d, generator=g, device=device)
+    q, k, v = make(sq), make(sk), make(sk)
+    keys = torch.arange(sk, device=device)
+    mask = None
+    if kind == "tail":
+        lens = torch.tensor([max(sk - 3, 1), max(sk // 3, 1), sk][:b],
+                            device=device)
+        mask = keys[None, :] < lens[:, None]
+    elif kind == "rows":
+        mask = torch.ones(b, sk, dtype=torch.bool, device=device)
+        mask[1] = False
+    return q, k, v, mask, causal
+
+
+EDGE_PARAMS = [(c, d) for c in sorted(F32_EDGE_CASES) for d in PAIR_HEAD_DIMS]
+EDGE_PARAMS.append(("causal_sq100_sk300", 16))   # the padded route, 16 -> 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,d", EDGE_PARAMS)
+def test_f32_flash_forward_tile_edges_on_card(cuda_device, case, d):
+    """The f32 K1 with dropout 0.3 and its LSE at the edges of its tiles:
+    within 1e-5 norm-wise of the plain version, the LSE of the rows that
+    attend a key too; a row with no attended key gives zeros and lse =
+    -1e30."""
+    q, k, v, mask, causal = _edge_inputs(cuda_device, case, d)
+    args = dict(key_padding_mask=mask, causal=causal, dropout_rate=0.3,
+                seed=13, return_lse=True)
+    got, lse = flash_attention(q, k, v, **args)
+    want, want_lse = flash_attention_reference(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _rel_err(got, want) <= FWD_TOL
+    live = want_lse > -1e29
+    assert _rel_err(lse[live], want_lse[live]) <= FWD_TOL
+    if case == "row_all_masked":
+        assert got[1].abs().max().item() == 0.0
+        assert bool((lse[1] == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("case,d", EDGE_PARAMS)
+def test_f32_flash_backward_tile_edges_on_card(cuda_device, case, d, rate):
+    """The f32 pair at the edges of its tiles: dq, dk, dv within 1e-4
+    norm-wise of autograd through the plain version (a gradient that is
+    exactly zero there, dq and dk at Sk = 1 where dS = 0, within 1e-4 of
+    dv's norm); two runs give the same bits; a row with no attended key
+    gets dq = 0."""
+    q, k, v, mask, causal = _edge_inputs(cuda_device, case, d)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(4), device=cuda_device)
+    args = dict(key_padding_mask=mask, causal=causal, dropout_rate=rate,
+                seed=17)
+    got = torch.autograd.grad(flash_attention(q, k, v, **args), (q, k, v),
+                              dout)
+    again = torch.autograd.grad(flash_attention(q, k, v, **args), (q, k, v),
+                                dout)
+    want = torch.autograd.grad(flash_attention_reference(q, k, v, **args),
+                               (q, k, v), dout)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        ref = w.norm().item() or want[2].norm().item()
+        assert a.dtype == torch.float32
+        assert (a - w).norm().item() <= BWD_TOL * ref
+        assert torch.equal(a, b)
+    if case == "row_all_masked":
+        assert got[0][1].abs().max().item() == 0.0
