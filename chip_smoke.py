@@ -2340,18 +2340,109 @@ def tasc_kernel_checks(errs: dict) -> None:
                 f"k{tuple(k.shape)}")
 
 
+# binary TASC at head dim 192 (TASCConfig(nhead=4): 4 heads of 192 at
+# d = 768), its depth cut to 2 layers and CodeBERT's to 2
+TASC_192 = {"nhead": 4, "num_layers": 2, "codebert_num_layers": 2}
+
+
+def _tasc_head_dim_192(overrides=None, device="cuda") -> dict:
+    """Binary TASC at ``TASC_192`` (``overrides`` replace it): one train
+    step (``train_epoch`` over one batch of 4 at L=512) and
+    ``generate_vulnerable_code(num_samples=2, max_length=512)``, each
+    part's launches held to ``tasc_per_path``: a decode step runs K5 f32
+    in place at head dim 192 over the self-attention caches and the bf16
+    K5's 192 instance over the cross K/V; ``pad_head_dim`` is counted
+    around the generation (no copy). Returns the launches by the kernels
+    line's names (K1, the pair and K5 at their 192 instances)."""
+    import torch
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.ops import decode_attention as k5
+    from sct_gan_tpu_torch.variants import (build_trainer, build_variant,
+                                            generate_vulnerable_code)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    model, cfg = build_variant("binary-tasc", overrides or TASC_192)
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    train, _ = _tasc_loaders(tok, cfg, n_train=4, n_val=4)
+    trainer = build_trainer("binary-tasc", model, cfg, train, _Empty(), tok,
+                            verbose=False, device=device)
+    per = tasc_per_path(cfg)
+    d = cfg.d_model // cfg.nhead
+    calls = _forward_calls(trainer.codebert)
+    reset_counts()
+    t0 = time.perf_counter()
+    g_loss, d_loss, dec_loss = trainer.train_epoch()
+    sync()
+    step_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    calls[1].remove()
+    want = launch_dict(per["train_fwd"], per["train_bwd"], per["train_drop"],
+                       flash_attention_fwd_f32=calls[0] * per["embed"])
+    print(f"phase tasc head dim {d}: binary TASCConfig("
+          f"{overrides or TASC_192}) at d={cfg.d_model}: one train step at "
+          f"B=4 L={cfg.max_length} in {step_s:.2f} s (G {g_loss:.4f}, D "
+          f"{d_loss:.4f}, decoder {dec_loss:.4f}), launches {train_counts}",
+          flush=True)
+    if (train_counts != want or calls[0] != 2 or not all(
+            math.isfinite(x) for x in (g_loss, d_loss, dec_loss))):
+        raise AssertionError(f"tasc head dim {d}: train step launches "
+                             f"{train_counts}, expected {want}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    copies, pad = [], k5.pad_head_dim
+
+    def counted(t, dk):               # the wrapper's padded copy, counted
+        copies.append(dk)
+        return pad(t, dk)
+    k5.pad_head_dim = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate_vulnerable_code(trainer.model, gen, num_samples=2,
+                                       tokenizer=tok,
+                                       max_length=cfg.max_gen_length)
+        sync()
+        gen_s = time.perf_counter() - t0
+        gen_counts = read_counts()
+    finally:
+        k5.pad_head_dim = pad
+    n_steps = out["decode_steps"]
+    tokens = out["tokens"]
+    print(f"phase tasc head dim {d}: generate_vulnerable_code(num_samples=2, "
+          f"max_length={cfg.max_gen_length}): {n_steps} steps in {gen_s:.2f} "
+          f"s, launches {gen_counts}, padded copies {copies}; code[:60] "
+          f"{out['code'][:60]!r}", flush=True)
+    if (gen_counts != launch_dict(
+            decode=n_steps * per["decode_cross"],
+            decode_attention_f32=n_steps * per["decode_self"])
+            or copies or n_steps < 1
+            or tuple(tokens.shape) != (2, cfg.max_gen_length)):
+        raise AssertionError(f"tasc head dim {d}: generation launches "
+                             f"{gen_counts}, copies {copies}, tokens "
+                             f"{tuple(tokens.shape)}")
+    del trainer, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    names = {k: instance(k, d) for k in ("flash_attention_fwd",
+                                         "flash_attention_bwd",
+                                         "decode_attention")}
+    return {names.get(k, k): train_counts[k] + gen_counts[k]
+            for k in KERNELS}
+
+
 def phase_tasc(card: str, overrides=None, v3_overrides=None,
-               device="cuda"):
+               device="cuda", overrides_192=None):
     """The TASC variants at ``TASCConfig()`` width (binary and multiclass,
-    each through ``_tasc_variant``), the card against the CPU, and the
-    Model-v3 step. Returns the launches by instance name."""
+    each through ``_tasc_variant``), binary TASC at head dim 192
+    (``_tasc_head_dim_192``), the card against the CPU, and the Model-v3
+    step. Returns the launches by instance name."""
     launches = {}
     for name in ("binary-tasc", "multiclass-tasc"):
         for k, v in _tasc_variant(name, card, overrides, device).items():
             launches[k] = launches.get(k, 0) + v
+    for k, v in _tasc_head_dim_192(overrides_192, device).items():
+        launches[k] = launches.get(k, 0) + v
     _tasc_cpu_check(overrides, device)
     for k, v in _model_v3_step(v3_overrides, device).items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
     print(f"phase tasc: launches over the TASC paths and the Model-v3 step "
           f"{launches}", flush=True)
     return launches
@@ -3243,34 +3334,95 @@ def f32_kernel_checks(errs: dict) -> None:
             check_close(errs, "flash_attention_bwd_f32", label, gt, wt,
                         math.inf, f" {nm} q{tuple(q.shape)}", F32_BWD_TOL)
 
-    for label, (b, h, s, d), qdt, mask, cut in (
-            ("cross, source mask, f32 query", (2, 8, 1024, 96), torch.float32,
-             lens_mask((1024, 900), 1024), None),
-            ("cross, source mask, bf16 query", (2, 8, 1024, 96),
-             torch.bfloat16, lens_mask((1024, 900), 1024), None),
-            ("every key", (64, 8, 1024, 96), torch.float32, None, None),
-            ("self step, bf16 query", (2, 8, 1024, 96), torch.bfloat16, None,
-             513),
-            ("12 heads of 64", (2, 12, 1024, 64), torch.float32, None, None),
-            ("6 heads of 128", (2, 6, 1024, 128), torch.float32,
-             lens_mask((1024, 900), 1024), None),
-            ("head dim 80 (padded)", (2, 8, 300, 80), torch.float32, None,
-             None)):
+    k5_f32_checks(errs)
+    f32_keep_bits()
+
+
+# K5 f32's head dims past the paths' 96, 64 and 128: in place on the f32
+# kernel's 16-byte rows (TASC nhead 16 and entry.tiny_config's 16, 48, 80,
+# a multiple of 4 past an instance of the bf16 kernels, TASC nhead 4, 3 and
+# 2); the heads of each at d = 768, at most 8
+K5_F32_HEAD_DIMS = (16, 48, 80, 132, 192, 256, 384)
+
+
+def k5_f32_checks(errs: dict) -> None:
+    """K5 f32 against its plain version: the cross attention at (2, 8,
+    1024, 96) under a source mask with f32 and bf16 queries (the output in
+    the query's dtype), (64, 8, 1024, 96) every key, a self step over a
+    cache cut to 513 keys, 12 heads of 64, 6 of 128, S = 1, S = 65 with a
+    fully masked row; at each of ``K5_F32_HEAD_DIMS`` B = 2 under a source
+    mask with a bf16 query, B = 64 every key, a self step over a cut cache
+    and S = 65 with a fully masked row; head dim 30 on its padded copy.
+    Each case runs twice and must give the same bits; ``pad_head_dim`` is
+    counted around each: no copy where the head dim is a multiple of 4,
+    one of each of q, k and v a run at 30. Held at 1e-5 norm-wise for an f32
+    query and ``REL_TOL`` for a bf16 output (both sides round the same f32
+    value once)."""
+    import torch
+    from sct_gan_tpu_torch.ops import decode_attention as k5
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("cross, source mask, f32 query", (2, 8, 1024, 96), f32,
+              (1024, 900), None),
+             ("cross, source mask, bf16 query", (2, 8, 1024, 96), bf16,
+              (1024, 900), None),
+             ("every key", (64, 8, 1024, 96), f32, None, None),
+             ("self step, bf16 query", (2, 8, 1024, 96), bf16, None, 513),
+             ("12 heads of 64", (2, 12, 1024, 64), f32, None, None),
+             ("6 heads of 128", (2, 6, 1024, 128), f32, (1024, 900), None),
+             ("S = 1", (2, 8, 1, 96), f32, None, None),
+             ("S = 65, a fully masked row", (2, 8, 65, 96), bf16, (65, 0),
+              None),
+             ("head dim 30 (padded)", (2, 4, 300, 30), f32, (300, 120),
+              None)]
+    for d in K5_F32_HEAD_DIMS:
+        h = min(8, 768 // d)
+        cases += [(f"head dim {d}, source mask, bf16 query", (2, h, 1024, d),
+                   bf16, (1024, 900), None),
+                  (f"head dim {d}, every key", (64, h, 1024, d), f32, None,
+                   None),
+                  (f"head dim {d}, self step, bf16 query", (2, h, 1024, d),
+                   bf16, None, 300),
+                  (f"head dim {d}, S = 65, a fully masked row", (2, h, 65, d),
+                   f32, (65, 0), None)]
+    pad = k5.pad_head_dim
+    for label, (b, h, s, d), qdt, lens, cut in cases:
         q = _heads(rf(b, 1, h * d), h).to(qdt)
-        k, v = (_heads(rf(b, s, h * d), h) for _ in range(2))
         if cut is not None:           # the cache view the decode step passes
-            k, v = k[:, :, :cut], v[:, :, :cut]
-        got = decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
-        want = decode_attention_reference(q, k, v, mask, sm_scale=d ** -0.5)
+            k, v = (rf(b, h, s, d)[:, :, :cut] for _ in range(2))
+        else:
+            k, v = (_heads(rf(b, s, h * d), h) for _ in range(2))
+        mask = None if lens is None else (
+            torch.arange(s, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])
+        copies = []
+
+        def counted(t, dk):           # the wrapper's padded copy, counted
+            copies.append(dk)
+            return pad(t, dk)
+        k5.pad_head_dim = counted
+        try:
+            got = k5.decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
+            again = k5.decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
+        finally:
+            k5.pad_head_dim = pad
+        want = k5.decode_attention_reference(q, k, v, mask,
+                                             sm_scale=d ** -0.5)
         torch.cuda.synchronize()
         if got.dtype != qdt or want.dtype != qdt:
             raise AssertionError(f"f32 K5 gave {got.dtype} for a {qdt} query")
-        # a bf16 output is held at the bf16 kernels' bound: both round the
-        # same f32 value once
         tol = F32_FWD_TOL if qdt == torch.float32 else REL_TOL
         check_close(errs, "decode_attention_f32", label, got, want, math.inf,
                     f" q{tuple(q.shape)} k{tuple(k.shape)}", tol)
-    f32_keep_bits()
+        if not torch.equal(got, again):
+            raise AssertionError(f"f32 K5 {label}: two runs differ")
+        if copies != ([] if d % 4 == 0 else [32] * 6):   # two runs
+            raise AssertionError(f"f32 K5 {label}: padded copies {copies}")
+        if lens is not None and lens[-1] == 0 and got[1].abs().max() != 0:
+            raise AssertionError(f"f32 K5 {label}: the fully masked row "
+                                 f"must give zeros")
 
 
 def f32_times(card: str) -> dict:
@@ -3278,12 +3430,13 @@ def f32_times(card: str) -> dict:
     versions, the library call (f32, TF32 off) and the bound at 3xTF32's
     165 TFLOP/s or the HBM rate: K1 and the pair at (8, 8, 1024, 96) under
     the smoke's key mask, K1 also at CodeBERT's (4, 12, 512, 64) under its
-    masks; K5 at (2, 8, 1024, 96) under a source mask (1924 keys) and at
-    (64, 8, 1024, 96) with every key. Kernels and library calls replayed
-    from CUDA graphs over inputs twice the L2 (``ring_ms``). A bound counts
-    the attended keys only. Returns name -> (ms, plain ms, library ms,
-    bound ms, bound by), the CodeBERT row under ``<name>:codebert``, K5's
-    B=64 row under ``<name>:b64``."""
+    masks; K5 at (2, 8, 1024, 96) under a source mask (1924 keys), at
+    (64, 8, 1024, 96) with every key and at TASC nhead=4's (2, 4, 1024,
+    192) under the source mask. Kernels and library calls replayed from
+    CUDA graphs over inputs twice the L2 (``ring_ms``). A bound counts the
+    attended keys only. Returns name -> (ms, plain ms, library ms, bound
+    ms, bound by), the CodeBERT row under ``<name>:codebert``, K5's B=64
+    row under ``<name>:b64`` and its 192 row under ``<name>:dh192``."""
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops.decode_attention import (
@@ -3341,8 +3494,10 @@ def f32_times(card: str) -> dict:
                    + b * h * s * el + b * s))
         del ref, qg, kg, vg, out, lse, dout
 
-    for label, b, lens in (("", 2, (1024, 900)), (":b64", 64, None)):
-        h, s, d = 8, 1024, 96
+    for label, b, h, d, lens in (("", 2, 8, 96, (1024, 900)),
+                                 (":b64", 64, 8, 96, None),
+                                 (":dh192", 2, 4, 192, (1024, 900))):
+        s = 1024
         q = _heads(rf(b, 1, h * d), h)
         k, v = (_heads(rf(b, s, h * d), h) for _ in range(2))
         mask = (None if lens is None else
@@ -3375,13 +3530,15 @@ def f32_times(card: str) -> dict:
 # the f32 sources that ``--f32-times`` builds from each checkout, and their
 # C entry points
 F32_SOURCES = {"flash_attention_fwd_f32.cu": "flash_attention_fwd_f32",
-               "flash_attention_bwd_f32.cu": "flash_attention_bwd_f32"}
+               "flash_attention_bwd_f32.cu": "flash_attention_bwd_f32",
+               "decode_attention_f32.cu": "decode_attention_f32"}
 
 
 def f32_library(checkout: str):
-    """(library, ``ptxas -v`` report) of another checkout's f32 K1 and pair
-    (its ``csrc/flash_attention_fwd_f32.cu`` and ``flash_attention_bwd_f32
-    .cu``, each including its own headers), built as the main library is
+    """(library, ``ptxas -v`` report) of another checkout's f32 K1, pair
+    and K5 (its ``csrc/flash_attention_fwd_f32.cu``,
+    ``flash_attention_bwd_f32.cu`` and ``decode_attention_f32.cu``, each
+    including its own headers), built as the main library is
     (``_build.build_library``), their C entry points declared. Timed beside
     the port's, never called by the port."""
     import ctypes
@@ -3407,6 +3564,210 @@ def f32_bwd_call(lib, q, k, v, out, lse, dout, mask, scale: float):
     _build.check(lib.flash_attention_bwd_f32(*args),
                  "flash_attention_bwd_f32 (timed beside this tree's)")
     return grads
+
+
+def f32_decode_call(lib, q, k, v, mask, scale: float, splits=None):
+    """One launch of another checkout's K5 f32 (an ``f32_library``) by the
+    earlier design's entry point: q upcast to f32 first (its wrapper's
+    ``q.float()``, a launch of its own for a bf16 query), the last flag
+    the output's dtype, its split rule ``decode_splits``; the output in
+    q's dtype."""
+    import ctypes
+    import torch
+    from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.ops.decode_attention import decode_splits
+    from sct_gan_tpu_torch.ops.flash_attention import (_mask_arg, _strides,
+                                                       head_strides)
+    qf = q.float()
+    b, h, _, d = q.shape
+    s = k.shape[2]
+    out = torch.empty(b, h, 1, d, dtype=q.dtype, device=q.device)
+    mptr, msb, _keep = _mask_arg(mask, b, s, q.device)
+    _build.check(lib.decode_attention_f32(
+        qf.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
+        b, h, s, d, *head_strides(qf, "q", 4), *head_strides(k, "k", 16),
+        *head_strides(v, "v", 16), *_strides(out, "out", 4), msb,
+        splits or decode_splits(b, h, s), ctypes.c_float(scale),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream),
+        "decode_attention_f32 (timed beside this tree's)")
+    return out
+
+
+# K5 f32's shapes in ``--f32-times``: the cross attention of the f32 decode
+# step under a source mask, the self attention of TASC's (a bf16 query over
+# the f32 cache cut to 513 keys), the JAX bench's decode batch, and TASC's
+# head dims over 128 at d = 768
+K5_F32_LENS = (1024, 900)
+K5_F32_WIDE = (192, 256, 384)
+
+
+def k5_f32_ab(card: str, names, libs) -> None:
+    """``--f32-times``' K5 f32 lines: this tree's kernel against each other
+    checkout's (``f32_decode_call``), in turns (other, tree, tree, other),
+    each call replayed from a CUDA graph over inputs twice the L2
+    (``ring_ms``), at (2, 8, 1024, 96) under a source mask of 1924 keys
+    with an f32 query, at (2, 8, 513 of 1024, 96) with a bf16 query over
+    the cache cut to 513 keys through each checkout's wrapper (the other's
+    with its upcast) and at (64, 8, 1024, 96) with every key; at head dims
+    64 and 128 (768 / d heads) at B = 2 and 64 too, and this tree's alone
+    at 192, 256 and 384.
+    Beside each: SDPA in f32 (TF32 off), the plain version, the bytes bound
+    at the sheet's 3.35 TB/s and at the HBM rate measured in this call
+    (``peak_matmul.hbm_probe``), and each checkout's error against the
+    plain version. Then the parts of the time at the first shape, for each
+    checkout: K and V served from the L2 (every call on the same 12.6 MB),
+    no combine (one split a block at the same work a block: (16, 8, 128,
+    96), each row one split's keys), no mask; and this tree's split counts
+    there."""
+    import torch
+    import torch.nn.functional as F
+    from sct_gan_tpu_torch.ops.decode_attention import (
+        _decode_f32, decode_attention, decode_attention_reference,
+        decode_splits_f32)
+    from sct_gan_tpu_torch.tools.peak_matmul import hbm_probe
+    from sct_gan_tpu_torch.utils.profiling import PEAK_BYTES
+    dev = torch.device("cuda")
+    rate = hbm_probe(1024, 8, dev)["gb_per_s"] * 1e9
+    print(f"phase f32 ab [{card}]: HBM {rate / 1e9:.0f} GB/s measured "
+          f"(peak_matmul.hbm_probe), the sheet's {PEAK_BYTES / 1e9:.0f}",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(6)
+    rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    lens_mask = lambda lens, s: (torch.arange(s, device=dev)[None, :]
+                                 < torch.tensor(lens, device=dev)[:, None])
+
+    def bounds(b, h, s, d, keys, mask, q_el):
+        """Bytes bound (sheet, measured): q read and o written in q's
+        dtype, the attended keys' K and V rows, the mask."""
+        nbytes = (2 * b * h * d * q_el + 2 * h * keys * d * 4
+                  + (0 if mask is None else b * s))
+        return nbytes / PEAK_BYTES * 1e3, nbytes / rate * 1e3
+
+    def inputs(b, h, s, d, lens, qdt=torch.float32, cache=False):
+        """q, k, v (the cross K/V's head views, or a contiguous cache) and
+        the mask of one shape."""
+        q = _heads(rf(b, 1, h * d), h).to(qdt)
+        if cache:
+            k, v = rf(b, h, s, d), rf(b, h, s, d)
+        else:
+            k, v = (_heads(rf(b, s, h * d), h) for _ in range(2))
+        return q, k, v, None if lens is None else lens_mask(lens, s)
+
+    def line(label, shape, ours, others, args, want, keys, mask, q_el,
+             sdpa=None, n=20):
+        b, h, s, d = shape
+        sheet, measured = bounds(b, h, s, d, keys, mask, q_el)
+        errs = {"tree": f"{rel_err(ours(args[0]), want):.1e}"}
+        for name, fn in others.items():
+            errs[name] = f"{rel_err(fn(args[0]), want):.1e}"
+        lib_ms = (ring_ms(sdpa, args, n) if sdpa is not None else None)
+        turns = []
+        for name, fn in others.items():
+            o1, p1, p2, o2 = (ring_ms(f, args, n)
+                              for f in (fn, ours, ours, fn))
+            turns.append(f"{name} -> this tree, in turns: {o1:.4f} / "
+                         f"{o2:.4f} -> {p1:.4f} / {p2:.4f} ms")
+        if not others:
+            turns.append(f"this tree {ring_ms(ours, args, n):.4f} / "
+                         f"{ring_ms(ours, args, n):.4f} ms")
+        print(f"phase f32 ab [{card}]: decode_attention_f32 at {shape}, "
+              f"{label}: {'; '.join(turns)}; library (SDPA f32, TF32 off) "
+              + (f"{lib_ms:.4f}" if lib_ms is not None else "none")
+              + f" ms, bound {sheet:.4f} (sheet) / {measured:.4f} (measured "
+              f"HBM) ms (bytes); rel err {errs}", flush=True)
+
+    def sdpa_fn(mask, d):
+        am = None if mask is None else mask[:, None, None, :]
+        return lambda a: F.scaled_dot_product_attention(
+            a[0].float(), *a[1:], attn_mask=am, scale=d ** -0.5)
+
+    shape = (2, 8, 1024, 96)
+    q, k, v, mask = inputs(*shape, K5_F32_LENS)
+    sc = 96 ** -0.5
+    with torch.inference_mode():
+        want = decode_attention_reference(q, k, v, mask, sm_scale=sc)
+        plain = cuda_ms(lambda: decode_attention_reference(
+            q, k, v, mask, sm_scale=sc), iters=5)
+        print(f"phase f32 ab [{card}]: decode_attention_f32 plain at "
+              f"{shape}: {plain:.4f} ms", flush=True)
+        qkv = ring_inputs((q, k, v))
+        line("source mask (1924 keys), f32 query", shape,
+             lambda a: decode_attention(*a, mask, sm_scale=sc),
+             {n: (lambda a, lb=lb: f32_decode_call(lb, *a, mask, sc))
+              for n, (lb, _) in zip(names, libs)},
+             qkv, want, sum(K5_F32_LENS), mask, 4, sdpa_fn(mask, 96))
+        parts = {
+            "K and V from the L2": ([qkv[0]] * 3, mask, None),
+            "no combine (16, 8, 128, 96), one split": (
+                ring_inputs(inputs(16, 8, 128, 96, None)[:3]),
+                mask.reshape(16, 128), 1),
+            "no mask": (qkv, None, None)}
+        for part, (args, pm, splits) in parts.items():
+            ours = lambda a, pm=pm, sp=splits: _decode_f32(*a, pm, sc, sp)
+            turns = []
+            for name, (lb, _) in zip(names, libs):
+                theirs = (lambda a, lb=lb, pm=pm, sp=splits:
+                          f32_decode_call(lb, *a, pm, sc, sp))
+                o1, p1, p2, o2 = (ring_ms(f, args, 20)
+                                  for f in (theirs, ours, ours, theirs))
+                turns.append(f"{name} {o1:.4f} / {o2:.4f} -> this tree "
+                             f"{p1:.4f} / {p2:.4f}")
+            if not turns:
+                turns.append(f"this tree {ring_ms(ours, args, 20):.4f}")
+            print(f"phase f32 ab [{card}]: decode_attention_f32 parts at "
+                  f"{shape}, {part}: {'; '.join(turns)} ms", flush=True)
+        counts = {sp: ring_ms(lambda a, sp=sp: _decode_f32(*a, mask, sc, sp),
+                              qkv, 20) for sp in (2, 4, 6, 8, 16)}
+        print(f"phase f32 ab [{card}]: decode_attention_f32 splits at "
+              f"{shape} (decode_splits_f32 {decode_splits_f32(2, 8, 1024, 96)}"
+              f"): " + ", ".join(f"{sp} {ms:.4f}" for sp, ms in
+                                 counts.items()) + " ms", flush=True)
+        del qkv, want
+
+        shape = (2, 8, 1024, 96)
+        q, k, v, _ = inputs(*shape, None, torch.bfloat16, cache=True)
+        cut = lambda a: (a[0], a[1][:, :, :513], a[2][:, :, :513])
+        want = decode_attention_reference(*cut((q, k, v)), None, sm_scale=sc)
+        line("bf16 query, the cache cut to 513 keys, through the wrapper "
+             "(the other's with its upcast)", (2, 8, 513, 96),
+             lambda a: decode_attention(*cut(a), None, sm_scale=sc),
+             {n: (lambda a, lb=lb: f32_decode_call(lb, *cut(a), None, sc))
+              for n, (lb, _) in zip(names, libs)},
+             ring_inputs((q, k, v)), want, 2 * 513, None, 2,
+             lambda a: F.scaled_dot_product_attention(
+                 a[0].float(), *cut(a)[1:], scale=sc))
+        del want
+
+        shape = (64, 8, 1024, 96)
+        q, k, v, _ = inputs(*shape, None)
+        want = decode_attention_reference(q, k, v, None, sm_scale=sc)
+        line("every key, f32 query", shape,
+             lambda a: decode_attention(*a, None, sm_scale=sc),
+             {n: (lambda a, lb=lb: f32_decode_call(lb, *a, None, sc))
+              for n, (lb, _) in zip(names, libs)},
+             ring_inputs((q, k, v)), want, 64 * 1024, None, 4,
+             sdpa_fn(None, 96))
+        del want, q, k, v
+
+        for d in (64, 128, *K5_F32_WIDE):   # the parent's up to 128
+            for b, lens in ((2, K5_F32_LENS), (64, None)):
+                shape = (b, 768 // d, 1024, d)
+                q, k, v, mask = inputs(*shape, lens)
+                want = decode_attention_reference(q, k, v, mask,
+                                                  sm_scale=d ** -0.5)
+                others = {} if d > 128 else {
+                    n: (lambda a, lb=lb, m=mask, d=d: f32_decode_call(
+                        lb, *a, m, d ** -0.5)) for n, (lb, _) in
+                    zip(names, libs)}
+                line("source mask, f32 query" if lens else
+                     "every key, f32 query", shape,
+                     lambda a, m=mask, d=d: decode_attention(
+                         *a, m, sm_scale=d ** -0.5), others,
+                     ring_inputs((q, k, v)), want,
+                     sum(lens) if lens else b * 1024, mask, 4,
+                     sdpa_fn(mask, d))
+                del want, q, k, v
 
 
 def tf32_probe() -> list:
@@ -3600,6 +3961,7 @@ def f32_ab_times(checkouts) -> int:
                   f"{sheet:.4f} (sheet) / {measured:.4f} (measured) ms "
                   f"({by}); rel err dq, dk, dv {errs}", flush=True)
         del out, lse, dout, qg, kg, vg
+    k5_f32_ab(card, names, libs)
     print(card)
     return 0
 
@@ -4777,7 +5139,8 @@ def f32_entries(t: dict, errs: dict, *launch_counts) -> list:
     ``launch_counts`` (the f32 paths', the TASC paths' and the entry
     points'), the worst errors of ``f32_kernel_checks``, the times of
     ``f32_times`` (K1's CodeBERT row under ``codebert``, K5's B=64 row under
-    ``b64``) and the 3xTF32 peak its operations bound is taken at."""
+    ``b64`` and its head dim 192 row under ``dh192``) and the 3xTF32 peak
+    its operations bound is taken at."""
     from sct_gan_tpu_torch.utils.profiling import PEAK_3XTF32_FLOPS
     out = []
     for name in F32_KERNELS:
@@ -4792,7 +5155,7 @@ def f32_entries(t: dict, errs: dict, *launch_counts) -> list:
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": libms, "f32_peak_flops": PEAK_3XTF32_FLOPS}
-        for sub_row in ("codebert", "b64"):
+        for sub_row in ("codebert", "b64", "dh192"):
             if f"{name}:{sub_row}" in t:
                 ms, plain, libms, bnd, by = t[f"{name}:{sub_row}"]
                 entry[sub_row] = dict(ms=ms, plain_ms=plain, library_ms=libms,

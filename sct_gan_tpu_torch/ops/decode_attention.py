@@ -25,12 +25,14 @@ whole 16-byte units. The flash kernels route head dims their own way
 
 f32 caches (the TASC decoder's, as in the JAX package, and f32 generation
 of ``compute_dtype="float32"``) run their own kernel,
-``csrc/decode_attention_f32.cu``: the same split-K and cluster combine on
-f32 rows, with instances for head dims 64, 96 and 128, the f32 flash
-kernels' (``flash_attention.kernel_route_f32``: a smaller head dim goes
-through a copy padded to the next one, one over 128 raises). A bf16 query is upcast to
-f32 exactly, and the output comes back in the query's dtype, as the JAX
-kernel's does.
+``csrc/decode_attention_f32.cu``: split-K over bulk-copied tiles, the
+splits of a (b, h) combined in one cluster of up to 16 blocks
+(``decode_splits_f32``). Its route is its own (``decode_route_f32``): any
+head dim that is a multiple of 4 up to 512 runs in place (its rows are
+whole 16-byte units), any other one up to 512 on a copy padded to the next
+multiple of 4; over 512 it raises. The query is read as it is, bf16 or
+f32, and the output comes back in the query's dtype, as the JAX kernel's
+does.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 from . import _build
 from .attention import mha_reference
 from .flash_attention import (_mask_arg, _strides, head_strides,
-                              kernel_route_f32, pad_head_dim)
+                              pad_head_dim)
 
 # head dims with a kernel instance; the plain version takes any
 DECODE_HEAD_DIMS = (64, 96, 128, 192)
@@ -54,6 +56,13 @@ UNIT = 8            # bf16 elements of the kernel's 16-byte copies
 TILE_KEYS = 64      # keys a tile of the kernel
 MAX_SPLITS = 8      # blocks a (b, h): one portable thread block cluster
 CARD_SMS = 132      # streaming multiprocessors of an H100 SXM
+# the f32-cache kernel: f32 elements of its 16-byte rows, the largest head
+# dim it takes, the blocks a (b, h) (one non-portable cluster) and the warps
+# of a block, each of which takes its own keys of every tile
+F32_UNIT = 4
+F32_MAX_HEAD_DIM = 512
+MAX_SPLITS_F32 = 16
+F32_WARPS = 8
 
 
 def decode_route(d: int) -> Tuple[int, int]:
@@ -97,14 +106,51 @@ def decode_splits(b: int, h: int, s: int) -> int:
     return max(1, min(MAX_SPLITS, tiles, -(-CARD_SMS // (b * h))))
 
 
-def split_ranges(s: int, splits: int) -> List[Tuple[int, int]]:
-    """The key range [begin, end) of each split, as the kernel cuts them:
+def split_ranges(s: int, splits: int,
+                 tile: int = TILE_KEYS) -> List[Tuple[int, int]]:
+    """The key range [begin, end) of each split, as the kernels cut them:
     split r takes the tiles [r T / splits, (r + 1) T / splits) of the T
-    64-key tiles."""
-    tiles = -(-s // TILE_KEYS)
-    return [(r * tiles // splits * TILE_KEYS,
-             min(s, (r + 1) * tiles // splits * TILE_KEYS))
+    ``tile``-key tiles (64 keys in the bf16 kernel)."""
+    tiles = -(-s // tile)
+    return [(r * tiles // splits * tile,
+             min(s, (r + 1) * tiles // splits * tile))
             for r in range(splits)]
+
+
+def decode_route_f32(d: int) -> int:
+    """The head dim the f32-cache kernel computes at for head dim ``d``:
+    ``d`` itself when its f32 rows are whole 16-byte units (a multiple of
+    4, up to ``F32_MAX_HEAD_DIM``; 16, 48, 80, 132, 192, 384 in place),
+    else the next multiple of 4, which the wrapper hands the kernel as a
+    zero-padded copy (30 -> 32). Over ``F32_MAX_HEAD_DIM`` it raises."""
+    if d > F32_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} in float32: the f32-cache decode "
+                         f"kernel takes head dims up to {F32_MAX_HEAD_DIM}")
+    return -(-d // F32_UNIT) * F32_UNIT
+
+
+def decode_tile_keys_f32(d: int) -> int:
+    """Keys a tile of the f32-cache kernel at head dim ``d``: 64 up to 128,
+    32 up to 192, 16 above, so that a ring stage of K and V rows stays at
+    most 64 KB, and at most 48 KB (two blocks an SM) from 132 to 384."""
+    return 64 if d <= 128 else 32 if d <= 192 else 16
+
+
+def decode_splits_f32(b: int, h: int, s: int, d: int) -> int:
+    """Blocks that share the keys of one (b, h) in the f32-cache kernel: a
+    power of two, at most the tiles of S (``decode_tile_keys_f32``: no
+    split is empty) and at most what keeps B * H * splits within two
+    blocks an SM of the card (1 from B * H = 133 up); at most 8 (a
+    portable cluster) unless 8 would leave a split more than 4 tiles, then
+    at most ``MAX_SPLITS_F32``. On the card at B = 2 and 1024 keys, 8 was
+    the best count at head dims 64 to 192 (16 cost 28-40% more), 16 at 256
+    and 384 (8 cost 41-44% more: a warp walks its split's tiles one after
+    another), and cluster sizes that are not a power of two (5, 6, 11)
+    cost up to 76% more (PERF.md §6)."""
+    tiles = -(-s // decode_tile_keys_f32(d))
+    cap = MAX_SPLITS_F32 if tiles > 4 * MAX_SPLITS else MAX_SPLITS
+    most = max(1, min(cap, tiles, 2 * CARD_SMS // (b * h)))
+    return 1 << (most.bit_length() - 1)
 
 
 def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -166,22 +212,95 @@ def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
-def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def decode_attention_f32_split_reference(q: torch.Tensor, k: torch.Tensor,
+                                         v: torch.Tensor,
+                                         mask: Optional[torch.Tensor] = None,
+                                         *, sm_scale: float,
+                                         splits: int) -> torch.Tensor:
+    """The f32-cache kernel's arithmetic in plain PyTorch, f32: a test
+    oracle, which the main path never calls. Split r takes its tiles
+    (``split_ranges`` of ``decode_tile_keys_f32(d)``-key tiles); in every
+    tile, warp w of ``F32_WARPS`` takes keys [w G, (w + 1) G) (G = tile /
+    warps) and keeps its own online softmax (m, l, o; base-2 exponents,
+    q pre-scaled by scale * log2 e); the warps' (m, l, o) are combined in
+    warp order, then the splits' in split order. Same arguments and
+    result as ``decode_attention_reference``."""
+    b, h, _, d = q.shape
+    s = k.shape[2]
+    tile = decode_tile_keys_f32(d)
+    w, g = F32_WARPS, tile // F32_WARPS
+    qf = q.float() * (sm_scale * math.log2(math.e))
+    live = (torch.ones(b, s, dtype=torch.bool, device=q.device)
+            if mask is None else mask.bool())
+    pad = -(-s // tile) * tile - s            # keys past S: never attended
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    live = torch.nn.functional.pad(live, (0, pad))
+
+    def combine(m, l, o, dim):
+        """(m, l, o) combined over ``dim`` in index order."""
+        m_max = m.amax(dim, keepdim=True)
+        f = torch.where(torch.isinf(m), 0.0,
+                        torch.exp2(m - torch.where(torch.isinf(m_max), 0.0,
+                                                   m_max)))
+        l_all, o_all = 0.0, 0.0
+        for i in range(m.shape[dim]):
+            fi = f.select(dim, i)
+            l_all = l_all + l.select(dim, i) * fi
+            o_all = o_all + o.select(dim, i) * fi
+        return m_max.squeeze(dim), l_all, o_all
+
+    ms, ls, os_ = [], [], []
+    for lo, hi in split_ranges(s, splits, tile):
+        m = torch.full((b, h, w, 1), -math.inf, device=q.device)
+        l = torch.zeros(b, h, w, 1, device=q.device)
+        o = torch.zeros(b, h, w, d, device=q.device)
+        for t0 in range(lo, hi, tile):
+            kt = kf[:, :, t0:t0 + tile].reshape(b, h, w, g, d)
+            vt = vf[:, :, t0:t0 + tile].reshape(b, h, w, g, d)
+            on = live[:, None, t0:t0 + tile].reshape(b, 1, w, g)
+            sc = (kt @ qf.reshape(b, h, 1, d, 1)).squeeze(-1)   # (b,h,w,g)
+            sc = sc.masked_fill(~on, -math.inf)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            # -inf only while a warp has seen no attended key: a = p = 0
+            base = torch.where(torch.isinf(m_new), 0.0, m_new)
+            a, p = torch.exp2(m - base), torch.exp2(sc - base)
+            l = l * a + p.sum(-1, keepdim=True)
+            o = o * a + (p.unsqueeze(-2) @ vt).squeeze(-2)
+            m = m_new
+        m, l, o = combine(m, l, o, 2)                 # the warps
+        ms.append(m)
+        ls.append(l)
+        os_.append(o)
+    _, l_all, o_all = combine(torch.stack(ms), torch.stack(ls),
+                              torch.stack(os_), 0)    # the splits
+    out = torch.where(l_all > 0, o_all / torch.where(l_all > 0, l_all, 1.0),
+                      0.0)
+    return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  f32: bool = False):
     """Check the shapes and layouts the kernel takes and return the (sb,
     sh, ss) strides of q, k and v: one query, any S >= 1, a head dim the
-    kernel takes as it is (``decode_runs_on_kernel``: a multiple of 8; any
-    other head dim has rows that are not whole 16-byte units, and the
-    wrapper hands the kernel a padded copy); k and v rows on 16-byte lines (the kernel's 16-byte copies), q
-    on 4-byte lines. It reads only shapes, strides and base addresses, so
-    it holds for a tensor on any device."""
+    kernel takes as it is (``decode_runs_on_kernel``: a multiple of 8; with
+    ``f32``, the f32-cache kernel's, ``decode_route_f32``: a multiple of 4
+    up to 512; any other head dim has rows that are not whole 16-byte
+    units, and the wrapper hands the kernel a padded copy); k and v rows on
+    16-byte lines (the kernels' 16-byte and bulk copies), q on 4-byte
+    lines. It reads only shapes, strides and base addresses, so it holds
+    for a tensor on any device."""
     b, h, sq, d = q.shape
     s = k.shape[2]
     if sq != 1 or k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if not decode_runs_on_kernel(d) or s < 1:
+    unit = F32_UNIT if f32 else UNIT
+    in_place = (d % unit == 0 and d <= F32_MAX_HEAD_DIM if f32
+                else decode_runs_on_kernel(d))
+    if not in_place or s < 1:
         raise ValueError(f"head dim {d} / keys {s} not supported (head dims "
-                         f"that are multiples of {UNIT}, at least one key)")
+                         f"that are multiples of {unit}, at least one key)")
     return (head_strides(q, "q", 4), head_strides(k, "k", 16),
             head_strides(v, "v", 16))
 
@@ -199,7 +318,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the wide-head route (one block per 128 columns of the output); a
     multiple of 8 in place, any other dh on a copy padded to its route's
     head dim. f32 k and v with a bf16 or f32 q run the f32-cache kernel
-    (``kernel_route_f32``); any other mix raises.
+    (``decode_route_f32``: a multiple of 4 up to 512 in place); any other
+    mix raises.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, mask, sm_scale=sm_scale)
@@ -237,26 +357,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _decode_f32(q, k, v, mask, sm_scale: float) -> torch.Tensor:
-    """``decode_attention`` over f32 caches: the f32 kernel, q upcast to f32
-    exactly, the output in q's dtype."""
+def _decode_f32(q, k, v, mask, sm_scale: float,
+                splits: Optional[int] = None) -> torch.Tensor:
+    """``decode_attention`` over f32 caches: the f32 kernel, one launch,
+    the query read as it is (bf16 or f32) and the output in its dtype.
+    ``splits`` overrides ``decode_splits_f32`` (a timing tool's choice)."""
     d = q.shape[-1]
-    dk = kernel_route_f32(d)
+    dk = decode_route_f32(d)
     if dk != d:     # a padded copy: zero columns add nothing
         out = _decode_f32(*(pad_head_dim(t, dk) for t in (q, k, v)), mask,
-                          sm_scale)
+                          sm_scale, splits)
         return out[..., :d]
-    qf = q.float()
-    qs, ks, vs = decode_layout(qf, k, v)
+    qs, ks, vs = decode_layout(q, k, v, f32=True)
     b, h, _, _ = q.shape
     s = k.shape[2]
     out = torch.empty(b, h, 1, d, dtype=q.dtype, device=q.device)
     os_ = _strides(out, "out", 4)
     mptr, msb, _keep = _mask_arg(mask, b, s, q.device)
     err = _build.load().decode_attention_f32(
-        qf.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
-        b, h, s, d, *qs, *ks, *vs, *os_, msb, decode_splits(b, h, s),
-        ctypes.c_float(sm_scale), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
+        b, h, s, d, *qs, *ks, *vs, *os_, msb,
+        splits or decode_splits_f32(b, h, s, d), ctypes.c_float(sm_scale),
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_f32")
     decode_attention.f32_launches += 1

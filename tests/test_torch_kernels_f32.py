@@ -120,7 +120,7 @@ def test_f32_dropout_keep_bits_equal_the_plain_mask_on_card(cuda_device):
                          ids=["f32_query", "bf16_query"])
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
 def test_f32_decode_matches_plain_on_card(cuda_device, case, qdtype):
-    """K5 over f32 caches (a bf16 query upcast exactly, the output in the
+    """K5 over f32 caches (a bf16 query read as it is, the output in the
     query's dtype): within 1e-5 norm-wise for an f32 query, 1e-2 for a
     bf16 one (both sides round the same f32 value to bf16 once). A
     fully-masked row gives zeros; two runs give the same bits."""
@@ -140,8 +140,9 @@ def test_f32_decode_matches_plain_on_card(cuda_device, case, qdtype):
 
 @pytest.mark.cuda
 def test_f32_routes_raise_on_card(cuda_device):
-    """An f32 head dim over 128, mixed q/k/v dtypes in the flash wrapper,
-    and a bf16 cache under an f32 query raise; nothing is cast."""
+    """An f32 head dim over 128 in the flash kernels, over 512 in K5 f32,
+    mixed q/k/v dtypes in the flash wrapper, and a bf16 cache under an f32
+    query raise; nothing is cast."""
     dev = cuda_device
     x = torch.randn(1, 2, 64, 192, device=dev)
     with pytest.raises(ValueError, match="head dim 192 in float32"):
@@ -149,11 +150,87 @@ def test_f32_routes_raise_on_card(cuda_device):
     y = torch.randn(1, 2, 64, 64, device=dev)
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention(y, y.to(torch.bfloat16), y)
-    with pytest.raises(ValueError, match="head dim 192 in float32"):
-        decode_attention(x[:, :, :1], x, x, None, sm_scale=0.1)
+    z = torch.randn(1, 2, 64, 516, device=dev)
+    with pytest.raises(ValueError, match="head dim 516 in float32"):
+        decode_attention(z[:, :, :1], z, z, None, sm_scale=0.1)
     with pytest.raises(ValueError, match="dtypes"):
         decode_attention(y[:, :, :1], y.to(torch.bfloat16),
                          y.to(torch.bfloat16), None, sm_scale=0.1)
+
+
+# K5 f32 at the head dims it runs in place past the paths' 64, 96 and 128
+# (chip_smoke.py's k5_f32_checks): name -> (B, S, mask lens or None, the
+# live length of a cache cut to it or None); 768 / d heads, at most 8.
+K5_F32_HEAD_DIMS = (16, 48, 80, 132, 192, 256, 384)
+K5_F32_CASES = {
+    "b2_source_mask": (2, 1024, (1024, 900), None),
+    "b64_every_key": (64, 1024, None, None),
+    "cut_cache_300": (2, 1024, None, 300),
+    "s65_row_masked": (2, 65, (65, 0), None),
+    "s1": (2, 1, None, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_query", "bf16_query"])
+@pytest.mark.parametrize("case", sorted(K5_F32_CASES))
+@pytest.mark.parametrize("d", K5_F32_HEAD_DIMS)
+def test_f32_decode_head_dims_match_plain_on_card(cuda_device, d, case,
+                                                  qdtype, monkeypatch):
+    """K5 f32 in place at head dims that are multiples of 4 (16 to 384):
+    within 1e-5 norm-wise of the plain version for an f32 query, 1e-2 for
+    a bf16 one; two runs give the same bits; a fully masked row gives
+    zeros; no padded copy is made."""
+    from sct_gan_tpu_torch.ops import decode_attention as k5
+    b, s, lens, cut = K5_F32_CASES[case]
+    h = min(8, 768 // d)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn(b, 1, h * d, generator=g, device=cuda_device).view(
+        b, 1, h, d).transpose(1, 2).to(qdtype)
+    if cut is None:
+        k, v = (torch.randn(b, s, h * d, generator=g, device=cuda_device)
+                .view(b, s, h, d).transpose(1, 2) for _ in range(2))
+    else:
+        k, v = (torch.randn(b, h, s, d, generator=g,
+                            device=cuda_device)[:, :, :cut] for _ in range(2))
+    mask = None if lens is None else (
+        torch.arange(s, device=cuda_device)[None, :]
+        < torch.tensor(lens, device=cuda_device)[:, None])
+    copies = []
+    pad = k5.pad_head_dim
+    monkeypatch.setattr(k5, "pad_head_dim",
+                        lambda t, dk: copies.append(dk) or pad(t, dk))
+    got = decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
+    again = decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
+    want = decode_attention_reference(q, k, v, mask, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == qdtype
+    assert _rel_err(got, want) <= (FWD_TOL if qdtype == torch.float32
+                                   else 1e-2)
+    assert torch.equal(got, again)
+    assert copies == []
+    if lens is not None and lens[-1] == 0:
+        assert got[1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_f32_decode_pads_a_head_dim_off_16_bytes_on_card(cuda_device,
+                                                          monkeypatch):
+    """Head dim 30 (120-byte f32 rows) runs on one copy of each of q, k
+    and v padded to 32, within 1e-5 of the plain version."""
+    from sct_gan_tpu_torch.ops import decode_attention as k5
+    g = torch.Generator(device=cuda_device).manual_seed(30)
+    q, k, v = (torch.randn(2, 4, s, 30, generator=g, device=cuda_device)
+               for s in (1, 300, 300))
+    copies = []
+    pad = k5.pad_head_dim
+    monkeypatch.setattr(k5, "pad_head_dim",
+                        lambda t, dk: copies.append(dk) or pad(t, dk))
+    got = decode_attention(q, k, v, None, sm_scale=30 ** -0.5)
+    want = decode_attention_reference(q, k, v, None, sm_scale=30 ** -0.5)
+    assert copies == [32] * 3
+    assert _rel_err(got, want) <= FWD_TOL
 
 
 # The edges of the Hopper f32 kernels' tiles (csrc/flash_attention_fwd_f32.cu,
