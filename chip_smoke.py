@@ -147,6 +147,7 @@ process is a minute or two old) and that a primed trace keeps them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -329,14 +330,16 @@ def phase_build():
 # (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the wgmma
 # kernels above), the decode attention (every instance; the 192 one, by its
 # mangled name, must be in the report) with its wide-head route, the f32
-# instances of the three, and the tools' K7, K8 and K9 (every mode and head
-# dim)
+# instances of the three (the f32 K1 and pair's wide route too), and the
+# tools' K7, K8 and K9 (every mode and head dim)
 NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
             "decode_splitk_kernel", "decode_splitk_kernelILi192E",
             "decode_wide_kernel", "flash_parts_hopper_kernel",
             "flash_variants_kernel", "decode_perbatch_kernel",
             "flash_f32_fwd_kernel", "flash_f32_dkv_kernel",
-            "flash_f32_dq_kernel", "decode_f32_kernel")
+            "flash_f32_dq_kernel", "flash_f32_fwd_wide_kernel",
+            "flash_f32_dkv_wide_kernel", "flash_f32_dq_wide_kernel",
+            "decode_f32_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -372,6 +375,26 @@ def _heads(x, h=8):
     """(B, S, H*dh) → (B, H, S, dh) view: the strides the model passes."""
     b, s, d = x.shape
     return x.view(b, s, h, d // h).transpose(1, 2)
+
+
+@contextlib.contextmanager
+def counted_pads():
+    """Count the padded copies the flash and decode wrappers make inside
+    (their ``pad_head_dim``): yields the list of head dims padded to."""
+    from sct_gan_tpu_torch.ops import decode_attention as k5
+    from sct_gan_tpu_torch.ops import flash_attention as k1
+    copies, pads = [], (k1.pad_head_dim, k5.pad_head_dim)
+
+    def counting(pad):
+        def counted(t, dk):
+            copies.append(dk)
+            return pad(t, dk)
+        return counted
+    k1.pad_head_dim, k5.pad_head_dim = (counting(p) for p in pads)
+    try:
+        yield copies
+    finally:
+        k1.pad_head_dim, k5.pad_head_dim = pads
 
 
 def check_close(errs: dict, kernel: str, name: str, got, want, tol: float,
@@ -1777,7 +1800,7 @@ def phase_evals(an) -> dict:
     return counts
 
 
-def phase_heads() -> dict:
+def phase_heads(f32: bool = False) -> dict:
     """ModelConfig(nhead=12) (head dim 64), ModelConfig(nhead=6) (head dim
     128), ModelConfig(nhead=4) (192) and ModelConfig(nhead=3) (256) (every
     kernel's instances, but K5 runs 256 on its wide-head route) and
@@ -1786,9 +1809,12 @@ def phase_heads() -> dict:
     B=8), depth cut to 2+2 layers (nhead=4: 2+6, the reference's decoder,
     so that its 16 decode steps launch K5's 192 instance 12 times a
     step): one detection forward, one train step and 16 generation steps
-    each, the counts read around each. The decode steps must make no
-    padded copy (``pad_head_dim`` is counted around them). Returns the
-    launches by instance name."""
+    each, the counts read around each. No part may make a padded copy
+    (``counted_pads`` around each model). With ``f32``,
+    ``compute_dtype="float32"`` at ``F32_HEADS_MODELS`` (nhead 3 and 2:
+    the f32 K1 and pair's wide route, K5 f32 in place). Returns the
+    launches by instance name (f32: the wide route's names,
+    ``F32_WIDE_KERNELS``)."""
     import numpy as np
     import torch
     from sct_gan_tpu_torch import (SmartContractAnalyzer,
@@ -1800,84 +1826,86 @@ def phase_heads() -> dict:
     from sct_gan_tpu_torch.ops import decode_attention as k5
     codes = [r["source_code"] for r in generate_corpus(n=8, seed=0)]
     launches = {}
-    models = [*HEAD_DIMS.items(), *((d, WIDE_DIMS[d]) for d in WIDE_MODELS)]
+    models = ([(d, F32_WIDE_DIMS[d]) for d in F32_HEADS_MODELS] if f32 else
+              [*HEAD_DIMS.items(), *((d, WIDE_DIMS[d]) for d in WIDE_MODELS)])
+    sfx, tag = ("_f32", "heads f32") if f32 else ("", "heads")
     enc = 2
     for d, h in models:
-        dec = 6 if d == FULL_DECODER_DIM else 2
+        dec = 6 if d == FULL_DECODER_DIM and not f32 else 2
         cfg = ModelConfig(use_gan=True, max_length=1024, max_lines=1024,
                           nhead=h, num_encoder_layers=enc,
-                          num_decoder_layers=dec)
-        tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
-        an = SmartContractAnalyzer(model_config=cfg, tokenizer=tok, seed=0,
-                                   verbose=False)
-        reset_counts()
-        det = an.analyze_multiple_contracts(codes)
-        torch.cuda.synchronize()
-        c_det = read_counts()
-        cp = np.asarray([r["contract_probabilities"][0] for r in det])
+                          num_decoder_layers=dec,
+                          compute_dtype="float32" if f32 else "bfloat16")
+        with counted_pads() as copies:
+            tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+            an = SmartContractAnalyzer(model_config=cfg, tokenizer=tok,
+                                       seed=0, verbose=False)
+            reset_counts()
+            det = an.analyze_multiple_contracts(codes)
+            torch.cuda.synchronize()
+            c_det = read_counts()
+            cp = np.asarray([r["contract_probabilities"][0] for r in det])
 
-        trainer = SmartContractTrainer(
-            SmartContractTransformer(cfg, seed=0), _Empty(), _Empty(), tok,
-            config=TrainConfig(learning_rate=1e-5, use_gan=True,
-                               warmup_epochs=1), verbose=False)
-        batch = trainer.to_device(make_batch(8, 1024, cfg.vocab_size))
-        reset_counts()
-        trainer.state, metrics, _ = trainer.train_step(
-            trainer.state, batch, trainer._scalars(1.0),
-            trainer._group_lrs(), trainer.generator)
-        torch.cuda.synchronize()
-        c_train = read_counts()
-        loss = float(metrics["total_loss"])
+            trainer = SmartContractTrainer(
+                SmartContractTransformer(cfg, seed=0), _Empty(), _Empty(),
+                tok, config=TrainConfig(learning_rate=1e-5, use_gan=True,
+                                        warmup_epochs=1), verbose=False)
+            batch = trainer.to_device(make_batch(8, 1024, cfg.vocab_size))
+            reset_counts()
+            trainer.state, metrics, _ = trainer.train_step(
+                trainer.state, batch, trainer._scalars(1.0),
+                trainer._group_lrs(), trainer.generator)
+            torch.cuda.synchronize()
+            c_train = read_counts()
+            loss = float(metrics["total_loss"])
 
-        model = an.model
-        with torch.inference_mode():
-            b = an._prepare_inputs(codes[:2])
-            memory = model.encode(b["input_ids"], b["attention_mask"],
-                                  b["ast_input_ids"], b["ast_attention_mask"])
-            src = b["attention_mask"].bool()
-            caches = model.init_decode_cache(2)
-            cross = model.precompute_cross_kv(memory)
-            tokens = b["input_ids"][:, :16]
-            copies, pad = [], k5.pad_head_dim
-
-            def counted(t, dk):     # the wrapper's padded copy, counted
-                copies.append(dk)
-                return pad(t, dk)
-            k5.pad_head_dim = counted
-            try:
+            model = an.model
+            with torch.inference_mode():
+                b = an._prepare_inputs(codes[:2])
+                memory = model.encode(b["input_ids"], b["attention_mask"],
+                                      b["ast_input_ids"],
+                                      b["ast_attention_mask"])
+                src = b["attention_mask"].bool()
+                caches = model.init_decode_cache(2)
+                cross = model.precompute_cross_kv(memory)
+                tokens = b["input_ids"][:, :16]
                 reset_counts()
                 for pos in range(16):
                     logits = model.decode_step(tokens[:, pos:pos + 1], pos,
                                                caches, cross, src)
                 torch.cuda.synchronize()
                 c_gen = read_counts()
-            finally:
-                k5.pad_head_dim = pad
         # detection: enc encoder + AST/cross 2 + line heads 2 flash
         # forwards; a train step: enc + 2 x dec decoder (self + cross) + 2
         # + 2 + 1 forward and backward; 16 steps x dec layers x (self +
         # cross) decode calls, each on K5's decode_route(d) with no copy
-        ok = (c_det["flash_attention_fwd"] == enc + 4
-              and c_train["flash_attention_fwd"] == enc + 2 * dec + 5
-              and c_train["flash_attention_bwd"] == enc + 2 * dec + 5
+        ok = (c_det["flash_attention_fwd" + sfx] == enc + 4
+              and c_train["flash_attention_fwd" + sfx] == enc + 2 * dec + 5
+              and c_train["flash_attention_bwd" + sfx] == enc + 2 * dec + 5
               and c_train["dropout"] > 0
-              and c_gen["decode_attention"] == 16 * 2 * dec and not copies
+              and c_gen["decode_attention" + sfx] == 16 * 2 * dec
+              and not copies
               and np.isfinite(cp).all() and math.isfinite(loss)
               and bool(torch.isfinite(logits).all()))
-        print(f"phase heads: ModelConfig(nhead={h}), head dim {d}, "
+        route = (f"K5 f32 {k5.decode_route_f32(d)}" if f32
+                 else f"K5's {k5.decode_route(d)}")
+        print(f"phase {tag}: ModelConfig(nhead={h}), head dim {d}, "
               f"{enc}+{dec} layers at d=768 L=1024 B=8: detection launches "
               f"{c_det}, contract probs [{cp.min():.4f}, {cp.max():.4f}]; "
               f"train step launches {c_train}, total_loss {loss:.4f}; 16 "
               f"decode steps at B=2 launches {c_gen} "
-              f"({c_gen['decode_attention'] // 16} a step on K5's "
-              f"{k5.decode_route(d)}, padded copies {len(copies)})",
-              flush=True)
+              f"({c_gen['decode_attention' + sfx] // 16} a step on {route}; "
+              f"padded copies over the whole model {copies})", flush=True)
         if not ok:
-            raise AssertionError(f"heads d={d}: launches or outputs wrong")
-        for kernel in BF16_KERNELS:
-            name = instance(kernel, d)
-            launches[name] = launches.get(name, 0) + (
-                c_det[kernel] + c_train[kernel] + c_gen[kernel])
+            raise AssertionError(f"{tag} d={d}: launches or outputs wrong")
+        counts = {k: c_det[k] + c_train[k] + c_gen[k] for k in c_det}
+        if f32:
+            for k, v in _f32_by_route(counts, d).items():
+                launches[k] = launches.get(k, 0) + v
+        else:
+            for kernel in BF16_KERNELS:
+                name = instance(kernel, d)
+                launches[name] = launches.get(name, 0) + counts[kernel]
         del an, trainer, model, caches, cross
         torch.cuda.empty_cache()
     return launches
@@ -2345,65 +2373,72 @@ def tasc_kernel_checks(errs: dict) -> None:
 TASC_192 = {"nhead": 4, "num_layers": 2, "codebert_num_layers": 2}
 
 
-def _tasc_head_dim_192(overrides=None, device="cuda") -> dict:
+def _tasc_head_dim_192(overrides=None, device="cuda",
+                       f32: bool = False) -> dict:
     """Binary TASC at ``TASC_192`` (``overrides`` replace it): one train
     step (``train_epoch`` over one batch of 4 at L=512) and
     ``generate_vulnerable_code(num_samples=2, max_length=512)``, each
     part's launches held to ``tasc_per_path``: a decode step runs K5 f32
     in place at head dim 192 over the self-attention caches and the bf16
     K5's 192 instance over the cross K/V; ``pad_head_dim`` is counted
-    around the generation (no copy). Returns the launches by the kernels
-    line's names (K1, the pair and K5 at their 192 instances)."""
+    around the generation (no copy). With ``f32``, multiclass TASC there at
+    ``compute_dtype="float32"`` (the f32 K1 and pair's wide route): the
+    train step and one detection batch (``detect_vulnerabilities`` over the
+    batch's CodeBERT embeddings), copies counted around both, no
+    generation. Returns the launches by the kernels line's names (K1, the
+    pair and K5 at their 192 instances; f32: the wide route's, CodeBERT's
+    f32 K1 at 64 apart)."""
     import torch
     from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
-    from sct_gan_tpu_torch.ops import decode_attention as k5
     from sct_gan_tpu_torch.variants import (build_trainer, build_variant,
                                             generate_vulnerable_code)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    model, cfg = build_variant("binary-tasc", overrides or TASC_192)
+    variant = "multiclass-tasc" if f32 else "binary-tasc"
+    over = {**(overrides or TASC_192),
+            **({"compute_dtype": "float32"} if f32 else {})}
+    model, cfg = build_variant(variant, over)
     tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
     train, _ = _tasc_loaders(tok, cfg, n_train=4, n_val=4)
-    trainer = build_trainer("binary-tasc", model, cfg, train, _Empty(), tok,
+    trainer = build_trainer(variant, model, cfg, train, _Empty(), tok,
                             verbose=False, device=device)
     per = tasc_per_path(cfg)
     d = cfg.d_model // cfg.nhead
     calls = _forward_calls(trainer.codebert)
     reset_counts()
     t0 = time.perf_counter()
-    g_loss, d_loss, dec_loss = trainer.train_epoch()
+    with counted_pads() as copies:
+        g_loss, d_loss, dec_loss = trainer.train_epoch()
     sync()
     step_s = time.perf_counter() - t0
     train_counts = read_counts()
     calls[1].remove()
+    cb = calls[0] * per["embed"]     # CodeBERT's f32 K1, head dim 64
+    # f32: the TASC model's K1 shares CodeBERT's counter
+    fwd_f32 = cb + (per["train_fwd"] if f32 else 0)
     want = launch_dict(per["train_fwd"], per["train_bwd"], per["train_drop"],
-                       flash_attention_fwd_f32=calls[0] * per["embed"])
-    print(f"phase tasc head dim {d}: binary TASCConfig("
-          f"{overrides or TASC_192}) at d={cfg.d_model}: one train step at "
-          f"B=4 L={cfg.max_length} in {step_s:.2f} s (G {g_loss:.4f}, D "
-          f"{d_loss:.4f}, decoder {dec_loss:.4f}), launches {train_counts}",
-          flush=True)
-    if (train_counts != want or calls[0] != 2 or not all(
+                       f32=f32, flash_attention_fwd_f32=fwd_f32)
+    print(f"phase tasc head dim {d}: {variant.split('-')[0]} TASCConfig("
+          f"{over}) at d={cfg.d_model}: one train step at B=4 "
+          f"L={cfg.max_length} in {step_s:.2f} s (G {g_loss:.4f}, D "
+          f"{d_loss:.4f}, decoder {dec_loss:.4f}), launches {train_counts}, "
+          f"padded copies {copies}", flush=True)
+    if (train_counts != want or calls[0] != 2 or copies or not all(
             math.isfinite(x) for x in (g_loss, d_loss, dec_loss))):
         raise AssertionError(f"tasc head dim {d}: train step launches "
                              f"{train_counts}, expected {want}")
+    if f32:
+        return _tasc_f32_detect(trainer, train, per, d, train_counts, cb,
+                                sync)
     gen = torch.Generator(device=device).manual_seed(0)
-    copies, pad = [], k5.pad_head_dim
-
-    def counted(t, dk):               # the wrapper's padded copy, counted
-        copies.append(dk)
-        return pad(t, dk)
-    k5.pad_head_dim = counted
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
+    reset_counts()
+    t0 = time.perf_counter()
+    with counted_pads() as copies:
         out = generate_vulnerable_code(trainer.model, gen, num_samples=2,
                                        tokenizer=tok,
                                        max_length=cfg.max_gen_length)
-        sync()
-        gen_s = time.perf_counter() - t0
-        gen_counts = read_counts()
-    finally:
-        k5.pad_head_dim = pad
+    sync()
+    gen_s = time.perf_counter() - t0
+    gen_counts = read_counts()
     n_steps = out["decode_steps"]
     tokens = out["tokens"]
     print(f"phase tasc head dim {d}: generate_vulnerable_code(num_samples=2, "
@@ -2428,18 +2463,53 @@ def _tasc_head_dim_192(overrides=None, device="cuda") -> dict:
             for k in KERNELS}
 
 
+def _tasc_f32_detect(trainer, train, per, d, train_counts, cb, sync):
+    """The f32 run of ``_tasc_head_dim_192`` after its train step: one
+    detection batch (the first of ``train``), its launches held to
+    ``tasc_per_path`` (the TASC model's f32 K1 on the wide route, CodeBERT's
+    at 64), no padded copy. Returns the step's and the batch's launches by
+    the kernels line's names."""
+    import torch
+    batch = next(iter(train))
+    calls = _forward_calls(trainer.codebert)
+    reset_counts()
+    with counted_pads() as copies, torch.inference_mode():
+        det = trainer.model.detect_vulnerabilities(trainer._embed(
+            batch["input_ids"], batch["attention_mask"]))
+    sync()
+    counts = read_counts()
+    calls[1].remove()
+    det_cb = calls[0] * per["embed"]
+    want = launch_dict(per["detect_fwd"] + det_cb, f32=True)
+    scores = det["vulnerability_scores"]
+    print(f"phase tasc head dim {d} f32: detect_vulnerabilities over a batch "
+          f"of {len(batch['label'])}: launches {counts} ({det_cb} CodeBERT "
+          f"f32 K1 at head dim 64), padded copies {copies}; scores "
+          f"{scores.float().cpu().numpy().round(4).tolist()}", flush=True)
+    if (counts != want or copies or calls[0] != 1
+            or not bool(torch.isfinite(scores).all())):
+        raise AssertionError(f"tasc head dim {d} f32: detection launches "
+                             f"{counts}, expected {want}")
+    total = {k: train_counts[k] + counts[k] for k in KERNELS}
+    total["flash_attention_fwd_f32"] -= cb + det_cb
+    out = _f32_by_route(total, d)
+    out["flash_attention_fwd_f32"] = cb + det_cb
+    return out
+
+
 def phase_tasc(card: str, overrides=None, v3_overrides=None,
                device="cuda", overrides_192=None):
     """The TASC variants at ``TASCConfig()`` width (binary and multiclass,
-    each through ``_tasc_variant``), binary TASC at head dim 192
-    (``_tasc_head_dim_192``), the card against the CPU, and the Model-v3
-    step. Returns the launches by instance name."""
+    each through ``_tasc_variant``), binary TASC at head dim 192 and
+    multiclass there in f32 (``_tasc_head_dim_192``), the card against the
+    CPU, and the Model-v3 step. Returns the launches by instance name."""
     launches = {}
     for name in ("binary-tasc", "multiclass-tasc"):
         for k, v in _tasc_variant(name, card, overrides, device).items():
             launches[k] = launches.get(k, 0) + v
-    for k, v in _tasc_head_dim_192(overrides_192, device).items():
-        launches[k] = launches.get(k, 0) + v
+    for f32 in (False, True):
+        for k, v in _tasc_head_dim_192(overrides_192, device, f32).items():
+            launches[k] = launches.get(k, 0) + v
     _tasc_cpu_check(overrides, device)
     for k, v in _model_v3_step(v3_overrides, device).items():
         launches[k] = launches.get(k, 0) + v
@@ -3206,51 +3276,73 @@ F32_DECODE_TOL = 1e-3
 F32_LOSS_RTOL = 1e-4
 F32_GNORM_RTOL = 1e-3
 F32_TRAIN_STEPS = 3
+# The f32 K1 and pair's wide route (head dims over 128, in 64-column
+# chunks): head dim -> heads at d = 768 (nhead 4, 3 and 2). Its kernels-line
+# entries are ``F32_WIDE_KERNELS``, whose top level is the main path's head
+# dim, nhead 4's 192; 160 runs on a copy padded to 192, and 512 in eight
+# chunks, past the models' 384.
+F32_WIDE_DIMS = {192: 4, 256: 3, 384: 2}
+F32_WIDE_TOP = 192
+F32_WIDE_PADDED = 160
+F32_WIDE_CHUNKED = 512
+F32_WIDE_KERNELS = ("flash_attention_fwd_f32_wide",
+                    "flash_attention_bwd_f32_wide")
+# the f32 models phase_heads runs at 2+2 layers (nhead 3 and 2); nhead 4 runs
+# at full depth in phase_f32
+F32_HEADS_MODELS = (256, 384)
 # the smoke's key mask over (8, 1024): 5301 of 8192 keys attended
 SMOKE_LENS = (1024, 900, 700, 512, 300, 1000, 64, 801)
 CODEBERT_LENS = (512, 204, 143, 77)
 
 
 def f32_keep_bits(b: int = 2, h: int = 8, s: int = 1024, rate: float = 0.3,
-                  seed: int = 11) -> None:
+                  seed: int = 11, d: int = 64) -> None:
     """The f32 K1's and the f32 pair's dropout keep bits, held exactly to
-    the plain version's mask (``attention_keep``), at head dim 64 (the
-    hash index does not depend on the head dim). q = 0 makes P uniform
-    over the attended keys. Forward: a key mask of one 64-key window at a
-    time and V = the 64 x 64 identity on it give O[i][c] = keep(i, 64 w +
-    c) / 64 / (1 - rate) or 0. Backward at Sq = 64: dO = the identity gives
-    dV[j][c] = keep(c, j) / Sk / (1 - rate) or 0."""
+    the plain version's mask (``attention_keep``), at head dim ``d`` (a
+    multiple of 64: the hash index does not depend on the head dim, and
+    over 128 every 64-column chunk's block must draw the same bits). q = 0
+    makes P uniform over the attended keys. Forward: a key mask of one
+    64-key window at a time and V = the 64 x 64 identity on it, in every
+    64-column chunk, give O[i][64 c + j] = keep(i, 64 w + j) / 64 / (1 -
+    rate) or 0 for each chunk c. Backward at Sq = 64: dO = the identity in
+    every chunk gives dV[j][64 c + i] = keep(i, j) / Sk / (1 - rate) or
+    0."""
     import torch
     from sct_gan_tpu_torch.ops.attention import attention_keep
     from sct_gan_tpu_torch.ops.flash_attention import flash_attention
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
     eye = torch.eye(64, device=dev)
-    q = torch.zeros(b, h, s, 64, device=dev)
-    k = torch.randn(b, h, s, 64, generator=g, device=dev)
-    v = eye.repeat(s // 64, 1).expand(b, h, s, 64).contiguous()
+    chunks = d // 64
+    q = torch.zeros(b, h, s, d, device=dev)
+    k = torch.randn(b, h, s, d, generator=g, device=dev)
+    v = eye.repeat(s // 64, chunks).expand(b, h, s, d).contiguous()
     want = attention_keep((b, h, s, s), seed, rate, None, dev)
-    got = torch.empty_like(want)
+    fwd_bad = 0
     for w in range(s // 64):
         mask = torch.zeros(b, s, dtype=torch.bool, device=dev)
         mask[:, 64 * w:64 * (w + 1)] = True
         out = flash_attention(q, k, v, key_padding_mask=mask, sm_scale=0.125,
                               dropout_rate=rate, seed=seed)
-        got[..., 64 * w:64 * (w + 1)] = out > 0
-    fwd_bad = int((got != want).sum())
-    qg = torch.zeros(b, h, 64, 64, device=dev, requires_grad=True)
+        for c in range(chunks):
+            fwd_bad += int(((out[..., 64 * c:64 * (c + 1)] > 0)
+                            != want[..., 64 * w:64 * (w + 1)]).sum())
+    qg = torch.zeros(b, h, 64, d, device=dev, requires_grad=True)
     kg = k.detach().requires_grad_()
-    vg = torch.randn(b, h, s, 64, generator=g, device=dev).requires_grad_()
-    dout = eye.expand(b, h, 64, 64).contiguous()
+    vg = torch.randn(b, h, s, d, generator=g, device=dev).requires_grad_()
+    dout = eye.repeat(1, chunks).expand(b, h, 64, d).contiguous()
     out = flash_attention(qg, kg, vg, sm_scale=0.125, dropout_rate=rate,
                           seed=seed)
     dv = torch.autograd.grad(out, vg, dout)[0]
     want_b = attention_keep((b, h, 64, s), seed, rate, None, dev)
-    bwd_bad = int(((dv.transpose(-1, -2) > 0) != want_b).sum())
+    bwd_bad = sum(int(((dv[..., 64 * c:64 * (c + 1)].transpose(-1, -2) > 0)
+                       != want_b).sum()) for c in range(chunks))
     torch.cuda.synchronize()
-    print(f"  f32 dropout keep bits, rate {rate}: K1 at ({b}, {h}, {s}, {s}) "
-          f"{fwd_bad} of {want.numel()} differ; the pair's dV at ({b}, {h}, "
-          f"64, {s}) {bwd_bad} of {want_b.numel()} differ", flush=True)
+    print(f"  f32 dropout keep bits, rate {rate}, head dim {d} ({chunks} "
+          f"chunk(s) of 64 columns): K1 at ({b}, {h}, {s}, {s}) {fwd_bad} "
+          f"of {want.numel() * chunks} differ; the pair's dV at ({b}, {h}, "
+          f"64, {s}) {bwd_bad} of {want_b.numel() * chunks} differ",
+          flush=True)
     if fwd_bad or bwd_bad:
         raise AssertionError("f32 dropout keep bits differ from the plain "
                              "version's")
@@ -3267,7 +3359,8 @@ def f32_kernel_checks(errs: dict) -> None:
     128); K5 at (2, 8, 1024, 96) under a source mask with f32 and bf16
     queries (its output in the query's dtype), (64, 8, 1024, 96) every key,
     a self step over a cache cut to 513 keys, head dims 64, 128 and 80
-    (padded); then the keep bits (``f32_keep_bits``)."""
+    (padded); the wide route over head dim 128 (``f32_wide_checks``); then
+    the keep bits (``f32_keep_bits``) at 64 and on the wide route at 192."""
     import torch
     from sct_gan_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
@@ -3335,7 +3428,80 @@ def f32_kernel_checks(errs: dict) -> None:
                         math.inf, f" {nm} q{tuple(q.shape)}", F32_BWD_TOL)
 
     k5_f32_checks(errs)
+    f32_wide_checks(errs)
     f32_keep_bits()
+    f32_keep_bits(h=4, d=F32_WIDE_TOP)
+
+
+def f32_wide_checks(errs: dict) -> None:
+    """The f32 K1 and pair's wide route against their plain f32 versions:
+    at each of ``F32_WIDE_DIMS``' (8, h, 1024, d) under the smoke's key mask
+    with dropout 0.3, causal at (4, 4, 512, 192), head dim 160 on its copy
+    padded to 192 at (4, 4, 512, 160) and 512 in eight chunks at (2, 2,
+    512, 512) under a key mask with a fully masked row (zeros, lse = -1e30,
+    dq = 0). The forward and its LSE at 1e-5 norm-wise, the gradients at
+    1e-4; two backward runs give the same bits; ``pad_head_dim`` is counted
+    (a copy of q, k and v at 160 only). Each head dim's worst errors are
+    kept under ``<name>:dh<d>``, the worst of all under the name."""
+    import torch
+    from sct_gan_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+
+    def lens_mask(lens, s):
+        return (torch.arange(s, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+    cases = [("smoke key mask, dropout 0.3", (8, h, 1024, d),
+              lens_mask(SMOKE_LENS, 1024), False, 0.3)
+             for d, h in F32_WIDE_DIMS.items()]
+    cases += [("causal", (4, 4, 512, F32_WIDE_TOP), None, True, 0.0),
+              ("padded copy, key mask, dropout 0.3",
+               (4, 4, 512, F32_WIDE_PADDED), lens_mask((512, 300, 77, 1), 512),
+               False, 0.3),
+              ("eight chunks, a fully masked row, dropout 0.3",
+               (2, 2, 512, F32_WIDE_CHUNKED), lens_mask((450, 0), 512), False,
+               0.3)]
+    fwd, bwd = F32_WIDE_KERNELS
+    for label, (b, h, s, d), mask, causal, rate in cases:
+        q, k, v = (_heads(rf(b, s, h * d), h).requires_grad_()
+                   for _ in range(3))
+        dout = _heads(rf(b, s, h * d), h)
+        args = dict(key_padding_mask=mask, causal=causal, sm_scale=d ** -0.5,
+                    dropout_rate=rate, seed=7)
+        with counted_pads() as copies:
+            out, lse = flash_attention(q, k, v, return_lse=True, **args)
+            got = torch.autograd.grad(out, (q, k, v), dout)
+            again = torch.autograd.grad(flash_attention(q, k, v, **args),
+                                        (q, k, v), dout)
+        ref, ref_lse = flash_attention_reference(q, k, v, return_lse=True,
+                                                 **args)
+        want = torch.autograd.grad(ref, (q, k, v), dout)
+        torch.cuda.synchronize()
+        what = f" q{tuple(q.shape)}"
+        check_close(errs, f"{fwd}:dh{d}", label, out.detach(), ref.detach(),
+                    math.inf, what, F32_FWD_TOL)
+        live = ref_lse > -1e29       # rows that attend a key
+        check_close(errs, f"{fwd}:dh{d}", label + " (lse)", lse[live],
+                    ref_lse[live], math.inf, what, F32_FWD_TOL)
+        for nm, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            check_close(errs, f"{bwd}:dh{d}", label, gt, wt, math.inf,
+                        f" {nm}{what}", F32_BWD_TOL)
+        if not all(torch.equal(a, x) for a, x in zip(got, again)):
+            raise AssertionError(f"f32 wide pair {label}: two runs differ")
+        if copies != ([] if d % 64 == 0 else [192] * 6):   # two calls
+            raise AssertionError(f"f32 wide route {label}: padded copies "
+                                 f"{copies}")
+        if mask is not None and not bool(mask[-1].any()) and not (
+                out[-1].abs().max().item() == 0.0
+                and bool((lse[-1] == -1e30).all())
+                and got[0][-1].abs().max().item() == 0.0):
+            raise AssertionError("f32 wide route: the row with no attended "
+                                 "key must give zeros, lse = -1e30, dq = 0")
+    for name in F32_WIDE_KERNELS:
+        rows = [v for k, v in errs.items() if k.startswith(name + ":")]
+        errs[name] = (max(a for a, _ in rows), max(r for _, r in rows))
 
 
 # K5 f32's head dims past the paths' 96, 64 and 128: in place on the f32
@@ -3387,7 +3553,6 @@ def k5_f32_checks(errs: dict) -> None:
                    bf16, None, 300),
                   (f"head dim {d}, S = 65, a fully masked row", (2, h, 65, d),
                    f32, (65, 0), None)]
-    pad = k5.pad_head_dim
     for label, (b, h, s, d), qdt, lens, cut in cases:
         q = _heads(rf(b, 1, h * d), h).to(qdt)
         if cut is not None:           # the cache view the decode step passes
@@ -3397,17 +3562,9 @@ def k5_f32_checks(errs: dict) -> None:
         mask = None if lens is None else (
             torch.arange(s, device=dev)[None, :]
             < torch.tensor(lens, device=dev)[:, None])
-        copies = []
-
-        def counted(t, dk):           # the wrapper's padded copy, counted
-            copies.append(dk)
-            return pad(t, dk)
-        k5.pad_head_dim = counted
-        try:
+        with counted_pads() as copies:
             got = k5.decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
             again = k5.decode_attention(q, k, v, mask, sm_scale=d ** -0.5)
-        finally:
-            k5.pad_head_dim = pad
         want = k5.decode_attention_reference(q, k, v, mask,
                                              sm_scale=d ** -0.5)
         torch.cuda.synchronize()
@@ -3430,13 +3587,16 @@ def f32_times(card: str) -> dict:
     versions, the library call (f32, TF32 off) and the bound at 3xTF32's
     165 TFLOP/s or the HBM rate: K1 and the pair at (8, 8, 1024, 96) under
     the smoke's key mask, K1 also at CodeBERT's (4, 12, 512, 64) under its
-    masks; K5 at (2, 8, 1024, 96) under a source mask (1924 keys), at
-    (64, 8, 1024, 96) with every key and at TASC nhead=4's (2, 4, 1024,
-    192) under the source mask. Kernels and library calls replayed from
-    CUDA graphs over inputs twice the L2 (``ring_ms``). A bound counts the
-    attended keys only. Returns name -> (ms, plain ms, library ms, bound
-    ms, bound by), the CodeBERT row under ``<name>:codebert``, K5's B=64
-    row under ``<name>:b64`` and its 192 row under ``<name>:dh192``."""
+    masks; the wide route's K1 and pair at (8, 4, 1024, 192), (8, 3, 1024,
+    256) and (8, 2, 1024, 384) under the smoke's key mask; K5 at (2, 8,
+    1024, 96) under a source mask (1924 keys), at (64, 8, 1024, 96) with
+    every key and at TASC nhead=4's (2, 4, 1024, 192) under the source
+    mask. Kernels and library calls replayed from CUDA graphs over inputs
+    twice the L2 (``ring_ms``). A bound counts the attended keys only.
+    Returns name -> (ms, plain ms, library ms, bound ms, bound by), the
+    CodeBERT row under ``<name>:codebert``, the wide route's under
+    ``<wide name>:dh<d>``, K5's B=64 row under ``<name>:b64`` and its 192
+    row under ``<name>:dh192``."""
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops.decode_attention import (
@@ -3453,9 +3613,13 @@ def f32_times(card: str) -> dict:
     def bound(flops, nbytes):
         return bound_ms(flops, nbytes, PEAK_3XTF32_FLOPS)
 
-    for label, (b, h, s, d), lens in (
-            ("", (8, 8, 1024, 96), SMOKE_LENS),
-            (":codebert", (4, 12, 512, 64), CODEBERT_LENS)):
+    rows = [("flash_attention_fwd_f32", "flash_attention_bwd_f32",
+             (8, 8, 1024, 96), SMOKE_LENS),
+            ("flash_attention_fwd_f32:codebert", None, (4, 12, 512, 64),
+             CODEBERT_LENS)]
+    rows += [(f"{F32_WIDE_KERNELS[0]}:dh{d}", f"{F32_WIDE_KERNELS[1]}:dh{d}",
+              (8, h, 1024, d), SMOKE_LENS) for d, h in F32_WIDE_DIMS.items()]
+    for fwd_key, bwd_key, (b, h, s, d), lens in rows:
         q, k, v = (_heads(rf(b, s, h * d), h) for _ in range(3))
         mask = (torch.arange(s, device=dev)[None, :]
                 < torch.tensor(lens, device=dev)[:, None])
@@ -3463,7 +3627,7 @@ def f32_times(card: str) -> dict:
         qkv_bytes, kv_bytes = b * h * s * d * el, h * keys * d * el
         with torch.inference_mode():
             qkv = ring_inputs((q, k, v))
-            t["flash_attention_fwd_f32" + label] = (
+            t[fwd_key] = (
                 ring_ms(lambda a: flash_attention(*a, key_padding_mask=mask,
                                                   sm_scale=sc), qkv, 20),
                 cuda_ms(lambda: flash_attention_reference(
@@ -3474,7 +3638,7 @@ def f32_times(card: str) -> dict:
                 *bound(4 * h * s * keys * d,
                        2 * qkv_bytes + 2 * kv_bytes + b * s))
             del qkv
-        if label:
+        if bwd_key is None:
             continue
         dout = _heads(rf(b, s, h * d), h)
         out, lse = flash_attention(q, k, v, key_padding_mask=mask,
@@ -3482,7 +3646,7 @@ def f32_times(card: str) -> dict:
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         ref = flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
                                         sm_scale=sc)
-        t["flash_attention_bwd_f32"] = (
+        t[bwd_key] = (
             ring_ms(lambda _: flash_attention_backward(
                 q, k, v, out, lse, dout, mask, False, sc, 0.0, 0), [None], 10),
             cuda_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), dout,
@@ -3966,19 +4130,24 @@ def f32_ab_times(checkouts) -> int:
     return 0
 
 
-def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
+def phase_f32(card: str, overrides=None, device: str = "cuda",
+              kernels: bool = True) -> tuple:
     """The f32 paths at the reference width (``compute_dtype="float32"``,
-    d=768, 8 heads of 96, 6+6 layers, L=1024, random weights from seed 0):
-    the f32 kernels against their plain versions (``f32_kernel_checks``),
-    then, counted, ``F32_TRAIN_STEPS`` train steps on the JAX bench's batch
+    d=768, 8 heads of 96 unless ``overrides`` say otherwise, 6+6 layers,
+    L=1024, random weights from seed 0): with ``kernels``, the f32 kernels
+    against their plain versions (``f32_kernel_checks``); then, counted,
+    ``F32_TRAIN_STEPS`` train steps on the JAX bench's batch
     (B=8, dropout 0.3, fused LM-head CE, fused optimizer; K1 and the pair
     23 a step, K6 as its dropout sites are called), the card's peak memory
     beside them, and the same step's loss and gradient norms against the
     CPU at B=2 with dropout off; an f32 detection batch of 8 (10 K1) held
     to the CPU on one contract; f32 generation of 2 contracts (12 f32 K5 a
     step, 8 in the encode) and 32 cached decode steps against
-    teacher-forced logits. Then ``f32_times``. Returns (launches by the
-    kernels line's names, worst errors by kernel, times).
+    teacher-forced logits; ``pad_head_dim`` is counted around the three
+    parts (no copy: 96 and, on the wide route, 192 run in place). Then,
+    with ``kernels``, ``f32_times``. Returns (launches by the kernels line's
+    names: the f32 K1 and pair under ``F32_WIDE_KERNELS`` at a head dim over
+    128, worst errors by kernel, times).
 
     It rehearses on the CPU: ``phase_f32(card, tiny_overrides,
     device="cpu")`` runs the paths at ``overrides`` on the plain versions
@@ -3995,7 +4164,7 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     t0 = time.perf_counter()
     errs = {}
-    if cuda:
+    if cuda and kernels:
         f32_kernel_checks(errs)
         print(f"phase f32: kernel checks in {time.perf_counter() - t0:.1f} "
               f"s", flush=True)
@@ -4010,6 +4179,8 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
                          "max_lines": 1024, **(overrides or {}),
                          "compute_dtype": "float32"})
     tcfg = TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1)
+    d = cfg.d_model // cfg.nhead
+    tag = "f32" if d == 96 else f"f32 head dim {d}"
     tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
     model = SmartContractTransformer(cfg, seed=0)
     trainer = SmartContractTrainer(model, _Empty(), _Empty(), tok,
@@ -4023,10 +4194,11 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
     reset_counts()
     state, losses = trainer.state, []
     t0 = time.perf_counter()
-    for _ in range(F32_TRAIN_STEPS):
-        state, metrics, scalars = trainer.train_step(
-            state, batch, scalars, lrs, trainer.generator)
-        losses.append(float(metrics["total_loss"]))
+    with counted_pads() as copies:
+        for _ in range(F32_TRAIN_STEPS):
+            state, metrics, scalars = trainer.train_step(
+                state, batch, scalars, lrs, trainer.generator)
+            losses.append(float(metrics["total_loss"]))
     sync()
     step_s = (time.perf_counter() - t0) / F32_TRAIN_STEPS
     counts = read_counts()
@@ -4037,13 +4209,14 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
     n = F32_TRAIN_STEPS
     want = launch_dict(n * FLASH_PER_TRAIN_FORWARD,
                        n * FLASH_PER_TRAIN_FORWARD, 2 * calls[0], f32=True)
-    print(f"phase f32 train: {n} steps at B=8 L={cfg.max_length} (dropout "
+    print(f"phase {tag} train: {n} steps at B=8 L={cfg.max_length} (dropout "
           f"{cfg.dropout}, fused_lm_ce {tcfg.fused_lm_ce}, fused_optimizer "
           f"{tcfg.fused_optimizer}), {step_s:.3f} s a step (the first "
-          f"included); losses {losses}; launches {counts}; peak "
-          f"torch.cuda.max_memory_allocated {peak:.2f} GiB", flush=True)
+          f"included); losses {losses}; launches {counts}; padded copies "
+          f"{copies}; peak torch.cuda.max_memory_allocated {peak:.2f} GiB",
+          flush=True)
     if ((cuda and counts != want) or calls[0] % n or calls[0] == 0
-            or not all(math.isfinite(x) for x in losses)):
+            or copies or not all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"f32 train: launches {counts}, expected "
                              f"{want}; losses {losses}")
     add(counts)
@@ -4057,12 +4230,13 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
                                tokenizer=tok, device=device)
     codes = [r["source_code"] for r in generate_corpus(n=8, seed=0)]
     reset_counts()
-    results = an.analyze_multiple_contracts(codes)
+    with counted_pads() as copies:
+        results = an.analyze_multiple_contracts(codes)
     sync()
     detect = read_counts()
     cp = np.asarray([r["contract_probabilities"][0] for r in results])
     if (cuda and detect != launch_dict(flash_per_detect(cfg), f32=True)) or \
-            not (len(results) == 8 and np.isfinite(cp).all()):
+            copies or not (len(results) == 8 and np.isfinite(cp).all()):
         raise AssertionError(f"f32 detection: launches {detect}, probs {cp}")
     add(detect)
     card_r = an.detect_vulnerabilities(codes[1])
@@ -4074,7 +4248,7 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
                        - np.asarray(ref["contract_probabilities"])).max())
     d_l = float(np.abs(np.asarray(card_r["line_probabilities"])
                        - np.asarray(ref["line_probabilities"])).max())
-    print(f"phase f32 detect: 8 contracts, launches {detect}; card f32 vs "
+    print(f"phase {tag} detect: 8 contracts, launches {detect}; card f32 vs "
           f"CPU f32 on one contract: contract probs max diff {d_c:.3e}, "
           f"line probs {d_l:.3e} (tol {F32_DETECT_TOL})", flush=True)
     if not (d_c <= F32_DETECT_TOL and d_l <= F32_DETECT_TOL):
@@ -4082,7 +4256,8 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
 
     reset_counts()
     t0 = time.perf_counter()
-    generated = an.generate_synthetic_contract(codes[0], num_contracts=2)
+    with counted_pads() as copies:
+        generated = an.generate_synthetic_contract(codes[0], num_contracts=2)
     sync()
     gen_s = time.perf_counter() - t0
     gen = read_counts()
@@ -4090,7 +4265,7 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
     if (cuda and gen != launch_dict(cfg.num_encoder_layers + 2,
                                     decode=2 * cfg.num_decoder_layers * steps,
                                     f32=True)) or steps < 1 or \
-            len(generated) != 2:
+            len(generated) != 2 or copies:
         raise AssertionError(f"f32 generation: launches {gen} for {steps} "
                              f"steps")
     add(gen)
@@ -4111,18 +4286,29 @@ def phase_f32(card: str, overrides=None, device: str = "cuda") -> tuple:
             step_err = max(step_err, max_err(lg, full[:, pos]))
     if caches[0][0].dtype != torch.float32:
         raise AssertionError(f"f32 generation: caches {caches[0][0].dtype}")
-    print(f"phase f32 generate: 2 contracts, {steps} decode steps in "
-          f"{gen_s:.2f} s, launches {gen}; 32 cached decode steps vs "
+    print(f"phase {tag} generate: 2 contracts, {steps} decode steps in "
+          f"{gen_s:.2f} s, launches {gen} (padded copies {copies}); 32 "
+          f"cached decode steps vs "
           f"teacher-forced logits max |diff| {step_err:.3e} (tol "
           f"{F32_DECODE_TOL})", flush=True)
     if not step_err <= F32_DECODE_TOL:
         raise AssertionError("f32 decode_step disagrees with teacher forcing")
     del an, model, memory, caches, cross
-    if not cuda:
+    launches = _f32_by_route(launches, d)
+    if not (cuda and kernels):
         return launches, errs, {}
     torch.cuda.empty_cache()
-    times = f32_times(card)
-    return launches, errs, times
+    return launches, errs, f32_times(card)
+
+
+def _f32_by_route(counts: dict, head_dim: int) -> dict:
+    """An f32 model's launches by the kernels line's names: over head dim
+    128 its f32 K1 and pair under the wide route's (``F32_WIDE_KERNELS``)."""
+    if head_dim <= 128:
+        return dict(counts)
+    wide = dict(zip(("flash_attention_fwd_f32", "flash_attention_bwd_f32"),
+                    F32_WIDE_KERNELS))
+    return {wide.get(k, k): v for k, v in counts.items()}
 
 
 def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
@@ -5136,19 +5322,24 @@ def profile_naive_step(card: str, wall_ms: float) -> None:
 
 def f32_entries(t: dict, errs: dict, *launch_counts) -> list:
     """The kernels line's entries of the f32 instances: launches summed over
-    ``launch_counts`` (the f32 paths', the TASC paths' and the entry
-    points'), the worst errors of ``f32_kernel_checks``, the times of
-    ``f32_times`` (K1's CodeBERT row under ``codebert``, K5's B=64 row under
-    ``b64`` and its head dim 192 row under ``dh192``) and the 3xTF32 peak
-    its operations bound is taken at."""
+    ``launch_counts`` (the f32 paths', the TASC paths', the entry points'
+    and the wide route's), the worst errors of ``f32_kernel_checks``, the
+    times of ``f32_times`` (K1's CodeBERT row under ``codebert``, K5's B=64
+    row under ``b64`` and its head dim 192 row under ``dh192``) and the
+    3xTF32 peak its operations bound is taken at. The wide route's entries
+    (``F32_WIDE_KERNELS``) give ``F32_WIDE_TOP``'s times at the top level,
+    the other head dims' times and errors under ``head_dims``, and the
+    padded and chunked cases' errors there too."""
     from sct_gan_tpu_torch.utils.profiling import PEAK_3XTF32_FLOPS
     out = []
-    for name in F32_KERNELS:
-        source, replaces = KERNELS[name]
+    for name in (*F32_KERNELS, *F32_WIDE_KERNELS):
+        source, replaces = KERNELS[name.removesuffix("_wide")]
         launches = sum(c.get(name, 0) for c in launch_counts)
         if launches == 0:
             raise AssertionError(f"{name}: no launch on its main path")
-        ms, plain, libms, bnd, by = t[name]
+        wide = name in F32_WIDE_KERNELS
+        top = f"{name}:dh{F32_WIDE_TOP}" if wide else name
+        ms, plain, libms, bnd, by = t[top]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5156,10 +5347,22 @@ def f32_entries(t: dict, errs: dict, *launch_counts) -> list:
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": libms, "f32_peak_flops": PEAK_3XTF32_FLOPS}
         for sub_row in ("codebert", "b64", "dh192"):
-            if f"{name}:{sub_row}" in t:
+            if not wide and f"{name}:{sub_row}" in t:
                 ms, plain, libms, bnd, by = t[f"{name}:{sub_row}"]
                 entry[sub_row] = dict(ms=ms, plain_ms=plain, library_ms=libms,
                                       bound_ms=bnd, bound_by=by)
+        if wide:
+            entry["head_dim"] = F32_WIDE_TOP
+            entry["head_dims"] = {}
+            for d in sorted({*F32_WIDE_DIMS, F32_WIDE_PADDED,
+                             F32_WIDE_CHUNKED}):
+                a, r = errs[f"{name}:dh{d}"]
+                row = entry["head_dims"][str(d)] = {"max_abs_err": a,
+                                                    "max_rel_err": r}
+                if f"{name}:dh{d}" in t:      # 160 and 512 are held only
+                    ms, plain, libms, bnd, by = t[f"{name}:dh{d}"]
+                    row.update(ms=ms, plain_ms=plain, library_ms=libms,
+                               bound_ms=bnd, bound_by=by)
         out.append(entry)
     return out
 
@@ -5405,6 +5608,11 @@ def main() -> int:
     parallel_launches = phase_parallel(card)
     entry_launches = phase_entry(card)
     f32_launches, f32_errs, f32_t = phase_f32(card)
+    # the f32 K1 and pair's wide route: nhead 4 (head dim 192) at full
+    # depth, nhead 3 and 2 at 2+2 layers
+    wide_launches = phase_f32(card, {"nhead": F32_WIDE_DIMS[F32_WIDE_TOP]},
+                              kernels=False)[0]
+    wide_head_launches = phase_heads(f32=True)
     bench_launches, peaks = phase_bench(card)
     attribution_launches = phase_attribution(card)
     step_tool_launches = phase_step_tools(card)
@@ -5465,7 +5673,9 @@ def main() -> int:
         launches += tasc_launches.get(name, 0)
         launches += parallel_launches.get(name, 0)
         launches += entry_launches.get(name, 0)
-        launches += f32_launches.get(name, 0)   # K6 on the f32 step
+        # K6 on the f32 steps (nhead 8; the wide route's nhead 4, 3, 2)
+        launches += sum(c.get(name, 0) for c in (
+            f32_launches, wide_launches, wide_head_launches))
         if launches == 0:
             raise AssertionError(f"{name}: no launch on its main path")
         entry = {
@@ -5514,7 +5724,7 @@ def main() -> int:
                     row["b64"] = times(t[f"{name}:dh{d}:b64"])
         kernels.append(entry)
     kernels += f32_entries(f32_t, f32_errs, f32_launches, tasc_launches,
-                           entry_launches)
+                           entry_launches, wide_launches, wide_head_launches)
     kernels += variants
     add_measured_bounds(kernels, peaks)
     print(card)

@@ -2,7 +2,8 @@
 // flash_attention_fwd_f32.cu (K1 f32) and flash_attention_bwd_f32.cu (the
 // f32 pair). TF32 wgmma at f32 accuracy, the pass that splits a landed f32
 // tile into its TF32 halves in wgmma's layout, f32 tensor maps and the walk
-// over the key tiles that hold an attended key.
+// over the key tiles that hold an attended key; and, for head dims over
+// 128, the wide route's column chunks on mma.sync (namespace wide, below).
 //
 // Precision: 3xTF32. One TF32 pass keeps 11 significant bits (~5e-4
 // relative), which is not f32. Each operand x is split into big = x with
@@ -508,5 +509,145 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
   for (int ch = 0; ch < D / 16; ++ch)
     hopper::tma_load_4d(dst + ch * rows * 64, map, bar, ch * 16, r0, h, b);
 }
+
+// ---- the wide route: head dims over 128, in column chunks ------------------------
+// The f32 K1 and pair past head dim 128 (flash_f32_*_wide_kernel). A head
+// dim D there is a multiple of the chunk CW = 64 columns, and every operand
+// is read through shared memory one chunk at a time: a block owns one
+// output chunk of 64 rows and walks the other operand's 64-row tiles; per
+// tile it sums each score product over D chunk by chunk, then applies it to
+// its own chunk of V, dO, Q or K. Tiles are row-major chunks of 64 rows x
+// CW f32, rows padded to LD = CW + 4 (so the 32 lanes of a fragment load,
+// rows g or 2t, columns t or g, fall in 32 distinct banks), loaded by
+// cp.async. Products run on mma.sync.m16n8k8 in 3xTF32: its fragments are
+// loaded by each thread with plain loads, so a B operand stored MN-major
+// (V, dO, Q, K in P V, P^T dO, dS^T Q, dS K) needs no transpose in shared
+// memory, which TF32 wgmma (K-major operands only) would.
+//
+// Fragment layouts of mma.m16n8k8 .tf32 (g = lane / 4, t = lane % 4):
+//   A (16 x 8, row): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8 x 8, k x n): b0 = B[t][g], b1 = B[t+4][g]
+//   C (16 x 8, f32):  c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1]
+// A score tile in the C layout is the A operand of the next product with the
+// contraction index permuted: logical k = t is column 2t and k = t + 4 is
+// column 2t + 1, so a = (c0, c2, c1, c3) and B's rows are read at 2t, 2t + 1.
+namespace wide {
+
+constexpr int CW = 64;            // columns of a chunk
+constexpr int LD = CW + 4;        // a chunk row in shared memory, f32
+constexpr int ROWS = 64;          // rows of every tile: 4 warps of 16
+constexpr int NT = 128;
+constexpr int TILE = ROWS * LD;   // f32 of a tile
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B at f32 accuracy (3xTF32, the small terms first)
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma_tf32(d, as, bb[0], bb[1]);
+  mma_tf32(d, ab, bs[0], bs[1]);
+  mma_tf32(d, ab, bb[0], bb[1]);
+}
+
+// C[16 x N] += A[16 x CW] B[N x CW]^T: a warp's 16 rows of A against N rows
+// of B, both chunk tiles (row stride LD). Q K^T, dO V^T, K Q^T, V dO^T.
+template <int N>
+__device__ __forceinline__ void mma_nt(float (&c)[N / 8][4], const float* a, const float* b,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int kk = 0; kk < CW / 8; ++kk) {   // not unrolled: as mma_pn's steps
+    const float* ar = a + g * LD + kk * 8 + t;
+    uint32_t ab[4], as[4];
+    split_tf32(ar[0], ab[0], as[0]);
+    split_tf32(ar[8 * LD], ab[1], as[1]);
+    split_tf32(ar[4], ab[2], as[2]);
+    split_tf32(ar[8 * LD + 4], ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      const float* br = b + (n * 8 + g) * LD + kk * 8 + t;
+      uint32_t bb[2], bs[2];
+      split_tf32(br[0], bb[0], bs[0]);
+      split_tf32(br[4], bb[1], bs[1]);
+      mma3(c[n], ab, as, bb, bs);
+    }
+  }
+}
+
+// O[16 x CW] += P[16 x K] B[K x CW]: P a warp's tile in the C layout (K / 8
+// blocks of 8 columns, from mma_nt), B a chunk tile (row stride LD). P V,
+// dS K, P^T dO, dS^T Q. The steps are not unrolled (unrolled, ptxas loads
+// every step's B ahead and spills past 255 registers), so each takes P's
+// block 0 and shifts the rest down: a register array is never indexed at
+// run time.
+template <int K>
+__device__ __forceinline__ void mma_pn(float (&o)[CW / 8][4], const float (&p)[K / 8][4],
+                                       const float* b, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float x[K / 8][4];
+#pragma unroll
+  for (int i = 0; i < K / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = p[i][e];
+#pragma unroll 1
+  for (int ks = 0; ks < K / 8; ++ks) {
+    uint32_t ab[4], as[4];
+    split_tf32(x[0][0], ab[0], as[0]);   // P[g][2t]
+    split_tf32(x[0][2], ab[1], as[1]);   // P[g + 8][2t]
+    split_tf32(x[0][1], ab[2], as[2]);   // P[g][2t + 1]
+    split_tf32(x[0][3], ab[3], as[3]);   // P[g + 8][2t + 1]
+#pragma unroll
+    for (int i = 0; i + 1 < K / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][e] = x[i + 1][e];
+    const float* r0 = b + (ks * 8 + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n) {
+      uint32_t bb[2], bs[2];
+      split_tf32(r0[n * 8], bb[0], bs[0]);
+      split_tf32(r0[LD + n * 8], bb[1], bs[1]);
+      mma3(o[n], ab, as, bb, bs);
+    }
+  }
+}
+
+// cp.async rows [r0, r0 + R) of one chunk (CW f32 from src, a row's first
+// column of it) of a matrix with row stride ss (elements) into a chunk tile
+// of R rows, zero-filling rows >= n_rows; 16 bytes a copy, all NT threads.
+template <int R = ROWS>
+__device__ __forceinline__ void load_chunk(float* dst, const float* src, int ss, int r0,
+                                           int n_rows) {
+  constexpr int UNITS = CW / 4;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < R * UNITS; c += NT) {
+    const int r = c / UNITS, u = (c % UNITS) * 4;
+    const bool ok = r0 + r < n_rows;
+    hopper::cp_async_16(dst + r * LD + u, ok ? src + (size_t)(r0 + r) * ss + u : src, ok);
+  }
+}
+
+// The first tile at or after j (of R keys, below n_tiles) that holds an
+// attended key; n_tiles when none. Block-wide: every thread calls it alike
+// (one barrier a tile looked at); threads < R read a mask byte each.
+template <int R = ROWS>
+__device__ __forceinline__ int next_live(const uint8_t* mrow, int j, int n_tiles, int Sk) {
+  if (mrow == nullptr) return j < n_tiles ? j : n_tiles;
+  for (; j < n_tiles; ++j) {
+    const int key = j * R + static_cast<int>(threadIdx.x);
+    const bool on = threadIdx.x < R && key < Sk && mrow[key] != 0;
+    if (__syncthreads_or(on)) return j;
+  }
+  return n_tiles;
+}
+
+}  // namespace wide
 
 }  // namespace f32att

@@ -65,6 +65,8 @@
 // Q's and dO's big halves, dQ, S, dP and dS's halves). No product is left
 // on mma.sync.
 // Waves on 132 SMs at (8, 8, 1024, 96): 1024 blocks each, 7.76 waves.
+// Head dims over 128 take the wide route instead (flash_f32_{dkv,dq}_wide_
+// kernel, below, after the same D): 64-column chunks on mma.sync.
 //
 // The mask and causal semantics are the forward's: a masked key, a key past
 // Sk, a query past Sq and a causal key j > i all get P = 0, so a fully-
@@ -721,14 +723,316 @@ int launch(const BwdF32Args& a, const void* const (&p)[4], const St (&st)[4], in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- head dims over 128: the wide route ----------------------------------------
+// A head dim D over 128 (a multiple of wide::CW = 64 columns; the wrapper
+// pads any other) runs in column chunks (f32_attention.cuh, wide), one
+// block per 64 rows and 64-column chunk co of the gradients it writes, 4
+// warps of 16 rows; every product 3xTF32 on mma.sync.m16n8k8, every operand
+// a chunk tile loaded by cp.async through 2 stages. Per walked tile a block
+// sums its two score products over D chunk by chunk (2 D / 64 steps: the
+// first's chunks, then the second's), forms P and dS in registers, and
+// applies them to the tile's chunk co of the operand its gradient takes:
+//   dKV: a block owns 64 keys and chunk co of dK and dV and walks tiles of
+//        DKV_W queries (from the one holding its first key on, when
+//        causal): S^T = K Q^T and dP^T = V dO^T over D, then dV +=
+//        P_drop^T dO[:, co] and dK += dS^T Q[:, co]. A block whose 64 keys
+//        are all masked walks nothing and writes zeros.
+//   dQ:  a block owns 64 queries and chunk co of dQ and walks the tiles of
+//        DQ_W keys that hold an attended key (up to the diagonal, when
+//        causal): S = Q K^T and dP = dO V^T over D, then dQ += dS K[:, co].
+// No atomics: the gradients are bit-for-bit deterministic. Cost: every
+// chunk's block recomputes both score products over the whole head dim, so
+// the pair runs (4 D / 64 + 3) / 5 times the products of the math (3 at
+// 192, 3.8 at 256, 5.4 at 384), and reads the walked operands' chunks once
+// a chunk block (from the L2). Simple and right; no Hopper pipeline.
+// Budget: 2 stages x 2 chunk tiles (64 and W rows of 68 f32) + the walked
+// tile's chunk co of the gradient operands (dKV: Q's and dO's, and the
+// queries' lse and D; dQ: K's and the keys' mask bias). Registers (255 a
+// thread at two blocks an SM): the gradient chunks (dKV 64, dQ 32) and the
+// two score tiles (W / 2 each).
+constexpr int DKV_W = 32;
+constexpr int DQ_W = 32;
+
+struct BwdWideArgs {
+  const float *q, *k, *v, *dout;
+  const uint8_t* mask;   // (B, Sk), nonzero = attend, or null
+  const float* lse;      // contiguous (B*H, Sq)
+  const float* dvec;     // D = rowsum(dO o O), contiguous (B*H, Sq)
+  float *dq, *dk, *dv;
+  int H, Sq, Sk, D;
+  St qs, ks, vs, dos, dqs, dks, dvs;
+  int mask_sb, causal;
+  float scale;
+  int dropout;
+  uint32_t seed, threshold;
+  float inv_keep;
+  DropShard ds;
+};
+
+constexpr int DKV_WIDE_SMEM = ((2 * wide::ROWS + 4 * DKV_W) * wide::LD + 2 * DKV_W) * 4;
+constexpr int DQ_WIDE_SMEM = ((2 * wide::ROWS + 3 * DQ_W) * wide::LD + DQ_W) * 4;
+static_assert(DKV_WIDE_SMEM <= 232448 / 2 - 1024 && DQ_WIDE_SMEM <= 232448 / 2 - 1024,
+              "two blocks an SM");
+
+// Write a warp's 16 x CW gradient chunk (the C layout) at rows r0, r0 + 8 of
+// a strided head from its chunk's first column, times `mul`; rows >= n_rows
+// are not written.
+__device__ __forceinline__ void store_chunk(float* base, int ss,
+                                            const float (&acc)[wide::CW / 8][4], int r0,
+                                            int n_rows, float mul, int t) {
+#pragma unroll
+  for (int n = 0; n < wide::CW / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (r0 < n_rows)
+      *reinterpret_cast<float2*>(base + (size_t)r0 * ss + col) =
+          make_float2(acc[n][0] * mul, acc[n][1] * mul);
+    if (r0 + 8 < n_rows)
+      *reinterpret_cast<float2*>(base + (size_t)(r0 + 8) * ss + col) =
+          make_float2(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(wide::NT, 2)
+flash_f32_dkv_wide_kernel(const BwdWideArgs a) {
+  using namespace wide;
+  constexpr int W = DKV_W;
+  extern __shared__ float4 smem4[];
+  // [2 stages][K or V chunk: ROWS rows, then Q or dO chunk: W rows][LD]
+  float* ab = reinterpret_cast<float*>(smem4);
+  float* qo = ab + 2 * (ROWS + W) * LD;          // the tile's chunk co of Q
+  float* doo = qo + W * LD;                      // and of dO
+  float* stats = doo + W * LD;                   // the tile's lse [W], D [W]
+  const int nc = a.D / CW, co = blockIdx.x % nc, k0 = (blockIdx.x / nc) * ROWS;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;   // this thread's rows
+  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+  const bool on0 = key0 < a.Sk && (mrow == nullptr || mrow[key0] != 0);
+  const bool on1 = key1 < a.Sk && (mrow == nullptr || mrow[key1] != 0);
+  const int tk = k0 + (int)threadIdx.x;
+  const bool any = __syncthreads_or(threadIdx.x < ROWS && tk < a.Sk &&
+                                    (mrow == nullptr || mrow[tk] != 0));
+  const int t_first = a.causal ? k0 / W : 0;
+  const int t_end = any ? (a.Sq + W - 1) / W : t_first;
+  const float* kb = head(a.k, a.ks, b, h);
+  const float* vb = head(a.v, a.vs, b, h);
+  const float* qb = head(a.q, a.qs, b, h);
+  const float* dob = head(a.dout, a.dos, b, h);
+  const float* lse = a.lse + (size_t)bh * a.Sq;
+  const float* dvec = a.dvec + (size_t)bh * a.Sq;
+  const int steps = 2 * nc;
+  auto issue = [&](int j, int x, int st) {      // step x of query tile j into stage st
+    const int c = (x % nc) * CW;
+    float* s = ab + st * (ROWS + W) * LD;
+    if (x < nc) {
+      load_chunk(s, kb + c, a.ks.ss, k0, a.Sk);
+      load_chunk<W>(s + ROWS * LD, qb + c, a.qs.ss, j * W, a.Sq);
+    } else {
+      load_chunk(s, vb + c, a.vs.ss, k0, a.Sk);
+      load_chunk<W>(s + ROWS * LD, dob + c, a.dos.ss, j * W, a.Sq);
+    }
+  };
+  auto issue_out = [&](int j) {                 // chunk co of Q and dO, lse and D of tile j
+    load_chunk<W>(qo, qb + co * CW, a.qs.ss, j * W, a.Sq);
+    load_chunk<W>(doo, dob + co * CW, a.dos.ss, j * W, a.Sq);
+    if (threadIdx.x < W) {
+      const int i = j * W + (int)threadIdx.x;
+      stats[threadIdx.x] = i < a.Sq ? lse[i] : 0.f;
+      stats[W + threadIdx.x] = i < a.Sq ? dvec[i] : 0.f;
+    }
+  };
+  float dk[CW / 8][4], dv[CW / 8][4];
+#pragma unroll
+  for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const uint32_t head_index = drop_head(b, h, a.ds) * (uint32_t)a.Sq;
+
+  if (t_first < t_end) issue(t_first, 0, 0);
+  cp_async_commit();
+  int st = 0;
+  for (int j = t_first; j < t_end; ++j) {
+    float s[W / 8][4], dp[W / 8][4];         // S^T and dP^T: 16 keys x W queries
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int x = 0; x < steps; ++x) {
+      if (x + 1 < steps)
+        issue(j, x + 1, st ^ 1);
+      else if (j + 1 < t_end)
+        issue(j + 1, 0, st ^ 1);
+      if (x == 0) issue_out(j);                // read at the last step (steps >= 2)
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();                         // step x (and the tile's chunk co) landed
+      const float* sa = ab + st * (ROWS + W) * LD;
+      if (x < nc)
+        mma_nt<W>(s, sa + warp * 16 * LD, sa + ROWS * LD, lane);
+      else
+        mma_nt<W>(dp, sa + warp * 16 * LD, sa + ROWS * LD, lane);
+      if (x == steps - 1) {
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n * 8 + 2 * t + (e & 1), i = j * W + c;
+            const int key = e < 2 ? key0 : key1;
+            const bool live = (e < 2 ? on0 : on1) && i < a.Sq && !(a.causal && key > i);
+            const float p = live ? expf(s[n][e] * a.scale - stats[c]) : 0.f;
+            float pd = p, dpd = dp[n][e];
+            if (a.dropout) {
+              const bool keep = hash_keep(
+                  (head_index + (uint32_t)i) * (uint32_t)a.Sk + (uint32_t)key, a.seed,
+                  a.threshold);
+              pd = keep ? p * a.inv_keep : 0.f;
+              dpd = keep ? dpd * a.inv_keep : 0.f;
+            }
+            s[n][e] = pd;                      // P_drop^T
+            dp[n][e] = p * (dpd - stats[W + c]);   // dS^T
+          }
+        mma_pn<W>(dv, s, doo, lane);
+        mma_pn<W>(dk, dp, qo, lane);
+      }
+      __syncthreads();                         // stage st (and the chunk co tiles) free
+      st ^= 1;
+    }
+  }
+  cp_async_wait<0>();
+  store_chunk(head(a.dk, a.dks, b, h) + co * CW, a.dks.ss, dk, key0, a.Sk, a.scale, t);
+  store_chunk(head(a.dv, a.dvs, b, h) + co * CW, a.dvs.ss, dv, key0, a.Sk, 1.f, t);
+}
+
+__global__ void __launch_bounds__(wide::NT, 2)
+flash_f32_dq_wide_kernel(const BwdWideArgs a) {
+  using namespace wide;
+  constexpr int W = DQ_W;
+  extern __shared__ float4 smem4[];
+  // [2 stages][Q or dO chunk: ROWS rows, then K or V chunk: W rows][LD]
+  float* ab = reinterpret_cast<float*>(smem4);
+  float* ko = ab + 2 * (ROWS + W) * LD;          // the tile's chunk co of K
+  float* bias = ko + W * LD;                     // the tile's keys: 0 or -inf
+  const int nc = a.D / CW, co = blockIdx.x % nc, q0 = (blockIdx.x / nc) * ROWS;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+  const float* qb = head(a.q, a.qs, b, h);
+  const float* dob = head(a.dout, a.dos, b, h);
+  const float* kb = head(a.k, a.ks, b, h);
+  const float* vb = head(a.v, a.vs, b, h);
+  const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] : 0.f;
+  const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] : 0.f;
+  const float dv0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
+  const float dv1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
+  int n_tiles = (a.Sk + W - 1) / W;
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + ROWS, a.Sq) - 1) / W + 1);
+  const int steps = 2 * nc;
+  auto issue = [&](int j, int x, int st) {      // step x of key tile j into stage st
+    const int c = (x % nc) * CW;
+    float* s = ab + st * (ROWS + W) * LD;
+    if (x < nc) {
+      load_chunk(s, qb + c, a.qs.ss, q0, a.Sq);
+      load_chunk<W>(s + ROWS * LD, kb + c, a.ks.ss, j * W, a.Sk);
+    } else {
+      load_chunk(s, dob + c, a.dos.ss, q0, a.Sq);
+      load_chunk<W>(s + ROWS * LD, vb + c, a.vs.ss, j * W, a.Sk);
+    }
+  };
+  auto issue_out = [&](int j) {                 // chunk co of K and the bias of tile j
+    load_chunk<W>(ko, kb + co * CW, a.ks.ss, j * W, a.Sk);
+    if (threadIdx.x < W) {
+      const int key = j * W + (int)threadIdx.x;
+      bias[threadIdx.x] = key < a.Sk && (mrow == nullptr || mrow[key] != 0) ? 0.f : -INFINITY;
+    }
+  };
+  float dq[CW / 8][4];
+#pragma unroll
+  for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  const uint32_t drop0 =
+      (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
+  const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
+
+  int cur = next_live<W>(mrow, 0, n_tiles, a.Sk);
+  if (cur < n_tiles) issue(cur, 0, 0);
+  cp_async_commit();
+  int st = 0;
+  while (cur < n_tiles) {
+    const int nxt = next_live<W>(mrow, cur + 1, n_tiles, a.Sk);
+    const int k0 = cur * W;
+    float s[W / 8][4], dp[W / 8][4];         // S and dP: 16 queries x W keys
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int x = 0; x < steps; ++x) {
+      if (x + 1 < steps)
+        issue(cur, x + 1, st ^ 1);
+      else if (nxt < n_tiles)
+        issue(nxt, 0, st ^ 1);
+      if (x == 0) issue_out(cur);              // read at the last step (steps >= 2)
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* sa = ab + st * (ROWS + W) * LD;
+      if (x < nc)
+        mma_nt<W>(s, sa + warp * 16 * LD, sa + ROWS * LD, lane);
+      else
+        mma_nt<W>(dp, sa + warp * 16 * LD, sa + ROWS * LD, lane);
+      if (x == steps - 1) {
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + 2 * t + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            const bool live = bias[col] == 0.f && row < a.Sq && !(a.causal && k0 + col > row);
+            const float p = live ? expf(s[n][e] * a.scale - (e < 2 ? lse0 : lse1)) : 0.f;
+            float dpd = dp[n][e];
+            if (a.dropout) {
+              const bool keep = hash_keep((e < 2 ? drop0 : drop1) + (uint32_t)(k0 + col),
+                                          a.seed, a.threshold);
+              dpd = keep ? dpd * a.inv_keep : 0.f;
+            }
+            s[n][e] = p * (dpd - (e < 2 ? dv0 : dv1));   // dS
+          }
+        mma_pn<W>(dq, s, ko, lane);
+      }
+      __syncthreads();
+      st ^= 1;
+    }
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+  store_chunk(head(a.dq, a.dqs, b, h) + co * CW, a.dqs.ss, dq, row0, a.Sq, a.scale, t);
+}
+
+int launch_wide(const BwdWideArgs& a, int B, cudaStream_t s) {
+  static bool dkv_ok = false, dq_ok = false;
+  cudaError_t e = allow_smem(flash_f32_dkv_wide_kernel, DKV_WIDE_SMEM, dkv_ok);
+  if (e == cudaSuccess) e = allow_smem(flash_f32_dq_wide_kernel, DQ_WIDE_SMEM, dq_ok);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nc = a.D / wide::CW, r = wide::ROWS;
+  flash_f32_dkv_wide_kernel<<<dim3((a.Sk + r - 1) / r * nc, B * a.H), wide::NT, DKV_WIDE_SMEM,
+                              s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_f32_dq_wide_kernel<<<dim3((a.Sq + r - 1) / r * nc, B * a.H), wide::NT, DQ_WIDE_SMEM,
+                             s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The bf16 entry point's arguments (flash_attention_bwd.cu), for f32 q, k,
 // v, dout, out, dq, dk, dv: (B, H, S, Dh) with element strides (sb, sh, ss)
 // and the last dimension contiguous; q, k, v, dout on 16-byte lines with
 // strides of whole 16-byte units (their TMA maps), out and the gradients on
-// 8-byte lines; Dh 64, 96 or 128. lse: the forward's, dvec: f32 (B*H*Sq)
-// scratch the entry fills with D. Returns the first error.
+// 8-byte lines; Dh 64, 96, 128 or, on the wide route, a multiple of 64 over
+// 128. lse: the forward's, dvec: f32 (B*H*Sq) scratch the entry fills with
+// D. Returns the first error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout, const void* out,
     const void* mask, const void* lse, void* dvec, void* dq, void* dk, void* dv, int B,
@@ -747,8 +1051,8 @@ extern "C" int flash_attention_bwd_f32(
                      mask_sb, causal, scale, dropout, seed, threshold, inv_keep,
                      DropShard{(uint32_t)drop_b0, (uint32_t)drop_h0, (uint32_t)drop_hg}};
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B * H > 65535 ||
-      (Dh != 64 && Dh != 96 && Dh != 128))
-    return static_cast<int>(cudaErrorInvalidValue);   // no instance takes it
+      (Dh != 64 && Dh != 96 && Dh != 128 && (Dh <= 128 || Dh % wide::CW != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);   // no route takes it
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* const p[4] = {q, k, v, dout};
   const St st[4] = {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
@@ -760,6 +1064,12 @@ extern "C" int flash_attention_bwd_f32(
   switch (Dh) {
     case 64: return launch<64>(a, p, st, B, s);
     case 96: return launch<96>(a, p, st, B, s);
-    default: return launch<128>(a, p, st, B, s);
+    case 128: return launch<128>(a, p, st, B, s);
+    default: break;
   }
+  const BwdWideArgs w{static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), a.dout, a.mask, a.lse, a.dvec, a.dq, a.dk,
+                      a.dv, H, Sq, Sk, Dh, st[0], st[1], st[2], st[3], a.dqs, a.dks, a.dvs,
+                      mask_sb, causal, scale, dropout, seed, threshold, inv_keep, a.ds};
+  return launch_wide(w, B, s);
 }

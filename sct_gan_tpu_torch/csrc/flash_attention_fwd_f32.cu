@@ -61,6 +61,10 @@
 // Waves on 132 SMs: (8, 8, 1024, 96) 512 blocks, 3.88 waves; CodeBERT's
 // (4, 12, 512, 64) 192 blocks, 1.45 waves.
 //
+// Head dims over 128 take the wide route instead (flash_f32_fwd_wide_kernel,
+// below): 64-column chunks on mma.sync, each chunk's block recomputing the
+// scores.
+//
 // Semantics (the bf16 K1's and the JAX kernel's): a masked key gets -inf; a
 // fully-masked row gives zeros and lse = -1e30; causal means key j is
 // visible to query i iff j <= i (top-left aligned when Sq != Sk).
@@ -569,15 +573,207 @@ int rate_launch(void* out, int reps, int blocks, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- head dims over 128: the wide route ----------------------------------------
+// A head dim D over 128 (a multiple of wide::CW = 64 columns; the wrapper
+// pads any other) runs in column chunks (f32_attention.cuh, wide): a block
+// is (64 query rows, one 64-column chunk co of O, b, h), 4 warps of 16
+// rows. It walks the 64-key tiles that hold an attended key (and, under
+// causal, that its rows see); per tile it sums S = Q K^T over D chunk by
+// chunk (each chunk of Q and of K by cp.async through 2 stages), runs the
+// online softmax in f32 (expf, the natural domain) and adds P V[:, co] from
+// the tile's chunk co of V. Every chunk's block computes the same S in the
+// same order, so the same row statistics, and draws the same keep bits (the
+// hash is over (b, h, i, j), not over columns); only chunk 0's block writes
+// the LSE. A fully masked row gives zeros in every chunk and lse = -1e30.
+// Every product is 3xTF32 on mma.sync.m16n8k8.
+// Cost: each of D / 64 chunk blocks recomputes S over the whole head dim,
+// so the kernel runs (D / 64 + 1) / 2 times the products of the math (2 at
+// 192, 2.5 at 256, 3.5 at 384), and reads Q's chunks again for every key
+// tile (from the L2). Simple and right; no Hopper pipeline.
+// Budget: 2 stages x (Q, K) + V's chunk, 64 x 68 f32 each, + the tile's
+// mask bias: 87,296 bytes, two blocks an SM; registers O (32) and S (32).
+struct FwdWideArgs {
+  const float *q, *k, *v;
+  const uint8_t* mask;   // (B, Sk), nonzero = attend, or null
+  float* o;
+  float* lse;            // contiguous (B*H, Sq), or null
+  int H, Sq, Sk, D;
+  int q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
+  int mask_sb, causal;
+  float scale;
+  int dropout;
+  uint32_t seed, threshold;
+  float inv_keep;
+  DropShard ds;
+};
+
+constexpr int FWD_WIDE_SMEM = (5 * wide::TILE + wide::ROWS) * 4;
+static_assert(FWD_WIDE_SMEM <= 232448 / 2 - 1024, "two blocks an SM");
+
+__global__ void __launch_bounds__(wide::NT, 2)
+flash_f32_fwd_wide_kernel(const FwdWideArgs a) {
+  using namespace wide;
+  extern __shared__ float4 smem4[];
+  float* qk = reinterpret_cast<float*>(smem4);   // [2 stages][Q, K][ROWS][LD]
+  float* vo = qk + 4 * TILE;                     // the tile's chunk co of V
+  float* bias = vo + TILE;                       // the tile's keys: 0 or -inf
+  const int nc = a.D / CW, co = blockIdx.x % nc, q0 = (blockIdx.x / nc) * ROWS;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const float* qb = a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh;
+  const float* kb = a.k + (size_t)b * a.k_sb + (size_t)h * a.k_sh;
+  const float* vb = a.v + (size_t)b * a.v_sb + (size_t)h * a.v_sh + co * CW;
+  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+  int n_tiles = (a.Sk + ROWS - 1) / ROWS;
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + ROWS, a.Sq) - 1) / ROWS + 1);
+
+  auto issue_qk = [&](int j, int c, int st) {   // chunk c of Q and of key tile j
+    float* s = qk + st * 2 * TILE;
+    load_chunk(s, qb + c * CW, a.q_ss, q0, a.Sq);
+    load_chunk(s + TILE, kb + c * CW, a.k_ss, j * ROWS, a.Sk);
+  };
+  auto issue_v = [&](int j) {                   // chunk co of V and the bias of tile j
+    load_chunk(vo, vb, a.v_ss, j * ROWS, a.Sk);
+    if (threadIdx.x < ROWS) {
+      const int key = j * ROWS + (int)threadIdx.x;
+      bias[threadIdx.x] = key < a.Sk && (mrow == nullptr || mrow[key] != 0) ? 0.f : -INFINITY;
+    }
+  };
+
+  float o[CW / 8][4];
+#pragma unroll
+  for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  // flat dropout index of (b, h, row, 0) over the true Sq, Sk
+  const uint32_t drop0 =
+      (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
+  const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
+
+  int cur = next_live(mrow, 0, n_tiles, a.Sk);
+  if (cur < n_tiles) issue_qk(cur, 0, 0);
+  cp_async_commit();
+  int st = 0;
+  while (cur < n_tiles) {
+    const int nxt = next_live(mrow, cur + 1, n_tiles, a.Sk);
+    const int k0 = cur * ROWS;
+    float s[ROWS / 8][4];
+#pragma unroll
+    for (int n8 = 0; n8 < ROWS / 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n8][e] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      // the next chunk (of this tile, or the next tile's first) into the
+      // other stage; with the first chunk, V's chunk co (read at the last:
+      // nc >= 2, so it has landed by then)
+      if (c + 1 < nc)
+        issue_qk(cur, c + 1, st ^ 1);
+      else if (nxt < n_tiles)
+        issue_qk(nxt, 0, st ^ 1);
+      if (c == 0) issue_v(cur);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();                       // chunk c (and Q's) landed
+      const float* sq = qk + st * 2 * TILE;
+      mma_nt<ROWS>(s, sq + warp * 16 * LD, sq + TILE, lane);
+      if (c == nc - 1) {
+        float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+        for (int n8 = 0; n8 < ROWS / 8; ++n8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n8 * 8 + 2 * t + (e & 1);
+            float x = s[n8][e] * a.scale + bias[col];
+            if (a.causal && k0 + col > (e < 2 ? row0 : row1)) x = -INFINITY;
+            s[n8][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        float base[2], alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = quad_max(mx[i]);
+          base[i] = mx[i] == -INFINITY ? 0.f : mx[i];   // all masked so far
+          alpha[i] = expf(m_run[i] - base[i]);
+          m_run[i] = mx[i];
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n8 = 0; n8 < ROWS / 8; ++n8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n8][e] = expf(s[n8][e] - base[e >> 1]);
+            rs[e >> 1] += s[n8][e];
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + quad_sum(rs[i]);
+        if (a.dropout) {                     // after l: dropout acts on P only
+#pragma unroll
+          for (int n8 = 0; n8 < ROWS / 8; ++n8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t key = (uint32_t)(k0 + n8 * 8 + 2 * t + (e & 1));
+              const bool keep = hash_keep((e < 2 ? drop0 : drop1) + key, a.seed, a.threshold);
+              s[n8][e] = keep ? s[n8][e] * a.inv_keep : 0.f;
+            }
+        }
+#pragma unroll
+        for (int n8 = 0; n8 < CW / 8; ++n8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n8][e] *= alpha[e >> 1];
+        mma_pn<ROWS>(o, s, vo, lane);
+      }
+      __syncthreads();                       // stage st (and V's chunk) free
+      st ^= 1;
+    }
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+
+  const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;   // masked row -> 0
+  const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
+  if (a.lse != nullptr && co == 0 && t == 0) {   // one block and lane a row writes it
+    float* lb = a.lse + (size_t)bh * a.Sq;
+    if (row0 < a.Sq) lb[row0] = l_run[0] > 0.f ? m_run[0] + logf(l_run[0]) : -1e30f;
+    if (row1 < a.Sq) lb[row1] = l_run[1] > 0.f ? m_run[1] + logf(l_run[1]) : -1e30f;
+  }
+  float* ob = a.o + (size_t)b * a.o_sb + (size_t)h * a.o_sh + co * CW;
+#pragma unroll
+  for (int n8 = 0; n8 < CW / 8; ++n8) {
+    const int col = n8 * 8 + 2 * t;
+    if (row0 < a.Sq)
+      *reinterpret_cast<float2*>(ob + (size_t)row0 * a.o_ss + col) =
+          make_float2(o[n8][0] * inv0, o[n8][1] * inv0);
+    if (row1 < a.Sq)
+      *reinterpret_cast<float2*>(ob + (size_t)row1 * a.o_ss + col) =
+          make_float2(o[n8][2] * inv1, o[n8][3] * inv1);
+  }
+}
+
+int launch_wide(const FwdWideArgs& a, int B, cudaStream_t stream) {
+  static bool configured = false;            // above 48 KB needs an opt-in
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_f32_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_WIDE_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid((a.Sq + wide::ROWS - 1) / wide::ROWS * (a.D / wide::CW), B * a.H);
+  flash_f32_fwd_wide_kernel<<<grid, wide::NT, FWD_WIDE_SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The bf16 entry point's arguments (flash_attention_fwd.cu), for f32 q, k, v
 // and o: (B, H, S, Dh) with element strides (sb, sh, ss), the last dimension
 // contiguous, q/k/v 16-byte aligned with strides of whole 16-byte units (4
-// f32; their TMA maps' rule), o on 8-byte lines; Dh 64, 96 or 128.
+// f32; their TMA maps' and cp.async's rule), o on 8-byte lines; Dh 64, 96,
+// 128 or, on the wide route, a multiple of 64 over 128.
 // mask: (B, Sk) uint8 (nonzero = attend) with row stride mask_sb, or null;
 // lse: contiguous f32 (B, H, Sq), or null. Returns the first error: a head
-// dim with no instance, a refused map, or cudaGetLastError() after the
+// dim with no route, a refused map, or cudaGetLastError() after the
 // launch.
 extern "C" int flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -598,8 +794,15 @@ extern "C" int flash_attention_fwd_f32(
     case 64: return launch<64>(a, q, k, v, B, st, s);
     case 96: return launch<96>(a, q, k, v, B, st, s);
     case 128: return launch<128>(a, q, k, v, B, st, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);   // no instance takes it
+    default: break;
   }
+  if (Dh <= 128 || Dh % wide::CW != 0)
+    return static_cast<int>(cudaErrorInvalidValue);   // no route takes it
+  const FwdWideArgs w{static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), a.mask, a.o, a.lse, H, Sq, Sk, Dh,
+                      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                      mask_sb, causal, scale, dropout, seed, threshold, inv_keep, a.ds};
+  return launch_wide(w, B, s);
 }
 
 // out: 3 f32 on the card (tf32_probe_kernel's); returns cudaGetLastError().

@@ -42,9 +42,12 @@ kernels, ``csrc/flash_attention_fwd_f32.cu`` and
 same arguments, dropout bits and masked-tile skips, every product at f32
 accuracy (3xTF32 on the tensor cores). They have instances for head dims
 64, 96 and 128 (``F32_HEAD_DIMS``); a smaller head dim takes the next
-instance through a zero-padded copy (``kernel_route_f32``), and an f32 head
-dim over 128 raises. q, k and v share one dtype, bf16 or f32; there is no
-cast between them.
+instance through a zero-padded copy. Over 128 they run the wide route in
+chunks of ``F32_CHUNK`` = 64 columns: one block per column chunk of the
+output, the scores summed over the full head dim in every chunk's block,
+so any multiple of 64 (192, 256, 384, ...) runs in place and any other head
+dim on a copy zero-padded to the next multiple (``kernel_route_f32``). q, k
+and v share one dtype, bf16 or f32; there is no cast between them.
 
 On a CPU tensor it runs the plain version, ``flash_attention_reference``,
 whose gradient is plain autograd through ``mha_reference``. The kernels'
@@ -66,6 +69,8 @@ from .dropout import keep_threshold
 KERNEL_HEAD_DIMS = (64, 96, 128, 192, 256)
 # head dims with an f32 kernel instance
 F32_HEAD_DIMS = (64, 96, 128)
+# the column chunk of the f32 kernels' wide route, over 128
+F32_CHUNK = 64
 # the chunk widths of the route over 256, the preferred first
 CHUNK_WIDTHS = (256, 192)
 
@@ -83,34 +88,32 @@ def kernel_route(d: int):
     return -width, padded // -width
 
 
-def kernel_route_f32(d: int) -> int:
-    """The f32 instance that head dim ``d`` runs on, in the f32 flash
-    kernels and the f32-cache decode kernel alike: the smallest of
-    ``F32_HEAD_DIMS`` that holds it (16 -> 64, 80 -> 96). An f32 head dim
-    over 128 has no route and raises."""
+def kernel_route_f32(d: int):
+    """(instance, chunks) that an f32 head dim ``d`` runs as in the f32
+    flash kernels (K5 f32 routes by ``decode_route_f32``): up to 128 the
+    smallest of ``F32_HEAD_DIMS`` that holds it, in one chunk (16 -> (64,
+    1), 80 -> (96, 1)); over 128 the wide route, in ``F32_CHUNK``-column
+    chunks of the smallest multiple of 64 that holds it (192 -> (64, 3),
+    160 -> (64, 3) on a copy, 384 -> (64, 6))."""
     for dk in F32_HEAD_DIMS:
         if d <= dk:
-            return dk
-    raise ValueError(f"head dim {d} in float32: the f32 kernels have "
-                     f"instances for head dims up to {F32_HEAD_DIMS[-1]} "
-                     f"({F32_HEAD_DIMS})")
+            return dk, 1
+    return F32_CHUNK, -(-d // F32_CHUNK)
 
 
 def kernel_head_dim(d: int, dtype=torch.bfloat16) -> int:
     """The head dim a head dim ``d`` of ``dtype`` runs at on the card: ``d``
     padded to its ``kernel_route`` (f32: ``kernel_route_f32``)."""
-    if dtype == torch.float32:
-        return kernel_route_f32(d)
-    width, chunks = kernel_route(d)
+    route = kernel_route_f32 if dtype == torch.float32 else kernel_route
+    width, chunks = route(d)
     return width * chunks
 
 
 def runs_on_kernel(d: int, dtype=torch.bfloat16) -> bool:
     """Whether the kernels take head dim ``d`` as it is, with no padded
-    copy: an instance, or (bf16) over 256 a multiple of 256 or of 192."""
-    if dtype == torch.float32:
-        return d in F32_HEAD_DIMS
-    return kernel_head_dim(d) == d
+    copy: an instance, or over 256 (bf16) a multiple of 256 or of 192, over
+    128 (f32) a multiple of 64."""
+    return kernel_head_dim(d, dtype) == d
 
 
 def pad_head_dim(t: torch.Tensor, dk: int) -> torch.Tensor:
@@ -234,8 +237,9 @@ def _check_shapes(q, k, v, rate: float, shard=None):
     if q.dtype == torch.float32:
         if not runs_on_kernel(d, q.dtype):
             raise ValueError(f"head dim {d} in float32: the f32 kernels "
-                             f"have instances for {F32_HEAD_DIMS} "
-                             f"(flash_attention pads smaller head dims)")
+                             f"have instances for {F32_HEAD_DIMS} and, over "
+                             f"128, multiples of {F32_CHUNK} "
+                             f"(flash_attention pads other head dims)")
     elif not runs_on_kernel(d):
         raise ValueError(f"head dim {d}: the kernels have instances for "
                          f"{KERNEL_HEAD_DIMS} and, over 256, multiples of "
@@ -359,8 +363,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through a zero-padded copy, and dh > 256 in chunks of the 256 or 192
     instance (through a zero-padded copy unless dh is a multiple of one:
     ``kernel_route``). f32: dh 64, 96 or 128 runs its f32 instance, a
-    smaller dh through a zero-padded copy (``kernel_route_f32``), and a dh
-    over 128 raises.
+    smaller dh through a zero-padded copy, and a dh over 128 in 64-column
+    chunks (through a zero-padded copy unless dh is a multiple of 64:
+    ``kernel_route_f32``).
     ``dropout_rate`` > 0 drops attention weights with the hash keep mask of
     ``seed``, at ``drop_shard`` = (b0, h0, hg) in the global grid (None: the
     call is the whole grid). Returns (B, H, Sq, dh) in q's dtype (on CUDA laid out as

@@ -321,9 +321,10 @@ PORT_KERNELS = {
         r"\bflash_bwd_(?:dvec|dkv_\w+|dq_\w+)_kernel\b"), 3),
     "dropout": (re.compile(r"\bdropout_kernel\b"), 1),
     "decode_attention": (re.compile(r"\bdecode_(?:splitk|wide)_kernel\b"), 1),
-    "flash_attention_fwd_f32": (re.compile(r"\bflash_f32_fwd_kernel\b"), 1),
+    "flash_attention_fwd_f32": (re.compile(
+        r"\bflash_f32_fwd(?:_wide)?_kernel\b"), 1),
     "flash_attention_bwd_f32": (re.compile(
-        r"\bflash_f32_(?:dvec|dkv|dq)_kernel\b"), 3),
+        r"\bflash_f32_(?:dvec|dkv|dq|dkv_wide|dq_wide)_kernel\b"), 3),
     "decode_attention_f32": (re.compile(r"\bdecode_f32_kernel\b"), 1),
 }
 # Every device trace opens with this many short spin kernels

@@ -45,13 +45,12 @@ ORACLE_HEAD_DIMS = (48, 80, 192, 384)
 ])
 def test_decode_route_f32(d, route):
     """Every multiple of 4 up to 512 runs as it is; any other head dim on a
-    copy padded to the next multiple of 4; the f32 flash kernels' route
-    still ends at 128."""
+    copy padded to the next multiple of 4. The f32 flash kernels route on
+    their own: over 128 in 64-column chunks of the next multiple of 64."""
     assert decode_route_f32(d) == route
     assert decode_route_f32(route) == route
     if d > 128:
-        with pytest.raises(ValueError, match=f"head dim {d} in float32"):
-            kernel_route_f32(d)
+        assert kernel_route_f32(d) == (64, -(-d // 64))
 
 
 def test_decode_route_f32_raises_over_512():

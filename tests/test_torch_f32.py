@@ -19,10 +19,13 @@ version, which these tests hold to the JAX package on numpy-seeded inputs:
   * the TASC decoder's caches are f32, and tokens sampled from the same
     Gumbel noise over its logits equal JAX's, step for step;
   * ``entry.tiny_config`` computes in f32 on the card as on the CPU;
-  * the f32 routes: 16 -> 64, 80 -> 96, 128 in place, over 128 raises.
+  * the f32 routes: 16 -> 64, 80 -> 96, 128 in place, over 128 the wide
+    route in 64-column chunks (192, 256, 384 in place, 160 on a copy);
+  * ``ModelConfig(compute_dtype="float32")`` at head dim 192 (d = 384, 2
+    heads): the forward's heads and a deterministic step's losses against
+    JAX's on the same converted weights, 1e-4.
 
-Kept small: one thread of torch, head dims of the f32 instances, short
-sequences.
+Kept small: one thread of torch, short sequences, one layer each way.
 """
 import dataclasses
 
@@ -33,21 +36,32 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from sct_gan_tpu.data.tokenizer import SolidityTokenizer as JaxTokenizer
+from sct_gan_tpu.losses import syntax as jsyntax
+from sct_gan_tpu.models.sct_transformer import \
+    SmartContractTransformer as JaxModel
 from sct_gan_tpu.ops.attention import mha_reference as jax_mha
 from sct_gan_tpu.ops.flash_attention import _flash_forward as jax_flash_forward
+from sct_gan_tpu.train import train_step as jstep
 from sct_gan_tpu.variants import tasc as jtasc
+from sct_gan_tpu_torch import SmartContractTransformer
 from sct_gan_tpu_torch.config import CodeBERTConfig, TASCConfig
 from sct_gan_tpu_torch.convert import convert_flax_params
 from sct_gan_tpu_torch.entry import tiny_config
 from sct_gan_tpu_torch.ops import decode_attention as k5
 from sct_gan_tpu_torch.ops import flash_attention as k1
 from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+from sct_gan_tpu_torch.losses import syntax
+from sct_gan_tpu_torch.train.train_step import DynamicScalars, compute_losses
+from sct_gan_tpu_torch.utils.profiling import port_records
 from sct_gan_tpu_torch.variants import (SmartContractVulnerabilityGAN,
                                         VulnerabilityDetectionTrainer)
 from test_torch_codebert import _jax_model
+from test_torch_model import CFG, _t, flax_params
 from test_torch_ops import _jax_seed
 from test_torch_tasc import (TINY, jax_config, numpy_tree, port_model,
                              tasc_flax_params)
+from test_torch_train import _to_torch, _train_batch
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -74,15 +88,23 @@ def rel(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-@pytest.mark.parametrize("causal", [False, True], ids=["key_mask", "causal"])
-def test_f32_flash_matches_jax(causal):
-    """f32 at head dim 64 (B=2, H=2, S=96; row 0 with a masked tail, row
-    1 attending its first 40 keys), dropout 0.3: the port's output and
-    dq, dk, dv against JAX's ``mha_reference`` with its own dropout seed
-    (the same hash mask) and ``jax.vjp``; the LSE against JAX's flash
-    forward in interpret mode."""
+# (causal, head dim): the f32 instance at 64, and the wide route in place
+# at 192 (nhead 4 at d = 768) and 384 (nhead 2)
+FLASH_CASES = [pytest.param(causal, d, id=name + ("" if d == 64 else f"-dh{d}"))
+               for d in (64, 192, 384)
+               for causal, name in ((False, "key_mask"), (True, "causal"))]
+
+
+@pytest.mark.parametrize("causal,d", FLASH_CASES)
+def test_f32_flash_matches_jax(causal, d):
+    """f32 at head dims 64, 192 and 384 (B=2, H=2, S=96; row 0 with a
+    masked tail, row 1 attending its first 40 keys), dropout 0.3: the
+    port's output and dq, dk, dv against JAX's ``mha_reference`` with its
+    own dropout seed (the same hash mask) and ``jax.vjp``; the LSE against
+    JAX's flash forward in interpret mode (which pads the head dim to a
+    multiple of 128)."""
     rng = np.random.default_rng(21)
-    b, h, s, d = 2, 2, 96, 64
+    b, h, s = 2, 2, 96
     q, k, v, g = (rng.normal(size=(b, h, s, d)).astype(np.float32)
                   for _ in range(4))
     mask = np.arange(s)[None, :] < np.asarray([s - 9, 40])[:, None]
@@ -216,20 +238,48 @@ def test_tiny_config_is_f32_on_every_device():
 
 
 def test_f32_routes():
-    """The f32 route (the flash kernels' and K5's): the smallest instance
-    that holds the head dim (16 -> 64, 80 -> 96), the instances in place,
-    and over 128 a raise naming the head dim and the dtype. The bf16
-    routes stay as they were."""
-    assert k1.kernel_route_f32(16) == 64
-    assert k1.kernel_route_f32(80) == 96
-    assert [k1.kernel_route_f32(d) for d in (64, 96, 128)] == [64, 96, 128]
+    """The f32 flash kernels' route (K5 f32 has its own,
+    ``decode_route_f32``): up to 128 the smallest instance that holds the
+    head dim (16 -> 64, 80 -> 96), the instances in place; over 128 the
+    wide route in 64-column chunks, a multiple of 64 in place (192, 256,
+    320, 384, 576) and any other head dim on a copy padded to the next
+    (160 -> 192, 520 -> 576). The bf16 routes stay as they were."""
+    assert k1.kernel_route_f32(16) == (64, 1)
+    assert k1.kernel_route_f32(80) == (96, 1)
+    assert [k1.kernel_route_f32(d) for d in (64, 96, 128)] == [
+        (64, 1), (96, 1), (128, 1)]
     assert k1.kernel_head_dim(16, torch.float32) == 64
     assert k1.runs_on_kernel(96, torch.float32)
     assert not k1.runs_on_kernel(80, torch.float32)
-    assert not k1.runs_on_kernel(192, torch.float32)
-    with pytest.raises(ValueError, match="head dim 192 in float32"):
-        k1.kernel_route_f32(192)
+    for d, chunks in ((192, 3), (256, 4), (320, 5), (384, 6), (576, 9)):
+        assert k1.kernel_route_f32(d) == (k1.F32_CHUNK, chunks)
+        assert k1.runs_on_kernel(d, torch.float32)
+    for d, padded in ((129, 192), (160, 192), (200, 256), (520, 576)):
+        assert k1.kernel_head_dim(d, torch.float32) == padded
+        assert not k1.runs_on_kernel(d, torch.float32)
     assert k1.kernel_head_dim(80) == 96 and k1.kernel_head_dim(384) == 384
+
+
+def test_profiler_counts_the_wide_route():
+    """The profiler's launch count of the f32 wrappers (``port_records``,
+    which ``trace_device`` holds to the counters) takes the wide route's
+    kernels: one forward kernel a K1 launch, D plus dKV plus dQ a pair
+    launch."""
+    rows = [("(anonymous namespace)::flash_f32_fwd_wide_kernel("
+             "(anonymous namespace)::FwdWideArgs)", 3, 1.0),
+            ("void (anonymous namespace)::flash_f32_fwd_kernel<96>("
+             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+             "(anonymous namespace)::FwdF32Args)", 2, 1.0),
+            ("(anonymous namespace)::flash_f32_dvec_kernel("
+             "(anonymous namespace)::BwdF32Args, int, int)", 2, 1.0),
+            ("(anonymous namespace)::flash_f32_dkv_wide_kernel("
+             "(anonymous namespace)::BwdWideArgs)", 2, 1.0),
+            ("(anonymous namespace)::flash_f32_dq_wide_kernel("
+             "(anonymous namespace)::BwdWideArgs)", 2, 1.0)]
+    got = port_records(rows)
+    assert got["flash_attention_fwd_f32"] == 5
+    assert got["flash_attention_bwd_f32"] == 2
+    assert got["flash_attention_fwd"] == got["flash_attention_bwd"] == 0
 
 
 def test_f32_wrapper_layout_checks():
@@ -244,3 +294,64 @@ def test_f32_wrapper_layout_checks():
         k1._check_dtypes(q, q.to(torch.bfloat16), q)
     with pytest.raises(ValueError, match="dtypes"):
         k1._check_dtypes(q.double(), q.double(), q.double())
+
+
+# ModelConfig(compute_dtype="float32") at head dim 192: d = 384 in 2 heads
+# (nhead 4 at the reference d = 768 has the same head dim), one layer each
+# way, the tiny CFG's other sizes
+WIDE_CFG = dataclasses.replace(CFG, d_model=384, nhead=2,
+                               num_encoder_layers=1, num_decoder_layers=1,
+                               dim_feedforward=256)
+
+
+def test_f32_model_at_head_dim_192_matches_jax():
+    """The f32 model at head dim 192 (the head dim ``nhead=4`` gives at the
+    reference width, which the card runs on the f32 kernels' wide route)
+    on weights carried over by ``convert_flax_params``: the teacher-forced
+    forward's heads and a deterministic step's losses (``compute_losses``,
+    dropout off, fused LM CE) against JAX's, 1e-4."""
+    cfg = WIDE_CFG
+    assert cfg.d_model // cfg.nhead == 192 and cfg.compute_dtype == "float32"
+    params = flax_params(cfg, seed=4)
+    jm = JaxModel(cfg)
+    tm = SmartContractTransformer(cfg, seed=None)
+    tm.load_state_dict(convert_flax_params(params, cfg))
+    tm.eval()
+    batch = _train_batch(seed=7)
+    fwd_keys = ("input_ids", "attention_mask", "ast_input_ids",
+                "ast_attention_mask", "token_to_line")
+    fb = {k: batch[k] for k in fwd_keys}
+    want = jax.jit(lambda p, b: jm.apply(
+        {"params": p}, **b, target_ids=b["input_ids"],
+        deterministic=True))(params, fb)
+    tb = _t(fb)
+    with torch.no_grad():
+        got = tm(**tb, target_ids=tb["input_ids"])
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].float().numpy(),
+                                   np.asarray(want[k], np.float32),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    jtab = jsyntax.SyntaxLossTables.from_tokenizer(
+        JaxTokenizer(vocab_size=cfg.vocab_size))
+    js = jstep.DynamicScalars(jnp.float32(5.0), jnp.float32(3.0),
+                              jnp.float32(0.25), jnp.float32(2.0),
+                              jnp.float32(0.2))
+    wtotal, (wm, *_) = jax.jit(lambda p, b: jstep.compute_losses(
+        jm, p, b, js, jax.random.PRNGKey(0), use_gan=True,
+        use_augmentation=False, tables=jtab, deterministic=True,
+        fused_lm_ce=True))(params, batch)
+    tables = syntax.SyntaxLossTables.from_tokenizer(
+        SolidityTokenizer(vocab_size=cfg.vocab_size))
+    with torch.no_grad():
+        total, (gm, *_) = compute_losses(
+            tm, _to_torch(batch), DynamicScalars.make(5.0, 3.0, 0.25, 2.0,
+                                                      0.2),
+            None, use_gan=True, use_augmentation=False, tables=tables,
+            deterministic=True, fused_lm_ce=True)
+    assert float(wtotal) > 0.0
+    np.testing.assert_allclose(float(total), float(wtotal), rtol=1e-4)
+    assert set(gm) == set(wm)
+    for k in wm:
+        np.testing.assert_allclose(float(gm[k]), float(wm[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)

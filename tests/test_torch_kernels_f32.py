@@ -3,7 +3,10 @@
 The f32 instances of K1, the backward pair and K5
 (``csrc/flash_attention_fwd_f32.cu``, ``flash_attention_bwd_f32.cu``,
 ``decode_attention_f32.cu``) at ``test_torch_kernels.py``'s cases, on
-the same inputs in f32. Marked ``cuda``; without a card each test skips.
+the same inputs in f32; K1 and the pair also on their wide route over
+head dim 128 (64-column chunks: 192, 256 and 384 in place, 160 on a
+padded copy, 448 in seven chunks). Marked ``cuda``; without a card each
+test skips.
 This file imports no JAX:
 
     python -m pytest --noconftest -m cuda -p no:cacheprovider tests/test_torch_kernels_f32.py
@@ -31,6 +34,9 @@ BWD_TOL = 1e-4
 # the long walk's plain f32 backward holds (8, 8192, 8192) f32 scores
 # several times over: it stays with the bf16 tests
 F32_FLASH_CASES = sorted(c for c in FLASH_CASES if c != "b1_sk8192")
+# the f32 K1 and pair's head dims: the instances, then the wide route
+# (nhead 4, 3 and 2 at d = 768, a padded copy, seven chunks)
+F32_HEAD_DIMS = (*PAIR_HEAD_DIMS, 160, 192, 256, 384, 448)
 
 
 def _f32(device, case, d):
@@ -40,10 +46,10 @@ def _f32(device, case, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", PAIR_HEAD_DIMS)
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
 @pytest.mark.parametrize("case", F32_FLASH_CASES)
 def test_f32_flash_forward_matches_plain_on_card(cuda_device, case, d):
-    """The f32 K1 with dropout 0.3 and its LSE, at each f32 instance:
+    """The f32 K1 with dropout 0.3 and its LSE, at each f32 head dim:
     output in f32 within 1e-5 and the LSE of the rows that attend a key
     within 1e-5 norm-wise; a fully-masked row gives zeros and lse =
     -1e30."""
@@ -64,7 +70,7 @@ def test_f32_flash_forward_matches_plain_on_card(cuda_device, case, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", PAIR_HEAD_DIMS)
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("case", F32_FLASH_CASES)
 def test_f32_flash_backward_matches_autograd_on_card(cuda_device, case,
@@ -93,26 +99,29 @@ def test_f32_flash_backward_matches_autograd_on_card(cuda_device, case,
 
 
 @pytest.mark.cuda
-def test_f32_dropout_keep_bits_equal_the_plain_mask_on_card(cuda_device):
+@pytest.mark.parametrize("d", [64, 192])
+def test_f32_dropout_keep_bits_equal_the_plain_mask_on_card(cuda_device, d):
     """q = 0 makes P uniform over the attended keys, so with V the 64 x 64
-    identity on one 64-key window (a key mask) the f32 K1's output is the
-    keep bit over 64 / (1 - rate), or 0: every bit at (2, 8, 256, 256)
-    equals the plain version's hash mask."""
+    identity on one 64-key window (a key mask), in every 64-column chunk,
+    the f32 K1's output is the keep bit over 64 / (1 - rate), or 0: every
+    bit at (2, 8, 256, 256) equals the plain version's hash mask, at the
+    64 instance and in each of the wide route's three chunks at 192."""
     dev, b, h, s, rate = cuda_device, 2, 8, 256, 0.3
-    q = torch.zeros(b, h, s, 64, device=dev)
-    k = torch.randn(b, h, s, 64, device=dev)
-    v = torch.eye(64, device=dev).repeat(s // 64, 1).expand(
-        b, h, s, 64).contiguous()
+    q = torch.zeros(b, h, s, d, device=dev)
+    k = torch.randn(b, h, s, d, device=dev)
+    v = torch.eye(64, device=dev).repeat(s // 64, d // 64).expand(
+        b, h, s, d).contiguous()
     want = attention_keep((b, h, s, s), 11, rate, None, dev)
-    got = torch.empty_like(want)
-    for w in range(s // 64):
-        mask = torch.zeros(b, s, dtype=torch.bool, device=dev)
-        mask[:, 64 * w:64 * (w + 1)] = True
-        out = flash_attention(q, k, v, key_padding_mask=mask,
-                              dropout_rate=rate, seed=11)
-        got[..., 64 * w:64 * (w + 1)] = out > 0
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    for c in range(d // 64):
+        got = torch.empty_like(want)
+        for w in range(s // 64):
+            mask = torch.zeros(b, s, dtype=torch.bool, device=dev)
+            mask[:, 64 * w:64 * (w + 1)] = True
+            out = flash_attention(q, k, v, key_padding_mask=mask,
+                                  dropout_rate=rate, seed=11)
+            got[..., 64 * w:64 * (w + 1)] = out[..., 64 * c:64 * (c + 1)] > 0
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), c
 
 
 @pytest.mark.cuda
@@ -140,13 +149,15 @@ def test_f32_decode_matches_plain_on_card(cuda_device, case, qdtype):
 
 @pytest.mark.cuda
 def test_f32_routes_raise_on_card(cuda_device):
-    """An f32 head dim over 128 in the flash kernels, over 512 in K5 f32,
-    mixed q/k/v dtypes in the flash wrapper, and a bf16 cache under an f32
-    query raise; nothing is cast."""
+    """An f32 head dim over 128 runs in the flash kernels (the wide route,
+    within 1e-5 of the plain version); over 512 in K5 f32, mixed q/k/v
+    dtypes in the flash wrapper, and a bf16 cache under an f32 query
+    raise; nothing is cast."""
     dev = cuda_device
     x = torch.randn(1, 2, 64, 192, device=dev)
-    with pytest.raises(ValueError, match="head dim 192 in float32"):
-        flash_attention(x, x, x)
+    got = flash_attention(x, x, x)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, flash_attention_reference(x, x, x)) <= FWD_TOL
     y = torch.randn(1, 2, 64, 64, device=dev)
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention(y, y.to(torch.bfloat16), y)
@@ -235,7 +246,8 @@ def test_f32_decode_pads_a_head_dim_off_16_bytes_on_card(cuda_device,
 
 # The edges of the Hopper f32 kernels' tiles (csrc/flash_attention_fwd_f32.cu,
 # flash_attention_bwd_f32.cu: 128-row forward blocks, 64-row backward
-# blocks, 16- to 64-key and 16- to 32-query walked tiles): name -> (B, H, Sq,
+# blocks, 16- to 64-key and 16- to 32-query walked tiles; on the wide route
+# 64-row blocks walking 64-key, 32-query and 32-key tiles): name -> (B, H, Sq,
 # Sk, causal, mask kind, layout). "rows" masks every key of batch row 1;
 # "tail" keeps the first Sk - 3 keys of row 0 and a third of row 1; "heads"
 # is the model's (B, H, S, d) view of (B, S, H*d) projections.
@@ -273,7 +285,7 @@ def _edge_inputs(device, case, d):
     return q, k, v, mask, causal
 
 
-EDGE_PARAMS = [(c, d) for c in sorted(F32_EDGE_CASES) for d in PAIR_HEAD_DIMS]
+EDGE_PARAMS = [(c, d) for c in sorted(F32_EDGE_CASES) for d in F32_HEAD_DIMS]
 EDGE_PARAMS.append(("causal_sq100_sk300", 16))   # the padded route, 16 -> 64
 
 
