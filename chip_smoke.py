@@ -301,6 +301,7 @@ def phase_device():
 
 
 def phase_build():
+    import ctypes
     from sct_gan_tpu_torch.ops import _build
     t0 = time.perf_counter()
     path = _build.build()
@@ -313,6 +314,13 @@ def phase_build():
           f"{_build.build_seconds or 'not run: built before'})", flush=True)
     for entry, lines in main_path_reports(_build.ptxas_log):
         print(f"  ptxas {entry}: " + "; ".join(lines))
+    for kernels, fn in (F32_WIDE_FWD, "f32_fwd_wide_budgets"), (
+            F32_WIDE_BWD, "f32_bwd_wide_budgets"):
+        rows = (ctypes.c_int * 15)()
+        n = getattr(_build.load(), fn)(rows)
+        for i, name in zip(range(n), kernels):
+            print(f"  launch {name}<{rows[3 * i]}>: {rows[3 * i + 1]} bytes of "
+                  f"dynamic shared memory, {rows[3 * i + 2]} threads")
     for ln in _build.ptxas_log.splitlines():   # serialized wgmma, setmaxnreg
         if "(C75" in ln:
             print(f"  ptxas note: {ln.strip()}")
@@ -323,6 +331,14 @@ def phase_build():
     if spilled:
         raise AssertionError(f"build: kernels spill registers: {spilled}")
 
+
+# the f32 wide route's kernels, in the order of their sources' budgets
+# (f32_fwd_wide_budgets, f32_bwd_wide_budgets)
+F32_WIDE_FWD = ("flash_f32_fwd_group_kernel", "flash_f32_fwd_group_kernel",
+                "flash_f32_fwd_split_kernel", "flash_f32_fwd_split_kernel")
+F32_WIDE_BWD = ("flash_f32_dq_group_kernel", "flash_f32_dq_split_kernel",
+                "flash_f32_dq_split_kernel", "flash_f32_dkv_group_kernel",
+                "flash_f32_dkv_group_kernel")
 
 # the kernels whose ptxas report must show no spill (their designs' budgets
 # allow none): the flash forward (every instance: flash_fwd_hopper_kernel
@@ -337,8 +353,9 @@ NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
             "decode_wide_kernel", "flash_parts_hopper_kernel",
             "flash_variants_kernel", "decode_perbatch_kernel",
             "flash_f32_fwd_kernel", "flash_f32_dkv_kernel",
-            "flash_f32_dq_kernel", "flash_f32_fwd_wide_kernel",
-            "flash_f32_dkv_wide_kernel", "flash_f32_dq_wide_kernel",
+            "flash_f32_dq_kernel", "flash_f32_fwd_group_kernel",
+            "flash_f32_dkv_group_kernel", "flash_f32_dq_group_kernel",
+            "flash_f32_dq_split_kernel", "flash_f32_fwd_split_kernel",
             "decode_f32_kernel")
 
 
@@ -3276,11 +3293,11 @@ F32_DECODE_TOL = 1e-3
 F32_LOSS_RTOL = 1e-4
 F32_GNORM_RTOL = 1e-3
 F32_TRAIN_STEPS = 3
-# The f32 K1 and pair's wide route (head dims over 128, in 64-column
-# chunks): head dim -> heads at d = 768 (nhead 4, 3 and 2). Its kernels-line
-# entries are ``F32_WIDE_KERNELS``, whose top level is the main path's head
-# dim, nhead 4's 192; 160 runs on a copy padded to 192, and 512 in eight
-# chunks, past the models' 384.
+# The f32 K1 and pair's wide route (head dims over 128, column groups of
+# 64-column chunks): head dim -> heads at d = 768 (nhead 4, 3 and 2). Its
+# kernels-line entries are ``F32_WIDE_KERNELS``, whose top level is the main
+# path's head dim, nhead 4's 192; 160 runs on a copy padded to 192, and 512
+# (eight chunks, two groups) past the models' 384.
 F32_WIDE_DIMS = {192: 4, 256: 3, 384: 2}
 F32_WIDE_TOP = 192
 F32_WIDE_PADDED = 160
@@ -3441,8 +3458,10 @@ def f32_wide_checks(errs: dict) -> None:
     512, 512) under a key mask with a fully masked row (zeros, lse = -1e30,
     dq = 0). The forward and its LSE at 1e-5 norm-wise, the gradients at
     1e-4; two backward runs give the same bits; ``pad_head_dim`` is counted
-    (a copy of q, k and v at 160 only). Each head dim's worst errors are
-    kept under ``<name>:dh<d>``, the worst of all under the name."""
+    (a copy of q, k and v at 160 only). First the card's handling of the
+    bits TF32 drops (``tf32_probe``), which the route relies on. Each head
+    dim's worst errors are kept under ``<name>:dh<d>``, the worst of all
+    under the name."""
     import torch
     from sct_gan_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
@@ -3464,6 +3483,15 @@ def f32_wide_checks(errs: dict) -> None:
                (2, 2, 512, F32_WIDE_CHUNKED), lens_mask((450, 0), 512), False,
                0.3)]
     fwd, bwd = F32_WIDE_KERNELS
+    # the route reads a landed f32 chunk as its own TF32 big half
+    # (f32_attention.cuh, wide::split_nat): the tensor cores must drop the
+    # 13 low bits
+    got = tf32_probe()
+    print(f"  f32 wide route: the card's TF32 products of x = 1 + 3 * 2^-12 "
+          f"{got} (dropped bits give [1, -1, 1])", flush=True)
+    if got != [1.0, -1.0, 1.0]:
+        raise AssertionError(f"TF32 wgmma does not drop an f32 operand's 13 "
+                             f"low bits on this card: {got}")
     for label, (b, h, s, d), mask, causal, rate in cases:
         q, k, v = (_heads(rf(b, s, h * d), h).requires_grad_()
                    for _ in range(3))
@@ -3995,7 +4023,10 @@ def f32_ab_times(checkouts) -> int:
     replayed from a CUDA graph over inputs twice the L2 (``ring_ms``): K1
     at (8, 8, 1024, 96) under the smoke's key mask and at CodeBERT's (4,
     12, 512, 64) under its masks, the pair at (8, 8, 1024, 96) with its D,
-    dKV and dQ kernels apart (``pair_parts_ms``). Beside them SDPA in f32
+    dKV and dQ kernels apart (``pair_parts_ms``), and both on the wide
+    route at each of ``F32_WIDE_DIMS``' (8, h, 1024, d) under the smoke's
+    key mask; then one f32 train step at ``nhead=4`` on each checkout's f32
+    K1 and pair (``f32_step_profile``). Beside them SDPA in f32
     with TF32 off, the plain version, the bound at the sheet's 3xTF32 (165
     TFLOP/s) and at a third of the measured TF32 matmul rate, the card's
     handling of the bits TF32 drops (``tf32_probe``) and its TF32 wgmma
@@ -4036,9 +4067,11 @@ def f32_ab_times(checkouts) -> int:
     g = torch.Generator(device=dev).manual_seed(4)
     rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
     el = 4
-    for label, (b, h, s, d), lens in (
-            ("smoke key mask", (8, 8, 1024, 96), SMOKE_LENS),
-            ("CodeBERT's masks", (4, 12, 512, 64), CODEBERT_LENS)):
+    rows = [("smoke key mask", (8, 8, 1024, 96), SMOKE_LENS),
+            ("CodeBERT's masks", (4, 12, 512, 64), CODEBERT_LENS)]
+    rows += [("smoke key mask, wide route", (8, h, 1024, d), SMOKE_LENS)
+             for d, h in F32_WIDE_DIMS.items()]
+    for label, (b, h, s, d), lens in rows:
         q, k, v = (_heads(rf(b, s, h * d), h) for _ in range(3))
         mask = (torch.arange(s, device=dev)[None, :]
                 < torch.tensor(lens, device=dev)[:, None])
@@ -4105,7 +4138,7 @@ def f32_ab_times(checkouts) -> int:
             iters=3)
         lib_ms = sdpa_backward_ms(q, k, v, mask, dout, sc)
         parts = {who: pair_parts_ms(
-            fn, name="flash_f32_{}_kernel", expected=None if who == "tree"
+            fn, name="flash_f32_{}_", expected=None if who == "tree"
             else {"flash_attention_bwd_f32": 10}) for who, fn in runs.items()}
         for name in names:
             theirs = lambda _, fn=runs[name]: fn()
@@ -4125,9 +4158,87 @@ def f32_ab_times(checkouts) -> int:
                   f"{sheet:.4f} (sheet) / {measured:.4f} (measured) ms "
                   f"({by}); rel err dq, dk, dv {errs}", flush=True)
         del out, lse, dout, qg, kg, vg
+    f32_step_profile(card, names, libs)
     k5_f32_ab(card, names, libs)
     print(card)
     return 0
+
+
+class _F32Swap:
+    """The port's kernel library with the f32 flash entry points of another
+    checkout's (an ``f32_library``): what ``_build.load()`` returns while
+    ``f32_step_profile`` runs the port on that checkout's f32 K1 and pair."""
+
+    def __init__(self, main, other):
+        self._main, self._other = main, other
+
+    def __getattr__(self, name):
+        if name in ("flash_attention_fwd_f32", "flash_attention_bwd_f32"):
+            return getattr(self._other, name)
+        return getattr(self._main, name)
+
+
+def f32_step_profile(card: str, names, libs) -> None:
+    """One f32 train step at ``nhead=4`` (head dim 192: the wide route; d =
+    768, 6+6 layers, the JAX bench's B=8, L=1024 batch, dropout 0.3) read
+    through ``utils.profiling.trace_device``, on each other checkout's f32
+    K1 and pair (``_F32Swap``) and on this tree's, in turns (other, tree,
+    tree, other): the step's wall ms (two steps after a warm-up, host
+    clock), its device ms and the wide K1's and pair's device ms and share
+    of it."""
+    import torch
+    from sct_gan_tpu_torch import SmartContractTrainer, SmartContractTransformer
+    from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
+    from sct_gan_tpu_torch.data.tokenizer import SolidityTokenizer
+    from sct_gan_tpu_torch.ops import _build
+    from sct_gan_tpu_torch.utils.profiling import PORT_KERNELS, trace_device
+    cfg = ModelConfig(use_gan=True, max_length=1024, max_lines=1024,
+                      nhead=4, compute_dtype="float32")
+    tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
+    trainer = SmartContractTrainer(
+        SmartContractTransformer(cfg, seed=0), _Empty(), _Empty(), tok,
+        config=TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1),
+        verbose=False, device="cuda")
+    batch = trainer.to_device(make_batch(8, cfg.max_length, cfg.vocab_size))
+    scalars, lrs = trainer._scalars(1.0), trainer._group_lrs()
+    box = {"state": trainer.state, "scalars": scalars}
+
+    def step():
+        box["state"], _, box["scalars"] = trainer.train_step(
+            box["state"], batch, box["scalars"], lrs, trainer.generator)
+
+    load, main = _build.load, _build.load()
+    fwd, bwd = (PORT_KERNELS[k][0] for k in ("flash_attention_fwd_f32",
+                                             "flash_attention_bwd_f32"))
+    order = [(n, lib) for n, (lib, _) in zip(names, libs)]
+    turns = [x for n, lib in order for x in ((n, lib), ("tree", None),
+                                              ("tree", None), (n, lib))]
+    try:
+        for who, lib in turns:
+            _build.load = (lambda: main) if lib is None else (
+                lambda lb=lib: _F32Swap(main, lb))
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 2 * 1e3
+            trace = trace_device(step)
+            total = trace.total_us / 1e3
+            k1 = sum(us for name, _, us in trace.rows if fwd.search(name)) / 1e3
+            pair = sum(us for name, _, us in trace.rows
+                       if bwd.search(name)) / 1e3
+            print(f"phase f32 ab [{card}]: f32 train step at nhead=4 (head "
+                  f"dim 192, B=8, L=1024, 6+6 layers), {who}'s f32 K1 and "
+                  f"pair: {wall:.1f} ms a step (host clock); {total:.3f} ms "
+                  f"of device time (torch.profiler), the f32 K1 {k1:.3f} ms "
+                  f"({100 * k1 / total:.1f}%), the f32 pair {pair:.3f} ms "
+                  f"({100 * pair / total:.1f}%)", flush=True)
+    finally:
+        _build.load = load
+    del trainer, batch, box
+    torch.cuda.empty_cache()
 
 
 def phase_f32(card: str, overrides=None, device: str = "cuda",

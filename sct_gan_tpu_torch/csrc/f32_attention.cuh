@@ -3,7 +3,7 @@
 // f32 pair). TF32 wgmma at f32 accuracy, the pass that splits a landed f32
 // tile into its TF32 halves in wgmma's layout, f32 tensor maps and the walk
 // over the key tiles that hold an attended key; and, for head dims over
-// 128, the wide route's column chunks on mma.sync (namespace wide, below).
+// 128, the wide route's ring of 64-column units (namespace wide, below).
 //
 // Precision: 3xTF32. One TF32 pass keeps 11 significant bits (~5e-4
 // relative), which is not f32. Each operand x is split into big = x with
@@ -510,142 +510,372 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
     hopper::tma_load_4d(dst + ch * rows * 64, map, bar, ch * 16, r0, h, b);
 }
 
-// ---- the wide route: head dims over 128, in column chunks ------------------------
-// The f32 K1 and pair past head dim 128 (flash_f32_*_wide_kernel). A head
-// dim D there is a multiple of the chunk CW = 64 columns, and every operand
-// is read through shared memory one chunk at a time: a block owns one
-// output chunk of 64 rows and walks the other operand's 64-row tiles; per
-// tile it sums each score product over D chunk by chunk, then applies it to
-// its own chunk of V, dO, Q or K. Tiles are row-major chunks of 64 rows x
-// CW f32, rows padded to LD = CW + 4 (so the 32 lanes of a fragment load,
-// rows g or 2t, columns t or g, fall in 32 distinct banks), loaded by
-// cp.async. Products run on mma.sync.m16n8k8 in 3xTF32: its fragments are
-// loaded by each thread with plain loads, so a B operand stored MN-major
-// (V, dO, Q, K in P V, P^T dO, dS^T Q, dS K) needs no transpose in shared
-// memory, which TF32 wgmma (K-major operands only) would.
-//
-// Fragment layouts of mma.m16n8k8 .tf32 (g = lane / 4, t = lane % 4):
-//   A (16 x 8, row): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
-//   B (8 x 8, k x n): b0 = B[t][g], b1 = B[t+4][g]
-//   C (16 x 8, f32):  c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1]
-// A score tile in the C layout is the A operand of the next product with the
-// contraction index permuted: logical k = t is column 2t and k = t + 4 is
-// column 2t + 1, so a = (c0, c2, c1, c3) and B's rows are read at 2t, 2t + 1.
+// ---- the wide route: head dims over 128, in column groups -------------------------
+// The f32 K1 and pair past head dim 128 (flash_f32_*_group_kernel,
+// flash_f32_dq_split_kernel). A head dim D there is a multiple of CW = 64
+// columns. A block owns 64 rows (query or key rows) and a group of DG
+// output columns (the whole head dim where the registers allow: groups,
+// group_width); it walks the other side's 64-row tiles and computes each
+// score tile once, over the whole head dim, in 64-column k-chunks. Every
+// operand reaches shared memory as a unit: one 64-row x 64-column chunk of
+// one tensor, landed by TMA (four boxes of 16 columns, the KM layout above)
+// in a ring of stages (Ring: warp 0 of the transform warpgroup loads,
+// warps 1-3 split), and split once: as landed (split_nat: the landed chunk
+// is its big half, its small half goes beside it) or transposed
+// (split_t_in_place: the big half of the transpose over the landed chunk).
+// The split rounds by integer arithmetic (split_int), with cvt.rna's bits.
+// Every product is a 64 x 64 x 64 step of 3xTF32 m64n64k8 wgmma (prod3,
+// prod3_rs): a score step reads two landed units, a gradient or output
+// step P or dS (from registers, a_frags, or stored once by the consumer,
+// store_a) and one transposed unit.
 namespace wide {
 
-constexpr int CW = 64;            // columns of a chunk
-constexpr int LD = CW + 4;        // a chunk row in shared memory, f32
-constexpr int ROWS = 64;          // rows of every tile: 4 warps of 16
-constexpr int NT = 128;
-constexpr int TILE = ROWS * LD;   // f32 of a tile
+using hopper::bar_sync;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+constexpr int CW = 64;                     // columns of a chunk; rows of every tile
+constexpr int HALF = CW * CW * 4;          // bytes of one f32 half of a unit
+constexpr int STAGE = 2 * HALF;            // a unit: big (the chunk lands there), small
+
+// split_tf32 in four integer and float operations: small rounded to TF32
+// by adding half a unit of its last place to its bits and clearing the 13
+// low ones (round to nearest, ties away from zero: cvt.rna's bits for any
+// finite x, without the conversion unit the split would queue on).
+__device__ __forceinline__ void split_int(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split4_int(const float4& x, float4& big, float4& small) {
+  uint32_t b, s;
+  split_int(x.x, b, s); big.x = __uint_as_float(b); small.x = __uint_as_float(s);
+  split_int(x.y, b, s); big.y = __uint_as_float(b); small.y = __uint_as_float(s);
+  split_int(x.z, b, s); big.z = __uint_as_float(b); small.z = __uint_as_float(s);
+  split_int(x.w, b, s); big.w = __uint_as_float(b); small.w = __uint_as_float(s);
+}
+
+// The small half of a landed chunk (raw) as it lies, at `small`; the raw
+// chunk serves as its big half: TF32 wgmma reads an f32 operand with its
+// 13 low bits dropped (tf32_probe_kernel; chip_smoke.py holds the card to
+// it), which is split_int's big, so the products' bits are those of a big
+// half written out. NT threads, tid in [0, NT); each reads its 16-byte
+// units (up to 8 at once) before it writes them.
+template <int NT>
+__device__ __forceinline__ void split_nat(const unsigned char* raw, unsigned char* small,
+                                          int tid) {
+  constexpr int N = CW * CW / 4, ITER = (N + NT - 1) / NT, CH = ITER < 8 ? ITER : 8;
+#pragma unroll
+  for (int j0 = 0; j0 < ITER; j0 += CH) {
+    float4 x[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int i = tid + (j0 + c) * NT;
+      if (j0 + c < ITER && (N % NT == 0 || i < N))
+        x[c] = *reinterpret_cast<const float4*>(raw + 16 * i);
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int i = tid + (j0 + c) * NT;
+      if (j0 + c < ITER && (N % NT == 0 || i < N)) {
+        float4 b, sm;                          // b: what the raw chunk already is
+        split4_int(x[c], b, sm);
+        *reinterpret_cast<float4*>(small + 16 * i) = sm;
+      }
+    }
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void store_column_int(const float4 (&x)[4], unsigned char* tb,
+                                                 unsigned char* ts, uint32_t off) {
+  const float4 c = make_float4(comp<J>(x[0]), comp<J>(x[1]), comp<J>(x[2]), comp<J>(x[3]));
+  float4 b, sm;
+  split4_int(c, b, sm);
+  *reinterpret_cast<float4*>(tb + off) = b;
+  *reinterpret_cast<float4*>(ts + off) = sm;
+}
+
+// A landed chunk (64 x 64: rows are keys or queries) into the halves of its
+// transpose (KM tiles of 64 rows = the chunk's columns, K index = its rows,
+// permuted in groups of 8 as split_t's): big over the raw chunk, small at
+// `small`. NT threads, tid in [0, NT): each reads all its items (split_t's:
+// four rows 2m + par of a group of 8 by four columns), the NT meet at named
+// barrier `bar`, then each writes them.
+template <int NT>
+__device__ __forceinline__ void split_t_in_place(unsigned char* raw, unsigned char* small,
+                                                 int tid, int bar) {
+  constexpr int UNITS = CW / 4, N = (CW / 8) * 2 * UNITS, ITER = (N + NT - 1) / NT;
+  float4 x[ITER][4];
+#pragma unroll
+  for (int j = 0; j < ITER; ++j) {
+    const int it = tid + j * NT;
+    const int par = it & 1, e = (it >> 1) % UNITS, g8 = (it >> 1) / UNITS;
+    if (N % NT == 0 || it < N) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        x[j][m] = *reinterpret_cast<const float4*>(raw + km_off(CW, 8 * g8 + 2 * m + par, e));
+    }
+  }
+  bar_sync(bar, NT);
+#pragma unroll
+  for (int j = 0; j < ITER; ++j) {
+    const int it = tid + j * NT;
+    const int par = it & 1, e = (it >> 1) % UNITS, g8 = (it >> 1) / UNITS;
+    if (N % NT == 0 || it < N) {
+      const int u = 2 * g8 + par;                    // logical rows 4 par .. + 3 of group g8
+      store_column_int<0>(x[j], raw, small, km_off(CW, 4 * e, u));
+      store_column_int<1>(x[j], raw, small, km_off(CW, 4 * e + 1, u));
+      store_column_int<2>(x[j], raw, small, km_off(CW, 4 * e + 2, u));
+      store_column_int<3>(x[j], raw, small, km_off(CW, 4 * e + 3, u));
+    }
+  }
+}
+
+// A ring of STAGES units: full (the TMA's bytes), ready (split: one
+// arrival a split warp), empty (released: one arrival a consumer warp).
+// Unit u sits in stage u % STAGES, in its (u / STAGES)-th use.
+template <int STAGES>
+struct Ring {
+  static constexpr int SPLIT_WARPS = 3;      // warps 1-3 of the transform warpgroup
+  alignas(1024) unsigned char stage[STAGES][STAGE];
+  int tile[STAGES];                        // first row of the walked tile (its first unit)
+  uint32_t bits[STAGES][2];                // its keys' tile_bits (key walks)
+  uint64_t full[STAGES], ready[STAGES], empty[STAGES];
+
+  __device__ void init() {
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&ready[i], SPLIT_WARPS);
+      mbar_init(&empty[i], 4);
+    }
+  }
+  __device__ static int slot(int u) { return u % STAGES; }
+  __device__ static uint32_t parity(int u) { return (u / STAGES) & 1; }
+  // the consumer: unit u's stage once it is split
+  __device__ unsigned char* wait(int u) {
+    mbar_wait(&ready[slot(u)], parity(u));
+    return stage[slot(u)];
+  }
+  // the consumer warp, once the products reading unit u are complete
+  __device__ void release(int u, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot(u)]);
+  }
+  // the loading warp: unit u's stage once it is free, then lane 0 notes the
+  // walked tile's first row and key bits (a tile's first unit, row0 >= 0)
+  // and issues the unit's four boxes (columns col .. col + 63, rows row ..
+  // row + 63)
+  __device__ void load(int u, const CUtensorMap* map, int col, int row, int h, int b, int lane,
+                       int row0 = -1, uint32_t kb0 = 0u, uint32_t kb1 = 0u) {
+    const int st = slot(u);
+    mbar_wait(&empty[st], parity(u) ^ 1);
+    if (lane == 0) {
+      if (row0 >= 0) {
+        tile[st] = row0;
+        bits[st][0] = kb0;
+        bits[st][1] = kb1;
+      }
+      mbar_arrive_expect_tx(&full[st], HALF);
+#pragma unroll
+      for (int i = 0; i < CW / 16; ++i)
+        hopper::tma_load_4d(stage[st] + i * CW * 64, map, &full[st], col + 16 * i, row, h, b);
+    }
+  }
+  // The transform warpgroup (tid in [0, 128)) over the walk's `total`
+  // units: warp 0 loads them in turn (issue(v, lane) calls load(), which
+  // waits for the stage), warps 1-3 split each once it lands (transposed
+  // where trans(u), else as it lies). Each split thread makes its writes
+  // visible to wgmma, then one lane a warp arrives on ready.
+  template <class Issue, class Trans>
+  __device__ void feed(int total, int tid, Issue issue, Trans trans) {
+    constexpr int NX = 32 * SPLIT_WARPS;
+    const int warp = tid / 32, lane = tid % 32;
+    if (warp == 0) {
+      for (int v = 0; v < total; ++v) issue(v, lane);
+      return;
+    }
+    for (int u = 0; u < total; ++u) {
+      mbar_wait(&full[slot(u)], parity(u));
+      unsigned char* st = stage[slot(u)];
+      if (trans(u))
+        split_t_in_place<NX>(st, st + HALF, tid - 32, XF_BAR);
+      else
+        split_nat<NX>(st, st + HALF, tid - 32);
+      hopper::fence_proxy_async();           // the halves are read by wgmma
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[slot(u)]);
+    }
+  }
+};
+
+// A 64 x 64 accumulator tile x (x[4j + e]: row 16 warp + g + 8 (e >> 1),
+// column 8j + 2t + (e & 1)) into KM halves of 64 rows whose K index is its
+// columns, permuted in groups of 8 as split_t's (column 2m + par at k = 4
+// par + m): the A operand of a product over them against a transposed
+// unit. Every store of a warp hits 32 banks.
+__device__ __forceinline__ void store_a(const float (&x)[32], unsigned char* big,
+                                        unsigned char* small, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * warp + g + 8 * (e >> 1), k = 8 * j + 4 * (e & 1) + t;
+      const uint32_t off = km_off(CW, row, k >> 2) + (k & 3) * 4;
+      uint32_t b, sm;
+      split_int(x[4 * j + e], b, sm);
+      *reinterpret_cast<uint32_t*>(big + off) = b;
+      *reinterpret_cast<uint32_t*>(small + off) = sm;
+    }
+}
+
+// byte offset of k-step kk in a KM unit
+__host__ __device__ constexpr uint32_t kstep(int kk) {
+  return (kk >> 1) * CW * 64 + (kk & 1) * 32;
+}
+
+// The descriptor (km_desc_at's fields) of shared address %a, built in the
+// asm block of the wgmma that reads it: ptxas keeps no 64-bit descriptor
+// live beside the accumulators (made ahead of a step's 24 wgmma they cost
+// ~50 registers).
+#define WIDE_DESC(d, a)                                 \
+  "shr.b32 " #d "lo, " a ", 4;\n"                      \
+  "and.b32 " #d "lo, " #d "lo, 16383;\n"               \
+  "or.b32 " #d "lo, " #d "lo, 65536;\n"                \
+  "mov.b64 " #d ", {" #d "lo, hi};\n"
+
+// D (64 x 64) += A (64 x 8) B (8 x 64): A and B k-steps of KM tiles at
+// shared addresses a and b
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[32], uint32_t a, uint32_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 da, db;\n"
+      ".reg .b32 dalo, dblo, hi;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "mov.b32 hi, 0x80000020;\n"                // SBO 512 bytes, the 64-byte swizzle
+      WIDE_DESC(da, "%32") WIDE_DESC(db, "%33")
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a), "r"(b), "n"(1));
 }
 
-// d += A B at f32 accuracy (3xTF32, the small terms first)
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  mma_tf32(d, as, bb[0], bb[1]);
-  mma_tf32(d, ab, bs[0], bs[1]);
-  mma_tf32(d, ab, bb[0], bb[1]);
+// the same with A from registers (wgmma_tf32_rs's fragment)
+__device__ __forceinline__ void wgmma_rs_at(float (&d)[32], const uint32_t (&a)[4], uint32_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 db;\n"
+      ".reg .b32 dblo, hi;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "mov.b32 hi, 0x80000020;\n"
+      WIDE_DESC(db, "%36")
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "n"(1));
 }
+#undef WIDE_DESC
 
-// C[16 x N] += A[16 x CW] B[N x CW]^T: a warp's 16 rows of A against N rows
-// of B, both chunk tiles (row stride LD). Q K^T, dO V^T, K Q^T, V dO^T.
-template <int N>
-__device__ __forceinline__ void mma_nt(float (&c)[N / 8][4], const float* a, const float* b,
-                                       int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int kk = 0; kk < CW / 8; ++kk) {   // not unrolled: as mma_pn's steps
-    const float* ar = a + g * LD + kk * 8 + t;
-    uint32_t ab[4], as[4];
-    split_tf32(ar[0], ab[0], as[0]);
-    split_tf32(ar[8 * LD], ab[1], as[1]);
-    split_tf32(ar[4], ab[2], as[2]);
-    split_tf32(ar[8 * LD + 4], ab[3], as[3]);
+// acc (64 x 64) += A B^T over 64 columns in 3xTF32 (the small terms first):
+// A and B KM units of 64 rows, each as its big and small halves' shared
+// addresses; issues 24 m64n64k8 wgmma, no commit. The addresses pass an
+// empty asm, so the compiler cannot hoist a loop-invariant operand's
+// addresses out of the walk.
+__device__ __forceinline__ void prod3(float (&acc)[32], uint32_t ab, uint32_t as, uint32_t bb,
+                                      uint32_t bs) {
+  asm volatile("" : "+r"(ab), "+r"(as), "+r"(bb), "+r"(bs));
 #pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const float* br = b + (n * 8 + g) * LD + kk * 8 + t;
-      uint32_t bb[2], bs[2];
-      split_tf32(br[0], bb[0], bs[0]);
-      split_tf32(br[4], bb[1], bs[1]);
-      mma3(c[n], ab, as, bb, bs);
-    }
+  for (int kk = 0; kk < CW / 8; ++kk) wgmma_ss_at(acc, as + kstep(kk), bb + kstep(kk));
+#pragma unroll
+  for (int kk = 0; kk < CW / 8; ++kk) wgmma_ss_at(acc, ab + kstep(kk), bs + kstep(kk));
+#pragma unroll
+  for (int kk = 0; kk < CW / 8; ++kk) wgmma_ss_at(acc, ab + kstep(kk), bb + kstep(kk));
+}
+
+// acc += A B^T with A's halves from registers (a_frag: k-step kk's
+// fragment of each) and B a KM unit (its big and small halves' addresses)
+__device__ __forceinline__ void prod3_rs(float (&acc)[32], const uint32_t (&ab)[8][4],
+                                         const uint32_t (&as)[8][4], uint32_t bb, uint32_t bs) {
+  asm volatile("" : "+r"(bb), "+r"(bs));
+#pragma unroll
+  for (int kk = 0; kk < CW / 8; ++kk) wgmma_rs_at(acc, as[kk], bb + kstep(kk));
+#pragma unroll
+  for (int kk = 0; kk < CW / 8; ++kk) wgmma_rs_at(acc, ab[kk], bs + kstep(kk));
+#pragma unroll
+  for (int kk = 0; kk < CW / 8; ++kk) wgmma_rs_at(acc, ab[kk], bb + kstep(kk));
+}
+
+// The A fragments (wgmma_tf32_rs's) of a 64 x 64 accumulator tile x split
+// into its halves, k-step kk of the permuted order (a_operand's)
+__device__ __forceinline__ void a_frags(const float (&x)[32], uint32_t (&ab)[8][4],
+                                        uint32_t (&as)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    split_int(x[4 * kk], ab[kk][0], as[kk][0]);       // row g, column 2t: k = t
+    split_int(x[4 * kk + 2], ab[kk][1], as[kk][1]);   // row g + 8
+    split_int(x[4 * kk + 1], ab[kk][2], as[kk][2]);   // row g, column 2t + 1: k = t + 4
+    split_int(x[4 * kk + 3], ab[kk][3], as[kk][3]);
   }
 }
 
-// O[16 x CW] += P[16 x K] B[K x CW]: P a warp's tile in the C layout (K / 8
-// blocks of 8 columns, from mma_nt), B a chunk tile (row stride LD). P V,
-// dS K, P^T dO, dS^T Q. The steps are not unrolled (unrolled, ptxas loads
-// every step's B ahead and spills past 255 registers), so each takes P's
-// block 0 and shifts the rest down: a register array is never indexed at
-// run time.
-template <int K>
-__device__ __forceinline__ void mma_pn(float (&o)[CW / 8][4], const float (&p)[K / 8][4],
-                                       const float* b, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float x[K / 8][4];
-#pragma unroll
-  for (int i = 0; i < K / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[i][e] = p[i][e];
-#pragma unroll 1
-  for (int ks = 0; ks < K / 8; ++ks) {
-    uint32_t ab[4], as[4];
-    split_tf32(x[0][0], ab[0], as[0]);   // P[g][2t]
-    split_tf32(x[0][2], ab[1], as[1]);   // P[g + 8][2t]
-    split_tf32(x[0][1], ab[2], as[2]);   // P[g][2t + 1]
-    split_tf32(x[0][3], ab[3], as[3]);   // P[g + 8][2t + 1]
-#pragma unroll
-    for (int i = 0; i + 1 < K / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[i][e] = x[i + 1][e];
-    const float* r0 = b + (ks * 8 + 2 * t) * LD + g;
-#pragma unroll
-    for (int n = 0; n < CW / 8; ++n) {
-      uint32_t bb[2], bs[2];
-      split_tf32(r0[n * 8], bb[0], bs[0]);
-      split_tf32(r0[LD + n * 8], bb[1], bs[1]);
-      mma3(o[n], ab, as, bb, bs);
-    }
-  }
+// prod3 on two landed units (big at the stage, small HALF after it)
+__device__ __forceinline__ void prod3_units(float (&acc)[32], const unsigned char* a,
+                                            const unsigned char* b) {
+  const uint32_t pa = smem_u32(a), pb = smem_u32(b);
+  prod3(acc, pa, pa + HALF, pb, pb + HALF);
 }
 
-// cp.async rows [r0, r0 + R) of one chunk (CW f32 from src, a row's first
-// column of it) of a matrix with row stride ss (elements) into a chunk tile
-// of R rows, zero-filling rows >= n_rows; 16 bytes a copy, all NT threads.
-template <int R = ROWS>
-__device__ __forceinline__ void load_chunk(float* dst, const float* src, int ss, int r0,
-                                           int n_rows) {
-  constexpr int UNITS = CW / 4;
-#pragma unroll 4
-  for (int c = threadIdx.x; c < R * UNITS; c += NT) {
-    const int r = c / UNITS, u = (c % UNITS) * 4;
-    const bool ok = r0 + r < n_rows;
-    hopper::cp_async_16(dst + r * LD + u, ok ? src + (size_t)(r0 + r) * ss + u : src, ok);
-  }
+// This thread's index in its warpgroup and the block's grid coordinates,
+// read where they are used (volatile reads are not hoisted): in the
+// kernels of 384 threads (168 registers a thread) such values held across
+// the walk beside the accumulators spilled.
+__device__ __forceinline__ int wg_thread() {
+  uint32_t x;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(x));
+  return (int)(x % 128);
+}
+__device__ __forceinline__ void cta(uint32_t& x, uint32_t& y) {
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(y));
 }
 
-// The first tile at or after j (of R keys, below n_tiles) that holds an
-// attended key; n_tiles when none. Block-wide: every thread calls it alike
-// (one barrier a tile looked at); threads < R read a mask byte each.
-template <int R = ROWS>
-__device__ __forceinline__ int next_live(const uint8_t* mrow, int j, int n_tiles, int Sk) {
-  if (mrow == nullptr) return j < n_tiles ? j : n_tiles;
-  for (; j < n_tiles; ++j) {
-    const int key = j * R + static_cast<int>(threadIdx.x);
-    const bool on = threadIdx.x < R && key < Sk && mrow[key] != 0;
-    if (__syncthreads_or(on)) return j;
-  }
-  return n_tiles;
+// The column groups of head dim d (a multiple of CW) for a kernel whose
+// groups are at most `widest` columns: ng groups of dg columns (dg a
+// multiple of CW, the last group's columns past d read as zeros and are
+// not written). The host's and the blocks' rule.
+__host__ __device__ __forceinline__ int groups(int d, int widest) {
+  return (d + widest - 1) / widest;
+}
+__host__ __device__ __forceinline__ int group_width(int d, int widest) {
+  const int nc = d / CW, ng = groups(d, widest);
+  return (nc + ng - 1) / ng * CW;
+}
+// the same with an even number of chunks a group (two warpgroups a half)
+__host__ __device__ __forceinline__ int group_width_even(int d, int widest) {
+  const int nc = d / CW, ng = groups(d, widest);
+  return (nc + 2 * ng - 1) / (2 * ng) * 2 * CW;
 }
 
 }  // namespace wide

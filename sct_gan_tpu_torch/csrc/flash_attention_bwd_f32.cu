@@ -65,8 +65,11 @@
 // Q's and dO's big halves, dQ, S, dP and dS's halves). No product is left
 // on mma.sync.
 // Waves on 132 SMs at (8, 8, 1024, 96): 1024 blocks each, 7.76 waves.
-// Head dims over 128 take the wide route instead (flash_f32_{dkv,dq}_wide_
-// kernel, below, after the same D): 64-column chunks on mma.sync.
+// Head dims over 128 take the wide route instead (flash_f32_{dkv,dq}_group_
+// kernel and flash_f32_dq_split_kernel, below, after the same D): a block
+// owns a group of the gradient's columns and computes S and dP once a tile
+// over the head dim, in 64-column chunks that its TMA ring brings in, on
+// the same 3xTF32 wgmma.
 //
 // The mask and causal semantics are the forward's: a masked key, a key past
 // Sk, a query past Sq and a causal key j > i all get P = 0, so a fully-
@@ -724,307 +727,685 @@ int launch(const BwdF32Args& a, const void* const (&p)[4], const St (&st)[4], in
 }
 
 // ---- head dims over 128: the wide route ----------------------------------------
-// A head dim D over 128 (a multiple of wide::CW = 64 columns; the wrapper
-// pads any other) runs in column chunks (f32_attention.cuh, wide), one
-// block per 64 rows and 64-column chunk co of the gradients it writes, 4
-// warps of 16 rows; every product 3xTF32 on mma.sync.m16n8k8, every operand
-// a chunk tile loaded by cp.async through 2 stages. Per walked tile a block
-// sums its two score products over D chunk by chunk (2 D / 64 steps: the
-// first's chunks, then the second's), forms P and dS in registers, and
-// applies them to the tile's chunk co of the operand its gradient takes:
-//   dKV: a block owns 64 keys and chunk co of dK and dV and walks tiles of
-//        DKV_W queries (from the one holding its first key on, when
-//        causal): S^T = K Q^T and dP^T = V dO^T over D, then dV +=
-//        P_drop^T dO[:, co] and dK += dS^T Q[:, co]. A block whose 64 keys
-//        are all masked walks nothing and writes zeros.
-//   dQ:  a block owns 64 queries and chunk co of dQ and walks the tiles of
-//        DQ_W keys that hold an attended key (up to the diagonal, when
-//        causal): S = Q K^T and dP = dO V^T over D, then dQ += dS K[:, co].
-// No atomics: the gradients are bit-for-bit deterministic. Cost: every
-// chunk's block recomputes both score products over the whole head dim, so
-// the pair runs (4 D / 64 + 3) / 5 times the products of the math (3 at
-// 192, 3.8 at 256, 5.4 at 384), and reads the walked operands' chunks once
-// a chunk block (from the L2). Simple and right; no Hopper pipeline.
-// Budget: 2 stages x 2 chunk tiles (64 and W rows of 68 f32) + the walked
-// tile's chunk co of the gradient operands (dKV: Q's and dO's, and the
-// queries' lse and D; dQ: K's and the keys' mask bias). Registers (255 a
-// thread at two blocks an SM): the gradient chunks (dKV 64, dQ 32) and the
-// two score tiles (W / 2 each).
-constexpr int DKV_W = 32;
-constexpr int DQ_W = 32;
+// A head dim D over 128 (a multiple of wide::CW = 64; the wrapper pads any
+// other) runs in column groups (f32_attention.cuh, wide): a block owns 64
+// rows and a group of DG columns of the gradients it writes, walks the
+// other side's 64-row tiles and computes S and dP once a tile, over the
+// whole head dim, one 64 x 64 x 64 step of 3xTF32 m64n64k8 wgmma a chunk
+// pair, each operand a unit that the transform warpgroup loads by TMA into
+// a ring and splits once (warp 0 loads, warps 1-3 split: as landed, or
+// transposed for a gradient's B). P and dS are formed once a tile and read
+// as the A of every gradient step, one step a 64-column chunk of the group.
+//   dQ at 192: 64 queries, one group. 256 threads: the transform warpgroup
+//        (warp 4 walks the 64-key tiles that hold an attended key, up to
+//        the diagonal when causal, and loads Q's, K's, dO's and V's chunks
+//        in turn, then K's, to transpose) and one consumer warpgroup: S =
+//        Q K^T and dP = dO V^T step by step (each step issued before the
+//        one before is released), dS = P (dP_drop - D) with its halves in
+//        registers, then dQ[:, c] += dS K[:, c]. Budget: 7 stages x 32 KB =
+//        229,376 bytes, one block an SM; registers (255 a thread) dQ (96),
+//        S and dP (32 each), then dS's halves (64): 226 used.
+//   dQ over 192 (flash_f32_dq_split_kernel): 64 queries, groups of 256 or
+//        384 columns, two consumer warpgroups a half each (one group at
+//        256 and 384). 384 threads: the same transform (warps 8-11);
+//        warpgroup 0 computes S and P and hands P (its sign the keep bit)
+//        to warpgroup 1 through shared memory, warpgroup 1 dP and dS, whose
+//        halves it stores once; both then add dS K[:, c] over their half of
+//        the group's chunks. Budget: 6 stages x 32 KB + dS's halves 32 KB (P
+//        handed over in their place) = 229,376 bytes; registers (168 a
+//        thread: three warps share each of the SM's four register files)
+//        dQ's half (DG / 4) and S or dP (32).
+//   dKV: 64 keys, DG 128 or 192 (one group at 192, two of 128 at 256, two
+//        of 192 at 384). 384 threads: the transform warpgroup (warp 8
+//        loads the query tiles' units, from the one holding the block's
+//        first key on when causal: K's, Q's, V's and dO's chunks in turn,
+//        then the group's chunks of dO and Q, to transpose) and two
+//        consumer warpgroups, one a gradient. Warpgroup 0 computes S^T = K
+//        Q^T and P, stores P_drop^T's halves and hands P (its sign the keep
+//        bit) to warpgroup 1, then dV[:, c] += P_drop^T dO[:, c];
+//        warpgroup 1 computes dP^T = V dO^T, dS^T = P (dP_drop - D), stores
+//        its halves, then dK[:, c] += dS^T Q[:, c]. Budget: 5 stages x 32
+//        KB + P_drop^T's and dS^T's halves 64 KB (P handed over in dS^T's
+//        place) = 229,376 bytes; registers (168) dK or dV (DG / 2) and S^T
+//        or dP^T (32). A block whose 64 keys are all masked walks nothing
+//        and writes zeros.
+// In the two-warpgroup kernels each warpgroup waits for a score step's
+// products before it takes the next step's units (two warpgroups each
+// holding a step and waiting for the next could deadlock the ring); the
+// other warpgroup's products fill the gap. Values the walk needs but its
+// products do not (the block's indices, this thread's) are read from
+// %ctaid and %tid where they are used: held beside the accumulators at 168
+// registers they spilled. The products run, at NG groups of dK and dV and
+// MQ of dQ, (2 NG + 2 MQ + 3) / 5 times the math's: 1.4 at 192, 1.8 at
+// 256 and 384 (a block a 64-column chunk: 3, 3.8, 5.4). No atomics: the
+// gradients are bit-for-bit deterministic.
+constexpr int DQ_STAGES = 7;
+constexpr int DKV_STAGES = 5;
+constexpr int WIDE_DQ = 192;    // widest group of the one-warpgroup dQ
+constexpr int WIDE_DKV = 192;   // of dK and dV
+constexpr int CONS_BAR = 2;     // consumer warpgroup w's named barrier: CONS_BAR + w
 
-struct BwdWideArgs {
-  const float *q, *k, *v, *dout;
-  const uint8_t* mask;   // (B, Sk), nonzero = attend, or null
-  const float* lse;      // contiguous (B*H, Sq)
-  const float* dvec;     // D = rowsum(dO o O), contiguous (B*H, Sq)
-  float *dq, *dk, *dv;
-  int H, Sq, Sk, D;
-  St qs, ks, vs, dos, dqs, dks, dvs;
-  int mask_sb, causal;
-  float scale;
-  int dropout;
-  uint32_t seed, threshold;
-  float inv_keep;
-  DropShard ds;
+struct DqGroupSmem {
+  wide::Ring<DQ_STAGES> r;
+  int n_live;
+  uint64_t meta;
 };
 
-constexpr int DKV_WIDE_SMEM = ((2 * wide::ROWS + 4 * DKV_W) * wide::LD + 2 * DKV_W) * 4;
-constexpr int DQ_WIDE_SMEM = ((2 * wide::ROWS + 3 * DQ_W) * wide::LD + DQ_W) * 4;
-static_assert(DKV_WIDE_SMEM <= 232448 / 2 - 1024 && DQ_WIDE_SMEM <= 232448 / 2 - 1024,
-              "two blocks an SM");
+struct DkvGroupSmem {   // the small members last: no padding between them
+  alignas(1024) unsigned char pt[2][wide::HALF];   // P_drop^T's halves (warpgroup 0)
+  alignas(1024) unsigned char st[2][wide::HALF];   // dS^T's halves (warpgroup 1); P handed in st[0]
+  wide::Ring<DKV_STAGES> r;
+  float qv[2][wide::CW];                           // the query tile's lse log2(e) (0), D (1)
+  int n_items, t_first;
+  uint64_t meta, ex_full, ex_empty;
+};
 
-// Write a warp's 16 x CW gradient chunk (the C layout) at rows r0, r0 + 8 of
-// a strided head from its chunk's first column, times `mul`; rows >= n_rows
-// are not written.
-__device__ __forceinline__ void store_chunk(float* base, int ss,
-                                            const float (&acc)[wide::CW / 8][4], int r0,
-                                            int n_rows, float mul, int t) {
+// Write a warpgroup's 64 x 64-column gradient block c of group g
+// (accumulator layout) at rows r0, r0 + 8 of a strided head, times `mul`;
+// rows >= n_rows and columns >= D are not written.
+__device__ __forceinline__ void store_block(float* base, int ss, const float (&acc)[32], int col0,
+                                            int D, int r0, int n_rows, float mul, int t) {
 #pragma unroll
   for (int n = 0; n < wide::CW / 8; ++n) {
-    const int col = n * 8 + 2 * t;
+    const int col = col0 + n * 8 + 2 * t;
+    if (col >= D) continue;
     if (r0 < n_rows)
       *reinterpret_cast<float2*>(base + (size_t)r0 * ss + col) =
-          make_float2(acc[n][0] * mul, acc[n][1] * mul);
+          make_float2(acc[4 * n] * mul, acc[4 * n + 1] * mul);
     if (r0 + 8 < n_rows)
       *reinterpret_cast<float2*>(base + (size_t)(r0 + 8) * ss + col) =
-          make_float2(acc[n][2] * mul, acc[n][3] * mul);
+          make_float2(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
   }
 }
 
-__global__ void __launch_bounds__(wide::NT, 2)
-flash_f32_dkv_wide_kernel(const BwdWideArgs a) {
-  using namespace wide;
-  constexpr int W = DKV_W;
-  extern __shared__ float4 smem4[];
-  // [2 stages][K or V chunk: ROWS rows, then Q or dO chunk: W rows][LD]
-  float* ab = reinterpret_cast<float*>(smem4);
-  float* qo = ab + 2 * (ROWS + W) * LD;          // the tile's chunk co of Q
-  float* doo = qo + W * LD;                      // and of dO
-  float* stats = doo + W * LD;                   // the tile's lse [W], D [W]
-  const int nc = a.D / CW, co = blockIdx.x % nc, k0 = (blockIdx.x / nc) * ROWS;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;   // this thread's rows
-  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
-  const bool on0 = key0 < a.Sk && (mrow == nullptr || mrow[key0] != 0);
-  const bool on1 = key1 < a.Sk && (mrow == nullptr || mrow[key1] != 0);
-  const int tk = k0 + (int)threadIdx.x;
-  const bool any = __syncthreads_or(threadIdx.x < ROWS && tk < a.Sk &&
-                                    (mrow == nullptr || mrow[tk] != 0));
-  const int t_first = a.causal ? k0 / W : 0;
-  const int t_end = any ? (a.Sq + W - 1) / W : t_first;
-  const float* kb = head(a.k, a.ks, b, h);
-  const float* vb = head(a.v, a.vs, b, h);
-  const float* qb = head(a.q, a.qs, b, h);
-  const float* dob = head(a.dout, a.dos, b, h);
-  const float* lse = a.lse + (size_t)bh * a.Sq;
-  const float* dvec = a.dvec + (size_t)bh * a.Sq;
-  const int steps = 2 * nc;
-  auto issue = [&](int j, int x, int st) {      // step x of query tile j into stage st
-    const int c = (x % nc) * CW;
-    float* s = ab + st * (ROWS + W) * LD;
-    if (x < nc) {
-      load_chunk(s, kb + c, a.ks.ss, k0, a.Sk);
-      load_chunk<W>(s + ROWS * LD, qb + c, a.qs.ss, j * W, a.Sq);
-    } else {
-      load_chunk(s, vb + c, a.vs.ss, k0, a.Sk);
-      load_chunk<W>(s + ROWS * LD, dob + c, a.dos.ss, j * W, a.Sq);
-    }
-  };
-  auto issue_out = [&](int j) {                 // chunk co of Q and dO, lse and D of tile j
-    load_chunk<W>(qo, qb + co * CW, a.qs.ss, j * W, a.Sq);
-    load_chunk<W>(doo, dob + co * CW, a.dos.ss, j * W, a.Sq);
-    if (threadIdx.x < W) {
-      const int i = j * W + (int)threadIdx.x;
-      stats[threadIdx.x] = i < a.Sq ? lse[i] : 0.f;
-      stats[W + threadIdx.x] = i < a.Sq ? dvec[i] : 0.f;
-    }
-  };
-  float dk[CW / 8][4], dv[CW / 8][4];
-#pragma unroll
-  for (int n = 0; n < CW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const uint32_t head_index = drop_head(b, h, a.ds) * (uint32_t)a.Sq;
+// ---- dQ (wide) --------------------------------------------------------------------
 
-  if (t_first < t_end) issue(t_first, 0, 0);
-  cp_async_commit();
-  int st = 0;
-  for (int j = t_first; j < t_end; ++j) {
-    float s[W / 8][4], dp[W / 8][4];         // S^T and dP^T: 16 keys x W queries
-#pragma unroll
-    for (int n = 0; n < W / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    for (int x = 0; x < steps; ++x) {
-      if (x + 1 < steps)
-        issue(j, x + 1, st ^ 1);
-      else if (j + 1 < t_end)
-        issue(j + 1, 0, st ^ 1);
-      if (x == 0) issue_out(j);                // read at the last step (steps >= 2)
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();                         // step x (and the tile's chunk co) landed
-      const float* sa = ab + st * (ROWS + W) * LD;
-      if (x < nc)
-        mma_nt<W>(s, sa + warp * 16 * LD, sa + ROWS * LD, lane);
-      else
-        mma_nt<W>(dp, sa + warp * 16 * LD, sa + ROWS * LD, lane);
-      if (x == steps - 1) {
-#pragma unroll
-        for (int n = 0; n < W / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = n * 8 + 2 * t + (e & 1), i = j * W + c;
-            const int key = e < 2 ? key0 : key1;
-            const bool live = (e < 2 ? on0 : on1) && i < a.Sq && !(a.causal && key > i);
-            const float p = live ? expf(s[n][e] * a.scale - stats[c]) : 0.f;
-            float pd = p, dpd = dp[n][e];
-            if (a.dropout) {
-              const bool keep = hash_keep(
-                  (head_index + (uint32_t)i) * (uint32_t)a.Sk + (uint32_t)key, a.seed,
-                  a.threshold);
-              pd = keep ? p * a.inv_keep : 0.f;
-              dpd = keep ? dpd * a.inv_keep : 0.f;
-            }
-            s[n][e] = pd;                      // P_drop^T
-            dp[n][e] = p * (dpd - stats[W + c]);   // dS^T
-          }
-        mma_pn<W>(dv, s, doo, lane);
-        mma_pn<W>(dk, dp, qo, lane);
-      }
-      __syncthreads();                         // stage st (and the chunk co tiles) free
-      st ^= 1;
+// The transform warpgroup of a dQ block (DqGroupSmem or DqSplitSmem), tid
+// its thread in [0, 128).
+template <int DG, class Smem>
+__device__ __forceinline__ void dq_group_transform(Smem& s, const CUtensorMap* q_map,
+                                                   const CUtensorMap* k_map,
+                                                   const CUtensorMap* v_map,
+                                                   const CUtensorMap* do_map,
+                                                   const BwdF32Args& a, int D, int q0, int g,
+                                                   int b, int h, int tid) {
+  constexpr int NCG = DG / wide::CW;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nc = D / wide::CW, upt = 4 * nc + NCG;
+  int n_tiles = (a.Sk + wide::CW - 1) / wide::CW;
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + wide::CW, a.Sq) - 1) / wide::CW + 1);
+  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+  TileWalk<wide::CW> walk(mrow, a.Sk, n_tiles);
+  if (warp == 0) {
+    const int n = walk.count(lane);
+    if (lane == 0) {
+      s.n_live = n;
+      mbar_arrive(&s.meta);
     }
   }
-  cp_async_wait<0>();
-  store_chunk(head(a.dk, a.dks, b, h) + co * CW, a.dks.ss, dk, key0, a.Sk, a.scale, t);
-  store_chunk(head(a.dv, a.dvs, b, h) + co * CW, a.dvs.ss, dv, key0, a.Sk, 1.f, t);
+  mbar_wait(&s.meta, 0);
+  int k0 = 0;
+  auto issue = [&](int v, int ln) {          // warp 0: unit v of the walk
+    const int x = v % upt;
+    if (x == 0) {                            // the next live tile
+      k0 = walk.next(ln) * wide::CW;
+      uint32_t kb[2];
+      tile_bits<wide::CW>(kb, mrow, k0, a.Sk, ln);
+      s.r.load(v, q_map, 0, q0, h, b, ln, k0, kb[0], kb[1]);
+    } else if (x < 4 * nc) {                 // Q, K, dO, V of chunk x / 4
+      const CUtensorMap* m = (x & 2) ? ((x & 1) ? v_map : do_map) : ((x & 1) ? k_map : q_map);
+      s.r.load(v, m, (x >> 2) * wide::CW, (x & 1) ? k0 : q0, h, b, ln);
+    } else {                                 // K of the group's chunk, to transpose
+      s.r.load(v, k_map, (g * NCG + x - 4 * nc) * wide::CW, k0, h, b, ln);
+    }
+  };
+  s.r.feed(s.n_live * upt, tid, issue, [&](int u) { return u % upt >= 4 * nc; });
 }
 
-__global__ void __launch_bounds__(wide::NT, 2)
-flash_f32_dq_wide_kernel(const BwdWideArgs a) {
-  using namespace wide;
-  constexpr int W = DQ_W;
-  extern __shared__ float4 smem4[];
-  // [2 stages][Q or dO chunk: ROWS rows, then K or V chunk: W rows][LD]
-  float* ab = reinterpret_cast<float*>(smem4);
-  float* ko = ab + 2 * (ROWS + W) * LD;          // the tile's chunk co of K
-  float* bias = ko + W * LD;                     // the tile's keys: 0 or -inf
-  const int nc = a.D / CW, co = blockIdx.x % nc, q0 = (blockIdx.x / nc) * ROWS;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
-  const float* qb = head(a.q, a.qs, b, h);
-  const float* dob = head(a.dout, a.dos, b, h);
-  const float* kb = head(a.k, a.ks, b, h);
-  const float* vb = head(a.v, a.vs, b, h);
-  const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] : 0.f;
-  const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] : 0.f;
+template <int DG>
+__device__ __forceinline__ void dq_group_consume(DqGroupSmem& s, const BwdF32Args& a, int D,
+                                                 int q0, int g, int b, int h) {
+  constexpr int NCG = DG / wide::CW;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane & 3;
+  const int row0 = q0 + warp * 16 + (lane >> 2), row1 = row0 + 8;
+  const int bh = b * a.H + h, nc = D / wide::CW;
+  // the rows' lse in the log2 domain: P = 2^(S scale log2(e) - lse log2(e))
+  const float lse0 = row0 < a.Sq ? a.lse[(size_t)bh * a.Sq + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < a.Sq ? a.lse[(size_t)bh * a.Sq + row1] * LOG2E : 0.f;
+  const float scale_log2 = a.scale * LOG2E;
   const float dv0 = row0 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row0] : 0.f;
   const float dv1 = row1 < a.Sq ? a.dvec[(size_t)bh * a.Sq + row1] : 0.f;
-  int n_tiles = (a.Sk + W - 1) / W;
-  if (a.causal) n_tiles = min(n_tiles, (min(q0 + ROWS, a.Sq) - 1) / W + 1);
-  const int steps = 2 * nc;
-  auto issue = [&](int j, int x, int st) {      // step x of key tile j into stage st
-    const int c = (x % nc) * CW;
-    float* s = ab + st * (ROWS + W) * LD;
-    if (x < nc) {
-      load_chunk(s, qb + c, a.qs.ss, q0, a.Sq);
-      load_chunk<W>(s + ROWS * LD, kb + c, a.ks.ss, j * W, a.Sk);
-    } else {
-      load_chunk(s, dob + c, a.dos.ss, q0, a.Sq);
-      load_chunk<W>(s + ROWS * LD, vb + c, a.vs.ss, j * W, a.Sk);
-    }
-  };
-  auto issue_out = [&](int j) {                 // chunk co of K and the bias of tile j
-    load_chunk<W>(ko, kb + co * CW, a.ks.ss, j * W, a.Sk);
-    if (threadIdx.x < W) {
-      const int key = j * W + (int)threadIdx.x;
-      bias[threadIdx.x] = key < a.Sk && (mrow == nullptr || mrow[key] != 0) ? 0.f : -INFINITY;
-    }
-  };
-  float dq[CW / 8][4];
-#pragma unroll
-  for (int n = 0; n < CW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
   const uint32_t drop0 =
       (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
   const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
+  float dq[NCG][32];
+#pragma unroll
+  for (int c = 0; c < NCG; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[c][i] = 0.f;
 
-  int cur = next_live<W>(mrow, 0, n_tiles, a.Sk);
-  if (cur < n_tiles) issue(cur, 0, 0);
-  cp_async_commit();
-  int st = 0;
-  while (cur < n_tiles) {
-    const int nxt = next_live<W>(mrow, cur + 1, n_tiles, a.Sk);
-    const int k0 = cur * W;
-    float s[W / 8][4], dp[W / 8][4];         // S and dP: 16 queries x W keys
+  mbar_wait(&s.meta, 0);
+  const int n_live = s.n_live;
+  int u = 0;
+  for (int item = 0; item < n_live; ++item) {
+    float sc[32], dp[32];                     // S and dP: 64 queries x 64 keys
 #pragma unroll
-    for (int n = 0; n < W / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    for (int x = 0; x < steps; ++x) {
-      if (x + 1 < steps)
-        issue(cur, x + 1, st ^ 1);
-      else if (nxt < n_tiles)
-        issue(nxt, 0, st ^ 1);
-      if (x == 0) issue_out(cur);              // read at the last step (steps >= 2)
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const float* sa = ab + st * (ROWS + W) * LD;
-      if (x < nc)
-        mma_nt<W>(s, sa + warp * 16 * LD, sa + ROWS * LD, lane);
-      else
-        mma_nt<W>(dp, sa + warp * 16 * LD, sa + ROWS * LD, lane);
-      if (x == steps - 1) {
-#pragma unroll
-        for (int n = 0; n < W / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = n * 8 + 2 * t + (e & 1);
-            const int row = e < 2 ? row0 : row1;
-            const bool live = bias[col] == 0.f && row < a.Sq && !(a.causal && k0 + col > row);
-            const float p = live ? expf(s[n][e] * a.scale - (e < 2 ? lse0 : lse1)) : 0.f;
-            float dpd = dp[n][e];
-            if (a.dropout) {
-              const bool keep = hash_keep((e < 2 ? drop0 : drop1) + (uint32_t)(k0 + col),
-                                          a.seed, a.threshold);
-              dpd = keep ? dpd * a.inv_keep : 0.f;
-            }
-            s[n][e] = p * (dpd - (e < 2 ? dv0 : dv1));   // dS
-          }
-        mma_pn<W>(dq, s, ko, lane);
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    int k0 = 0;
+    uint32_t kb[2] = {0u, 0u};
+    for (int c = 0; c < nc; ++c, u += 4) {
+      const unsigned char* qc = s.r.wait(u);
+      const unsigned char* kc = s.r.wait(u + 1);
+      if (c == 0) {
+        k0 = s.r.tile[s.r.slot(u)];
+        kb[0] = s.r.bits[s.r.slot(u)][0];
+        kb[1] = s.r.bits[s.r.slot(u)][1];
       }
-      __syncthreads();
-      st ^= 1;
+      fence_regs(sc);
+      wgmma_fence();
+      wide::prod3_units(sc, qc, kc);
+      wgmma_commit();
+      if (c > 0) {                            // dP's step before is read
+        wgmma_wait_n<1>();
+        s.r.release(u - 2, lane);
+        s.r.release(u - 1, lane);
+      }
+      const unsigned char* oc = s.r.wait(u + 2);
+      const unsigned char* vc = s.r.wait(u + 3);
+      fence_regs(dp);
+      wgmma_fence();
+      wide::prod3_units(dp, oc, vc);
+      wgmma_commit();
+      wgmma_wait_n<1>();                      // S's step is read
+      s.r.release(u, lane);
+      s.r.release(u + 1, lane);
     }
-    cur = nxt;
+    wgmma_wait0();
+    fence_regs(sc);
+    fence_regs(dp);
+    s.r.release(u - 2, lane);
+    s.r.release(u - 1, lane);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int col = (x >> 2) * 8 + 2 * t + (x & 1), e = (x >> 1) & 1;
+      const int row = e ? row1 : row0;
+      const bool live = key_on(kb, col) && row < a.Sq && !(a.causal && k0 + col > row);
+      const float p = live ? fast_exp2(fmaf(sc[x], scale_log2, -(e ? lse1 : lse0))) : 0.f;
+      float dpd = dp[x];
+      if (a.dropout) {
+        const bool keep =
+            hash_keep((e ? drop1 : drop0) + (uint32_t)(k0 + col), a.seed, a.threshold);
+        dpd = keep ? dpd * a.inv_keep : 0.f;
+      }
+      sc[x] = p * (dpd - (e ? dv1 : dv0));  // dS
+    }
+    // dS's halves in registers (64, beside dQ's 96), the A of dQ[:, c] +=
+    // dS K[:, c]
+    uint32_t ab[8][4], as[8][4];
+    wide::a_frags(sc, ab, as);
+#pragma unroll
+    for (int c = 0; c < NCG; ++c, ++u) {
+      const uint32_t kt = smem_u32(s.r.wait(u));
+      fence_regs(dq[c]);
+      wgmma_fence();
+      wide::prod3_rs(dq[c], ab, as, kt, kt + wide::HALF);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait_n<1>();
+        fence_regs(dq[c - 1]);
+        s.r.release(u - 1, lane);
+      }
+    }
+    wgmma_wait0();
+    fence_regs(dq[NCG - 1]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      hold_regs(ab[kk]);
+      hold_regs(as[kk]);
+    }
+    s.r.release(u - 1, lane);
   }
-  cp_async_wait<0>();
-  store_chunk(head(a.dq, a.dqs, b, h) + co * CW, a.dqs.ss, dq, row0, a.Sq, a.scale, t);
+  float* base = head(a.dq, a.dqs, b, h);
+#pragma unroll
+  for (int c = 0; c < NCG; ++c)
+    store_block(base, a.dqs.ss, dq[c], g * DG + c * wide::CW, D, row0, a.Sq, a.scale, t);
 }
 
-int launch_wide(const BwdWideArgs& a, int B, cudaStream_t s) {
-  static bool dkv_ok = false, dq_ok = false;
-  cudaError_t e = allow_smem(flash_f32_dkv_wide_kernel, DKV_WIDE_SMEM, dkv_ok);
-  if (e == cudaSuccess) e = allow_smem(flash_f32_dq_wide_kernel, DQ_WIDE_SMEM, dq_ok);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = a.D / wide::CW, r = wide::ROWS;
-  flash_f32_dkv_wide_kernel<<<dim3((a.Sk + r - 1) / r * nc, B * a.H), wide::NT, DKV_WIDE_SMEM,
-                              s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_f32_dq_wide_kernel<<<dim3((a.Sq + r - 1) / r * nc, B * a.H), wide::NT, DQ_WIDE_SMEM,
-                             s>>>(a);
+template <int DG>
+__global__ void __launch_bounds__(256, 1)
+flash_f32_dq_group_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map, const BwdF32Args a,
+                          int D) {
+  extern __shared__ unsigned char smem_raw[];
+  DqGroupSmem& s = aligned_smem<DqGroupSmem>(smem_raw);
+  const int ng = wide::groups(D, WIDE_DQ), g = blockIdx.x % ng;
+  const int q0 = (blockIdx.x / ng) * wide::CW, b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  if (threadIdx.x == 0) {
+    mbar_init(&s.meta, 1);
+    s.r.init();
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128)
+    dq_group_transform<DG>(s, &q_map, &k_map, &v_map, &do_map, a, D, q0, g, b, h,
+                           threadIdx.x - 128);
+  else
+    dq_group_consume<DG>(s, a, D, q0, g, b, h);
+}
+
+// ---- dKV (wide) -------------------------------------------------------------------
+
+// A wide-route block's (first of its 64 rows, column group, b, h) for
+// groups at most WIDEST columns, read from %ctaid where it is used
+// (wide::cta).
+template <int WIDEST>
+struct GroupBlock {
+  int r0, g, b, h;
+  __device__ GroupBlock(const BwdF32Args& a, int D) {
+    uint32_t x, y;
+    wide::cta(x, y);
+    const int ng = wide::groups(D, WIDEST);
+    r0 = (int)(x / ng) * wide::CW;
+    g = (int)(x % ng);
+    b = (int)y / a.H;
+    h = (int)y % a.H;
+  }
+};
+using DkvBlock = GroupBlock<WIDE_DKV>;
+
+template <int DG>
+__device__ __forceinline__ void dkv_group_transform(DkvGroupSmem& s, const CUtensorMap* q_map,
+                                                    const CUtensorMap* k_map,
+                                                    const CUtensorMap* v_map,
+                                                    const CUtensorMap* do_map,
+                                                    const BwdF32Args& a, int D) {
+  constexpr int NCG = DG / wide::CW;
+  const DkvBlock blk(a, D);
+  const int k0 = blk.r0, g = blk.g, b = blk.b, h = blk.h;
+  const int tid = threadIdx.x - 256, warp = tid / 32, lane = tid % 32;
+  const int nc = D / wide::CW, upt = 4 * nc + 2 * NCG;
+  if (warp == 0) {
+    const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
+    bool on = false;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int key = k0 + 32 * x + lane;
+      on |= key < a.Sk && (mrow == nullptr || mrow[key] != 0);
+    }
+    const bool any = __any_sync(0xffffffffu, on);
+    const int t_first = a.causal ? k0 / wide::CW : 0, t_end = (a.Sq + wide::CW - 1) / wide::CW;
+    if (lane == 0) {
+      s.n_items = any ? max(0, t_end - t_first) : 0;
+      s.t_first = t_first;
+      mbar_arrive(&s.meta);
+    }
+  }
+  mbar_wait(&s.meta, 0);
+  const int t_first = s.t_first;
+  auto issue = [&](int v, int ln) {          // warp 0: unit v of the walk
+    const int x = v % upt, q0 = (t_first + v / upt) * wide::CW;
+    if (x < 4 * nc) {                        // K, Q, V, dO of chunk x / 4
+      const CUtensorMap* m = (x & 2) ? ((x & 1) ? do_map : v_map) : ((x & 1) ? q_map : k_map);
+      s.r.load(v, m, (x >> 2) * wide::CW, (x & 1) ? q0 : k0, h, b, ln);
+    } else {                                 // dO, Q of the group's chunk, to transpose
+      const int y = x - 4 * nc;
+      s.r.load(v, (y & 1) ? q_map : do_map, (g * NCG + (y >> 1)) * wide::CW, q0, h, b, ln);
+    }
+  };
+  s.r.feed(s.n_items * upt, tid, issue, [&](int u) { return u % upt >= 4 * nc; });
+}
+
+// Warpgroup wg of a dKV block: 0 computes S^T, P and dV, 1 dP^T, dS and dK.
+template <int DG>
+__device__ __forceinline__ void dkv_group_consume(DkvGroupSmem& s, const BwdF32Args& a, int D,
+                                                  int wg) {
+  constexpr int NCG = DG / wide::CW;
+  float gr[NCG][32];                           // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int c = 0; c < NCG; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gr[c][i] = 0.f;
+
+  mbar_wait(&s.meta, 0);
+  for (int item = 0; item < *(volatile int*)&s.n_items; ++item) {
+    const int nc = D / wide::CW, upt = 4 * nc + 2 * NCG;
+    const int q0 = (*(volatile int*)&s.t_first + item) * wide::CW, base = item * upt;
+    float* ex = reinterpret_cast<float*>(s.st[0]);   // P handed over: ex[i * 128 + x]
+    float sc[32];                             // S^T (0) or dP^T (1): 64 keys x 64 queries
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    for (int c = 0; c < nc; ++c) {            // K Q^T, or V dO^T, a chunk a step
+      const int u = base + 4 * c + 2 * wg;
+      const unsigned char* ac = s.r.wait(u);
+      const unsigned char* bc = s.r.wait(u + 1);
+      fence_regs(sc);
+      wgmma_fence();
+      wide::prod3_units(sc, ac, bc);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      s.r.release(u, wide::wg_thread() % 32);
+      s.r.release(u + 1, wide::wg_thread() % 32);
+    }
+    // the tile's lse log2(e) or D, staged once (this warpgroup read the
+    // last tile's before its store_a barrier); held in registers, 16 a
+    // thread, they would spill dK or dV
+    if (wide::wg_thread() < wide::CW) {              // warpgroup 0 the queries' lse, 1 their D
+      const int x_ = wide::wg_thread();
+      const DkvBlock blk(a, D);
+      const int i = q0 + x_;
+      const float* qvec = (wg == 0 ? a.lse : a.dvec) + (size_t)(blk.b * a.H + blk.h) * a.Sq;
+      s.qv[wg][x_] = i < a.Sq ? qvec[i] * (wg == 0 ? LOG2E : 1.f) : 0.f;
+    }
+    bar_sync(CONS_BAR + wg, 128);
+    if (wg == 0) {
+      const DkvBlock blk(a, D);
+      const int x_ = wide::wg_thread(), lane = x_ % 32, warp = x_ / 32, t = lane & 3;
+      const int key0 = blk.r0 + warp * 16 + (lane >> 2), key1 = key0 + 8;   // this thread's
+      const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)blk.b * a.mask_sb;
+      const bool on0 = key0 < a.Sk && (mrow == nullptr || mrow[key0] != 0);
+      const bool on1 = key1 < a.Sk && (mrow == nullptr || mrow[key1] != 0);
+      const uint32_t head_index = drop_head(blk.b, blk.h, a.ds) * (uint32_t)a.Sq;
+      const float scale_log2 = a.scale * LOG2E;   // P = 2^(S scale log2(e) - lse log2(e))
+      // P, handed to warpgroup 1 once it has read the last one (its dK
+      // products are complete), the keep bit in its sign
+      mbar_wait(&s.ex_empty, (item & 1) ^ 1);
+      // an 8-column block at a time (__syncwarp keeps the next block's
+      // loads from being hoisted beside dV)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int c = (x >> 2) * 8 + 2 * t + (x & 1), i = q0 + c;
+        const int e = (x >> 1) & 1, key = e ? key1 : key0;
+        const bool live = (e ? on1 : on0) && i < a.Sq && !(a.causal && key > i);
+        const float p = live ? fast_exp2(fmaf(sc[x], scale_log2, -s.qv[0][c])) : 0.f;
+        bool keep = true;
+        if (a.dropout)
+          keep = hash_keep((head_index + (uint32_t)i) * (uint32_t)a.Sk + (uint32_t)key, a.seed,
+                           a.threshold);
+        ex[x * 128 + x_] = keep ? p : -p;
+        sc[x] = keep ? p * (a.dropout ? a.inv_keep : 1.f) : 0.f;   // P_drop^T
+        if ((x & 3) == 3) __syncwarp();
+      }
+      mbar_arrive(&s.ex_full);
+    } else {
+      const int x_ = wide::wg_thread(), t = x_ & 3;
+      mbar_wait(&s.ex_full, item & 1);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const float pe = ex[x * 128 + x_];
+        float dpd = sc[x];
+        if (a.dropout) dpd = (__float_as_uint(pe) >> 31) ? 0.f : dpd * a.inv_keep;
+        sc[x] = fabsf(pe) * (dpd - s.qv[1][(x >> 2) * 8 + 2 * t + (x & 1)]);   // dS^T
+        if ((x & 3) == 3) __syncwarp();
+      }
+      bar_sync(CONS_BAR + 1, 128);            // every hand-over read: dS^T takes its place
+    }
+    // P_drop^T's or dS^T's halves (this warpgroup's products of the tile
+    // before read them and are complete)
+    wide::store_a(sc, wg == 0 ? s.pt[0] : s.st[0], wg == 0 ? s.pt[1] : s.st[1],
+                  wide::wg_thread() / 32, wide::wg_thread() % 32);
+    fence_proxy_async();
+    bar_sync(CONS_BAR + wg, 128);
+    const uint32_t ab = smem_u32(wg == 0 ? s.pt[0] : s.st[0]);
+    const uint32_t as = smem_u32(wg == 0 ? s.pt[1] : s.st[1]);
+#pragma unroll
+    for (int c = 0; c < NCG; ++c) {           // dV[:, c] += P_drop^T dO[:, c]; dK: dS^T Q
+      const int u = base + 4 * nc + 2 * c + wg;
+      const uint32_t yc = smem_u32(s.r.wait(u));
+      fence_regs(gr[c]);
+      wgmma_fence();
+      wide::prod3(gr[c], ab, as, yc, yc + wide::HALF);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait_n<1>();
+        fence_regs(gr[c - 1]);
+        s.r.release(u - 2, wide::wg_thread() % 32);
+      }
+    }
+    wgmma_wait0();
+    fence_regs(gr[NCG - 1]);
+    s.r.release(base + 4 * nc + 2 * (NCG - 1) + wg, wide::wg_thread() % 32);
+    if (wg == 1) mbar_arrive(&s.ex_empty);    // dS^T's place is free for the next P
+  }
+  const DkvBlock blk(a, D);
+  const int x_ = wide::wg_thread(), lane = x_ % 32, warp = x_ / 32, t = lane & 3;
+  float* out = wg == 0 ? head(a.dv, a.dvs, blk.b, blk.h) : head(a.dk, a.dks, blk.b, blk.h);
+  const int ss = wg == 0 ? a.dvs.ss : a.dks.ss, key0 = blk.r0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < NCG; ++c)
+    store_block(out, ss, gr[c], blk.g * DG + c * wide::CW, D, key0, a.Sk,
+                wg == 0 ? 1.f : a.scale, t);
+}
+
+template <int DG>
+__global__ void __launch_bounds__(384, 1)
+flash_f32_dkv_group_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map, const BwdF32Args a,
+                           int D) {
+  extern __shared__ unsigned char smem_raw[];
+  DkvGroupSmem& s = aligned_smem<DkvGroupSmem>(smem_raw);
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);   // warp-uniform
+  if (threadIdx.x == 0) {
+    mbar_init(&s.meta, 1);
+    mbar_init(&s.ex_full, 128);
+    mbar_init(&s.ex_empty, 128);
+    s.r.init();
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == 2)
+    dkv_group_transform<DG>(s, &q_map, &k_map, &v_map, &do_map, a, D);
+  else
+    dkv_group_consume<DG>(s, a, D, wg);
+}
+
+// ---- dQ over 192 columns, split over two warpgroups --------------------------------
+
+constexpr int DQ_SPLIT_STAGES = 6;
+constexpr int WIDE_DQ_SPLIT = 384;   // widest group: 192 columns a warpgroup
+
+struct DqSplitSmem {   // the small members last: no padding between them
+  alignas(1024) unsigned char st[2][wide::HALF];   // dS's halves; P handed over in st[0]
+  wide::Ring<DQ_SPLIT_STAGES> r;
+  int n_live;
+  uint64_t meta, ex_full, ds_full, ds_empty;
+};
+
+// Warpgroup wg of a split dQ block: 0 computes S and P and hands P over, 1
+// dP and dS; each then adds dS K[:, c] over its half of the group's chunks.
+template <int DG>
+__device__ __forceinline__ void dq_split_consume(DqSplitSmem& s, const BwdF32Args& a, int D,
+                                                 int wg) {
+  constexpr int NH = DG / wide::CW / 2;      // each warpgroup's chunks of dQ
+  float gr[NH][32];
+#pragma unroll
+  for (int c = 0; c < NH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gr[c][i] = 0.f;
+
+  mbar_wait(&s.meta, 0);
+  for (int item = 0; item < *(volatile int*)&s.n_live; ++item) {
+    const int nc = D / wide::CW, upt = 4 * nc + 2 * NH, base = item * upt;
+    float* ex = reinterpret_cast<float*>(s.st[0]);   // P handed over: ex[i * 128 + x]
+    float sc[32];                             // S (0) or dP (1): 64 queries x 64 keys
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    int k0 = 0;                               // the key tile (warpgroup 0)
+    uint32_t kb[2] = {0u, 0u};
+    for (int c = 0; c < nc; ++c) {            // Q K^T, or dO V^T, a chunk a step
+      const int u = base + 4 * c + 2 * wg;
+      const unsigned char* ac = s.r.wait(u);
+      const unsigned char* bc = s.r.wait(u + 1);
+      if (wg == 0 && c == 0) {                // the tile's first unit: its row and bits
+        k0 = s.r.tile[s.r.slot(u)];
+        kb[0] = s.r.bits[s.r.slot(u)][0];
+        kb[1] = s.r.bits[s.r.slot(u)][1];
+      }
+      fence_regs(sc);
+      wgmma_fence();
+      wide::prod3_units(sc, ac, bc);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      s.r.release(u, wide::wg_thread() % 32);
+      s.r.release(u + 1, wide::wg_thread() % 32);
+    }
+    const GroupBlock<WIDE_DQ_SPLIT> blk(a, D);
+    const int x_ = wide::wg_thread(), t = x_ & 3;
+    const int row0 = blk.r0 + (x_ / 32) * 16 + ((x_ % 32) >> 2), row1 = row0 + 8;
+    const size_t bh = (size_t)(blk.b * a.H + blk.h) * a.Sq;
+    if (wg == 0) {
+      // P, handed to warpgroup 1 once both have read the last dS (their
+      // products of the tile before are complete), the keep bit in its sign
+      const float scale_log2 = a.scale * LOG2E;
+      const float lse0 = row0 < a.Sq ? a.lse[bh + row0] * LOG2E : 0.f;
+      const float lse1 = row1 < a.Sq ? a.lse[bh + row1] * LOG2E : 0.f;
+      const uint32_t drop0 =
+          (drop_head(blk.b, blk.h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
+      mbar_wait(&s.ds_empty, (item & 1) ^ 1);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int col = (x >> 2) * 8 + 2 * t + (x & 1), e = (x >> 1) & 1;
+        const int row = e ? row1 : row0;
+        const bool live = key_on(kb, col) && row < a.Sq && !(a.causal && k0 + col > row);
+        const float p = live ? fast_exp2(fmaf(sc[x], scale_log2, -(e ? lse1 : lse0))) : 0.f;
+        bool keep = true;
+        if (a.dropout)
+          keep = hash_keep(drop0 + (e ? 8u * (uint32_t)a.Sk : 0u) + (uint32_t)(k0 + col),
+                           a.seed, a.threshold);
+        ex[x * 128 + x_] = keep ? p : -p;
+        if ((x & 3) == 3) __syncwarp();
+      }
+      mbar_arrive(&s.ex_full);
+    } else {
+      const float dv0 = row0 < a.Sq ? a.dvec[bh + row0] : 0.f;
+      const float dv1 = row1 < a.Sq ? a.dvec[bh + row1] : 0.f;
+      mbar_wait(&s.ex_full, item & 1);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const float pe = ex[x * 128 + x_];
+        float dpd = sc[x];
+        if (a.dropout) dpd = (__float_as_uint(pe) >> 31) ? 0.f : dpd * a.inv_keep;
+        sc[x] = fabsf(pe) * (dpd - (((x >> 1) & 1) ? dv1 : dv0));   // dS
+        if ((x & 3) == 3) __syncwarp();
+      }
+      bar_sync(CONS_BAR + 1, 128);            // every hand-over read: dS takes its place
+      wide::store_a(sc, s.st[0], s.st[1], x_ / 32, x_ % 32);
+      fence_proxy_async();
+      mbar_arrive(&s.ds_full);
+    }
+    mbar_wait(&s.ds_full, item & 1);          // dS's halves stored
+    const uint32_t ab = smem_u32(s.st[0]), as = smem_u32(s.st[1]);
+#pragma unroll
+    for (int c = 0; c < NH; ++c) {            // dQ[:, c] += dS K[:, c], this half's chunks
+      const int u = base + 4 * nc + wg * NH + c;
+      const uint32_t yc = smem_u32(s.r.wait(u));
+      fence_regs(gr[c]);
+      wgmma_fence();
+      wide::prod3(gr[c], ab, as, yc, yc + wide::HALF);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait_n<1>();
+        fence_regs(gr[c - 1]);
+        s.r.release(u - 1, wide::wg_thread() % 32);
+      }
+    }
+    wgmma_wait0();
+    fence_regs(gr[NH - 1]);
+    s.r.release(base + 4 * nc + wg * NH + NH - 1, wide::wg_thread() % 32);
+    mbar_arrive(&s.ds_empty);                 // dS's place is free for the next P
+  }
+  const GroupBlock<WIDE_DQ_SPLIT> blk(a, D);
+  const int x_ = wide::wg_thread();
+  const int row0 = blk.r0 + (x_ / 32) * 16 + ((x_ % 32) >> 2);
+  float* base = head(a.dq, a.dqs, blk.b, blk.h);
+#pragma unroll
+  for (int c = 0; c < NH; ++c)
+    store_block(base, a.dqs.ss, gr[c], blk.g * DG + (wg * NH + c) * wide::CW, D, row0, a.Sq,
+                a.scale, x_ & 3);
+}
+
+template <int DG>
+__global__ void __launch_bounds__(384, 1)
+flash_f32_dq_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map, const BwdF32Args a,
+                          int D) {
+  extern __shared__ unsigned char smem_raw[];
+  DqSplitSmem& s = aligned_smem<DqSplitSmem>(smem_raw);
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);   // warp-uniform
+  if (threadIdx.x == 0) {
+    mbar_init(&s.meta, 1);
+    mbar_init(&s.ex_full, 128);
+    mbar_init(&s.ds_full, 128);
+    mbar_init(&s.ds_empty, 256);
+    s.r.init();
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    const GroupBlock<WIDE_DQ_SPLIT> blk(a, D);
+    dq_group_transform<DG>(s, &q_map, &k_map, &v_map, &do_map, a, D, blk.r0, blk.g, blk.b,
+                           blk.h, threadIdx.x - 256);
+  } else {
+    dq_split_consume<DG>(s, a, D, wg);
+  }
+}
+
+template <class Smem, typename Kernel>
+int launch_group(Kernel kernel, int threads, bool& ok, const CUtensorMap (&m)[4],
+                 const BwdF32Args& a, int D, int rows, int ng, int B, cudaStream_t s) {
+  constexpr int bytes = sizeof(Smem) + 1024;
+  static_assert(bytes <= 232448, "shared memory over the limit");
+  const cudaError_t err = allow_smem(kernel, bytes, ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((rows + wide::CW - 1) / wide::CW * ng, B * a.H), threads, bytes, s>>>(
+      m[0], m[1], m[2], m[3], a, D);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DKV_DG>
+int launch_dkv(const BwdF32Args& a, const CUtensorMap (&m)[4], int B, int D, cudaStream_t s) {
+  static bool ok = false;
+  return launch_group<DkvGroupSmem>(flash_f32_dkv_group_kernel<DKV_DG>, 384, ok, m, a, D, a.Sk,
+                                    wide::groups(D, WIDE_DKV), B, s);
+}
+
+// dQ: at 192 one warpgroup holds the group (DqGroupSmem); over 192 two
+// warpgroups split it (DqSplitSmem), groups of 256 or 384 columns
+template <int DG>
+int launch_dq(const BwdF32Args& a, const CUtensorMap (&m)[4], int B, int D, cudaStream_t s) {
+  static bool ok = false;
+  if constexpr (DG == 192)
+    return launch_group<DqGroupSmem>(flash_f32_dq_group_kernel<DG>, 256, ok, m, a, D, a.Sq,
+                                     wide::groups(D, WIDE_DQ), B, s);
+  else
+    return launch_group<DqSplitSmem>(flash_f32_dq_split_kernel<DG>, 384, ok, m, a, D, a.Sq,
+                                     wide::groups(D, WIDE_DQ_SPLIT), B, s);
+}
+
 }  // namespace
+
+// The wide route's kernels' launch budgets, for chip_smoke.py's build
+// report: out[3 i .. 3 i + 2] = (width of the column group, bytes of
+// dynamic shared memory asked, threads) of dQ at 192, the split dQ at 256
+// and 384, then dKV at 128 and 192; returns how many.
+extern "C" int f32_bwd_wide_budgets(int* out) {
+  const int rows[5][3] = {
+      {192, (int)sizeof(DqGroupSmem) + 1024, 256},
+      {256, (int)sizeof(DqSplitSmem) + 1024, 384},
+      {384, (int)sizeof(DqSplitSmem) + 1024, 384},
+      {128, (int)sizeof(DkvGroupSmem) + 1024, 384},
+      {192, (int)sizeof(DkvGroupSmem) + 1024, 384}};
+  for (int i = 0; i < 5; ++i)
+    for (int j = 0; j < 3; ++j) out[3 * i + j] = rows[i][j];
+  return 5;
+}
 
 // The bf16 entry point's arguments (flash_attention_bwd.cu), for f32 q, k,
 // v, dout, out, dq, dk, dv: (B, H, S, Dh) with element strides (sb, sh, ss)
@@ -1067,9 +1448,17 @@ extern "C" int flash_attention_bwd_f32(
     case 128: return launch<128>(a, p, st, B, s);
     default: break;
   }
-  const BwdWideArgs w{static_cast<const float*>(q), static_cast<const float*>(k),
-                      static_cast<const float*>(v), a.dout, a.mask, a.lse, a.dvec, a.dq, a.dk,
-                      a.dv, H, Sq, Sk, Dh, st[0], st[1], st[2], st[3], a.dqs, a.dks, a.dvs,
-                      mask_sb, causal, scale, dropout, seed, threshold, inv_keep, a.ds};
-  return launch_wide(w, B, s);
+  CUtensorMap m[4];                          // q, k, v, dO: every tile 64 rows
+  const int S[4] = {Sq, Sk, Sk, Sq};
+  for (int i = 0; i < 4; ++i) {
+    const int err = make_f32_map(&m[i], p[i], B, H, S[i], Dh, st[i].sb, st[i].sh,
+                                 st[i].ss, wide::CW);
+    if (err != 0) return err;
+  }
+  const int err = wide::group_width(Dh, WIDE_DKV) == 192 ? launch_dkv<192>(a, m, B, Dh, s)
+                                                        : launch_dkv<128>(a, m, B, Dh, s);
+  if (err != 0) return err;
+  if (Dh <= 192) return launch_dq<192>(a, m, B, Dh, s);
+  return wide::group_width_even(Dh, WIDE_DQ_SPLIT) == 384 ? launch_dq<384>(a, m, B, Dh, s)
+                                                          : launch_dq<256>(a, m, B, Dh, s);
 }

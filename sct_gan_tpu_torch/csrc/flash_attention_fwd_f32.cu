@@ -61,9 +61,10 @@
 // Waves on 132 SMs: (8, 8, 1024, 96) 512 blocks, 3.88 waves; CodeBERT's
 // (4, 12, 512, 64) 192 blocks, 1.45 waves.
 //
-// Head dims over 128 take the wide route instead (flash_f32_fwd_wide_kernel,
-// below): 64-column chunks on mma.sync, each chunk's block recomputing the
-// scores.
+// Head dims over 128 take the wide route instead (flash_f32_fwd_group_kernel,
+// below): a block owns a group of O's columns (the whole head dim up to
+// 256) and computes each score tile once, over the head dim in 64-column
+// chunks that its TMA ring brings in, on the same 3xTF32 wgmma.
 //
 // Semantics (the bf16 K1's and the JAX kernel's): a masked key gets -inf; a
 // fully-masked row gives zeros and lse = -1e30; causal means key j is
@@ -574,194 +575,477 @@ int rate_launch(void* out, int reps, int blocks, cudaStream_t st) {
 }
 
 // ---- head dims over 128: the wide route ----------------------------------------
-// A head dim D over 128 (a multiple of wide::CW = 64 columns; the wrapper
-// pads any other) runs in column chunks (f32_attention.cuh, wide): a block
-// is (64 query rows, one 64-column chunk co of O, b, h), 4 warps of 16
-// rows. It walks the 64-key tiles that hold an attended key (and, under
-// causal, that its rows see); per tile it sums S = Q K^T over D chunk by
-// chunk (each chunk of Q and of K by cp.async through 2 stages), runs the
-// online softmax in f32 (expf, the natural domain) and adds P V[:, co] from
-// the tile's chunk co of V. Every chunk's block computes the same S in the
-// same order, so the same row statistics, and draws the same keep bits (the
-// hash is over (b, h, i, j), not over columns); only chunk 0's block writes
-// the LSE. A fully masked row gives zeros in every chunk and lse = -1e30.
-// Every product is 3xTF32 on mma.sync.m16n8k8.
-// Cost: each of D / 64 chunk blocks recomputes S over the whole head dim,
-// so the kernel runs (D / 64 + 1) / 2 times the products of the math (2 at
-// 192, 2.5 at 256, 3.5 at 384), and reads Q's chunks again for every key
-// tile (from the L2). Simple and right; no Hopper pipeline.
-// Budget: 2 stages x (Q, K) + V's chunk, 64 x 68 f32 each, + the tile's
-// mask bias: 87,296 bytes, two blocks an SM; registers O (32) and S (32).
-struct FwdWideArgs {
-  const float *q, *k, *v;
-  const uint8_t* mask;   // (B, Sk), nonzero = attend, or null
-  float* o;
-  float* lse;            // contiguous (B*H, Sq), or null
-  int H, Sq, Sk, D;
-  int q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int mask_sb, causal;
-  float scale;
-  int dropout;
-  uint32_t seed, threshold;
-  float inv_keep;
-  DropShard ds;
+// A head dim D over 128 (a multiple of wide::CW = 64; the wrapper pads any
+// other) runs in column groups (f32_attention.cuh, wide), each score tile
+// computed once per row tile and group: a block owns 64 query rows and a
+// group of DG columns of O, DG 192 or 256 (wide::groups: one group at 192
+// and 256, two of 192 at 384, two of 256 at 512; the last group's columns
+// past D are zeros, not written). 256 threads:
+//   * the transform warpgroup: warp 4 walks the 64-key tiles that hold an
+//     attended key (TileWalk; under causal only those its rows see) and
+//     loads each tile's units by TMA into the ring: Q's and K's chunks c =
+//     0 .. D/64 - 1 in turn, then the group's chunks of V; warps 5-7 split
+//     each landed unit once (wide::Ring::feed): Q's and K's small halves
+//     beside them, V transposed (TF32 wgmma reads K-major operands only);
+//   * one consumer warpgroup: per tile S = Q K^T once, over the whole head
+//     dim, one 64 x 64 x 64 step of 3xTF32 m64n64k8 wgmma a chunk pair,
+//     both operands from shared memory (each step issued before the one
+//     before is released); the online softmax in the log2 domain (the
+//     64-128 instances' fwd_softmax), dropout on P after the statistics;
+//     O rescaled, then O[:, c] += P V[:, c] for each of the group's
+//     chunks, one step each, P's halves as the A operand: from registers
+//     at DG = 192 (P_REG), stored once in shared memory at 256.
+// Every group's block computes the same S in the same order, so the same
+// statistics and the same keep bits (the hash is over (b, h, i, j)); only
+// group 0 writes the LSE. A fully masked row gives zeros and lse = -1e30.
+// Budget (shared memory, 1 KB more aligns it; registers, 255 a thread at
+// 256 threads, so no setmaxnreg):
+//   DG = 192: 7 stages x 32 KB = 229,376 bytes; O (96) and P's halves (64)
+//             in registers (210 used)
+//   DG = 256: 6 stages x 32 KB + P's halves 32 KB = 229,376 bytes; O (128)
+//             and S (32) (226 used)
+// The products run (NG (D / 64) + D / 64) / (2 D / 64) times the math's: 1 at
+// 192 and 256, 1.5 at 384 (a block a 64-column chunk: 2, 2.5, 3.5). What bounds
+// it on the card (chip_smoke.py --f32-times, PERF.md): the transform's
+// split and shared memory's bandwidth (every 3xTF32 step reads 96 KB of
+// operands, the split 48 KB a unit), more than the tensor cores; one
+// consumer warpgroup leaves them idle during its softmax, and two of 64
+// rows each would cap every thread at 168 registers, under O's 128 at DG =
+// 256.
+template <int DG>
+struct FwdGroupSmem {
+  static constexpr bool P_REG = DG <= 192;         // P's 64 registers beside O's DG / 2
+  wide::Ring<P_REG ? 7 : 6> r;
+  alignas(P_REG ? 16 : 1024) unsigned char p[P_REG ? 1 : 2][P_REG ? 16 : wide::HALF];   // P
+  int n_live;                                      // live tiles, published on `meta`
+  uint64_t meta;
 };
 
-constexpr int FWD_WIDE_SMEM = (5 * wide::TILE + wide::ROWS) * 4;
-static_assert(FWD_WIDE_SMEM <= 232448 / 2 - 1024, "two blocks an SM");
+// fwd_softmax's shape at the wide route's 64-key tiles
+struct FwdGroupTile {
+  static constexpr int BK = wide::CW, WORDS = 2;
+};
 
-__global__ void __launch_bounds__(wide::NT, 2)
-flash_f32_fwd_wide_kernel(const FwdWideArgs a) {
-  using namespace wide;
-  extern __shared__ float4 smem4[];
-  float* qk = reinterpret_cast<float*>(smem4);   // [2 stages][Q, K][ROWS][LD]
-  float* vo = qk + 4 * TILE;                     // the tile's chunk co of V
-  float* bias = vo + TILE;                       // the tile's keys: 0 or -inf
-  const int nc = a.D / CW, co = blockIdx.x % nc, q0 = (blockIdx.x / nc) * ROWS;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float* qb = a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh;
-  const float* kb = a.k + (size_t)b * a.k_sb + (size_t)h * a.k_sh;
-  const float* vb = a.v + (size_t)b * a.v_sb + (size_t)h * a.v_sh + co * CW;
+constexpr int CONS_BAR = 2;   // the consumer warpgroup (named barrier)
+
+// The transform warpgroup of a K1 block (FwdGroupSmem or FwdSplitSmem),
+// tid its thread in [0, 128).
+template <int DG, class Smem>
+__device__ __forceinline__ void fwd_group_transform(Smem& s, const CUtensorMap* q_map,
+                                                    const CUtensorMap* k_map,
+                                                    const CUtensorMap* v_map,
+                                                    const FwdF32Args& a, int D, int q0, int g,
+                                                    int b, int h, int tid) {
+  constexpr int NCG = DG / wide::CW;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nc = D / wide::CW, upt = 2 * nc + NCG;   // units a tile
+  int n_tiles = (a.Sk + wide::CW - 1) / wide::CW;
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + wide::CW, a.Sq) - 1) / wide::CW + 1);
   const uint8_t* mrow = a.mask == nullptr ? nullptr : a.mask + (size_t)b * a.mask_sb;
-  int n_tiles = (a.Sk + ROWS - 1) / ROWS;
-  if (a.causal) n_tiles = min(n_tiles, (min(q0 + ROWS, a.Sq) - 1) / ROWS + 1);
-
-  auto issue_qk = [&](int j, int c, int st) {   // chunk c of Q and of key tile j
-    float* s = qk + st * 2 * TILE;
-    load_chunk(s, qb + c * CW, a.q_ss, q0, a.Sq);
-    load_chunk(s + TILE, kb + c * CW, a.k_ss, j * ROWS, a.Sk);
-  };
-  auto issue_v = [&](int j) {                   // chunk co of V and the bias of tile j
-    load_chunk(vo, vb, a.v_ss, j * ROWS, a.Sk);
-    if (threadIdx.x < ROWS) {
-      const int key = j * ROWS + (int)threadIdx.x;
-      bias[threadIdx.x] = key < a.Sk && (mrow == nullptr || mrow[key] != 0) ? 0.f : -INFINITY;
+  TileWalk<wide::CW> walk(mrow, a.Sk, n_tiles);
+  if (warp == 0) {
+    const int n = walk.count(lane);
+    if (lane == 0) {
+      s.n_live = n;
+      mbar_arrive(&s.meta);
+    }
+  }
+  mbar_wait(&s.meta, 0);
+  int k0 = 0;
+  auto issue = [&](int v, int ln) {          // warp 0: unit v of the walk
+    const int x = v % upt;
+    if (x == 0) {                            // the next live tile
+      k0 = walk.next(ln) * wide::CW;
+      uint32_t kb[2];
+      tile_bits<wide::CW>(kb, mrow, k0, a.Sk, ln);
+      s.r.load(v, q_map, 0, q0, h, b, ln, k0, kb[0], kb[1]);
+    } else if (x < 2 * nc) {                 // Q's and K's chunks in turn
+      s.r.load(v, (x & 1) ? k_map : q_map, (x >> 1) * wide::CW, (x & 1) ? k0 : q0, h, b, ln);
+    } else {                                 // the group's chunks of V
+      s.r.load(v, v_map, (g * NCG + x - 2 * nc) * wide::CW, k0, h, b, ln);
     }
   };
+  s.r.feed(s.n_live * upt, tid, issue, [&](int u) { return u % upt >= 2 * nc; });
+}
 
-  float o[CW / 8][4];
-#pragma unroll
-  for (int n = 0; n < CW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  // flat dropout index of (b, h, row, 0) over the true Sq, Sk
+template <int DG>
+__device__ __forceinline__ void fwd_group_consume(FwdGroupSmem<DG>& s, const FwdF32Args& a, int D,
+                                                  int q0, int g, int b, int h) {
+  constexpr int NCG = DG / wide::CW;
+  constexpr bool P_REG = FwdGroupSmem<DG>::P_REG;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int t = lane & 3;
+  const int row0 = q0 + warp * 16 + (lane >> 2), row1 = row0 + 8;
+  const int nc = D / wide::CW;
+  // flat dropout index of (b, h, row0, 0) over the true Sq, Sk
   const uint32_t drop0 =
       (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
-  const uint32_t drop1 = drop0 + 8u * (uint32_t)a.Sk;
+  const uint32_t pb = smem_u32(s.p[0]), ps = smem_u32(s.p[P_REG ? 0 : 1]);
 
-  int cur = next_live(mrow, 0, n_tiles, a.Sk);
-  if (cur < n_tiles) issue_qk(cur, 0, 0);
-  cp_async_commit();
-  int st = 0;
-  while (cur < n_tiles) {
-    const int nxt = next_live(mrow, cur + 1, n_tiles, a.Sk);
-    const int k0 = cur * ROWS;
-    float s[ROWS / 8][4];
+  float o[NCG][32];                          // O's group, a 64-column block each
 #pragma unroll
-    for (int n8 = 0; n8 < ROWS / 8; ++n8)
+  for (int c = 0; c < NCG; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n8][e] = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      // the next chunk (of this tile, or the next tile's first) into the
-      // other stage; with the first chunk, V's chunk co (read at the last:
-      // nc >= 2, so it has landed by then)
-      if (c + 1 < nc)
-        issue_qk(cur, c + 1, st ^ 1);
-      else if (nxt < n_tiles)
-        issue_qk(nxt, 0, st ^ 1);
-      if (c == 0) issue_v(cur);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();                       // chunk c (and Q's) landed
-      const float* sq = qk + st * 2 * TILE;
-      mma_nt<ROWS>(s, sq + warp * 16 * LD, sq + TILE, lane);
-      if (c == nc - 1) {
-        float mx[2] = {m_run[0], m_run[1]};
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};   // log2 domain
+
+  mbar_wait(&s.meta, 0);
+  const int n_live = s.n_live;
+  int u = 0;
+  for (int item = 0; item < n_live; ++item) {
+    float sc[32];
 #pragma unroll
-        for (int n8 = 0; n8 < ROWS / 8; ++n8)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = n8 * 8 + 2 * t + (e & 1);
-            float x = s[n8][e] * a.scale + bias[col];
-            if (a.causal && k0 + col > (e < 2 ? row0 : row1)) x = -INFINITY;
-            s[n8][e] = x;
-            mx[e >> 1] = fmaxf(mx[e >> 1], x);
-          }
-        float base[2], alpha[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = quad_max(mx[i]);
-          base[i] = mx[i] == -INFINITY ? 0.f : mx[i];   // all masked so far
-          alpha[i] = expf(m_run[i] - base[i]);
-          m_run[i] = mx[i];
-        }
-        float rs[2] = {0.f, 0.f};
-#pragma unroll
-        for (int n8 = 0; n8 < ROWS / 8; ++n8)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[n8][e] = expf(s[n8][e] - base[e >> 1]);
-            rs[e >> 1] += s[n8][e];
-          }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + quad_sum(rs[i]);
-        if (a.dropout) {                     // after l: dropout acts on P only
-#pragma unroll
-          for (int n8 = 0; n8 < ROWS / 8; ++n8)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const uint32_t key = (uint32_t)(k0 + n8 * 8 + 2 * t + (e & 1));
-              const bool keep = hash_keep((e < 2 ? drop0 : drop1) + key, a.seed, a.threshold);
-              s[n8][e] = keep ? s[n8][e] * a.inv_keep : 0.f;
-            }
-        }
-#pragma unroll
-        for (int n8 = 0; n8 < CW / 8; ++n8)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[n8][e] *= alpha[e >> 1];
-        mma_pn<ROWS>(o, s, vo, lane);
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    int k0 = 0;
+    uint32_t kb[2] = {0u, 0u};
+    for (int c = 0; c < nc; ++c, u += 2) {  // S over the head dim, a chunk a step
+      const unsigned char* qc = s.r.wait(u);
+      const unsigned char* kc = s.r.wait(u + 1);
+      if (c == 0) {
+        k0 = s.r.tile[s.r.slot(u)];
+        kb[0] = s.r.bits[s.r.slot(u)][0];
+        kb[1] = s.r.bits[s.r.slot(u)][1];
       }
-      __syncthreads();                       // stage st (and V's chunk) free
-      st ^= 1;
+      fence_regs(sc);
+      wgmma_fence();
+      wide::prod3_units(sc, qc, kc);
+      wgmma_commit();
+      if (c > 0) {                            // the chunk before is read
+        wgmma_wait_n<1>();
+        s.r.release(u - 2, lane);
+        s.r.release(u - 1, lane);
+      }
     }
-    cur = nxt;
+    wgmma_wait0();
+    fence_regs(sc);
+    s.r.release(u - 2, lane);
+    s.r.release(u - 1, lane);
+    float alpha[2];
+    const bool all_on = kb[0] == ~0u && kb[1] == ~0u;   // every key of the tile attended
+    if (!all_on || a.scale <= 0.f || (a.causal && k0 + wide::CW - 1 > q0))
+      fwd_softmax<FwdGroupTile, true>(sc, kb, k0, row0, t, a, drop0, m_run, l_run, alpha);
+    else
+      fwd_softmax<FwdGroupTile, false>(sc, kb, k0, row0, t, a, drop0, m_run, l_run, alpha);
+#pragma unroll
+    for (int c = 0; c < NCG; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+    // P's halves, A of O[:, c] += P V[:, c]: in registers where they fit
+    // beside O (P_REG), else stored once in shared memory (the tile
+    // before's products read them there and are complete)
+    uint32_t ab[P_REG ? 8 : 1][4], as[P_REG ? 8 : 1][4];
+    if constexpr (P_REG) {
+      wide::a_frags(sc, ab, as);
+    } else {
+      wide::store_a(sc, s.p[0], s.p[P_REG ? 0 : 1], warp, lane);
+      fence_proxy_async();
+      bar_sync(CONS_BAR, 128);
+    }
+#pragma unroll
+    for (int c = 0; c < NCG; ++c, ++u) {
+      const uint32_t vc = smem_u32(s.r.wait(u));
+      fence_regs(o[c]);
+      wgmma_fence();
+      if constexpr (P_REG)
+        wide::prod3_rs(o[c], ab, as, vc, vc + wide::HALF);
+      else
+        wide::prod3(o[c], pb, ps, vc, vc + wide::HALF);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait_n<1>();
+        fence_regs(o[c - 1]);
+        s.r.release(u - 1, lane);
+      }
+    }
+    wgmma_wait0();
+    fence_regs(o[NCG - 1]);
+#pragma unroll
+    for (int kk = 0; kk < (P_REG ? 8 : 1); ++kk) {
+      hold_regs(ab[kk]);
+      hold_regs(as[kk]);
+    }
+    s.r.release(u - 1, lane);
   }
-  cp_async_wait<0>();
 
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;   // masked row -> 0
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
-  if (a.lse != nullptr && co == 0 && t == 0) {   // one block and lane a row writes it
-    float* lb = a.lse + (size_t)bh * a.Sq;
-    if (row0 < a.Sq) lb[row0] = l_run[0] > 0.f ? m_run[0] + logf(l_run[0]) : -1e30f;
-    if (row1 < a.Sq) lb[row1] = l_run[1] > 0.f ? m_run[1] + logf(l_run[1]) : -1e30f;
+  if (a.lse != nullptr && g == 0 && t == 0) {   // one block and lane a row writes it
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lb = a.lse + (size_t)(b * a.H + h) * a.Sq;
+    if (row0 < a.Sq) lb[row0] = l_run[0] > 0.f ? (m_run[0] + log2f(l_run[0])) * LN2 : -1e30f;
+    if (row1 < a.Sq) lb[row1] = l_run[1] > 0.f ? (m_run[1] + log2f(l_run[1])) * LN2 : -1e30f;
   }
-  float* ob = a.o + (size_t)b * a.o_sb + (size_t)h * a.o_sh + co * CW;
+  float* ob = a.o + (size_t)b * a.o_sb + (size_t)h * a.o_sh;
 #pragma unroll
-  for (int n8 = 0; n8 < CW / 8; ++n8) {
-    const int col = n8 * 8 + 2 * t;
-    if (row0 < a.Sq)
-      *reinterpret_cast<float2*>(ob + (size_t)row0 * a.o_ss + col) =
-          make_float2(o[n8][0] * inv0, o[n8][1] * inv0);
-    if (row1 < a.Sq)
-      *reinterpret_cast<float2*>(ob + (size_t)row1 * a.o_ss + col) =
-          make_float2(o[n8][2] * inv1, o[n8][3] * inv1);
+  for (int c = 0; c < NCG; ++c)
+#pragma unroll
+    for (int n8 = 0; n8 < wide::CW / 8; ++n8) {
+      const int col = g * DG + c * wide::CW + n8 * 8 + 2 * t;
+      if (col >= D) continue;
+      if (row0 < a.Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)row0 * a.o_ss + col) =
+            make_float2(o[c][4 * n8] * inv0, o[c][4 * n8 + 1] * inv0);
+      if (row1 < a.Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)row1 * a.o_ss + col) =
+            make_float2(o[c][4 * n8 + 2] * inv1, o[c][4 * n8 + 3] * inv1);
+    }
+}
+
+template <int DG>
+__global__ void __launch_bounds__(256, 1)
+flash_f32_fwd_group_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, const FwdF32Args a,
+                           int D) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdGroupSmem<DG>& s = aligned_smem<FwdGroupSmem<DG>>(smem_raw);
+  const int ng = wide::groups(D, 256), g = blockIdx.x % ng, q0 = (blockIdx.x / ng) * wide::CW;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  if (threadIdx.x == 0) {
+    mbar_init(&s.meta, 1);
+    s.r.init();
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128)
+    fwd_group_transform<DG>(s, &q_map, &k_map, &v_map, a, D, q0, g, b, h, threadIdx.x - 128);
+  else
+    fwd_group_consume<DG>(s, a, D, q0, g, b, h);
+}
+
+// ---- K1 over 256 columns, split over two warpgroups -------------------------------
+// Head dims over 256 (flash_f32_fwd_split_kernel): groups of 256 or 384
+// columns (wide::group_width_even: one group at 320 and 384, two of 256 at
+// 448 and 512), two consumer warpgroups a half each, so S is computed once
+// a tile for all of them. 384 threads: both warpgroups issue S's steps,
+// warpgroup wg the chunks c = wg, wg + 2, ...; warpgroup 1 hands its part
+// over in shared memory, warpgroup 0 adds it, runs the online softmax,
+// stores P's halves once and hands alpha over; each rescales its half of
+// O, then adds P V[:, c] over its half of the group's chunks; the transform
+// warpgroup (warps 8-11) as above. Budget: 5 stages x 32 KB + P's halves
+// 32 KB (S's part handed over in their place) = 196,608 bytes (a sixth
+// stage would not fit beside the hand-over); registers (168 a thread: 12
+// warps) O's half (DG / 4) and S (32), 168 used. The products run (D / 64
+// + D / 64) / (2 D / 64) = 1 times the math's at 384.
+constexpr int FWD_SPLIT_STAGES = 5;
+constexpr int WIDE_FWD_SPLIT = 384;
+
+struct FwdSplitSmem {   // the small members last
+  alignas(1024) unsigned char p[2][wide::HALF];   // P's halves
+  wide::Ring<FWD_SPLIT_STAGES> r;
+  float ax[256];                                  // alpha (each tile), then l: [thread][row]
+  int n_live;
+  uint64_t meta, s_full, p_full, p_empty, fin;
+};
+
+template <int DG>
+__device__ __forceinline__ void fwd_split_consume(FwdSplitSmem& s, const FwdF32Args& a, int D,
+                                                  int wg) {
+  constexpr int NH = DG / wide::CW / 2;       // each warpgroup's chunks of O
+  float o[NH][32];
+#pragma unroll
+  for (int c = 0; c < NH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};   // warpgroup 0, log2
+
+  mbar_wait(&s.meta, 0);
+  const int n_live = *(volatile int*)&s.n_live;
+  for (int item = 0; item < n_live; ++item) {
+    const int nc = D / wide::CW, upt = 2 * nc + 2 * NH, base = item * upt;
+    const int x_ = wide::wg_thread();
+    float alpha[2];
+    // S over the head dim, the chunks shared out: warpgroup wg takes chunks
+    // c = wg, wg + 2, ... (both issue score products); warpgroup 1 hands
+    // its part over in P's place once both warpgroups' products of the
+    // tile before read the last P, warpgroup 0 adds it
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    int k0 = 0;
+    uint32_t kb[2] = {0u, 0u};
+    for (int c = wg; c < nc; c += 2) {
+      const int u = base + 2 * c;
+      const unsigned char* qc = s.r.wait(u);
+      const unsigned char* kc = s.r.wait(u + 1);
+      if (c == 0) {
+        k0 = s.r.tile[s.r.slot(u)];
+        kb[0] = s.r.bits[s.r.slot(u)][0];
+        kb[1] = s.r.bits[s.r.slot(u)][1];
+      }
+      fence_regs(sc);
+      wgmma_fence();
+      wide::prod3_units(sc, qc, kc);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      s.r.release(u, x_ % 32);
+      s.r.release(u + 1, x_ % 32);
+    }
+    float* part = reinterpret_cast<float*>(s.p[0]);   // [i * 128 + thread]
+    if (wg == 1) {
+      mbar_wait(&s.p_empty, (item & 1) ^ 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i * 128 + x_] = sc[i];
+      mbar_arrive(&s.s_full);
+    } else {
+      mbar_wait(&s.s_full, item & 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] += part[i * 128 + x_];
+      bar_sync(CONS_BAR, 128);                // every part read: P takes its place
+      uint32_t x, y;
+      wide::cta(x, y);
+      const int q0 = (int)(x / wide::groups(D, WIDE_FWD_SPLIT)) * wide::CW;
+      const int b = (int)y / a.H, h = (int)y % a.H;
+      const int row0 = q0 + (x_ / 32) * 16 + ((x_ % 32) >> 2);
+      const uint32_t drop0 =
+          (drop_head(b, h, a.ds) * (uint32_t)a.Sq + (uint32_t)row0) * (uint32_t)a.Sk;
+      const bool all_on = kb[0] == ~0u && kb[1] == ~0u;
+      if (!all_on || a.scale <= 0.f || (a.causal && k0 + wide::CW - 1 > q0))
+        fwd_softmax<FwdGroupTile, true>(sc, kb, k0, row0, x_ & 3, a, drop0, m_run, l_run, alpha);
+      else
+        fwd_softmax<FwdGroupTile, false>(sc, kb, k0, row0, x_ & 3, a, drop0, m_run, l_run,
+                                         alpha);
+      wide::store_a(sc, s.p[0], s.p[1], x_ / 32, x_ % 32);
+      s.ax[2 * x_] = alpha[0];
+      s.ax[2 * x_ + 1] = alpha[1];
+      fence_proxy_async();
+      mbar_arrive(&s.p_full);
+    }
+    mbar_wait(&s.p_full, item & 1);
+    if (wg == 1) {
+      alpha[0] = s.ax[2 * x_];
+      alpha[1] = s.ax[2 * x_ + 1];
+    }
+#pragma unroll
+    for (int c = 0; c < NH; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+    const uint32_t pb = smem_u32(s.p[0]), ps = smem_u32(s.p[1]);
+#pragma unroll
+    for (int c = 0; c < NH; ++c) {            // O[:, c] += P V[:, c], this half's chunks
+      const int u = base + 2 * nc + wg * NH + c;
+      const uint32_t vc = smem_u32(s.r.wait(u));
+      fence_regs(o[c]);
+      wgmma_fence();
+      wide::prod3(o[c], pb, ps, vc, vc + wide::HALF);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait_n<1>();
+        fence_regs(o[c - 1]);
+        s.r.release(u - 1, wide::wg_thread() % 32);
+      }
+    }
+    wgmma_wait0();
+    fence_regs(o[NH - 1]);
+    s.r.release(base + 2 * nc + wg * NH + NH - 1, wide::wg_thread() % 32);
+    mbar_arrive(&s.p_empty);                  // P's place is free for the next tile's
+  }
+  // the rows' sums: warpgroup 0 hands them over once both read the last alpha
+  const int x_ = wide::wg_thread(), t = x_ & 3;
+  if (wg == 0) {
+    if (n_live > 0) mbar_wait(&s.p_empty, (n_live - 1) & 1);
+    s.ax[2 * x_] = l_run[0];
+    s.ax[2 * x_ + 1] = l_run[1];
+    mbar_arrive(&s.fin);
+  } else {
+    mbar_wait(&s.fin, 0);
+    l_run[0] = s.ax[2 * x_];
+    l_run[1] = s.ax[2 * x_ + 1];
+  }
+  uint32_t x, y;
+  wide::cta(x, y);
+  const int ng = wide::groups(D, WIDE_FWD_SPLIT), g = (int)(x % ng);
+  const int q0 = (int)(x / ng) * wide::CW, b = (int)y / a.H, h = (int)y % a.H;
+  const int row0 = q0 + (x_ / 32) * 16 + ((x_ % 32) >> 2), row1 = row0 + 8;
+  const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;   // masked row -> 0
+  const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
+  if (wg == 0 && a.lse != nullptr && g == 0 && t == 0) {   // one block and lane a row
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lb = a.lse + (size_t)(b * a.H + h) * a.Sq;
+    if (row0 < a.Sq) lb[row0] = l_run[0] > 0.f ? (m_run[0] + log2f(l_run[0])) * LN2 : -1e30f;
+    if (row1 < a.Sq) lb[row1] = l_run[1] > 0.f ? (m_run[1] + log2f(l_run[1])) * LN2 : -1e30f;
+  }
+  float* ob = a.o + (size_t)b * a.o_sb + (size_t)h * a.o_sh;
+#pragma unroll
+  for (int c = 0; c < NH; ++c)
+#pragma unroll
+    for (int n8 = 0; n8 < wide::CW / 8; ++n8) {
+      const int col = g * DG + (wg * NH + c) * wide::CW + n8 * 8 + 2 * t;
+      if (col >= D) continue;
+      if (row0 < a.Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)row0 * a.o_ss + col) =
+            make_float2(o[c][4 * n8] * inv0, o[c][4 * n8 + 1] * inv0);
+      if (row1 < a.Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)row1 * a.o_ss + col) =
+            make_float2(o[c][4 * n8 + 2] * inv1, o[c][4 * n8 + 3] * inv1);
+    }
+}
+
+template <int DG>
+__global__ void __launch_bounds__(384, 1)
+flash_f32_fwd_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, const FwdF32Args a,
+                           int D) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdSplitSmem& s = aligned_smem<FwdSplitSmem>(smem_raw);
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);   // warp-uniform
+  if (threadIdx.x == 0) {
+    mbar_init(&s.meta, 1);
+    mbar_init(&s.s_full, 128);
+    mbar_init(&s.p_full, 128);
+    mbar_init(&s.p_empty, 256);
+    mbar_init(&s.fin, 128);
+    s.r.init();
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    uint32_t x, y;
+    wide::cta(x, y);
+    const int ng = wide::groups(D, WIDE_FWD_SPLIT);
+    fwd_group_transform<DG>(s, &q_map, &k_map, &v_map, a, D, (int)(x / ng) * wide::CW,
+                            (int)(x % ng), (int)y / a.H, (int)y % a.H, threadIdx.x - 256);
+  } else {
+    fwd_split_consume<DG>(s, a, D, wg);
   }
 }
 
-int launch_wide(const FwdWideArgs& a, int B, cudaStream_t stream) {
-  static bool configured = false;            // above 48 KB needs an opt-in
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_f32_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_WIDE_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
+template <class Smem, typename Kernel>
+int launch_group(Kernel kernel, int threads, int widest, bool& configured, const FwdF32Args& a,
+                 const void* q, const void* k, const void* v, int B, int D, const int (&st)[9],
+                 cudaStream_t stream) {
+  constexpr int bytes = sizeof(Smem) + 1024;
+  static_assert(bytes <= 232448, "shared memory over the limit");
+  CUtensorMap qm, km, vm;
+  int e = make_f32_map(&qm, q, B, a.H, a.Sq, D, st[0], st[1], st[2], wide::CW);
+  if (e == 0) e = make_f32_map(&km, k, B, a.H, a.Sk, D, st[3], st[4], st[5], wide::CW);
+  if (e == 0) e = make_f32_map(&vm, v, B, a.H, a.Sk, D, st[6], st[7], st[8], wide::CW);
+  if (e != 0) return e;
+  if (!configured) {                          // above 48 KB needs an opt-in
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((a.Sq + wide::ROWS - 1) / wide::ROWS * (a.D / wide::CW), B * a.H);
-  flash_f32_fwd_wide_kernel<<<grid, wide::NT, FWD_WIDE_SMEM, stream>>>(a);
+  const dim3 grid((a.Sq + wide::CW - 1) / wide::CW * wide::groups(D, widest), B * a.H);
+  kernel<<<grid, threads, bytes, stream>>>(qm, km, vm, a, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 over 128: up to 256 one consumer warpgroup (FwdGroupSmem), over 256
+// two (FwdSplitSmem)
+template <int DG, bool SPLIT>
+int launch_wide(const FwdF32Args& a, const void* q, const void* k, const void* v, int B, int D,
+                const int (&st)[9], cudaStream_t stream) {
+  static bool configured = false;
+  if constexpr (SPLIT)
+    return launch_group<FwdSplitSmem>(flash_f32_fwd_split_kernel<DG>, 384, WIDE_FWD_SPLIT,
+                                      configured, a, q, k, v, B, D, st, stream);
+  else
+    return launch_group<FwdGroupSmem<DG>>(flash_f32_fwd_group_kernel<DG>, 256, 256, configured,
+                                          a, q, k, v, B, D, st, stream);
 }
 
 }  // namespace
@@ -798,11 +1082,27 @@ extern "C" int flash_attention_fwd_f32(
   }
   if (Dh <= 128 || Dh % wide::CW != 0)
     return static_cast<int>(cudaErrorInvalidValue);   // no route takes it
-  const FwdWideArgs w{static_cast<const float*>(q), static_cast<const float*>(k),
-                      static_cast<const float*>(v), a.mask, a.o, a.lse, H, Sq, Sk, Dh,
-                      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                      mask_sb, causal, scale, dropout, seed, threshold, inv_keep, a.ds};
-  return launch_wide(w, B, s);
+  if (Dh <= 256)
+    return Dh == 256 ? launch_wide<256, false>(a, q, k, v, B, Dh, st, s)
+                     : launch_wide<192, false>(a, q, k, v, B, Dh, st, s);
+  return wide::group_width_even(Dh, WIDE_FWD_SPLIT) == 384
+             ? launch_wide<384, true>(a, q, k, v, B, Dh, st, s)
+             : launch_wide<256, true>(a, q, k, v, B, Dh, st, s);
+}
+
+// The wide route's kernels' launch budgets, for chip_smoke.py's build
+// report: out[3 i .. 3 i + 2] = (width of the column group, bytes of
+// dynamic shared memory asked, threads) of the one-warpgroup instances at
+// 192 and 256, then the split ones at 256 and 384; returns how many.
+extern "C" int f32_fwd_wide_budgets(int* out) {
+  const int rows[4][3] = {
+      {192, (int)sizeof(FwdGroupSmem<192>) + 1024, 256},
+      {256, (int)sizeof(FwdGroupSmem<256>) + 1024, 256},
+      {256, (int)sizeof(FwdSplitSmem) + 1024, 384},
+      {384, (int)sizeof(FwdSplitSmem) + 1024, 384}};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) out[3 * i + j] = rows[i][j];
+  return 4;
 }
 
 // out: 3 f32 on the card (tf32_probe_kernel's); returns cudaGetLastError().

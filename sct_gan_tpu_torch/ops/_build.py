@@ -61,6 +61,10 @@ _SIGNATURES = {
     # the card's handling of the bits TF32 drops and its TF32 wgmma rate by
     # shape (chip_smoke.py --f32-times)
     "f32_tf32_probe": [_P, _P],                              # out stream
+    # the f32 wide route's kernels' (group width, shared memory, threads),
+    # for the build report
+    "f32_fwd_wide_budgets": [_P],
+    "f32_bwd_wide_budgets": [_P],
     "f32_wgmma_rate": [_P, _I, _I, _I, _I, _P],  # out N RS reps blocks stream
     "decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                              *[_I] * 12,                 # q k v o strides

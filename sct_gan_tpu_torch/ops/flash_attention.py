@@ -42,12 +42,14 @@ kernels, ``csrc/flash_attention_fwd_f32.cu`` and
 same arguments, dropout bits and masked-tile skips, every product at f32
 accuracy (3xTF32 on the tensor cores). They have instances for head dims
 64, 96 and 128 (``F32_HEAD_DIMS``); a smaller head dim takes the next
-instance through a zero-padded copy. Over 128 they run the wide route in
-chunks of ``F32_CHUNK`` = 64 columns: one block per column chunk of the
-output, the scores summed over the full head dim in every chunk's block,
-so any multiple of 64 (192, 256, 384, ...) runs in place and any other head
-dim on a copy zero-padded to the next multiple (``kernel_route_f32``). q, k
-and v share one dtype, bf16 or f32; there is no cast between them.
+instance through a zero-padded copy. Over 128 they run the wide route: a
+block owns 64 rows and a group of the output's columns (the whole head
+dim where the registers allow: ``wide::groups`` in the kernels' header),
+computes each score tile once over the full head dim, in ``F32_CHUNK`` =
+64-column chunks that its TMA ring brings in, and sweeps its columns from
+there; any multiple of 64 (192, 256, 384, ...) runs in place and any other
+head dim on a copy zero-padded to the next multiple (``kernel_route_f32``). q,
+k and v share one dtype, bf16 or f32; there is no cast between them.
 
 On a CPU tensor it runs the plain version, ``flash_attention_reference``,
 whose gradient is plain autograd through ``mha_reference``. The kernels'

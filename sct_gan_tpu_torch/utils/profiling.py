@@ -313,7 +313,8 @@ def reset_kernel_launches() -> None:
 
 # The device kernels of each counted wrapper, by name, and how many one
 # launch runs: K1 one; the backward pair three (D, dKV, dQ); K6 one; K5 one;
-# their f32 instances likewise
+# their f32 instances likewise, on any route (the wide route's kernels are
+# flash_f32_{fwd,dkv,dq}_group_kernel and flash_f32_{fwd,dq}_split_kernel)
 PORT_KERNELS = {
     "flash_attention_fwd": (re.compile(r"\bflash_fwd_(?:hopper_)?kernel\b"),
                             1),
@@ -322,9 +323,9 @@ PORT_KERNELS = {
     "dropout": (re.compile(r"\bdropout_kernel\b"), 1),
     "decode_attention": (re.compile(r"\bdecode_(?:splitk|wide)_kernel\b"), 1),
     "flash_attention_fwd_f32": (re.compile(
-        r"\bflash_f32_fwd(?:_wide)?_kernel\b"), 1),
+        r"\bflash_f32_fwd(?:_\w+)?_kernel\b"), 1),
     "flash_attention_bwd_f32": (re.compile(
-        r"\bflash_f32_(?:dvec|dkv|dq|dkv_wide|dq_wide)_kernel\b"), 3),
+        r"\bflash_f32_(?:dvec|dkv|dq)(?:_\w+)?_kernel\b"), 3),
     "decode_attention_f32": (re.compile(r"\bdecode_f32_kernel\b"), 1),
 }
 # Every device trace opens with this many short spin kernels

@@ -263,22 +263,29 @@ def test_f32_routes():
 def test_profiler_counts_the_wide_route():
     """The profiler's launch count of the f32 wrappers (``port_records``,
     which ``trace_device`` holds to the counters) takes the wide route's
-    kernels: one forward kernel a K1 launch, D plus dKV plus dQ a pair
-    launch."""
-    rows = [("(anonymous namespace)::flash_f32_fwd_wide_kernel("
-             "(anonymous namespace)::FwdWideArgs)", 3, 1.0),
+    column-group kernels, one warpgroup or two: one forward kernel a K1
+    launch, D plus dKV plus dQ a pair launch."""
+    maps = "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+    rows = [("void (anonymous namespace)::flash_f32_fwd_group_kernel<256>("
+             + maps + "(anonymous namespace)::FwdF32Args, int)", 3, 1.0),
+            ("void (anonymous namespace)::flash_f32_fwd_split_kernel<384>("
+             + maps + "(anonymous namespace)::FwdF32Args, int)", 2, 1.0),
             ("void (anonymous namespace)::flash_f32_fwd_kernel<96>("
-             "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-             "(anonymous namespace)::FwdF32Args)", 2, 1.0),
+             + maps + "(anonymous namespace)::FwdF32Args)", 2, 1.0),
             ("(anonymous namespace)::flash_f32_dvec_kernel("
-             "(anonymous namespace)::BwdF32Args, int, int)", 2, 1.0),
-            ("(anonymous namespace)::flash_f32_dkv_wide_kernel("
-             "(anonymous namespace)::BwdWideArgs)", 2, 1.0),
-            ("(anonymous namespace)::flash_f32_dq_wide_kernel("
-             "(anonymous namespace)::BwdWideArgs)", 2, 1.0)]
+             "(anonymous namespace)::BwdF32Args, int, int)", 4, 1.0),
+            ("void (anonymous namespace)::flash_f32_dkv_group_kernel<192>("
+             + maps + "CUtensorMap_st, (anonymous namespace)::BwdF32Args, "
+             "int)", 4, 1.0),
+            ("void (anonymous namespace)::flash_f32_dq_group_kernel<192>("
+             + maps + "CUtensorMap_st, (anonymous namespace)::BwdF32Args, "
+             "int)", 2, 1.0),
+            ("void (anonymous namespace)::flash_f32_dq_split_kernel<384>("
+             + maps + "CUtensorMap_st, (anonymous namespace)::BwdF32Args, "
+             "int)", 2, 1.0)]
     got = port_records(rows)
-    assert got["flash_attention_fwd_f32"] == 5
-    assert got["flash_attention_bwd_f32"] == 2
+    assert got["flash_attention_fwd_f32"] == 7
+    assert got["flash_attention_bwd_f32"] == 4
     assert got["flash_attention_fwd"] == got["flash_attention_bwd"] == 0
 
 

@@ -4,9 +4,9 @@ The f32 instances of K1, the backward pair and K5
 (``csrc/flash_attention_fwd_f32.cu``, ``flash_attention_bwd_f32.cu``,
 ``decode_attention_f32.cu``) at ``test_torch_kernels.py``'s cases, on
 the same inputs in f32; K1 and the pair also on their wide route over
-head dim 128 (64-column chunks: 192, 256 and 384 in place, 160 on a
-padded copy, 448 in seven chunks). Marked ``cuda``; without a card each
-test skips.
+head dim 128 (column groups of 64-column chunks: 192, 256, 320, 384, 448
+and 512 in place, on each side of the groups' edges; 160 on a padded
+copy). Marked ``cuda``; without a card each test skips.
 This file imports no JAX:
 
     python -m pytest --noconftest -m cuda -p no:cacheprovider tests/test_torch_kernels_f32.py
@@ -35,8 +35,10 @@ BWD_TOL = 1e-4
 # several times over: it stays with the bf16 tests
 F32_FLASH_CASES = sorted(c for c in FLASH_CASES if c != "b1_sk8192")
 # the f32 K1 and pair's head dims: the instances, then the wide route
-# (nhead 4, 3 and 2 at d = 768, a padded copy, seven chunks)
-F32_HEAD_DIMS = (*PAIR_HEAD_DIMS, 160, 192, 256, 384, 448)
+# (nhead 4, 3 and 2 at d = 768, a padded copy; the column groups' edges:
+# K1 and dQ one group to 256 and two from 320, dK and dV one group at 192,
+# two to 384 and three from 448, a part-full last group at 320 and 448)
+F32_HEAD_DIMS = (*PAIR_HEAD_DIMS, 160, 192, 256, 320, 384, 448, 512)
 
 
 def _f32(device, case, d):
@@ -99,13 +101,14 @@ def test_f32_flash_backward_matches_autograd_on_card(cuda_device, case,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 192])
+@pytest.mark.parametrize("d", [64, 192, 384])
 def test_f32_dropout_keep_bits_equal_the_plain_mask_on_card(cuda_device, d):
     """q = 0 makes P uniform over the attended keys, so with V the 64 x 64
     identity on one 64-key window (a key mask), in every 64-column chunk,
     the f32 K1's output is the keep bit over 64 / (1 - rate), or 0: every
     bit at (2, 8, 256, 256) equals the plain version's hash mask, at the
-    64 instance and in each of the wide route's three chunks at 192."""
+    64 instance and in each 64-column chunk of the wide route's one group
+    at 192 and two groups at 384."""
     dev, b, h, s, rate = cuda_device, 2, 8, 256, 0.3
     q = torch.zeros(b, h, s, d, device=dev)
     k = torch.randn(b, h, s, d, device=dev)
@@ -247,10 +250,12 @@ def test_f32_decode_pads_a_head_dim_off_16_bytes_on_card(cuda_device,
 # The edges of the Hopper f32 kernels' tiles (csrc/flash_attention_fwd_f32.cu,
 # flash_attention_bwd_f32.cu: 128-row forward blocks, 64-row backward
 # blocks, 16- to 64-key and 16- to 32-query walked tiles; on the wide route
-# 64-row blocks walking 64-key, 32-query and 32-key tiles): name -> (B, H, Sq,
-# Sk, causal, mask kind, layout). "rows" masks every key of batch row 1;
-# "tail" keeps the first Sk - 3 keys of row 0 and a third of row 1; "heads"
-# is the model's (B, H, S, d) view of (B, S, H*d) projections.
+# 64-row blocks walking 64-key and 64-query tiles): name -> (B, H, Sq, Sk,
+# causal, mask kind, layout). "rows" masks every key of batch row 1; "tail"
+# keeps the first Sk - 3 keys of row 0 and a third of row 1; "heads" is the
+# model's (B, H, S, d) view of (B, S, H*d) projections. sq65_sk127 and
+# causal_sq127_sk65 sit one row past and one short of the wide route's
+# 64-row tiles on both sides.
 F32_EDGE_CASES = {
     "sk1": (2, 4, 64, 1, False, None, "bhsd"),
     "sq100_sk65": (2, 4, 100, 65, False, "tail", "bhsd"),
@@ -259,6 +264,8 @@ F32_EDGE_CASES = {
     "causal_sq300_sk100": (2, 4, 300, 100, True, "tail", "bhsd"),
     "row_all_masked": (3, 4, 200, 200, False, "rows", "bhsd"),
     "strided_heads_257": (2, 4, 257, 257, False, "tail", "heads"),
+    "sq65_sk127": (2, 4, 65, 127, False, "tail", "heads"),
+    "causal_sq127_sk65": (2, 4, 127, 65, True, "tail", "bhsd"),
 }
 
 
