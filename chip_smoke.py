@@ -346,8 +346,9 @@ F32_WIDE_BWD = ("flash_f32_dq_group_kernel", "flash_f32_dq_split_kernel",
 # (every instance: flash_bwd_{dkv,dq}_hopper_kernel at 64-128, the wgmma
 # kernels above), the decode attention (every instance; the 192 one, by its
 # mangled name, must be in the report) with its wide-head route, the f32
-# instances of the three (the f32 K1 and pair's wide route too), and the
-# tools' K7, K8 and K9 (every mode and head dim)
+# instances of the three (the f32 K1 and pair's wide route too; K5 f32's
+# 8-key instances past 512 and its column-chunk route past 1024 by name),
+# and the tools' K7, K8 and K9 (every mode and head dim)
 NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
             "decode_splitk_kernel", "decode_splitk_kernelILi192E",
             "decode_wide_kernel", "flash_parts_hopper_kernel",
@@ -356,7 +357,8 @@ NO_SPILL = ("flash_fwd_hopper_kernel", "flash_fwd_kernel", "flash_bwd_",
             "flash_f32_dq_kernel", "flash_f32_fwd_group_kernel",
             "flash_f32_dkv_group_kernel", "flash_f32_dq_group_kernel",
             "flash_f32_dq_split_kernel", "flash_f32_fwd_split_kernel",
-            "decode_f32_kernel")
+            "decode_f32_kernel", "decode_f32_kernelILi6ELi8E",
+            "decode_f32_kernelILi8ELi8E", "decode_f32_wide_kernel")
 
 
 def main_path_reports(log: str) -> list:
@@ -1828,10 +1830,10 @@ def phase_heads(f32: bool = False) -> dict:
     step): one detection forward, one train step and 16 generation steps
     each, the counts read around each. No part may make a padded copy
     (``counted_pads`` around each model). With ``f32``,
-    ``compute_dtype="float32"`` at ``F32_HEADS_MODELS`` (nhead 3 and 2:
-    the f32 K1 and pair's wide route, K5 f32 in place). Returns the
-    launches by instance name (f32: the wide route's names,
-    ``F32_WIDE_KERNELS``)."""
+    ``compute_dtype="float32"`` at ``F32_HEADS_MODELS`` (nhead 3, 2 and 1:
+    the f32 K1 and pair's wide route, K5 f32 in place, at nhead=1 on its
+    8-key instance at 768). Returns the launches by instance name (f32:
+    the wide routes' names, ``F32_WIDE_KERNELS`` and ``K5_F32_WIDE``)."""
     import numpy as np
     import torch
     from sct_gan_tpu_torch import (SmartContractAnalyzer,
@@ -1843,7 +1845,7 @@ def phase_heads(f32: bool = False) -> dict:
     from sct_gan_tpu_torch.ops import decode_attention as k5
     codes = [r["source_code"] for r in generate_corpus(n=8, seed=0)]
     launches = {}
-    models = ([(d, F32_WIDE_DIMS[d]) for d in F32_HEADS_MODELS] if f32 else
+    models = ([(d, 768 // d) for d in F32_HEADS_MODELS] if f32 else
               [*HEAD_DIMS.items(), *((d, WIDE_DIMS[d]) for d in WIDE_MODELS)])
     sfx, tag = ("_f32", "heads f32") if f32 else ("", "heads")
     enc = 2
@@ -2794,11 +2796,12 @@ def _sp_grad_run(model, batch, mesh):
     return _whole_memory(mem.detach(), mesh, "sp"), total, norms
 
 
-def _parallel_cfg(overrides=None):
+def _parallel_cfg(overrides=None, fused_lm_ce: bool = True):
     from sct_gan_tpu_torch.config import ModelConfig, TrainConfig
     return (ModelConfig(**{"use_gan": True, "max_length": 1024,
                            "max_lines": 1024, **(overrides or {})}),
-            TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1))
+            TrainConfig(learning_rate=1e-5, use_gan=True, warmup_epochs=1,
+                        fused_lm_ce=fused_lm_ce))
 
 
 def phase_parallel(card: str, overrides=None, device: str = "cuda") -> dict:
@@ -2812,11 +2815,14 @@ def phase_parallel(card: str, overrides=None, device: str = "cuda") -> dict:
     ``analyze_multiple_contracts`` of 8 contracts, each bit for bit the
     mesh=None run; ``sp_detect`` at S=16384, B=2 with a ragged key mask
     against the unsharded encode and heads at that length; the gradient of
-    ``sp_encode`` at S=8192. Gloo, two ranks sharing the card
-    (``--parallel-rank``): ``sp_encode`` and its gradient at S=8192 at
-    sp=2, and one train step at dp=2 and at mp=2 (B=8), each against the
-    world of one. Returns the kernels' launches of the world of one's
-    paths.
+    ``sp_encode`` at S=8192; with the unfused LM cross-entropy
+    (``fused_lm_ce=False``) on the 1 x 1 mesh an eval step and a train
+    step.
+    Gloo, two ranks sharing the card (``--parallel-rank``): ``sp_encode``
+    and its gradient at S=8192 at sp=2, one train step at dp=2 and at mp=2
+    (B=8), each with the LM cross-entropy fused and unfused, and the
+    unfused eval step at mp=2, each against the world of one's. Returns
+    the kernels' launches of the world of one's paths.
 
     It rehearses on the CPU: ``phase_parallel(card, tiny_overrides,
     device="cpu")`` runs every part on gloo CPU ranks at a tiny width and
@@ -2904,6 +2910,39 @@ def phase_parallel(card: str, overrides=None, device: str = "cuda") -> dict:
                                "total_loss": mm["total_loss"],
                                "grad_norm": mm["grad_norm"]}
         del runs, pp, mp_
+        # -- the unfused LM cross-entropy on the 1 x 1 mesh: an eval step on
+        # the fresh weights, then a train step (the gloo ranks' references)
+        tr = SmartContractTrainer(
+            fresh(), _Empty(), _Empty(), tok,
+            config=_parallel_cfg(overrides, fused_lm_ce=False)[1],
+            verbose=False, device=device, mesh=mesh)
+        dev_batch = shard_batch(batch, mesh)
+        reset_counts()
+        ev, ms, _, _ = _events_ms(
+            lambda: tr.eval_step(dev_batch, tr._scalars(1.0, True)), device)
+        refs["eval_unfused_ce"] = {k: float(v) for k, v in ev.items()}
+        eval_counts = read_counts()
+        count("eval step, unfused CE", eval_counts, {
+            "flash_attention_fwd": flash_per_forward(cfg),
+            "flash_attention_bwd": 0, "dropout": 0, "decode_attention": 0})
+        report["eval_unfused_ce_1x1"] = {
+            "ms": ms, "launches": eval_counts,
+            "total_loss": refs["eval_unfused_ce"]["total_loss"]}
+        reset_counts()
+        (_, m, _), ms, _, _ = _events_ms(
+            lambda: tr.train_step(tr.state, dev_batch, tr._scalars(1.0),
+                                  tr._group_lrs(), tr.generator), device)
+        refs["train_unfused_ce"] = {k: float(v) for k, v in m.items()}
+        step_counts = read_counts()
+        count("train step, unfused CE", step_counts, {
+            "flash_attention_fwd": flash_per_forward(cfg),
+            "flash_attention_bwd": flash_per_forward(cfg),
+            "decode_attention": 0})
+        report["train_unfused_ce_1x1"] = {
+            "ms": ms, "launches": step_counts,
+            "total_loss": refs["train_unfused_ce"]["total_loss"],
+            "grad_norm": refs["train_unfused_ce"]["grad_norm"]}
+        del tr, dev_batch
         # -- train_epoch over 12 contracts (8 + 4 padded): mesh=None, and
         # 1 x 1 through prefetch_to_device's pinned copies on a side stream
         from sct_gan_tpu_torch.data.dataset import (
@@ -3023,7 +3062,8 @@ def phase_parallel(card: str, overrides=None, device: str = "cuda") -> dict:
 
 def parallel_rank(work: str) -> int:
     """One rank of phase_parallel's gloo world (two ranks on one card):
-    sp_encode and its gradient at sp=2, a dp=2 and an mp=2 train step;
+    sp_encode and its gradient at sp=2, a dp=2 and an mp=2 train step with
+    the LM cross-entropy fused and unfused, the unfused eval step at mp=2;
     each against the world of one's results in ``work``. Prints
     ``PARALLEL_RESULT {json}``."""
     import torch
@@ -3039,7 +3079,7 @@ def parallel_rank(work: str) -> int:
     with open(os.path.join(work, "setup.json")) as f:
         setup = json.load(f)
     device = setup["device"]
-    cfg, tcfg = _parallel_cfg(setup["overrides"])
+    cfg = _parallel_cfg(setup["overrides"])[0]
     tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
     state = torch.load(os.path.join(work, "state.pt"))
     refs = torch.load(os.path.join(work, "refs.pt"))
@@ -3085,27 +3125,52 @@ def parallel_rank(work: str) -> int:
         "collective_share": coll_ms / ms, "launches": read_counts(),
         "memory_rel_err": rel, "loss": loss}
     del model, mem
-    # -- dp=2 and mp=2 train steps at B=8 -----------------------------------
+    # -- dp=2 and mp=2 train steps at B=8, the LM cross-entropy fused and
+    # unfused (then the unfused eval step first, on the fresh weights) -----
     batch = make_batch(8, cfg.max_length, cfg.vocab_size)
-    for name, (dp, mp) in (("train_dp2", (2, 1)), ("train_mp2", (1, 2))):
+    per_forward = flash_per_forward(cfg)
+    for name, (dp, mp), fused_ce in (
+            ("train_dp2", (2, 1), True), ("train_mp2", (1, 2), True),
+            ("train_dp2_unfused_ce", (2, 1), False),
+            ("train_mp2_unfused_ce", (1, 2), False)):
         mesh = make_mesh(dp=dp, mp=mp, devices=devices)
-        tr = SmartContractTrainer(fresh(), _Empty(), _Empty(), tok,
-                                  config=tcfg, verbose=False, mesh=mesh)
+        tr = SmartContractTrainer(
+            fresh(), _Empty(), _Empty(), tok,
+            config=_parallel_cfg(setup["overrides"], fused_ce)[1],
+            verbose=False, mesh=mesh)
         dev_batch = shard_batch(batch, mesh)
+        ref = refs["train" if fused_ce else "train_unfused_ce"]
+        if not fused_ce and mp == 2:
+            reset_counts()
+            ev, ms, coll_ms, calls = _events_ms(
+                lambda: tr.eval_step(dev_batch, tr._scalars(1.0, True)),
+                device)
+            ev = {k: float(v) for k, v in ev.items()}
+            counts = read_counts()
+            if cuda and (counts["flash_attention_fwd"] != per_forward
+                         or counts["flash_attention_bwd"] != 0):
+                failures.append(f"eval_mp2_unfused_ce: launches {counts}")
+            for k in ("total_loss", "gen_loss", "ce_loss",
+                      "contract_vuln_loss", "line_vuln_loss"):
+                close(f"eval_mp2_unfused_ce {k}", ev[k],
+                      refs["eval_unfused_ce"][k], LOSS_RTOL)
+            parts["eval_mp2_unfused_ce"] = {
+                "ms": ms, "collective_ms": coll_ms, "collectives": calls,
+                "collective_share": coll_ms / ms, "launches": counts,
+                "total_loss": ev["total_loss"], "gen_loss": ev["gen_loss"]}
         reset_counts()
         (_, m, _), ms, coll_ms, calls = _events_ms(
             lambda: tr.train_step(tr.state, dev_batch, tr._scalars(1.0),
                                   tr._group_lrs(), tr.generator), device)
         m = {k: float(v) for k, v in m.items()}
         counts = read_counts()
-        per_forward = flash_per_forward(cfg)
         if cuda and (counts["flash_attention_fwd"] != per_forward
                      or counts["flash_attention_bwd"] != per_forward
                      or counts["dropout"] == 0):
             failures.append(f"{name}: launches {counts}")
-        close(f"{name} total_loss", m["total_loss"],
-              refs["train"]["total_loss"], DP_RTOL if mp == 1 else LOSS_RTOL)
-        close(f"{name} grad_norm", m["grad_norm"], refs["train"]["grad_norm"],
+        close(f"{name} total_loss", m["total_loss"], ref["total_loss"],
+              DP_RTOL if mp == 1 else LOSS_RTOL)
+        close(f"{name} grad_norm", m["grad_norm"], ref["grad_norm"],
               DP_RTOL if mp == 1 else GNORM_RTOL)
         if m["skipped"] != 0.0:
             failures.append(f"{name}: the step was skipped")
@@ -3304,9 +3369,18 @@ F32_WIDE_PADDED = 160
 F32_WIDE_CHUNKED = 512
 F32_WIDE_KERNELS = ("flash_attention_fwd_f32_wide",
                     "flash_attention_bwd_f32_wide")
-# the f32 models phase_heads runs at 2+2 layers (nhead 3 and 2); nhead 4 runs
-# at full depth in phase_f32
-F32_HEADS_MODELS = (256, 384)
+# nhead=1's head dim: the f32 flash route's 12 chunks, held at (2, 1, 1024,
+# 768); the top level of K5 f32's entry past 512
+ONE_HEAD_DIM = 768
+# the f32 models phase_heads runs at 2+2 layers (nhead 3, 2 and 1: 768 / d
+# heads); nhead 4 runs at full depth in phase_f32
+F32_HEADS_MODELS = (256, 384, ONE_HEAD_DIM)
+# K5 f32 past head dim 512: the 8-key instances (<6, 8> up to 768, <8, 8> up
+# to 1024) and the column-chunk route past 1024. Its kernels-line entry and
+# the head dims held to the plain version (each at 768 / d heads, at least 1)
+K5_F32_WIDE = "decode_attention_f32_wide"
+K5_F32_WIDE_FROM = 512
+K5_F32_WIDE_DIMS = (516, 768, 1024, 1280)
 # the smoke's key mask over (8, 1024): 5301 of 8192 keys attended
 SMOKE_LENS = (1024, 900, 700, 512, 300, 1000, 64, 801)
 CODEBERT_LENS = (512, 204, 143, 77)
@@ -3453,7 +3527,8 @@ def f32_kernel_checks(errs: dict) -> None:
 def f32_wide_checks(errs: dict) -> None:
     """The f32 K1 and pair's wide route against their plain f32 versions:
     at each of ``F32_WIDE_DIMS``' (8, h, 1024, d) under the smoke's key mask
-    with dropout 0.3, causal at (4, 4, 512, 192), head dim 160 on its copy
+    with dropout 0.3, nhead=1's (2, 1, 1024, 768) under a key mask with
+    dropout 0.3, causal at (4, 4, 512, 192), head dim 160 on its copy
     padded to 192 at (4, 4, 512, 160) and 512 in eight chunks at (2, 2,
     512, 512) under a key mask with a fully masked row (zeros, lse = -1e30,
     dq = 0). The forward and its LSE at 1e-5 norm-wise, the gradients at
@@ -3464,7 +3539,7 @@ def f32_wide_checks(errs: dict) -> None:
     under the name."""
     import torch
     from sct_gan_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_reference, tf32_probe)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(24)
     rf = lambda *shape: torch.randn(*shape, generator=g, device=dev)
@@ -3475,7 +3550,9 @@ def f32_wide_checks(errs: dict) -> None:
     cases = [("smoke key mask, dropout 0.3", (8, h, 1024, d),
               lens_mask(SMOKE_LENS, 1024), False, 0.3)
              for d, h in F32_WIDE_DIMS.items()]
-    cases += [("causal", (4, 4, 512, F32_WIDE_TOP), None, True, 0.0),
+    cases += [("nhead=1, key mask, dropout 0.3", (2, 1, 1024, ONE_HEAD_DIM),
+               lens_mask((1024, 700), 1024), False, 0.3),
+              ("causal", (4, 4, 512, F32_WIDE_TOP), None, True, 0.0),
               ("padded copy, key mask, dropout 0.3",
                (4, 4, 512, F32_WIDE_PADDED), lens_mask((512, 300, 77, 1), 512),
                False, 0.3),
@@ -3486,7 +3563,7 @@ def f32_wide_checks(errs: dict) -> None:
     # the route reads a landed f32 chunk as its own TF32 big half
     # (f32_attention.cuh, wide::split_nat): the tensor cores must drop the
     # 13 low bits
-    got = tf32_probe()
+    got = tf32_probe(dev)
     print(f"  f32 wide route: the card's TF32 products of x = 1 + 3 * 2^-12 "
           f"{got} (dropped bits give [1, -1, 1])", flush=True)
     if got != [1.0, -1.0, 1.0]:
@@ -3544,9 +3621,11 @@ def k5_f32_checks(errs: dict) -> None:
     1024, 96) under a source mask with f32 and bf16 queries (the output in
     the query's dtype), (64, 8, 1024, 96) every key, a self step over a
     cache cut to 513 keys, 12 heads of 64, 6 of 128, S = 1, S = 65 with a
-    fully masked row; at each of ``K5_F32_HEAD_DIMS`` B = 2 under a source
-    mask with a bf16 query, B = 64 every key, a self step over a cut cache
-    and S = 65 with a fully masked row; head dim 30 on its padded copy.
+    fully masked row; at each of ``K5_F32_HEAD_DIMS`` and
+    ``K5_F32_WIDE_DIMS`` B = 2 under a source mask with a bf16 query, B = 64
+    every key, a self step over a cut cache and S = 65 with a fully masked
+    row; head dim 30 on its padded copy. Past 512 the errors go to
+    ``K5_F32_WIDE``, each head dim's also under ``<name>:dh<d>``.
     Each case runs twice and must give the same bits; ``pad_head_dim`` is
     counted around each: no copy where the head dim is a multiple of 4,
     one of each of q, k and v a run at 30. Held at 1e-5 norm-wise for an f32
@@ -3571,8 +3650,8 @@ def k5_f32_checks(errs: dict) -> None:
               None),
              ("head dim 30 (padded)", (2, 4, 300, 30), f32, (300, 120),
               None)]
-    for d in K5_F32_HEAD_DIMS:
-        h = min(8, 768 // d)
+    for d in (*K5_F32_HEAD_DIMS, *K5_F32_WIDE_DIMS):
+        h = max(1, min(8, 768 // d))
         cases += [(f"head dim {d}, source mask, bf16 query", (2, h, 1024, d),
                    bf16, (1024, 900), None),
                   (f"head dim {d}, every key", (64, h, 1024, d), f32, None,
@@ -3599,7 +3678,9 @@ def k5_f32_checks(errs: dict) -> None:
         if got.dtype != qdt or want.dtype != qdt:
             raise AssertionError(f"f32 K5 gave {got.dtype} for a {qdt} query")
         tol = F32_FWD_TOL if qdt == torch.float32 else REL_TOL
-        check_close(errs, "decode_attention_f32", label, got, want, math.inf,
+        name = "decode_attention_f32" if d <= K5_F32_WIDE_FROM else (
+            f"{K5_F32_WIDE}:dh{d}")
+        check_close(errs, name, label, got, want, math.inf,
                     f" q{tuple(q.shape)} k{tuple(k.shape)}", tol)
         if not torch.equal(got, again):
             raise AssertionError(f"f32 K5 {label}: two runs differ")
@@ -3608,6 +3689,8 @@ def k5_f32_checks(errs: dict) -> None:
         if lens is not None and lens[-1] == 0 and got[1].abs().max() != 0:
             raise AssertionError(f"f32 K5 {label}: the fully masked row "
                                  f"must give zeros")
+    rows = [errs[f"{K5_F32_WIDE}:dh{d}"] for d in K5_F32_WIDE_DIMS]
+    errs[K5_F32_WIDE] = (max(a for a, _ in rows), max(r for _, r in rows))
 
 
 def f32_times(card: str) -> dict:
@@ -3619,12 +3702,14 @@ def f32_times(card: str) -> dict:
     256) and (8, 2, 1024, 384) under the smoke's key mask; K5 at (2, 8,
     1024, 96) under a source mask (1924 keys), at (64, 8, 1024, 96) with
     every key and at TASC nhead=4's (2, 4, 1024, 192) under the source
-    mask. Kernels and library calls replayed from CUDA graphs over inputs
-    twice the L2 (``ring_ms``). A bound counts the attended keys only.
-    Returns name -> (ms, plain ms, library ms, bound ms, bound by), the
-    CodeBERT row under ``<name>:codebert``, the wide route's under
-    ``<wide name>:dh<d>``, K5's B=64 row under ``<name>:b64`` and its 192
-    row under ``<name>:dh192``."""
+    mask; K5 past 512 at (2, 1, 1024, d) under the source mask for each of
+    ``K5_F32_WIDE_DIMS`` and at (64, 1, 1024, 768) with every key. Kernels
+    and library calls replayed from CUDA graphs over inputs twice the L2
+    (``ring_ms``). A bound counts the attended keys only. Returns name ->
+    (ms, plain ms, library ms, bound ms, bound by), the CodeBERT row under
+    ``<name>:codebert``, the wide routes' under ``<wide name>:dh<d>``, K5's
+    B=64 rows under ``<name>:b64`` and ``<wide name>:dh768:b64`` and its
+    192 row under ``<name>:dh192``."""
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops.decode_attention import (
@@ -3686,9 +3771,14 @@ def f32_times(card: str) -> dict:
                    + b * h * s * el + b * s))
         del ref, qg, kg, vg, out, lse, dout
 
-    for label, b, h, d, lens in (("", 2, 8, 96, (1024, 900)),
-                                 (":b64", 64, 8, 96, None),
-                                 (":dh192", 2, 4, 192, (1024, 900))):
+    k5_rows = [("decode_attention_f32", 2, 8, 96, (1024, 900)),
+               ("decode_attention_f32:b64", 64, 8, 96, None),
+               ("decode_attention_f32:dh192", 2, 4, 192, (1024, 900)),
+               (f"{K5_F32_WIDE}:dh{ONE_HEAD_DIM}:b64", 64, 1,
+                ONE_HEAD_DIM, None)]
+    k5_rows += [(f"{K5_F32_WIDE}:dh{d}", 2, 1, d, (1024, 900))
+                for d in K5_F32_WIDE_DIMS]
+    for key, b, h, d, lens in k5_rows:
         s = 1024
         q = _heads(rf(b, 1, h * d), h)
         k, v = (_heads(rf(b, s, h * d), h) for _ in range(2))
@@ -3699,7 +3789,7 @@ def f32_times(card: str) -> dict:
         sdpa_mask = None if mask is None else mask[:, None, None, :]
         with torch.inference_mode():
             qkv = ring_inputs((q, k, v))
-            t["decode_attention_f32" + label] = (
+            t[key] = (
                 ring_ms(lambda a: decode_attention(*a, mask,
                                                    sm_scale=d ** -0.5),
                         qkv, 20),
@@ -3791,7 +3881,7 @@ def f32_decode_call(lib, q, k, v, mask, scale: float, splits=None):
 # the f32 cache cut to 513 keys), the JAX bench's decode batch, and TASC's
 # head dims over 128 at d = 768
 K5_F32_LENS = (1024, 900)
-K5_F32_WIDE = (192, 256, 384)
+K5_F32_AB_DIMS = (192, 256, 384)
 
 
 def k5_f32_ab(card: str, names, libs) -> None:
@@ -3942,7 +4032,7 @@ def k5_f32_ab(card: str, names, libs) -> None:
              sdpa_fn(None, 96))
         del want, q, k, v
 
-        for d in (64, 128, *K5_F32_WIDE):   # the parent's up to 128
+        for d in (64, 128, *K5_F32_AB_DIMS):   # the parent's up to 128
             for b, lens in ((2, K5_F32_LENS), (64, None)):
                 shape = (b, 768 // d, 1024, d)
                 q, k, v, mask = inputs(*shape, lens)
@@ -3960,20 +4050,6 @@ def k5_f32_ab(card: str, names, libs) -> None:
                      sum(lens) if lens else b * 1024, mask, 4,
                      sdpa_fn(mask, d))
                 del want, q, k, v
-
-
-def tf32_probe() -> list:
-    """The card's TF32 product of operands whose 13 low bits TF32 drops
-    (``csrc/flash_attention_fwd_f32.cu::tf32_probe_kernel``): [x, -x, x]
-    as the tensor core took x = 1 + 3 * 2^-12."""
-    import torch
-    from sct_gan_tpu_torch.ops import _build
-    out = torch.zeros(3, device="cuda")
-    _build.check(_build.load().f32_tf32_probe(
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream),
-        "f32_tf32_probe")
-    torch.cuda.synchronize()
-    return out.tolist()
 
 
 def tf32_wgmma_tflops(reps: int = 4000) -> dict:
@@ -4027,7 +4103,8 @@ def f32_ab_times(checkouts) -> int:
     route at each of ``F32_WIDE_DIMS``' (8, h, 1024, d) under the smoke's
     key mask; then one f32 train step at ``nhead=4`` on each checkout's f32
     K1 and pair (``f32_step_profile``). Beside them SDPA in f32
-    with TF32 off, the plain version, the bound at the sheet's 3xTF32 (165
+    with TF32 off, the plain version (the pair's: the plain backward alone,
+    from a kept graph, with its spread), the bound at the sheet's 3xTF32 (165
     TFLOP/s) and at a third of the measured TF32 matmul rate, the card's
     handling of the bits TF32 drops (``tf32_probe``) and its TF32 wgmma
     rate by shape (``tf32_wgmma_tflops``). Each checkout's errors against
@@ -4037,7 +4114,8 @@ def f32_ab_times(checkouts) -> int:
     import torch
     import torch.nn.functional as F
     from sct_gan_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_backward, flash_attention_reference)
+        flash_attention, flash_attention_backward, flash_attention_reference,
+        tf32_probe)
     from sct_gan_tpu_torch.utils.profiling import PEAK_3XTF32_FLOPS
     phase_device()
     phase_build()
@@ -4049,7 +4127,7 @@ def f32_ab_times(checkouts) -> int:
         for entry, lines in main_path_reports(report):
             print(f"  ptxas [{name}] {entry}: " + "; ".join(lines))
     x = 1 + 3 * 2.0 ** -12
-    got = tf32_probe()
+    got = tf32_probe(torch.device("cuda"))
     how = ("dropped" if got == [1.0, -1.0, 1.0] else "rounded to nearest"
            if got == [1 + 2.0 ** -10, -1 - 2.0 ** -10, 1 + 2.0 ** -10]
            else "kept" if got == [x, -x, x] else "neither dropped nor rounded")
@@ -4132,10 +4210,15 @@ def f32_ab_times(checkouts) -> int:
         nbytes = 6 * qkv_bytes + 2 * kv_bytes + b * h * s * el + b * s
         sheet, by = bound_ms(flops, nbytes, PEAK_3XTF32_FLOPS)
         measured, _ = bound_ms(flops, nbytes, peak)
-        plain = cuda_ms(lambda: torch.autograd.grad(
-            flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
-                                      sm_scale=sc), (qg, kg, vg), dout),
-            iters=3)
+        # the plain backward alone, from a kept graph (as f32_times), and
+        # its spread over five rounds of three
+        ref = flash_attention_reference(qg, kg, vg, key_padding_mask=mask,
+                                        sm_scale=sc)
+        plains = sorted(cuda_ms(lambda: torch.autograd.grad(
+            ref, (qg, kg, vg), dout, retain_graph=True), iters=3)
+            for _ in range(5))
+        plain = plains[2]
+        del ref
         lib_ms = sdpa_backward_ms(q, k, v, mask, dout, sc)
         parts = {who: pair_parts_ms(
             fn, name="flash_f32_{}_", expected=None if who == "tree"
@@ -4153,7 +4236,9 @@ def f32_ab_times(checkouts) -> int:
                   f"{h}, {s}, {d}), {label}, {name} -> this tree, in turns: "
                   f"{o1:.4f} / {o2:.4f} -> {p1:.4f} / {p2:.4f} ms "
                   f"({flops / p1 / 1e9:.1f} TFLOP/s of the attended keys' "
-                  f"products; {split}); plain {plain:.4f} ms, library (SDPA "
+                  f"products; {split}); plain backward alone {plain:.4f} "
+                  f"ms (median of 5 rounds, {plains[0]:.4f} to "
+                  f"{plains[-1]:.4f}), library (SDPA "
                   f"f32 backward, TF32 off) {lib_ms:.4f} ms, bound "
                   f"{sheet:.4f} (sheet) / {measured:.4f} (measured) ms "
                   f"({by}); rel err dq, dk, dv {errs}", flush=True)
@@ -4414,12 +4499,15 @@ def phase_f32(card: str, overrides=None, device: str = "cuda",
 
 def _f32_by_route(counts: dict, head_dim: int) -> dict:
     """An f32 model's launches by the kernels line's names: over head dim
-    128 its f32 K1 and pair under the wide route's (``F32_WIDE_KERNELS``)."""
-    if head_dim <= 128:
-        return dict(counts)
-    wide = dict(zip(("flash_attention_fwd_f32", "flash_attention_bwd_f32"),
-                    F32_WIDE_KERNELS))
-    return {wide.get(k, k): v for k, v in counts.items()}
+    128 its f32 K1 and pair under the wide route's (``F32_WIDE_KERNELS``),
+    over 512 its K5 f32 under ``K5_F32_WIDE``."""
+    names = {}
+    if head_dim > 128:
+        names.update(zip(("flash_attention_fwd_f32",
+                          "flash_attention_bwd_f32"), F32_WIDE_KERNELS))
+    if head_dim > K5_F32_WIDE_FROM:
+        names["decode_attention_f32"] = K5_F32_WIDE
+    return {names.get(k, k): v for k, v in counts.items()}
 
 
 def decode_times(card: str, h: int = 8, d: int = 96) -> dict:
@@ -5440,16 +5528,20 @@ def f32_entries(t: dict, errs: dict, *launch_counts) -> list:
     3xTF32 peak its operations bound is taken at. The wide route's entries
     (``F32_WIDE_KERNELS``) give ``F32_WIDE_TOP``'s times at the top level,
     the other head dims' times and errors under ``head_dims``, and the
-    padded and chunked cases' errors there too."""
+    padded and chunked cases' errors there too. K5 f32 past head dim 512
+    (``K5_F32_WIDE``) gives ``ONE_HEAD_DIM``'s times at the top level
+    and each of ``K5_F32_WIDE_DIMS``' under ``head_dims``, its B=64 row
+    under ``b64``."""
     from sct_gan_tpu_torch.utils.profiling import PEAK_3XTF32_FLOPS
     out = []
-    for name in (*F32_KERNELS, *F32_WIDE_KERNELS):
+    for name in (*F32_KERNELS, *F32_WIDE_KERNELS, K5_F32_WIDE):
         source, replaces = KERNELS[name.removesuffix("_wide")]
         launches = sum(c.get(name, 0) for c in launch_counts)
         if launches == 0:
             raise AssertionError(f"{name}: no launch on its main path")
         wide = name in F32_WIDE_KERNELS
-        top = f"{name}:dh{F32_WIDE_TOP}" if wide else name
+        top = (f"{name}:dh{F32_WIDE_TOP}" if wide else
+               f"{name}:dh{ONE_HEAD_DIM}" if name == K5_F32_WIDE else name)
         ms, plain, libms, bnd, by = t[top]
         entry = {
             "name": name, "route": "cuda", "source": source,
@@ -5458,15 +5550,24 @@ def f32_entries(t: dict, errs: dict, *launch_counts) -> list:
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": libms, "f32_peak_flops": PEAK_3XTF32_FLOPS}
         for sub_row in ("codebert", "b64", "dh192"):
-            if not wide and f"{name}:{sub_row}" in t:
-                ms, plain, libms, bnd, by = t[f"{name}:{sub_row}"]
+            if not wide and f"{top}:{sub_row}" in t:
+                ms, plain, libms, bnd, by = t[f"{top}:{sub_row}"]
                 entry[sub_row] = dict(ms=ms, plain_ms=plain, library_ms=libms,
                                       bound_ms=bnd, bound_by=by)
+        if name == K5_F32_WIDE:
+            entry["head_dim"] = ONE_HEAD_DIM
+            entry["head_dims"] = {}
+            for d in K5_F32_WIDE_DIMS:
+                a, r = errs[f"{name}:dh{d}"]
+                ms, plain, libms, bnd, by = t[f"{name}:dh{d}"]
+                entry["head_dims"][str(d)] = dict(
+                    max_abs_err=a, max_rel_err=r, ms=ms, plain_ms=plain,
+                    library_ms=libms, bound_ms=bnd, bound_by=by)
         if wide:
             entry["head_dim"] = F32_WIDE_TOP
             entry["head_dims"] = {}
             for d in sorted({*F32_WIDE_DIMS, F32_WIDE_PADDED,
-                             F32_WIDE_CHUNKED}):
+                             F32_WIDE_CHUNKED, ONE_HEAD_DIM}):
                 a, r = errs[f"{name}:dh{d}"]
                 row = entry["head_dims"][str(d)] = {"max_abs_err": a,
                                                     "max_rel_err": r}

@@ -68,8 +68,9 @@
 //   consecutive units of one row); one reduce-scatter of G - 1 + 5 -
 //   log2 G shuffles leaves each key's score on 32 / G lanes. p V: lane l sums
 //   p_j V[j] over its units.
-// * The combine: the 8 warps meet once in shared memory (one barrier) and
-//   are combined in warp order. Then each split stores its (m, l, o) into
+// * The combine (`finish`): the 8 warps meet once in shared memory (one
+//   barrier; each warp's o in its own part of ring stage 0, which it has
+//   read to the end) and are combined in warp order. Then each split stores its (m, l, o) into
 //   block 0's shared memory (st.shared::cluster) and arrives on the cluster
 //   barrier; only block 0 waits, and combines the splits in split order. A
 //   relaxed cluster arrival at the start, waited for just before those
@@ -79,9 +80,17 @@
 // * Tiles shrink as the head dim grows, so that a stage stays at most 64
 //   KB, and 48 KB (two blocks an SM) from D = 132 to 384: 64 keys up to
 //   128 (32-key tiles at 128 were 16% slower at B = 64), 32 up to 192, 16
-//   above; instances <U, TK> with U 16-byte units a lane (D <= 128 U).
-// Budget at D = 96: a 48 KB stage (64 keys x 2 x 384 bytes), 2 stages, the
-// warps' and splits' partials: ~104 KB; 256 threads.
+//   up to 512, 8 (one key a warp) up to 1024; instances <U, TK> with U
+//   16-byte units a lane (D <= 128 U). Of the 8-key instances, <6, 8>
+//   (127 registers) runs two blocks an SM on RING_BYTES as those below it
+//   do (2 stages from 516 to 768: 3.6% faster at (64, 1, 1024, 768) than 3
+//   stages at one block an SM, the same at B = 2), and <8, 8> (q, o and a
+//   row are 96 registers a lane: 160 in all) one block an SM with as many
+//   stages as shared memory holds beside the splits' partials: at D = 1024
+//   and 16 splits, 2 stages of 64 KB and 64 KB of partials. Past 1024 the
+//   column-chunk route at the end of this file.
+// Budget at D = 96: a 48 KB stage (64 keys x 2 x 384 bytes), 2 stages and
+// the splits' partials: ~99 KB; 256 threads.
 //
 // Semantics (the JAX kernel's): masked keys get -inf; a fully-masked row
 // gives zeros; any S >= 1.
@@ -102,7 +111,9 @@ constexpr int MAX_DYN_SMEM = 223 * 1024;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ constexpr int tile_keys(int d) { return d <= 128 ? 64 : d <= 192 ? 32 : 16; }
+__host__ __device__ constexpr int tile_keys(int d) {
+  return d <= 128 ? 64 : d <= 192 ? 32 : d <= 512 ? 16 : 8;
+}
 
 // the bytes a stage of head dim d holds: K and V rows of one tile
 __host__ __device__ constexpr int stage_bytes(int d) { return 2 * tile_keys(d) * d * 4; }
@@ -145,6 +156,17 @@ __device__ __forceinline__ void axpy4(float p, float4 x, float4& acc) {
   acc.y = fmaf(p, x.y, acc.y);
   acc.z = fmaf(p, x.z, acc.z);
   acc.w = fmaf(p, x.w, acc.w);
+}
+
+// q's 16-byte unit at element `at` (4 columns, bf16 or f32, on 4-byte lines),
+// times qs
+__device__ __forceinline__ float4 q_unit(const void* q, size_t at, int bf16, float qs) {
+  float e4[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    e4[e] = (bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at + e])
+                  : static_cast<const float*>(q)[at + e]) * qs;
+  return make_float4(e4[0], e4[1], e4[2], e4[3]);
 }
 
 // x[i] is this lane's part of key i's score. After log2 G halving steps
@@ -212,9 +234,11 @@ struct Walk {
         const int c = (c0 + e * 32) / 32;            // 32-key chunk of the window
         if constexpr (TK >= 32) {
           if (lane == c / (TK / 32)) wbits |= vote << (32 * (c % (TK / 32)));
-        } else {                                      // two 16-key tiles a chunk
-          if (lane == 2 * c) wbits = vote & 0xffffu;
-          if (lane == 2 * c + 1) wbits = vote >> 16;
+        } else {                                      // 32 / TK tiles a chunk
+          constexpr int PER = 32 / TK;
+#pragma unroll
+          for (int i = 0; i < PER; ++i)
+            if (lane == PER * c + i) wbits = (vote >> (TK * i)) & ((1ull << TK) - 1);
         }
       }
     }
@@ -238,8 +262,88 @@ struct Walk {
   }
 };
 
+// Ends a split. The warps' (m, l, o) meet in shared memory, warp w's o at
+// wo + w * wstride (`cols` columns, at most 4 a thread; l is this lane's
+// part of the warp's sum), and are combined in warp order. With one split
+// the block writes o (cols columns from ob, in q's dtype); else each split
+// stores its (m, l, o) into block 0's shared memory (so, sm, sl) and
+// arrives on the cluster barrier, and block 0 alone waits and combines the
+// splits in split order. The caller made a relaxed cluster arrival at its
+// start, which the wait here consumes: every block of the cluster runs
+// before any writes into block 0.
+template <int U>
+__device__ __forceinline__ void finish(float m, float l, const float4 (&acc)[U], float* wo,
+                                       int wstride, float* so, float* wm, float* wl, float* sm,
+                                       float* sl, int cols, void* ob, int bf16) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int units = cols / 4;
+#pragma unroll
+  for (int x = 16; x >= 1; x /= 2) l += __shfl_xor_sync(FULL, l, x);
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = (lane + 32 * u) * 4;
+    if (c < cols) *reinterpret_cast<float4*>(wo + warp * wstride + c) = acc[u];
+  }
+  __syncthreads();
+  float M = -INFINITY, L = 0.f;
+  float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < units) {
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wm[w]);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = wm[w] == -INFINITY ? 0.f : exp2f(wm[w] - M);
+      L = fmaf(wl[w], f, L);
+      axpy4(f, *reinterpret_cast<const float4*>(wo + w * wstride + tid * 4), O);
+    }
+  }
+  auto store = [&](float l_all, float4 x) {
+    const float r = l_all > 0.f ? 1.f / l_all : 0.f;
+    const float y[4] = {x.x * r, x.y * r, x.z * r, x.w * r};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (bf16)
+        static_cast<__nv_bfloat16*>(ob)[tid * 4 + e] = __float2bfloat16(y[e]);
+      else
+        static_cast<float*>(ob)[tid * 4 + e] = y[e];
+    }
+  };
+  if (nsplit == 1) {
+    if (tid < units) store(L, O);
+    return;
+  }
+
+  // ---- the splits meet in block 0: one cluster barrier -------------------
+  hopper::cluster_wait();              // every block of the cluster runs
+  if (tid < units) st_cluster(hopper::cluster_addr(so + split * cols + tid * 4, 0), O);
+  if (tid == 0) {
+    st_cluster(hopper::cluster_addr(&sm[split], 0), M);
+    st_cluster(hopper::cluster_addr(&sl[split], 0), L);
+  }
+  hopper::cluster_arrive();
+  if (split != 0) return;
+  hopper::cluster_wait();
+  if (tid < units) {
+    float mm = -INFINITY;
+    for (int r = 0; r < nsplit; ++r) mm = fmaxf(mm, sm[r]);
+    float l_all = 0.f;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < nsplit; ++r) {         // in split order
+      const float f = sm[r] == -INFINITY ? 0.f : exp2f(sm[r] - mm);
+      l_all = fmaf(sl[r], f, l_all);
+      axpy4(f, *reinterpret_cast<const float4*>(so + r * cols + tid * 4), x);
+    }
+    store(l_all, x);
+  }
+}
+
 template <int U, int TK>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, U <= 6 ? 2 : 1)
 decode_f32_kernel(const void* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const uint8_t* __restrict__ mask,
                   void* __restrict__ o, int bf16, int S, int D, int q_sb, int q_sh,
@@ -247,19 +351,17 @@ decode_f32_kernel(const void* __restrict__ q, const float* __restrict__ k,
                   int o_sh, int mask_sb, int stages, float scale) {
   constexpr int G = TK / WARPS;                // keys of a tile a warp takes
   constexpr int LPK = 32 / G;                  // lanes that share a key
-  static_assert(G >= 2 && G <= 8, "a warp's key bits of a tile fit 8 bits");
+  static_assert(G >= 1 && G <= 8, "a warp's key bits of a tile fit 8 bits");
   extern __shared__ __align__(128) uint8_t smem[];
   const int tile_elems = TK * D;
   float* ring = reinterpret_cast<float*>(smem);      // [stages][K, V][TK][D]
-  float* wo = ring + stages * 2 * tile_elems;        // [WARPS][D] warp partials
-  float* so = wo + WARPS * D;                        // [splits][D], block 0's
+  float* so = ring + stages * 2 * tile_elems;        // [splits][D], block 0's
   __shared__ __align__(8) uint64_t full[MAX_STAGES][WARPS];
   __shared__ float wm[WARPS], wl[WARPS], sm[MAX_SPLITS], sl[MAX_SPLITS];
 
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int units = D / 4;
   const float* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
   const float* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
@@ -325,15 +427,8 @@ decode_f32_kernel(const void* __restrict__ q, const float* __restrict__ k,
   for (int u = 0; u < U; ++u) {
     const int c = (lane + 32 * u) * 4;
     col[u] = c < D ? c : 0;
-    float e4[4] = {0.f, 0.f, 0.f, 0.f};
-    if (c < D) {
-      const size_t at = (size_t)b * q_sb + (size_t)h * q_sh + c;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        e4[e] = (bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at + e])
-                      : static_cast<const float*>(q)[at + e]) * qs;
-    }
-    qr[u] = make_float4(e4[0], e4[1], e4[2], e4[3]);
+    qr[u] = c < D ? q_unit(q, (size_t)b * q_sb + (size_t)h * q_sh + c, bf16, qs)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
   // ---- this warp's rows of the next live tiles, ahead of its compute ----
@@ -415,70 +510,14 @@ decode_f32_kernel(const void* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // ---- the warps meet: one barrier, combined in warp order ---------------
-#pragma unroll
-  for (int x = 16; x >= 1; x /= 2) l += __shfl_xor_sync(FULL, l, x);
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int c = (lane + 32 * u) * 4;
-    if (c < D) *reinterpret_cast<float4*>(wo + warp * D + c) = acc[u];
-  }
-  __syncthreads();
-  float M = -INFINITY, L = 0.f;
-  float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (tid < units) {
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wm[w]);
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = wm[w] == -INFINITY ? 0.f : exp2f(wm[w] - M);
-      L = fmaf(wl[w], f, L);
-      axpy4(f, *reinterpret_cast<const float4*>(wo + w * D + tid * 4), O);
-    }
-  }
-  auto store = [&](float l_all, float4 x) {
-    const float r = l_all > 0.f ? 1.f / l_all : 0.f;
-    const float y[4] = {x.x * r, x.y * r, x.z * r, x.w * r};
-    const size_t at = (size_t)b * o_sb + (size_t)h * o_sh + tid * 4;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (bf16)
-        static_cast<__nv_bfloat16*>(o)[at + e] = __float2bfloat16(y[e]);
-      else
-        static_cast<float*>(o)[at + e] = y[e];
-    }
-  };
-  if (nsplit == 1) {
-    if (tid < units) store(L, O);
-    return;
-  }
-
-  // ---- the splits meet in block 0: one cluster barrier -------------------
-  hopper::cluster_wait();              // every block of the cluster runs
-  if (tid < units) st_cluster(hopper::cluster_addr(so + split * D + tid * 4, 0), O);
-  if (tid == 0) {
-    st_cluster(hopper::cluster_addr(&sm[split], 0), M);
-    st_cluster(hopper::cluster_addr(&sl[split], 0), L);
-  }
-  hopper::cluster_arrive();
-  if (split != 0) return;
-  hopper::cluster_wait();
-  if (tid < units) {
-    float mm = -INFINITY;
-    for (int r = 0; r < nsplit; ++r) mm = fmaxf(mm, sm[r]);
-    float l_all = 0.f;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < nsplit; ++r) {         // in split order
-      const float f = sm[r] == -INFINITY ? 0.f : exp2f(sm[r] - mm);
-      l_all = fmaf(sl[r], f, l_all);
-      axpy4(f, *reinterpret_cast<const float4*>(so + r * D + tid * 4), x);
-    }
-    store(l_all, x);
-  }
+  // ---- the warps meet, then the splits; each warp's o goes into its own
+  // part of stage 0 (every fill it asked for has landed and been read) --
+  __syncwarp();
+  void* ob = bf16 ? static_cast<void*>(static_cast<__nv_bfloat16*>(o) + (size_t)b * o_sb +
+                                       (size_t)h * o_sh)
+                  : static_cast<void*>(static_cast<float*>(o) + (size_t)b * o_sb +
+                                       (size_t)h * o_sh);
+  finish<U>(m, l, acc, ring, G * D, so, wm, wl, sm, sl, D, ob, bf16);
 }
 
 template <int U, int TK>
@@ -496,10 +535,11 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  // RING_BYTES where two stages fit it, else a ring of 3 stages for one
-  // block; never past the shared memory the partials leave
-  const int extra = (WARPS + splits) * D * 4, sb = stage_bytes(D);
-  int stages = RING_BYTES / sb >= 2 ? RING_BYTES / sb : 3;
+  // two blocks an SM (U <= 6): RING_BYTES where two stages fit it, else a
+  // ring of 3 stages for one block; one block an SM (U = 8): as many
+  // stages as fit. Never past the shared memory the splits' partials leave
+  const int extra = splits * D * 4, sb = stage_bytes(D);
+  int stages = U > 6 ? MAX_STAGES : RING_BYTES / sb >= 2 ? RING_BYTES / sb : 3;
   stages = min(min(stages, MAX_STAGES), (MAX_DYN_SMEM - extra) / sb);
   if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
@@ -522,16 +562,153 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- past D = 1024: the column-chunk route ---------------------------------
+//
+// Past 1024 a stage of 8 whole K and V rows (64 D bytes) leaves no room for
+// two stages and the splits' partials. This route cuts o's head dim into
+// chunks of WIDE_COLS columns: grid (splits, H, B x nchunk), one cluster of
+// `splits` blocks per (b, h, chunk c). The splits and the warps' keys are
+// the 8-key instances' (warp w takes key w of each 8-key tile of its
+// split), and so is the arithmetic: each warp computes its key's score
+// over the whole row (q and K read from global memory, WIDE_COLS columns a
+// pass, a lane's units of a pass loaded before any product), keeps its own
+// online softmax and accumulates V's chunk c only; `finish` combines the
+// warps and the splits. A masked key's rows are never read. No ring: a warp
+// has one key's rows in flight. Each K row is read once per chunk (nchunk
+// times in all, all but the first likely from L2), V once: right and
+// simple, not fast. Shared memory: the warps' and splits' partials, 96 KB
+// at 16 splits, so two blocks fit an SM.
+constexpr int WIDE_COLS = 1024;
+constexpr int WIDE_U = WIDE_COLS / 128;      // 16-byte units a lane of a chunk
+constexpr int WIDE_TK = 8;
+
+__global__ void __launch_bounds__(NTHREADS, 2)
+decode_f32_wide_kernel(const void* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                       void* __restrict__ o, int bf16, int S, int D, int nchunk, int q_sb,
+                       int q_sh, int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
+                       int o_sb, int o_sh, int mask_sb, float scale) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* wo = reinterpret_cast<float*>(smem);        // [WARPS][WIDE_COLS]
+  float* so = wo + WARPS * WIDE_COLS;                 // [splits][cols], block 0's
+  __shared__ float wm[WARPS], wl[WARPS], sm[MAX_SPLITS], sl[MAX_SPLITS];
+
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z / nchunk, c = blockIdx.z % nchunk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = c * WIDE_COLS, cols = min(WIDE_COLS, D - c0);
+  const size_t q_at = (size_t)b * q_sb + (size_t)h * q_sh;
+  const float* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const float* vb = v + (size_t)b * v_sb + (size_t)h * v_sh + c0;
+  const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)b * mask_sb;
+  const int tiles = (S + WIDE_TK - 1) / WIDE_TK;
+  const int t_begin = static_cast<int>((long long)split * tiles / nsplit);
+  const int t_end = static_cast<int>((long long)(split + 1) * tiles / nsplit);
+  if (nsplit > 1) cluster_arrive_relaxed();   // waited for in finish
+  const float qs = scale * LOG2E;
+
+  float m = -INFINITY, l = 0.f;
+  float4 acc[WIDE_U];
+#pragma unroll
+  for (int u = 0; u < WIDE_U; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j = t * WIDE_TK + warp;          // this warp's key of the tile
+    if (j >= S || (mb != nullptr && mb[j] == 0)) continue;
+    const float* kr = kb + (size_t)j * k_ss;
+    float sc = 0.f;
+    for (int p0 = 0; p0 < D; p0 += WIDE_COLS) {
+      float4 x[WIDE_U];
+#pragma unroll
+      for (int u = 0; u < WIDE_U; ++u) {
+        const int at = p0 + (lane + 32 * u) * 4;
+        x[u] = at < D ? __ldg(reinterpret_cast<const float4*>(kr + at))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < WIDE_U; ++u) {
+        const int at = p0 + (lane + 32 * u) * 4;
+        if (at < D) sc = dot4(q_unit(q, q_at + at, bf16, qs), x[u], sc);
+      }
+    }
+#pragma unroll
+    for (int x = 16; x >= 1; x /= 2) sc += __shfl_xor_sync(FULL, sc, x);   // every lane's
+    const float m_new = fmaxf(m, sc);
+    const float alpha = hopper::fast_exp2(m - m_new);   // 0 while m is -inf
+    const float p = hopper::fast_exp2(sc - m_new);
+    l = fmaf(l, alpha, p);
+    m = m_new;
+    const float* vr = vb + (size_t)j * v_ss;
+#pragma unroll
+    for (int u = 0; u < WIDE_U; ++u) {
+      const int at = (lane + 32 * u) * 4;
+      if (at < cols) {
+        const float4 y = __ldg(reinterpret_cast<const float4*>(vr + at));
+        acc[u].x *= alpha;
+        acc[u].y *= alpha;
+        acc[u].z *= alpha;
+        acc[u].w *= alpha;
+        axpy4(p, y, acc[u]);
+      }
+    }
+  }
+  void* ob = bf16 ? static_cast<void*>(static_cast<__nv_bfloat16*>(o) + (size_t)b * o_sb +
+                                       (size_t)h * o_sh + c0)
+                  : static_cast<void*>(static_cast<float*>(o) + (size_t)b * o_sb +
+                                       (size_t)h * o_sh + c0);
+  // every lane holds l: lane 0 gives it to the warp's sum
+  finish<WIDE_U>(m, lane == 0 ? l : 0.f, acc, wo, WIDE_COLS, so, wm, wl, sm, sl, cols, ob,
+                 bf16);
+}
+
+int launch_wide(const void* q, const void* k, const void* v, const void* mask, void* o,
+                int bf16, int B, int H, int S, int D, int q_sb, int q_sh, int k_sb, int k_sh,
+                int k_ss, int v_sb, int v_sh, int v_ss, int o_sb, int o_sh, int mask_sb,
+                int splits, float scale, cudaStream_t stream) {
+  const int nchunk = (D + WIDE_COLS - 1) / WIDE_COLS;
+  if ((long long)B * nchunk > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = (WARPS + MAX_SPLITS) * WIDE_COLS * 4;
+  static bool configured = false;           // above 48 KB and 8 blocks: opt-ins
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decode_f32_wide_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, H, B * nchunk);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = (WARPS + splits) * WIDE_COLS * 4;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1;           // one split: no cluster
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_f32_wide_kernel, q, static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(mask), o, bf16, S, D, nchunk,
+      q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, mask_sb, scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q: (B, H, 1, Dh) bf16 when bf16 else f32; k, v: f32 (B, H, S, Dh), Dh a
-// multiple of 4 from 4 to 512; o: (B, H, 1, Dh) in q's dtype. Each with
-// element strides (sb, sh, ss) and the last dimension contiguous (the q/o
-// sequence strides are unused); q and o on 4-byte lines, k and v rows on
-// 16-byte lines. mask: (B, S) uint8 (nonzero = attend) with row stride
+// q: (B, H, 1, Dh) bf16 when bf16 else f32; k, v: f32 (B, H, S, Dh), Dh any
+// multiple of 4 (up to 1024 on an instance, above on the column-chunk route,
+// B x ceil(Dh / 1024) at most 65535); o: (B, H, 1, Dh) in q's dtype. Each
+// with element strides (sb, sh, ss) and the last dimension contiguous (the
+// q/o sequence strides are unused); q and o on 4-byte lines, k and v rows
+// on 16-byte lines. mask: (B, S) uint8 (nonzero = attend) with row stride
 // mask_sb, or null for "all S keys visible". splits: blocks (one cluster)
-// per (b, h), 1..16 and at most the tiles of S (64 keys up to Dh = 128, 32
-// up to 192, 16 above). Returns a cudaError_t.
+// per (b, h, column chunk), 1..16 and at most the tiles of S (64 keys up
+// to Dh = 128, 32 up to 192, 16 up to 512, 8 above). Returns a
+// cudaError_t.
 extern "C" int decode_attention_f32(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     int B, int H, int S, int Dh, int q_sb, int q_sh, int q_ss, int k_sb,
@@ -539,9 +716,8 @@ extern "C" int decode_attention_f32(
     int o_ss, int mask_sb, int splits, float scale, int bf16, void* stream) {
   (void)q_ss;
   (void)o_ss;
-  if (S < 1 || B < 1 || B > 65535 || H < 1 || H > 65535 || Dh < 4 || Dh > 512 ||
-      Dh % 4 != 0 || splits < 1 || splits > MAX_SPLITS ||
-      splits > (S + tile_keys(Dh) - 1) / tile_keys(Dh))
+  if (S < 1 || B < 1 || B > 65535 || H < 1 || H > 65535 || Dh < 4 || Dh % 4 != 0 ||
+      splits < 1 || splits > MAX_SPLITS || splits > (S + tile_keys(Dh) - 1) / tile_keys(Dh))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DECODE_ARGS q, k, v, mask, o, bf16, B, H, S, Dh, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, \
@@ -550,6 +726,9 @@ extern "C" int decode_attention_f32(
   if (Dh <= 192) return launch<2, 32>(DECODE_ARGS);
   if (Dh <= 256) return launch<2, 16>(DECODE_ARGS);
   if (Dh <= 384) return launch<3, 16>(DECODE_ARGS);
-  return launch<4, 16>(DECODE_ARGS);
+  if (Dh <= 512) return launch<4, 16>(DECODE_ARGS);
+  if (Dh <= 768) return launch<6, 8>(DECODE_ARGS);
+  if (Dh <= 1024) return launch<8, 8>(DECODE_ARGS);
+  return launch_wide(DECODE_ARGS);                 // the column-chunk route
 #undef DECODE_ARGS
 }

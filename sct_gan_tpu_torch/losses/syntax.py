@@ -16,6 +16,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..parallel.collectives import SINGLE, Axis, all_reduce_
+
 KEYWORD_FOLLOWERS: Dict[str, List[str]] = {
     "function": ["(", "view", "pure", "external", "public", "internal", "private"],
     "contract": ["{", "is", "interface"],
@@ -83,17 +85,23 @@ class SyntaxLossTables:
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       row_mask=None) -> torch.Tensor:
+                       row_mask=None, row_axis: Axis = SINGLE
+                       ) -> torch.Tensor:
     """Mean token cross-entropy over ALL positions (the reference does not
     ignore padding, train.py:324): logsumexp in f32 minus the picked
-    logit. ``row_mask`` (B,) weighs batch rows."""
+    logit. ``row_mask`` (B,) weighs batch rows. Under dp (``row_axis``)
+    the rows are this rank's and the value is its share of the global
+    mean: its summed NLL over the count summed over the axis."""
     lse = torch.logsumexp(logits.float(), dim=-1)
     picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = lse - picked.float()
     if row_mask is None:
-        return nll.mean()
+        if row_axis.size == 1:
+            return nll.mean()
+        return nll.sum() / (nll.numel() * row_axis.size)
     m = row_mask.float()
-    return (nll * m[:, None]).sum() / torch.clamp_min(m.sum() * nll.shape[1],
+    count = all_reduce_(m.sum(), row_axis)
+    return (nll * m[:, None]).sum() / torch.clamp_min(count * nll.shape[1],
                                                       1.0)
 
 

@@ -25,7 +25,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.segment_mean import line_segment_mean
-from ..parallel.collectives import SINGLE, Axis, all_gather, all_reduce_
+from ..parallel.collectives import (SINGLE, Axis, all_reduce_, copy_to,
+                                    gather_rows)
 from .layers import (
     MLP,
     Dense,
@@ -428,15 +429,18 @@ class SmartContractTransformer(nn.Module):
     def _lm_logits(self, hidden):
         """The LM head's logits over the padded vocab. Column-parallel under
         mp: each rank's columns (its rows of the weight, its slice of the
-        whole bias), gathered over mp; no gradient flows through the
-        gather (training takes the fused cross-entropy)."""
+        whole bias), gathered over mp. The hidden state and the bias enter
+        through ``copy_to``, so their gradients are summed over mp, and the
+        gather hands each rank back its own columns' gradient, as the fused
+        cross-entropy does (``ops/fused_ce.py``)."""
         head, mp = self.output_layer, self.lm_axis
         if mp.size == 1:
             return head(hidden)
         n, dt = head.weight.shape[0], head.dtype
-        local = F.linear(hidden.to(dt), head.weight.to(dt),
-                         head.bias[mp.rank * n:(mp.rank + 1) * n].to(dt))
-        return all_gather(local.movedim(-1, 0), mp).movedim(0, -1)
+        bias = copy_to(head.bias, mp)[mp.rank * n:(mp.rank + 1) * n]
+        local = F.linear(copy_to(hidden, mp).to(dt), head.weight.to(dt),
+                         bias.to(dt))
+        return gather_rows(local.movedim(-1, 0), mp).movedim(0, -1)
 
     # -- full forward ------------------------------------------------------------
     def forward(self, input_ids, attention_mask=None, ast_input_ids=None,

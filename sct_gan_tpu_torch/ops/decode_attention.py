@@ -28,11 +28,12 @@ of ``compute_dtype="float32"``) run their own kernel,
 ``csrc/decode_attention_f32.cu``: split-K over bulk-copied tiles, the
 splits of a (b, h) combined in one cluster of up to 16 blocks
 (``decode_splits_f32``). Its route is its own (``decode_route_f32``): any
-head dim that is a multiple of 4 up to 512 runs in place (its rows are
-whole 16-byte units), any other one up to 512 on a copy padded to the next
-multiple of 4; over 512 it raises. The query is read as it is, bf16 or
-f32, and the output comes back in the query's dtype, as the JAX kernel's
-does.
+head dim that is a multiple of 4 runs in place (its rows are whole 16-byte
+units), up to ``F32_WIDE_CHUNK`` on an instance of the kernel and above on
+its column-chunk route (``decode_chunks_f32``), any other head dim on a
+copy padded to the next multiple of 4. No head dim raises, as in the JAX
+kernel. The query is read as it is, bf16 or f32, and the output comes back
+in the query's dtype, as the JAX kernel's does.
 """
 from __future__ import annotations
 
@@ -56,11 +57,12 @@ UNIT = 8            # bf16 elements of the kernel's 16-byte copies
 TILE_KEYS = 64      # keys a tile of the kernel
 MAX_SPLITS = 8      # blocks a (b, h): one portable thread block cluster
 CARD_SMS = 132      # streaming multiprocessors of an H100 SXM
-# the f32-cache kernel: f32 elements of its 16-byte rows, the largest head
-# dim it takes, the blocks a (b, h) (one non-portable cluster) and the warps
-# of a block, each of which takes its own keys of every tile
+# the f32-cache kernel: f32 elements of its 16-byte rows, the column chunk
+# of its column-chunk route (the largest head dim its instances take), the
+# blocks a (b, h, chunk) (one non-portable cluster) and the warps of a
+# block, each of which takes its own keys of every tile
 F32_UNIT = 4
-F32_MAX_HEAD_DIM = 512
+F32_WIDE_CHUNK = 1024
 MAX_SPLITS_F32 = 16
 F32_WARPS = 8
 
@@ -120,24 +122,33 @@ def split_ranges(s: int, splits: int,
 def decode_route_f32(d: int) -> int:
     """The head dim the f32-cache kernel computes at for head dim ``d``:
     ``d`` itself when its f32 rows are whole 16-byte units (a multiple of
-    4, up to ``F32_MAX_HEAD_DIM``; 16, 48, 80, 132, 192, 384 in place),
-    else the next multiple of 4, which the wrapper hands the kernel as a
-    zero-padded copy (30 -> 32). Over ``F32_MAX_HEAD_DIM`` it raises."""
-    if d > F32_MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} in float32: the f32-cache decode "
-                         f"kernel takes head dims up to {F32_MAX_HEAD_DIM}")
+    4; 16, 48, 80, 132, 192, 384, 516, 768, 1028 in place), else the next
+    multiple of 4, which the wrapper hands the kernel as a zero-padded copy
+    (30 -> 32)."""
     return -(-d // F32_UNIT) * F32_UNIT
+
+
+def decode_chunks_f32(d: int) -> int:
+    """Column chunks of the f32-cache kernel at head dim ``d``: 1 up to
+    ``F32_WIDE_CHUNK`` (an instance holds the whole row), above as many
+    ``F32_WIDE_CHUNK``-column chunks of o as hold it (the column-chunk
+    route: one cluster of splits a chunk, each reading the whole K row)."""
+    return max(1, -(-d // F32_WIDE_CHUNK))
 
 
 def decode_tile_keys_f32(d: int) -> int:
     """Keys a tile of the f32-cache kernel at head dim ``d``: 64 up to 128,
-    32 up to 192, 16 above, so that a ring stage of K and V rows stays at
-    most 64 KB, and at most 48 KB (two blocks an SM) from 132 to 384."""
-    return 64 if d <= 128 else 32 if d <= 192 else 16
+    32 up to 192, 16 up to 512, 8 above (one key a warp), so that a ring
+    stage of K and V rows stays at most 64 KB, and at most 48 KB (two
+    blocks an SM) from 132 to 384 and from 516 to 768; the column-chunk
+    route past 1024 keeps the 8-key tiles' splits and keys a warp."""
+    return 64 if d <= 128 else 32 if d <= 192 else 16 if d <= 512 else 8
 
 
 def decode_splits_f32(b: int, h: int, s: int, d: int) -> int:
-    """Blocks that share the keys of one (b, h) in the f32-cache kernel: a
+    """Blocks that share the keys of one (b, h) in the f32-cache kernel (of
+    one (b, h, chunk) past ``F32_WIDE_CHUNK``: the caller passes B times
+    ``decode_chunks_f32(d)`` as ``b``): a
     power of two, at most the tiles of S (``decode_tile_keys_f32``: no
     split is empty) and at most what keeps B * H * splits within two
     blocks an SM of the card (1 from B * H = 133 up); at most 8 (a
@@ -284,9 +295,9 @@ def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Check the shapes and layouts the kernel takes and return the (sb,
     sh, ss) strides of q, k and v: one query, any S >= 1, a head dim the
     kernel takes as it is (``decode_runs_on_kernel``: a multiple of 8; with
-    ``f32``, the f32-cache kernel's, ``decode_route_f32``: a multiple of 4
-    up to 512; any other head dim has rows that are not whole 16-byte
-    units, and the wrapper hands the kernel a padded copy); k and v rows on
+    ``f32``, the f32-cache kernel's, ``decode_route_f32``: a multiple of 4;
+    any other head dim has rows that are not whole 16-byte units, and the
+    wrapper hands the kernel a padded copy); k and v rows on
     16-byte lines (the kernels' 16-byte and bulk copies), q on 4-byte
     lines. It reads only shapes, strides and base addresses, so it holds
     for a tensor on any device."""
@@ -296,8 +307,7 @@ def decode_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     unit = F32_UNIT if f32 else UNIT
-    in_place = (d % unit == 0 and d <= F32_MAX_HEAD_DIM if f32
-                else decode_runs_on_kernel(d))
+    in_place = d % unit == 0 if f32 else decode_runs_on_kernel(d)
     if not in_place or s < 1:
         raise ValueError(f"head dim {d} / keys {s} not supported (head dims "
                          f"that are multiples of {unit}, at least one key)")
@@ -318,8 +328,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the wide-head route (one block per 128 columns of the output); a
     multiple of 8 in place, any other dh on a copy padded to its route's
     head dim. f32 k and v with a bf16 or f32 q run the f32-cache kernel
-    (``decode_route_f32``: a multiple of 4 up to 512 in place); any other
-    mix raises.
+    (``decode_route_f32``: any multiple of 4 in place, on an instance up to
+    1024 and on the column-chunk route above); any other mix raises.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, mask, sm_scale=sm_scale)
@@ -361,7 +371,9 @@ def _decode_f32(q, k, v, mask, sm_scale: float,
                 splits: Optional[int] = None) -> torch.Tensor:
     """``decode_attention`` over f32 caches: the f32 kernel, one launch,
     the query read as it is (bf16 or f32) and the output in its dtype.
-    ``splits`` overrides ``decode_splits_f32`` (a timing tool's choice)."""
+    ``splits`` overrides ``decode_splits_f32`` (a timing tool's choice);
+    past ``F32_WIDE_CHUNK`` the split rule counts each column chunk's
+    clusters as the bf16 wide-head route does."""
     d = q.shape[-1]
     dk = decode_route_f32(d)
     if dk != d:     # a padded copy: zero columns add nothing
@@ -377,7 +389,8 @@ def _decode_f32(q, k, v, mask, sm_scale: float,
     err = _build.load().decode_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
         b, h, s, d, *qs, *ks, *vs, *os_, msb,
-        splits or decode_splits_f32(b, h, s, d), ctypes.c_float(sm_scale),
+        splits or decode_splits_f32(b * decode_chunks_f32(d), h, s, d),
+        ctypes.c_float(sm_scale),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_f32")

@@ -49,7 +49,10 @@ computes each score tile once over the full head dim, in ``F32_CHUNK`` =
 64-column chunks that its TMA ring brings in, and sweeps its columns from
 there; any multiple of 64 (192, 256, 384, ...) runs in place and any other
 head dim on a copy zero-padded to the next multiple (``kernel_route_f32``). q,
-k and v share one dtype, bf16 or f32; there is no cast between them.
+k and v share one dtype, bf16 or f32; there is no cast between them. The
+wide route is right only on a card whose TF32 tensor cores drop an f32
+operand's 13 low bits: the first f32 call on a device probes that
+(``check_tf32_drops``) and raises where the card rounds them.
 
 On a CPU tensor it runs the plain version, ``flash_attention_reference``,
 whose gradient is plain autograd through ``mha_reference``. The kernels'
@@ -256,6 +259,44 @@ def _check_shapes(q, k, v, rate: float, shard=None):
     return b, h, sq, sk, d
 
 
+# devices whose TF32 products ``check_tf32_drops`` has probed
+_TF32_PROBED: set = set()
+# the probe's products where the card drops the bits (tf32_probe_kernel)
+TF32_DROPPED = [1.0, -1.0, 1.0]
+
+
+def tf32_probe(device: torch.device) -> list:
+    """The card's TF32 ``wgmma`` products [x, -x, x] of x = 1 + 3 * 2^-12
+    (``csrc/flash_attention_fwd_f32.cu``'s ``tf32_probe_kernel``):
+    ``TF32_DROPPED`` where the tensor core drops an f32 operand's 13 low
+    bits."""
+    out = torch.zeros(3, device=device)
+    _build.check(_build.load().f32_tf32_probe(
+        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream),
+        "f32_tf32_probe")
+    return out.tolist()
+
+
+def check_tf32_drops(device: torch.device) -> None:
+    """Raise unless the card's TF32 ``wgmma`` drops the 13 low bits of an
+    f32 operand, as the f32 kernels' wide route needs: it reads a landed
+    f32 chunk as its own TF32 big half (``csrc/f32_attention.cuh``,
+    ``wide::split_nat``). One ``tf32_probe`` per process and device, at
+    its first f32 flash call; no fallback."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    if index in _TF32_PROBED:
+        return
+    got = tf32_probe(device)
+    if got != TF32_DROPPED:
+        raise RuntimeError(
+            f"{torch.cuda.get_device_name(device)}: its TF32 tensor cores do "
+            f"not drop an f32 operand's 13 low bits (x = 1 + 3 * 2^-12 gave "
+            f"{got}, dropped bits give {TF32_DROPPED}); the f32 flash "
+            f"kernels' wide route needs them dropped")
+    _TF32_PROBED.add(index)
+
+
 def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse, shard):
     """Launch the forward kernel; (out, lse or None)."""
     b, h, sq, sk, d = _check_shapes(q, k, v, rate, shard)
@@ -266,6 +307,8 @@ def _forward(q, k, v, mask, causal, scale, rate, seed, need_lse, shard):
            if need_lse else None)
     mptr, msb, _keep = _mask_arg(mask, b, sk, q.device)
     f32 = q.dtype == torch.float32
+    if f32:
+        check_tf32_drops(q.device)
     name = "flash_attention_fwd_f32" if f32 else "flash_attention_fwd_bf16"
     err = getattr(_build.load(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
@@ -317,11 +360,13 @@ def flash_attention_backward(q, k, v, out, lse, dout, mask, causal, scale,
     they can be, else copied contiguous. D = rowsum(dO ∘ O), which the JAX
     package computes in XLA before its kernels, is the first of them (f32,
     from dO and O)."""
+    f32 = q.dtype == torch.float32
+    if f32:
+        check_tf32_drops(q.device)
     dout = _kernel_operand(dout.to(q.dtype))
     args, grads, _keep = backward_call(q, k, v, _kernel_operand(out), lse,
                                        dout, mask, causal, scale, rate, seed,
                                        shard)
-    f32 = q.dtype == torch.float32
     name = "flash_attention_bwd_f32" if f32 else "flash_attention_bwd_bf16"
     err = getattr(_build.load(), name)(*args)
     _build.check(err, name)

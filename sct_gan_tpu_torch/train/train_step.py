@@ -27,8 +27,9 @@ step takes over the global batch stays global: each rank forwards its dp
 rows, the small per-row outputs (contract, line and discriminator logits)
 and labels are gathered over dp (``gather_rows``: each rank's gradient is
 its share), so every loss, quantile and metric is computed on the global
-batch, identically on every rank; the LM cross-entropy is this rank's
-summed NLL over the global count, all-reduced for its value. The parameter
+batch, identically on every rank; the LM cross-entropy, fused or not, is
+this rank's summed NLL over the global count, all-reduced for its value
+(the unfused logits are gathered over mp only, never over dp). The parameter
 gradients are then summed over dp. Every generator of the ranks must be
 seeded alike: they draw the same seeds, and each rank's masks are its slice
 of the single-card masks.
@@ -42,7 +43,7 @@ import torch
 from ..losses.focal import (binary_cross_entropy_with_logits,
                             contract_level_focal_loss, masked_mean,
                             spatial_aware_focal_loss)
-from ..losses.syntax import (SyntaxLossTables, solidity_syntax_loss,
+from ..losses.syntax import (SyntaxLossTables, cross_entropy_loss,
                              syntax_penalty)
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..parallel.collectives import (SINGLE, all_gather, all_reduce_,
@@ -98,9 +99,6 @@ def compute_losses(model, batch: Dict[str, torch.Tensor],
     row_mask = batch.get("row_valid")
     mesh = model.mesh
     dp = SINGLE if mesh is None else mesh.axis("dp")
-    if mesh is not None and not fused_lm_ce:
-        raise ValueError("a mesh runs the LM cross-entropy fused "
-                         "(fused_lm_ce=True)")
     model.train(not deterministic)
     outputs = model(
         input_ids=batch["input_ids"],
@@ -125,22 +123,22 @@ def compute_losses(model, batch: Dict[str, torch.Tensor],
         "row_valid") if k in batch})
     row_mask = batch.get("row_valid")
 
+    # this rank's share of the global mean CE (its rows only: no (B, S, V)
+    # logits cross dp), its value all-reduced, its gradient kept local
     if fused_lm_ce:
         head = model.output_layer
-        # this rank's share of the global mean, its value all-reduced
         ce_local = fused_linear_cross_entropy(
             outputs["lm_hidden"], head.weight, head.bias,
             outputs["target_ids"], local_rows,
             int(model.config.vocab_size), model.lm_axis, dp)
-        ce_all = all_reduce_(ce_local.detach().clone(), dp)
-        ce = ce_local + (ce_all - ce_local.detach())
-        targets = all_gather(outputs["target_ids"], dp)
-        syntax_pen = syntax_penalty(targets, tables, row_mask=row_mask)
-        gen_loss = ce + 0.5 * syntax_pen     # syntax_weight (train.py:314)
     else:
-        gen_loss, ce, syntax_pen = solidity_syntax_loss(
-            outputs["logits"], outputs["target_ids"], tables,
-            row_mask=row_mask)
+        ce_local = cross_entropy_loss(outputs["logits"], outputs["target_ids"],
+                                      row_mask=local_rows, row_axis=dp)
+    ce_all = all_reduce_(ce_local.detach().clone(), dp)
+    ce = ce_local + (ce_all - ce_local.detach())
+    targets = all_gather(outputs["target_ids"], dp)
+    syntax_pen = syntax_penalty(targets, tables, row_mask=row_mask)
+    gen_loss = ce + 0.5 * syntax_pen     # syntax_weight (train.py:314)
 
     contract_loss = contract_level_focal_loss(
         outputs["contract_vulnerability_logits"],

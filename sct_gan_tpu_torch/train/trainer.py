@@ -142,9 +142,6 @@ class SmartContractTrainer:
             self.device = resolve_device(device)
             self.model = model.to(self.device)
         else:
-            if not cfg.fused_lm_ce:
-                raise ValueError("a mesh runs the LM cross-entropy fused "
-                                 "(fused_lm_ce=True)")
             self.device = mesh.device
             self.model = model.parallelize_(mesh)
             self._shard_dims = param_shard_dims(model.config, mesh)

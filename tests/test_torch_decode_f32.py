@@ -1,14 +1,16 @@
 """The f32-cache decode attention's route, splits and arithmetic, on the CPU.
 
 ``csrc/decode_attention_f32.cu`` (K5 over f32 caches) runs any head dim
-that is a multiple of 4 up to 512 in place, in tiles of 64, 32 or 16 keys
-as the head dim grows, each of a block's 8 warps keeping its own online
-softmax over its keys of every tile, the warps and then the splits
-combined in order. ``decode_attention_f32_split_reference`` repeats that
-arithmetic in plain PyTorch; here it is held against the JAX package's
-``decode_attention`` in interpret mode on the same numpy inputs at head
-dims 48, 80, 192 and 384 and at 1 to 16 splits: tolerance 1e-5 (rtol and
-atol) in f32, the same math summed in another order. The route, the split
+that is a multiple of 4 in place, in tiles of 64, 32, 16 or 8 keys as the
+head dim grows (past 1024 on its column-chunk route, which keeps the 8-key
+tiles), each of a block's 8 warps keeping its own online softmax over its
+keys of every tile, the warps and then the splits combined in order.
+``decode_attention_f32_split_reference`` repeats that arithmetic in plain
+PyTorch; here it is held against the JAX package's ``decode_attention`` in
+interpret mode on the same numpy inputs at head dims 48, 80, 192, 384, 768
+and 1280 and at 1 to 16 splits, and the plain version at (1, 1, 16, 768)
+and (1, 1, 16, 1280): tolerance 1e-5 (rtol and atol) in f32, the same math
+summed in another order. The route, the split
 count and the wrapper's checks are plain functions of the shapes (``meta``
 tensors stand in for the card). The TASC decoder at head dim 192 decodes
 the same tokens as JAX's from the same Gumbel noise, as it does at 96 in
@@ -27,26 +29,28 @@ from sct_gan_tpu.ops.decode_attention import \
     decode_attention as jax_decode_attention
 from sct_gan_tpu.variants import tasc as jtasc
 from sct_gan_tpu_torch.ops.decode_attention import (
-    CARD_SMS, F32_MAX_HEAD_DIM, MAX_SPLITS, MAX_SPLITS_F32,
+    CARD_SMS, F32_WIDE_CHUNK, MAX_SPLITS, MAX_SPLITS_F32,
     decode_attention_f32_split_reference, decode_attention_reference,
-    decode_layout, decode_route_f32, decode_splits_f32, decode_tile_keys_f32,
-    split_ranges)
+    decode_chunks_f32, decode_layout, decode_route_f32, decode_splits_f32,
+    decode_tile_keys_f32, split_ranges)
 from sct_gan_tpu_torch.ops.flash_attention import kernel_route_f32
 from test_torch_tasc import TINY, jax_config, port_model, tasc_flax_params
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-ORACLE_HEAD_DIMS = (48, 80, 192, 384)
+ORACLE_HEAD_DIMS = (48, 80, 192, 384, 768, 1280)
 
 
 @pytest.mark.parametrize("d,route", [
     (16, 16), (48, 48), (64, 64), (80, 80), (96, 96), (128, 128),
     (132, 132), (192, 192), (256, 256), (384, 384), (512, 512),
     (30, 32),              # 120-byte rows: a copy padded to 32
+    (516, 516), (768, 768), (1024, 1024), (1028, 1028), (1280, 1280),
+    (1030, 1032),
 ])
 def test_decode_route_f32(d, route):
-    """Every multiple of 4 up to 512 runs as it is; any other head dim on a
-    copy padded to the next multiple of 4. The f32 flash kernels route on
-    their own: over 128 in 64-column chunks of the next multiple of 64."""
+    """Every multiple of 4 runs as it is; any other head dim on a copy
+    padded to the next multiple of 4. The f32 flash kernels route on their
+    own: over 128 in 64-column chunks of the next multiple of 64."""
     assert decode_route_f32(d) == route
     assert decode_route_f32(route) == route
     if d > 128:
@@ -54,19 +58,28 @@ def test_decode_route_f32(d, route):
 
 
 def test_decode_route_f32_raises_over_512():
-    with pytest.raises(ValueError, match="head dim 516 in float32"):
-        decode_route_f32(516)
-    assert F32_MAX_HEAD_DIM == 512
+    """No head dim raises any more, as in the JAX kernel: an instance holds
+    the whole row up to 1024, the column-chunk route takes 1024-column
+    chunks of o above."""
+    for d in (516, 768, 1024, 1028, 2048, 4100):
+        assert decode_route_f32(d) == d
+        assert decode_chunks_f32(d) == (1 if d <= 1024 else -(-d // 1024))
+    assert F32_WIDE_CHUNK == 1024
 
 
 @pytest.mark.parametrize("d,tile", [(16, 64), (96, 64), (128, 64),
                                     (132, 32), (192, 32), (196, 16),
-                                    (384, 16), (512, 16)])
+                                    (384, 16), (512, 16), (516, 8),
+                                    (768, 8), (1024, 8), (1280, 8)])
 def test_decode_tile_keys_f32(d, tile):
     """Tiles shrink as the head dim grows: a stage of K and V rows stays at
-    most 64 KB, and at most 48 KB (two blocks an SM) from 132 to 384."""
+    most 64 KB, and at most 48 KB (two blocks an SM) from 132 to 384 and
+    from 516 to 768; past 1024 the column-chunk route keeps the 8-key
+    tiles and has no ring."""
     assert decode_tile_keys_f32(d) == tile
-    assert 2 * tile * d * 4 <= (48 if 128 < d <= 384 else 64) * 1024
+    two_blocks = 128 < d <= 384 or 512 < d <= 768
+    if d <= F32_WIDE_CHUNK:
+        assert 2 * tile * d * 4 <= (48 if two_blocks else 64) * 1024
 
 
 @pytest.mark.parametrize("b,h,s,d,want", [
@@ -82,6 +95,11 @@ def test_decode_tile_keys_f32(d, tile):
     (16, 8, 1024, 96, 2),     # 128 (b, h): 256 blocks
     (64, 8, 1024, 96, 1),     # the JAX bench's decode batch
     (1, 8, 1, 96, 1),         # the first decode step: one key
+    (2, 1, 1024, 768, 16),    # nhead=1 at d=768: 128 8-key tiles
+    (64, 1, 1024, 768, 4),    # the decode batch at nhead=1
+    (2, 1, 1024, 1024, 16),
+    (4, 1, 1024, 1280, 16),   # past 1024: B=2 in 2 column chunks
+    (2, 1, 20, 768, 2),       # 3 tiles
 ])
 def test_decode_splits_f32(b, h, s, d, want):
     """The f32 kernel's split count: a power of two, at most 8 (one
@@ -136,6 +154,24 @@ def test_f32_split_oracle_matches_jax_kernel(d, splits):
     np.testing.assert_allclose(got, plain.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("d", [768, 1280])
+def test_f32_plain_matches_jax_kernel_past_512(d):
+    """The plain K5 f32 at (1, 1, 16, d) under a mask with a hole, against
+    the JAX kernel in interpret mode, within 1e-5."""
+    rng = np.random.default_rng(d + 1)
+    q = rng.normal(size=(1, 1, 1, d)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 1, 16, d)).astype(np.float32)
+            for _ in range(2))
+    mask = np.ones((1, 16), bool)
+    mask[0, 5:9] = False
+    want = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        sm_scale=d ** -0.5, interpret=True))
+    got = decode_attention_reference(*map(torch.from_numpy, (q, k, v, mask)),
+                                     sm_scale=d ** -0.5)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_f32_split_oracle_keeps_a_bf16_query():
     """A bf16 query over f32 caches: the oracle's output is bf16, within
     one bf16 step of the plain version's."""
@@ -157,10 +193,11 @@ def _meta(b, h, s, d, dtype=torch.float32, row=None):
                                dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("d", [16, 48, 132, 192, 384, 512])
+@pytest.mark.parametrize("d", [16, 48, 132, 192, 384, 512, 516, 768, 1024,
+                               1284])
 def test_decode_layout_f32_takes_multiples_of_4(d):
     """The f32 kernel's checks before the launch: head dims that are
-    multiples of 4 up to 512, a bf16 or f32 query, caches cut to fewer
+    multiples of 4, a bf16 or f32 query, caches cut to fewer
     keys (a strided view) and head views of (B, S, H * d)."""
     for qdt in (torch.float32, torch.bfloat16):
         q = _meta(2, 4, 1, d, qdt)
@@ -179,8 +216,9 @@ def test_decode_layout_f32_refuses_what_the_kernel_cannot_take(case):
     q, k = _meta(2, 4, 1, 96), _meta(2, 4, 100, 96)
     if case == "head_dim_30":       # rows of part 16-byte units: padded
         q, k = _meta(2, 4, 1, 30), _meta(2, 4, 100, 30)
-    elif case == "head_dim_516":
-        q, k = _meta(2, 4, 1, 516), _meta(2, 4, 100, 516)
+    elif case == "head_dim_516":    # taken in place, but not on rows
+        q = _meta(2, 4, 1, 516)     # 2068 bytes apart
+        k = _meta(2, 4, 100, 516, row=517)
     else:                           # 392-byte rows
         k = _meta(2, 4, 100, 96, row=98)
     with pytest.raises(ValueError):

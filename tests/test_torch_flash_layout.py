@@ -6,11 +6,14 @@ the layouts the kernels read (the forward through rank-4 (D, S, H, B) TMA
 maps, the backward by 16-byte copies: base and strides in whole 16-byte
 units, last dim contiguous) and refuses the rest. Inputs are ``meta``
 tensors or small CPU views: only shapes, strides and base addresses are
-read.
+read. ``check_tf32_drops`` (the f32 wide route's guard) is driven through
+a stand-in probe: it raises, naming the card, where the probe's products
+are rounded, and probes a device once.
 """
 import pytest
 import torch
 
+from sct_gan_tpu_torch.ops import flash_attention as fa
 from sct_gan_tpu_torch.ops.flash_attention import _check_shapes, head_strides
 
 
@@ -84,3 +87,27 @@ def test_head_strides_refuses_a_strided_last_dim():
                     device="meta").transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         head_strides(q, "q", 16)
+
+
+@pytest.mark.parametrize("products,raises", [
+    (fa.TF32_DROPPED, False),
+    ([1 + 2.0 ** -10, -1 - 2.0 ** -10, 1 + 2.0 ** -10], True),  # rounded
+])
+def test_tf32_guard_probes_once_and_raises_where_bits_are_rounded(
+        monkeypatch, products, raises):
+    calls = []
+    monkeypatch.setattr(fa, "_TF32_PROBED", set())
+    monkeypatch.setattr(fa, "tf32_probe",
+                        lambda device: calls.append(device) or products)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "card X")
+    dev = torch.device("cuda", 3)
+    if raises:
+        with pytest.raises(RuntimeError, match="card X: its TF32"):
+            fa.check_tf32_drops(dev)
+        with pytest.raises(RuntimeError):     # no fallback, no memory of it
+            fa.check_tf32_drops(dev)
+        assert len(calls) == 2
+    else:
+        fa.check_tf32_drops(dev)
+        fa.check_tf32_drops(dev)
+        assert calls == [dev]

@@ -153,9 +153,9 @@ def test_f32_decode_matches_plain_on_card(cuda_device, case, qdtype):
 @pytest.mark.cuda
 def test_f32_routes_raise_on_card(cuda_device):
     """An f32 head dim over 128 runs in the flash kernels (the wide route,
-    within 1e-5 of the plain version); over 512 in K5 f32, mixed q/k/v
-    dtypes in the flash wrapper, and a bf16 cache under an f32 query
-    raise; nothing is cast."""
+    within 1e-5 of the plain version) and one over 512 in K5 f32 (within
+    1e-5 of the plain version); mixed q/k/v dtypes in the flash wrapper,
+    and a bf16 cache under an f32 query raise; nothing is cast."""
     dev = cuda_device
     x = torch.randn(1, 2, 64, 192, device=dev)
     got = flash_attention(x, x, x)
@@ -165,17 +165,20 @@ def test_f32_routes_raise_on_card(cuda_device):
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention(y, y.to(torch.bfloat16), y)
     z = torch.randn(1, 2, 64, 516, device=dev)
-    with pytest.raises(ValueError, match="head dim 516 in float32"):
-        decode_attention(z[:, :, :1], z, z, None, sm_scale=0.1)
+    got = decode_attention(z[:, :, :1], z, z, None, sm_scale=0.1)
+    want = decode_attention_reference(z[:, :, :1], z, z, None, sm_scale=0.1)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, want) <= FWD_TOL
     with pytest.raises(ValueError, match="dtypes"):
         decode_attention(y[:, :, :1], y.to(torch.bfloat16),
                          y.to(torch.bfloat16), None, sm_scale=0.1)
 
 
 # K5 f32 at the head dims it runs in place past the paths' 64, 96 and 128
-# (chip_smoke.py's k5_f32_checks): name -> (B, S, mask lens or None, the
-# live length of a cache cut to it or None); 768 / d heads, at most 8.
-K5_F32_HEAD_DIMS = (16, 48, 80, 132, 192, 256, 384)
+# (chip_smoke.py's k5_f32_checks), the 8-key instances at 768 and 1024 and
+# the column-chunk route at 1280: name -> (B, S, mask lens or None, the
+# live length of a cache cut to it or None); 768 / d heads, from 1 to 8.
+K5_F32_HEAD_DIMS = (16, 48, 80, 132, 192, 256, 384, 768, 1024, 1280)
 K5_F32_CASES = {
     "b2_source_mask": (2, 1024, (1024, 900), None),
     "b64_every_key": (64, 1024, None, None),
@@ -192,13 +195,13 @@ K5_F32_CASES = {
 @pytest.mark.parametrize("d", K5_F32_HEAD_DIMS)
 def test_f32_decode_head_dims_match_plain_on_card(cuda_device, d, case,
                                                   qdtype, monkeypatch):
-    """K5 f32 in place at head dims that are multiples of 4 (16 to 384):
+    """K5 f32 in place at head dims that are multiples of 4 (16 to 1280):
     within 1e-5 norm-wise of the plain version for an f32 query, 1e-2 for
     a bf16 one; two runs give the same bits; a fully masked row gives
     zeros; no padded copy is made."""
     from sct_gan_tpu_torch.ops import decode_attention as k5
     b, s, lens, cut = K5_F32_CASES[case]
-    h = min(8, 768 // d)
+    h = max(1, min(8, 768 // d))
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q = torch.randn(b, 1, h * d, generator=g, device=cuda_device).view(
         b, 1, h, d).transpose(1, 2).to(qdtype)

@@ -15,6 +15,10 @@ hold unequal counts of real rows:
   * the deterministic losses and gradients on dp=2 against JAX's
     ``compute_losses`` on a JAX dp=2 mesh: 2e-4 relative, the gradients
     1e-4 with a floor at 1e-4 of the largest;
+  * the unfused LM cross-entropy (``fused_lm_ce=False``: each rank's
+    share of the global mean, its rows' logits only) on dp=2: the dropout
+    step against one rank's by the bars above, the deterministic losses
+    and gradients against the fused ones by JAX's bars;
   * ``SmartContractTrainer(mesh=...).train(1)`` against one rank's
     ``train(1)`` over the same loaders (the history 2e-4, the trained
     weights by ``assert_step_close`` over its three steps), and its
@@ -184,6 +188,33 @@ def test_dp_losses_and_grads_match_jax_dp(setup):
     one_m, _ = deterministic_losses(model_from(CFG, setup["weights"]),
                                     _to_torch(batch))
     _close(one_m, {k: float(v) for k, v in want_m.items()}, LOSS_TOL)
+
+
+def test_dp_unfused_ce_matches_one_rank(setup):
+    """The dropout step over the unfused LM cross-entropy on dp=2 against
+    the same step on one rank; its deterministic losses and gradients
+    against the fused ones of the same ranks, which
+    ``test_dp_losses_and_grads_match_jax_dp`` holds to JAX's (the same
+    function, summed in another order; ``test_torch_parallel_mp.py`` holds
+    the unfused ones to JAX's unfused at dp=2 x mp=2)."""
+    drop_cfg = dataclasses.replace(CFG, dropout=0.1)
+    want_m, *want = train_step_run(model_from(drop_cfg, setup["weights"]),
+                                   _to_torch(setup["batch"]),
+                                   fused_lm_ce=False)
+    assert want_m["skipped"] == 0.0
+    for out in setup["outs"]:
+        got_m, *got = out["step_ce_unfused"]
+        assert set(got_m) == set(want_m)
+        _close(got_m, want_m, LOSS_TOL)
+        assert_step_close(got, want, setup["weights"])
+        (got_m, got_g), (fused_m, fused_g) = (out["losses_ce_unfused"],
+                                              out["losses"])
+        _close(got_m, fused_m, LOSS_TOL)
+        scale = max(float(g.abs().max()) for g in fused_g.values())
+        for n, g in fused_g.items():
+            np.testing.assert_allclose(got_g[n].numpy(), g.numpy(),
+                                       rtol=1e-4, atol=1e-4 * scale,
+                                       err_msg=n)
 
 
 def _one_rank_trainer(setup, seed=7):

@@ -11,9 +11,13 @@ padded to 4 of ``test_torch_parallel_dp.py``:
     ``assert_step_close``;
   * the fused optimizer against the unfused chain under mp (their clip
     norms summed over the shards): the same bars;
-  * the deterministic losses and gradients against JAX's
-    ``compute_losses`` on a JAX 2 × 2 mesh with ``shard_params``: 2e-4
-    relative, the gradients 1e-4 with a floor at 1e-4 of the largest;
+  * the unfused LM cross-entropy (``fused_lm_ce=False``: the logits
+    gathered over mp, the gradient back through the gather) in the same
+    step against one rank's: the same bars;
+  * the deterministic losses and gradients, the LM cross-entropy fused and
+    not, against JAX's ``compute_losses`` on a JAX 2 × 2 mesh with
+    ``shard_params``: 2e-4 relative, the gradients 1e-4 with a floor at
+    1e-4 of the largest;
   * the vocab-parallel LM cross-entropy against the plain one: value and
     gradients to 1e-6;
   * q_proj and the embedding table really hold half their rows;
@@ -73,6 +77,8 @@ def setup(tmp_path_factory):
     one = {fused: train_step_run(model_from(drop_cfg, weights),
                                  _to_torch(batch), fused=fused)
            for fused in (True, False)}
+    one["ce_unfused"] = train_step_run(model_from(drop_cfg, weights),
+                                       _to_torch(batch), fused_lm_ce=False)
     return dict(params=params, weights=weights, batch=batch, outs=outs,
                 one=one, one_rank=one_rank, corpus=corpus,
                 ckpt=str(work / "ckpt"))
@@ -105,7 +111,23 @@ def test_mp_fused_matches_unfused(setup, world):
 
 
 @pytest.mark.parametrize("world", sorted(MESHES), ids=MESHES.get)
-def test_mp_losses_and_grads_match_jax(setup, world):
+def test_mp_unfused_ce_step_matches_one_rank(setup, world):
+    """The step over the unfused LM cross-entropy under mp against the same
+    step on one rank."""
+    assert setup["one"]["ce_unfused"][0]["skipped"] == 0.0
+    for out in setup["outs"][world]:
+        _check_step(out["step_ce_unfused"], setup["one"]["ce_unfused"],
+                    setup["weights"])
+
+
+# (world, fused_lm_ce); the fused cases keep their ids
+JAX_CASES = [pytest.param(w, fused, id=MESHES[w] + ("" if fused else
+                                                    "-unfused_ce"))
+             for fused in (True, False) for w in sorted(MESHES)]
+
+
+@pytest.mark.parametrize("world,fused_lm_ce", JAX_CASES)
+def test_mp_losses_and_grads_match_jax(setup, world, fused_lm_ce):
     dp = world // 2
     jtab = jsyntax.SyntaxLossTables.from_tokenizer(
         JaxTokenizer(vocab_size=CFG.vocab_size))
@@ -123,13 +145,13 @@ def test_mp_losses_and_grads_match_jax(setup, world):
             lambda p_: jstep.compute_losses(
                 jm, p_, b, js, jax.random.PRNGKey(0), use_gan=True,
                 use_augmentation=False, tables=jtab, deterministic=True,
-                fused_lm_ce=True), has_aux=True)(p)
+                fused_lm_ce=fused_lm_ce), has_aux=True)(p)
         return m, g
     want_m, want_g = jax.device_get(losses(params, jb))
     want_g = convert_flax_params(want_g, CFG)
     scale = max(float(g.abs().max()) for g in want_g.values())
     for out in setup["outs"][world]:
-        got_m, got_g = out["losses"]
+        got_m, got_g = out["losses" if fused_lm_ce else "losses_ce_unfused"]
         for k, v in want_m.items():
             np.testing.assert_allclose(got_m[k], float(v), err_msg=k,
                                        **LOSS_TOL)

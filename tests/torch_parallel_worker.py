@@ -77,10 +77,11 @@ def model_from(cfg: ModelConfig, weights) -> SmartContractTransformer:
 
 
 def train_step_run(model, batch, *, fused: bool = True, mesh=None,
-                   generator_seed: int = 0):
+                   generator_seed: int = 0, fused_lm_ce: bool = True):
     """One dropout-on train step of ``model`` (parallelized or not) on
     ``batch``: (metrics as floats, the updated parameters by name, Adam's
-    moments ``{"mu": {name: t}, "nu": {name: t}}``)."""
+    moments ``{"mu": {name: t}, "nu": {name: t}}``). ``fused`` picks the
+    optimizer, ``fused_lm_ce`` the LM cross-entropy."""
     opt_cls = FusedOptimizer if fused else GradientTransform
     kw = {}
     if mesh is not None:
@@ -91,7 +92,7 @@ def train_step_run(model, batch, *, fused: bool = True, mesh=None,
     tables = SyntaxLossTables.from_tokenizer(
         SolidityTokenizer(vocab_size=model.config.vocab_size))
     step = make_train_step(model, opt, tables, use_gan=True,
-                           use_augmentation=False, fused_lm_ce=True)
+                           use_augmentation=False, fused_lm_ce=fused_lm_ce)
     state = TrainState(dict(model.named_parameters()), opt.init(), 0)
     state, metrics, _ = step(state, batch, DynamicScalars.make(*SCALARS),
                              GroupLRs.init(LR),
@@ -107,7 +108,7 @@ def moments(opt_state):
             for k in ("mu", "nu")}
 
 
-def deterministic_losses(model, batch):
+def deterministic_losses(model, batch, fused_lm_ce: bool = True):
     """compute_losses with dropout off, and the gradient (summed over dp
     under a mesh): (metrics as floats, gradients by name)."""
     tables = SyntaxLossTables.from_tokenizer(
@@ -115,7 +116,7 @@ def deterministic_losses(model, batch):
     total, (m, *_) = compute_losses(
         model, batch, DynamicScalars.make(*SCALARS), None, use_gan=True,
         use_augmentation=False, tables=tables, deterministic=True,
-        fused_lm_ce=True)
+        fused_lm_ce=fused_lm_ce)
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(total, [p for _, p in
                                         model.named_parameters()],
@@ -235,8 +236,13 @@ def case_dp(rank, world, cfg, weights, inputs):
     drop_cfg = dataclasses.replace(cfg, dropout=0.1)
     model = model_from(drop_cfg, weights).parallelize_(mesh)
     out["step"] = train_step_run(model, shard_batch(batch, mesh), mesh=mesh)
+    model = model_from(drop_cfg, weights).parallelize_(mesh)
+    out["step_ce_unfused"] = train_step_run(
+        model, shard_batch(batch, mesh), mesh=mesh, fused_lm_ce=False)
     model = model_from(cfg, weights).parallelize_(mesh)
     out["losses"] = deterministic_losses(model, shard_batch(batch, mesh))
+    out["losses_ce_unfused"] = deterministic_losses(
+        model, shard_batch(batch, mesh), fused_lm_ce=False)
 
     tok = SolidityTokenizer(vocab_size=cfg.vocab_size)
     tr, va = create_dataloaders(inputs["corpus"], tok, batch_size=3,
@@ -271,12 +277,20 @@ def case_mp(rank, world, cfg, weights, inputs):
         out["step" if fused else "step_unfused"] = (
             metrics, _whole(params, cfg, mesh),
             {k: _whole(v, cfg, mesh) for k, v in mom.items()})
+    # the fused optimizer over the unfused LM cross-entropy
+    model = model_from(drop_cfg, weights).parallelize_(mesh)
+    metrics, params, mom = train_step_run(model, batch, mesh=mesh,
+                                          fused_lm_ce=False)
+    out["step_ce_unfused"] = (metrics, _whole(params, cfg, mesh),
+                              {k: _whole(v, cfg, mesh) for k, v in
+                               mom.items()})
     out["q_proj_shape"] = tuple(
         model.encoder.layer_0.self_attn.q_proj.weight.shape)
     out["embedding_shape"] = tuple(model.embedding.weight.shape)
     model = model_from(cfg, weights).parallelize_(mesh)
-    metrics, grads = deterministic_losses(model, batch)
-    out["losses"] = (metrics, _whole(grads, cfg, mesh))
+    for key, fused_ce in (("losses", True), ("losses_ce_unfused", False)):
+        metrics, grads = deterministic_losses(model, batch, fused_ce)
+        out[key] = (metrics, _whole(grads, cfg, mesh))
 
     # the vocab-parallel CE against the plain one, on every rank
     g = torch.Generator().manual_seed(3)
